@@ -1,0 +1,133 @@
+"""Llama causal-LM training on one device — counterpart of
+``deeplearning_cfn_tpu/examples/llama_train.py``.
+
+The same flags and the same result dict; ``--device`` (default ``cuda``)
+picks the device, and the run raises when CUDA is missing unless
+``--device cpu`` was given.  At ``--seq_len`` 2048 and up, the flash-attention
+presets (435m, 1b, 3b) run attention through the CUDA flash kernel.
+
+Run: ``python -m deeplearning_cfn_tpu_torch.examples.llama_train --size 435m --seq_len 2048``
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from deeplearning_cfn_tpu_torch.device import resolve_device
+from deeplearning_cfn_tpu_torch.examples.common import (
+    base_parser,
+    first_step_clock,
+    make_lr_schedule,
+    metrics_sink,
+)
+from deeplearning_cfn_tpu_torch.models import llama
+from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset
+from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+_LATER = "a later slice of the PyTorch port"
+
+
+def _reject_out_of_slice(args) -> None:
+    checks = (
+        (args.tp > 1, "--tp (tensor parallelism)"),
+        (args.sp > 1, "--sp (sequence parallelism)"),
+        (args.pp > 1, "--pp (pipeline stages)"),
+        (args.ep > 1, "--ep (expert parallelism)"),
+        (args.experts > 0, "--experts (MoE)"),
+        (args.ring_attention, "--ring_attention"),
+        ((args.fsdp or 1) > 1, "--fsdp > 1 (sharding across devices)"),
+        (args.optimizer == "adafactor", "--optimizer adafactor"),
+        (bool(args.data_dir), "--data_dir (record data)"),
+        (bool(args.checkpoint_dir), "--checkpoint_dir (checkpointing)"),
+    )
+    for on, what in checks:
+        if on:
+            raise NotImplementedError(f"{what} is ported in {_LATER}")
+
+
+def main(argv: list[str] | None = None) -> dict:
+    t_main = first_step_clock()
+    p = base_parser(__doc__)
+    p.add_argument("--size", choices=["tiny", "435m", "1b", "3b", "8b"], default="tiny")
+    p.add_argument("--seq_len", type=int, default=512)
+    p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw")
+    p.add_argument("--fsdp", type=int, default=None, help="fsdp axis size (one device: 1)")
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--ring_attention", action="store_true")
+    p.add_argument("--fused_qkv", action="store_true",
+                   help="fuse q/k/v and gate/up projections into single wider matmuls")
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages")
+    p.add_argument("--pp_microbatches", type=int, default=0)
+    p.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense)")
+    p.add_argument("--ep", type=int, default=1, help="expert-parallel axis size")
+    p.add_argument("--eval_steps", type=int, default=0,
+                   help="held-out synthetic batches scored after training (0 = skip)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    _reject_out_of_slice(args)
+    device = resolve_device(args.device)
+
+    if args.size == "8b":
+        cfg = llama.LlamaConfig.llama3_8b()
+    elif args.size == "3b":
+        cfg = llama.LlamaConfig.b3(seq_len=args.seq_len)
+    elif args.size == "1b":
+        cfg = llama.LlamaConfig.b1(seq_len=args.seq_len)
+    elif args.size == "435m":
+        cfg = llama.LlamaConfig.m435(seq_len=args.seq_len)
+    else:
+        cfg = llama.LlamaConfig.tiny(vocab_size=512, seq_len=args.seq_len)
+    if args.fused_qkv:
+        cfg = dataclasses.replace(cfg, fused_qkv=True)
+
+    batch = args.global_batch_size or 1
+    lr = args.learning_rate or 3e-4
+    trainer = llama.make_trainer(
+        cfg,
+        TrainerConfig(
+            strategy="fsdp",
+            optimizer=args.optimizer,
+            learning_rate=lr,
+            lr_schedule=make_lr_schedule(args, lr),
+            weight_decay=args.weight_decay if args.weight_decay is not None else 0.1,
+            grad_clip_norm=1.0,
+            grad_accum_steps=args.grad_accum,
+            log_every=args.log_every,
+        ),
+        device=device,
+    )
+    ds = SyntheticTokenDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
+    sample = next(iter(ds.batches(1)))
+    state = trainer.init(seed=0)
+    logger = trainer.throughput_logger(
+        sample.x,
+        examples_per_step=batch * args.seq_len,  # tokens/sec
+        name="llama",
+        sink=metrics_sink(args, "llama"),
+        log_every=args.log_every,
+    )
+    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger)
+    if logger.sink is not None:
+        logger.sink.close()
+    result = {
+        "final_loss": losses[-1],
+        "steps": len(losses),
+        "device": str(device),
+        "params": llama.param_count(cfg),
+        "first_step_s": first_step_clock(trainer, t_main),
+        "history": logger.history,
+    }
+    if args.eval_steps:
+        eval_ds = SyntheticTokenDataset(
+            seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch, seed=10_000
+        )
+        ev = trainer.evaluate(state, eval_ds.batches(args.eval_steps), steps=args.eval_steps)
+        ev["perplexity"] = math.exp(min(ev["loss"], 700.0)) if "loss" in ev else None
+        result["eval"] = {"split": "heldout-synthetic", **ev}
+    return result
+
+
+if __name__ == "__main__":
+    print(main())

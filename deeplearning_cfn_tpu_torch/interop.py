@@ -1,0 +1,40 @@
+"""Weights from the JAX package into the port.
+
+``llama_params_from_jax`` takes the JAX Llama parameter dict as numpy arrays
+(``jax.device_get(params)``; this module imports no JAX) and returns a
+``state_dict`` for ``models.llama.Llama``: the stacked ``[L, ...]`` leaves
+split per layer, every matrix kept in its ``[in, out]`` orientation (the port
+computes ``x @ W`` as the JAX package does, so nothing is transposed).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy: JAX hands out read-only views
+    # JAX bf16 arrays reach numpy as ml_dtypes.bfloat16, which torch.from_numpy
+    # refuses: reinterpret the bits.
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def llama_params_from_jax(cfg, params_np: dict) -> dict[str, torch.Tensor]:
+    """JAX ``init_params`` tree (numpy leaves) -> ``Llama`` state dict."""
+    if cfg.n_experts > 0 or cfg.pp_stages > 1:
+        raise NotImplementedError(
+            "MoE and pipeline-stacked parameters are converted in a later slice"
+        )
+    sd = {"embed": _tensor(params_np["embed"]), "final_norm": _tensor(params_np["final_norm"])}
+    if not cfg.tied_embeddings:
+        sd["output"] = _tensor(params_np["output"])
+    for name, stacked in params_np["layers"].items():
+        arr = np.asarray(stacked)
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers/{name} has {arr.shape[0]} layers, config has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            sd[f"layers.{i}.{name}"] = _tensor(arr[i])
+    return sd

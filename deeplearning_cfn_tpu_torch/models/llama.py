@@ -1,0 +1,412 @@
+"""Llama-3-family decoder — counterpart of ``deeplearning_cfn_tpu/models/llama.py``.
+
+The same model as the JAX package's: GQA + RoPE + RMSNorm + SwiGLU, compute
+in ``cfg.dtype`` (bf16) with the softmax, norms and SiLU in f32, optional
+tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
+
+- An ``nn.Module`` with one ``LlamaBlock`` per layer in place of the stacked
+  ``[L, ...]`` parameters and ``lax.scan``; the leaf names are the JAX
+  package's (``attn_norm``, ``wq`` ... ``w_down``, ``embed``, ``final_norm``,
+  ``output``), so the weight-decay mask reads the same.  Weights keep the
+  ``[in, out]`` orientation: the forward is ``x @ W``.
+- Remat per layer: ``"full"`` recomputes the whole block in the backward;
+  ``"dots"`` saves the outputs of ``aten.mm`` (the products without batch
+  dims, as ``dots_with_no_batch_dims_saveable`` does) and recomputes the
+  rest, the flash-attention forward included.
+- Attention dispatch (:func:`attention_kind`): the CUDA flash kernel at and
+  above ``FLASH_CROSSOVER_SEQ`` on CUDA, materialised-score attention
+  otherwise.
+
+Not in this slice: MoE (``n_experts > 0``), pipeline stages, ring attention
+and every mesh or sharding spec; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from dataclasses import dataclass
+from functools import partial
+from typing import Any, Iterator
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from deeplearning_cfn_tpu_torch.ops.attention import (
+    dot_product_attention,
+    rms_norm,
+    rotary_embedding,
+)
+from deeplearning_cfn_tpu_torch.ops.flash_attention import (
+    FLASH_CROSSOVER_SEQ,
+    flash_attention,
+    flash_attention_reference,
+)
+
+_LATER_SLICE = "a later slice of the PyTorch port (the parallelism surface)"
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    mlp_dim: int = 14336
+    max_seq_len: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+    # "full": recompute the whole block in the backward (lowest memory);
+    # "dots": save the matmul outputs, recompute the rest.
+    remat_policy: str = "full"
+    tied_embeddings: bool = False
+    use_flash_attention: bool = False
+    fused_qkv: bool = False
+    # Out of this slice; a model built with any of them set raises.
+    use_ring_attention: bool = False
+    n_experts: int = 0
+    pp_stages: int = 1
+
+    def __post_init__(self):
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls()  # the defaults are the 8B shape
+
+    @classmethod
+    def m435(cls, seq_len: int = 1024) -> "LlamaConfig":
+        """The ~435M single-device training shape: head_dim 128 (8 heads),
+        tied embeddings, flash attention, "dots" remat."""
+        return cls(
+            vocab_size=32000,
+            dim=1024,
+            n_layers=24,
+            n_heads=8,
+            n_kv_heads=8,
+            mlp_dim=4096,
+            max_seq_len=seq_len,
+            tied_embeddings=True,
+            use_flash_attention=True,
+            remat_policy="dots",
+        )
+
+    @classmethod
+    def b1(cls, seq_len: int = 1024) -> "LlamaConfig":
+        """~1.1B: head_dim 128, flash attention, tied embeddings, full remat."""
+        return cls(
+            vocab_size=32000,
+            dim=2048,
+            n_layers=20,
+            n_heads=16,
+            n_kv_heads=16,
+            mlp_dim=5632,
+            max_seq_len=seq_len,
+            tied_embeddings=True,
+            use_flash_attention=True,
+            remat_policy="full",
+        )
+
+    @classmethod
+    def b3(cls, seq_len: int = 1024) -> "LlamaConfig":
+        """~2.9B: the b1 conventions at a wider, deeper shape."""
+        return cls(
+            vocab_size=32000,
+            dim=2560,
+            n_layers=36,
+            n_heads=20,
+            n_kv_heads=20,
+            mlp_dim=6912,
+            max_seq_len=seq_len,
+            tied_embeddings=True,
+            use_flash_attention=True,
+            remat_policy="full",
+        )
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 256, seq_len: int = 128, **kw) -> "LlamaConfig":
+        return cls(
+            vocab_size=vocab_size,
+            dim=64,
+            n_layers=2,
+            n_heads=4,
+            n_kv_heads=2,
+            mlp_dim=128,
+            max_seq_len=seq_len,
+            remat=False,
+            tied_embeddings=True,
+            **kw,
+        )
+
+
+def _check_in_slice(cfg: LlamaConfig) -> None:
+    if cfg.n_experts > 0:
+        raise NotImplementedError(f"MoE (n_experts > 0) is ported in {_LATER_SLICE}")
+    if cfg.pp_stages > 1:
+        raise NotImplementedError(f"pipeline stages (pp_stages > 1) are ported in {_LATER_SLICE}")
+    if cfg.use_ring_attention:
+        raise NotImplementedError(f"ring attention is ported in {_LATER_SLICE}")
+
+
+# --- parameters ---------------------------------------------------------
+
+
+def layer_param_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
+    """Per-layer parameter shapes, in creation order."""
+    _check_in_slice(cfg)
+    d, hd = cfg.dim, cfg.head_dim
+    shapes: dict[str, tuple[int, ...]] = {"attn_norm": (d,)}
+    if cfg.fused_qkv:
+        shapes["wqkv"] = (d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd)
+    else:
+        shapes["wq"] = (d, cfg.n_heads * hd)
+        shapes["wk"] = (d, cfg.n_kv_heads * hd)
+        shapes["wv"] = (d, cfg.n_kv_heads * hd)
+    shapes["wo"] = (cfg.n_heads * hd, d)
+    shapes["mlp_norm"] = (d,)
+    if cfg.fused_qkv:
+        shapes["w_gate_up"] = (d, 2 * cfg.mlp_dim)
+    else:
+        shapes["w_gate"] = (d, cfg.mlp_dim)
+        shapes["w_up"] = (d, cfg.mlp_dim)
+    shapes["w_down"] = (cfg.mlp_dim, d)
+    return shapes
+
+
+def _dense(shape, dtype, generator) -> nn.Parameter:
+    """Normal / sqrt(fan_in), drawn in f32 on the CPU (so a seed gives the
+    same weights on any device), stored in ``dtype``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32) / shape[0] ** 0.5
+    return nn.Parameter(w.to(dtype))
+
+
+def _ones(n: int) -> nn.Parameter:
+    return nn.Parameter(torch.ones(n, dtype=torch.float32))
+
+
+# --- attention dispatch ---------------------------------------------------
+
+_FORCED_KIND: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "llama_forced_attention_kind", default=None
+)
+_KINDS = ("flash", "xla", "flash_reference")
+
+
+@contextlib.contextmanager
+def force_attention_kind(kind: str) -> Iterator[None]:
+    """Override :func:`attention_kind` inside the block — for tests and for
+    checking the kernel path against the plain one.  ``"flash_reference"``
+    runs the plain PyTorch flash forward on any device."""
+    if kind not in _KINDS:
+        raise ValueError(f"attention kind must be one of {_KINDS}, got {kind!r}")
+    token = _FORCED_KIND.set(kind)
+    try:
+        yield
+    finally:
+        _FORCED_KIND.reset(token)
+
+
+def attention_kind(cfg: LlamaConfig, seq_len: int, device: torch.device | str) -> str:
+    """``"flash"`` (the CUDA kernel) on CUDA when ``use_flash_attention`` is
+    set and ``seq_len >= FLASH_CROSSOVER_SEQ``; ``"xla"`` (materialised-score
+    attention) otherwise, the CPU included, as the JAX package does off-TPU."""
+    forced = _FORCED_KIND.get()
+    if forced is not None:
+        return forced
+    if (
+        cfg.use_flash_attention
+        and torch.device(device).type == "cuda"
+        and seq_len >= FLASH_CROSSOVER_SEQ
+    ):
+        return "flash"
+    return "xla"
+
+
+# --- modules --------------------------------------------------------------
+
+
+class LlamaBlock(nn.Module):
+    """One decoder block (the JAX package's ``_block``)."""
+
+    def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        for name, shape in layer_param_shapes(cfg).items():
+            if name.endswith("norm"):
+                setattr(self, name, _ones(shape[0]))
+            else:
+                setattr(self, name, _dense(shape, cfg.dtype, generator))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        h = rms_norm(x, self.attn_norm, cfg.norm_eps)
+        if cfg.fused_qkv:
+            nq, nk = nh * hd, nkv * hd
+            qkv = h @ self.wqkv
+            q = qkv[..., :nq].reshape(B, S, nh, hd)
+            k = qkv[..., nq : nq + nk].reshape(B, S, nkv, hd)
+            v = qkv[..., nq + nk :].reshape(B, S, nkv, hd)
+        else:
+            q = (h @ self.wq).reshape(B, S, nh, hd)
+            k = (h @ self.wk).reshape(B, S, nkv, hd)
+            v = (h @ self.wv).reshape(B, S, nkv, hd)
+        q = rotary_embedding(q, positions, cfg.rope_theta)
+        k = rotary_embedding(k, positions, cfg.rope_theta)
+        kind = attention_kind(cfg, S, x.device)
+        if kind == "flash":
+            attn = flash_attention(q, k, v, causal=True)
+        elif kind == "flash_reference":
+            attn = flash_attention_reference(q, k, v, causal=True)[0]
+        else:
+            attn = dot_product_attention(q, k, v, causal=True)
+        x = x + attn.reshape(B, S, nh * hd) @ self.wo
+        h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
+        if cfg.fused_qkv:
+            gu = h @ self.w_gate_up
+            gate = F.silu(gu[..., : cfg.mlp_dim].to(torch.float32)).to(h.dtype)
+            return x + (gate * gu[..., cfg.mlp_dim :]) @ self.w_down
+        gate = F.silu((h @ self.w_gate).to(torch.float32)).to(h.dtype)
+        return x + (gate * (h @ self.w_up)) @ self.w_down
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class Llama(nn.Module):
+    """tokens ``[B, S]`` -> logits ``[B, S, V]`` in the compute dtype (the
+    loss converts inside its reductions, as the JAX package's does)."""
+
+    def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        _check_in_slice(cfg)
+        self.cfg = cfg
+        self.embed = _dense((cfg.vocab_size, cfg.dim), cfg.dtype, generator)
+        self.layers = nn.ModuleList(LlamaBlock(cfg, generator) for _ in range(cfg.n_layers))
+        self.final_norm = _ones(cfg.dim)
+        if not cfg.tied_embeddings:
+            self.output = _dense((cfg.dim, cfg.vocab_size), cfg.dtype, generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        S = tokens.shape[1]
+        table = self.embed.to(cfg.dtype)
+        x = F.embedding(tokens, table)
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        remat_kw = None
+        if cfg.remat and torch.is_grad_enabled():
+            remat_kw = {"use_reentrant": False}
+            if cfg.remat_policy == "dots":
+                remat_kw["context_fn"] = partial(
+                    create_selective_checkpoint_contexts, _save_matmuls
+                )
+        for layer in self.layers:
+            if remat_kw is None:
+                x = layer(x, positions)
+            else:
+                x = checkpoint(layer, x, positions, **remat_kw)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        if cfg.tied_embeddings:
+            return x @ table.T
+        return x @ self.output
+
+
+def init_model(
+    cfg: LlamaConfig, seed: int = 0, device: torch.device | str = "cpu"
+) -> Llama:
+    """A model with weights drawn from ``seed`` (on the CPU), moved to ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    return Llama(cfg, gen).to(device)
+
+
+def param_count(cfg: LlamaConfig) -> int:
+    per_layer = sum(_numel(s) for s in layer_param_shapes(cfg).values())
+    total = cfg.vocab_size * cfg.dim + cfg.n_layers * per_layer + cfg.dim
+    if not cfg.tied_embeddings:
+        total += cfg.dim * cfg.vocab_size
+    return total
+
+
+def _numel(shape: tuple[int, ...]) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def active_param_count(cfg: LlamaConfig) -> int:
+    """Parameters a token flows through.  For the dense models of this slice
+    that is every parameter (MoE, where experts count at top_k/n_experts,
+    comes with MoE)."""
+    return param_count(cfg)
+
+
+def train_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Analytic forward+backward FLOPs per trained token: 6N over the active
+    parameters plus the causal attention term (12·L·dim·S halved)."""
+    return 6.0 * active_param_count(cfg) + 6.0 * cfg.n_layers * cfg.dim * seq_len
+
+
+# --- forward and loss -------------------------------------------------------
+
+
+def forward_with_aux(model: Llama, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logits in the compute dtype, aux loss): aux is the MoE balancing
+    loss, 0 for the dense models of this slice."""
+    logits = model(tokens)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    """f32 logits — the inspection/eval entry point."""
+    return model(tokens).to(torch.float32)
+
+
+def causal_lm_loss(
+    model: Llama, tokens: torch.Tensor, targets: torch.Tensor
+) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy, last position excluded (its rolled
+    target wraps to the sequence start).  ``lse(logits) - gold`` with the
+    logsumexp in f32, reading the compute-dtype logits."""
+    logits, aux = forward_with_aux(model, tokens)
+    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold.to(torch.float32)
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    loss = (nll * mask).sum() / mask.sum()
+    return loss + aux, {"perplexity": torch.exp(loss.detach())}
+
+
+def make_trainer(cfg: LlamaConfig, trainer_config, device: torch.device | str | None = None):
+    """Wire a Llama config into the Trainer: causal-LM loss and the analytic
+    FLOPs numerator (the flash kernel's work is counted analytically)."""
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    return Trainer(
+        partial(Llama, cfg),
+        trainer_config,
+        loss_fn=causal_lm_loss,
+        device=device,
+        analytic_flops_fn=lambda x: (
+            train_flops_per_token(cfg, x.shape[1]) * x.shape[0] * x.shape[1]
+        ),
+    )

@@ -1,0 +1,149 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Each kernel is a ``.cu`` file under ``ops/csrc/`` with a plain ``extern "C"``
+launcher.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library under ``build/torch_kernels/`` (named by a hash of the source
+and the flags, so an edited source is rebuilt) and loaded with ``ctypes``.
+Nothing here runs at import time: the CPU tests import this module on hosts
+with no ``nvcc`` and no card.
+
+Every pointer and the stream cross into C as ``ctypes.c_void_p``: a bare
+Python int would be passed as a 32-bit int and cut the pointer.
+
+Each wrapper counts its launches in ``launch_counts``, incremented only
+where the kernel is launched, so a run can show that its path went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills, kept in the build log
+)
+
+launch_counts: dict[str, int] = {"flash_attention_fwd": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library for this source and
+    these flags exists.  The compiler's output goes to ``<library>.log``."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load_flash() -> ctypes.CDLL:
+    lib = _libs.get("flash_attn_fwd")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("flash_attn_fwd")))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attn_fwd.argtypes = (
+            [p] * 5 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, i, p]
+        )
+        lib.flash_attn_fwd.restype = ctypes.c_int
+        _libs["flash_attn_fwd"] = lib
+    return lib
+
+
+_FLASH_HEAD_DIMS = (64, 128)
+
+
+def flash_attn_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    sm_scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_attn_fwd.cu``: ``(out [B,Sq,Hq,D], lse [B,Hq,Sq] f32)``.
+
+    Takes CUDA tensors of one dtype (bf16 through the tensor-core path, f32
+    through the scalar path), head dim 64 or 128, unit stride on the head
+    dim; any other strides are read as given."""
+    tensors = (q, k, v)
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("flash_attn_fwd takes q, k, v on one CUDA device")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"flash_attn_fwd takes bf16 or f32 q/k/v of one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.ndim != 4 for t in tensors):
+        raise ValueError("flash_attn_fwd takes [B, S, H, D] tensors")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"q heads ({Hq}) must be a multiple of kv heads ({Hkv})")
+    if D not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not built; the kernel takes {_FLASH_HEAD_DIMS}")
+    if Sq == 0 or Sk == 0 or B == 0:
+        raise ValueError("flash_attn_fwd takes non-empty batch and sequences")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("flash_attn_fwd needs unit stride on the head dim")
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16 and any(
+        t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in tensors
+    ):
+        raise ValueError("bf16 rows must start on 16-byte boundaries (strides a multiple of 8)")
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _load_flash()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Sk, Hq, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(sm_scale), int(bool(causal)), int(is_bf16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
+    launch_counts["flash_attention_fwd"] += 1
+    return out, lse
