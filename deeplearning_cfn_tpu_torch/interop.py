@@ -1,10 +1,16 @@
 """Weights from the JAX package into the port.
 
-``llama_params_from_jax`` takes the JAX Llama parameter dict as numpy arrays
+Each function takes a JAX parameter tree as numpy arrays
 (``jax.device_get(params)``; this module imports no JAX) and returns a
-``state_dict`` for ``models.llama.Llama``: the stacked ``[L, ...]`` leaves
-split per layer, every matrix kept in its ``[in, out]`` orientation (the port
-computes ``x @ W`` as the JAX package does, so nothing is transposed).
+``state_dict`` for the port's model, every matrix kept in its ``[in, out]``
+orientation (the port computes ``x @ W`` as the JAX package does, so nothing
+is transposed):
+
+- ``llama_params_from_jax``: the stacked ``[L, ...]`` leaves split per layer;
+- ``bert_params_from_jax``: the Flax tree of ``BertEncoder`` or
+  ``BertClassifier``, ``layer{i}`` as ``layers.{i}``, the ``DenseGeneral``
+  ``qkv`` kernel ``[dim, 3, H, hd]`` and bias ``[3, H, hd]`` flattened in that
+  order.
 """
 
 from __future__ import annotations
@@ -37,4 +43,31 @@ def llama_params_from_jax(cfg, params_np: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"layers/{name} has {arr.shape[0]} layers, config has {cfg.n_layers}")
         for i in range(cfg.n_layers):
             sd[f"layers.{i}.{name}"] = _tensor(arr[i])
+    return sd
+
+
+def bert_params_from_jax(cfg, params_np: dict) -> dict[str, torch.Tensor]:
+    """Flax ``BertEncoder``/``BertClassifier`` params (numpy leaves) -> the
+    port's state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    n_layers = 0
+
+    def visit(path: list[str], node) -> None:
+        nonlocal n_layers
+        if isinstance(node, dict):
+            for key, child in node.items():
+                visit(path + [key], child)
+            return
+        top = path[0]
+        if top.startswith("layer") and top[5:].isdigit():
+            n_layers = max(n_layers, int(top[5:]) + 1)
+            path = ["layers", top[5:], *path[1:]]
+        arr = np.asarray(node)
+        if path[-2] == "qkv":  # DenseGeneral: [dim, 3, H, hd] / [3, H, hd]
+            arr = arr.reshape(cfg.dim, 3 * cfg.dim) if path[-1] == "kernel" else arr.reshape(-1)
+        sd[".".join(path)] = _tensor(arr)
+
+    visit([], params_np)
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"params have {n_layers} layers, config has {cfg.n_layers}")
     return sd

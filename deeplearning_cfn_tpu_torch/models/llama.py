@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.ops.attention import (
     dot_product_attention,
     rms_norm,
@@ -330,11 +331,12 @@ class Llama(nn.Module):
 
 
 def init_model(
-    cfg: LlamaConfig, seed: int = 0, device: torch.device | str = "cpu"
+    cfg: LlamaConfig, seed: int = 0, device: torch.device | str | None = None
 ) -> Llama:
-    """A model with weights drawn from ``seed`` (on the CPU), moved to ``device``."""
+    """A model with weights drawn from ``seed`` on the CPU, moved to
+    ``device``: the card unless the CPU is asked for."""
     gen = torch.Generator().manual_seed(seed)
-    return Llama(cfg, gen).to(device)
+    return Llama(cfg, gen).to(resolve_device(device))
 
 
 def param_count(cfg: LlamaConfig) -> int:

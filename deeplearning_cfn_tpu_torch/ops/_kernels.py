@@ -34,7 +34,11 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills, kept in the build log
 )
 
-launch_counts: dict[str, int] = {"flash_attention_fwd": 0}
+launch_counts: dict[str, int] = {
+    "flash_attention_fwd": 0,
+    "fused_dense": 0,
+    "fused_dense_quantized": 0,
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -78,16 +82,29 @@ def build(name: str) -> Path:
     return out
 
 
-def _load_flash() -> ctypes.CDLL:
-    lib = _libs.get("flash_attn_fwd")
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# Launchers of each source and their argument types.
+_SIGNATURES: dict[str, dict[str, list]] = {
+    "flash_attn_fwd": {
+        "flash_attn_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _I, _P],
+    },
+    "fused_dense": {
+        "fused_dense": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _I, _P],
+        "fused_dense_quantized": [_P] * 5 + [_I] * 3 + [_LL] * 2 + [_I, _I, _P],
+    },
+}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``, with every launcher's
+    argument types declared."""
+    lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build("flash_attn_fwd")))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attn_fwd.argtypes = (
-            [p] * 5 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, i, p]
-        )
-        lib.flash_attn_fwd.restype = ctypes.c_int
-        _libs["flash_attn_fwd"] = lib
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
     return lib
 
 
@@ -134,7 +151,7 @@ def flash_attn_fwd(
         raise ValueError("bf16 rows must start on 16-byte boundaries (strides a multiple of 8)")
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    lib = _load_flash()
+    lib = _load("flash_attn_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
@@ -147,3 +164,93 @@ def flash_attn_fwd(
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
     launch_counts["flash_attention_fwd"] += 1
     return out, lse
+
+
+_ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2}
+
+
+def _check_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, name: str) -> tuple[int, int, int]:
+    """Device, rank, shape and stride checks shared by the two dense
+    launchers; returns (M, N, K)."""
+    tensors = (x, w, b)
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError(f"{name} takes its tensors on one CUDA device")
+    if x.ndim != 2 or w.ndim != 2 or b.ndim != 1:
+        raise ValueError(f"{name} takes x[M,K], w[K,N], b[N]; got "
+                         f"{tuple(x.shape)}/{tuple(w.shape)}/{tuple(b.shape)}")
+    M, K = x.shape
+    if w.shape[0] != K or b.shape[0] != w.shape[1]:
+        raise ValueError(f"{name}: shape mismatch x {tuple(x.shape)} w {tuple(w.shape)} "
+                         f"b {tuple(b.shape)}")
+    N = w.shape[1]
+    if M == 0 or N == 0:
+        raise ValueError(f"{name} takes non-empty M and N")
+    if x.stride(-1) != 1 or w.stride(-1) != 1 or b.stride(0) != 1:
+        raise ValueError(f"{name} needs unit stride on the last axis")
+    return M, N, K
+
+
+def _activation_code(activation: str | None) -> int:
+    if activation not in _ACTIVATION_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    return _ACTIVATION_CODES[activation]
+
+
+def fused_dense(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, activation: str | None
+) -> torch.Tensor:
+    """Launch ``csrc/fused_dense.cu``: ``act(x @ w + b)`` as ``[M, N]`` in x's
+    dtype.  x, w and b are CUDA tensors of one dtype: bf16 (tensor cores) or
+    f32 (CUDA cores); any row strides, unit stride on the last axis."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype or b.dtype != x.dtype:
+        raise TypeError(f"fused_dense takes bf16 or f32 x/w/b of one dtype, got "
+                        f"{[t.dtype for t in (x, w, b)]}")
+    M, N, K = _check_dense(x, w, b, "fused_dense")
+    act = _activation_code(activation)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _load("fused_dense")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_dense(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+            x.stride(0), w.stride(0), act, int(x.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_dense launch failed with CUDA error {err}")
+    launch_counts["fused_dense"] += 1
+    return out
+
+
+def fused_dense_quantized(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    scale: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    activation: str | None,
+) -> torch.Tensor:
+    """Launch the int8-weight kernel of ``csrc/fused_dense.cu``:
+    ``act(f32(x) @ (f32(wq) * scale) + b)`` as ``[M, N]`` in x's dtype.  x and
+    b bf16 or f32 of one dtype, ``wq [K, N]`` int8, ``scale [N]`` f32."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or b.dtype != x.dtype:
+        raise TypeError(f"fused_dense_quantized takes bf16 or f32 x and b of one dtype, got "
+                        f"{x.dtype}/{b.dtype}")
+    if wq.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"fused_dense_quantized takes int8 wq and f32 scale, got "
+                        f"{wq.dtype}/{scale.dtype}")
+    M, N, K = _check_dense(x, wq, b, "fused_dense_quantized")
+    if scale.shape != (N,) or scale.device != x.device or scale.stride(0) != 1:
+        raise ValueError(f"scale must be a contiguous [{N}] tensor on {x.device}")
+    act = _activation_code(activation)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _load("fused_dense")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_dense_quantized(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(), out.data_ptr(),
+            M, N, K, x.stride(0), wq.stride(0), act, int(x.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_dense_quantized launch failed with CUDA error {err}")
+    launch_counts["fused_dense_quantized"] += 1
+    return out

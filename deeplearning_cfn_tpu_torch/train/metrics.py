@@ -18,25 +18,25 @@ import torch
 
 log = logging.getLogger("dlcfn.train")
 
-# (substring of the device name, dense bf16 FLOP/s, HBM bytes/s), from
-# NVIDIA's data sheets.  First match wins, so the PCIe and NVL parts come
-# before the SXM part, whose name is "NVIDIA H100 80GB HBM3".
-_GPU_PEAKS: tuple[tuple[str, float, float], ...] = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H100", 989e12, 3.35e12),
-    ("H200", 989e12, 4.8e12),
+# (substring of the device name, dense bf16 FLOP/s, HBM bytes/s, f32 FLOP/s on
+# the CUDA cores), from NVIDIA's data sheets.  First match wins, so the PCIe
+# and NVL parts come before the SXM part, whose name is "NVIDIA H100 80GB HBM3".
+_GPU_PEAKS: tuple[tuple[str, float, float, float], ...] = (
+    ("H100 PCIe", 756e12, 2.0e12, 51e12),
+    ("H100 NVL", 835e12, 3.9e12, 60e12),
+    ("H100", 989e12, 3.35e12, 67e12),
+    ("H200", 989e12, 4.8e12, 67e12),
 )
 
 
-def _peaks(device_name: str | None) -> tuple[float, float] | None:
+def _peaks(device_name: str | None) -> tuple[float, float, float] | None:
     if device_name is None:
         if not torch.cuda.is_available():
             return None
         device_name = torch.cuda.get_device_name()
-    for key, flops, hbm in _GPU_PEAKS:
+    for key, *peaks in _GPU_PEAKS:
         if key in device_name:
-            return flops, hbm
+            return tuple(peaks)
     return None
 
 
@@ -51,6 +51,12 @@ def peak_hbm_bytes_per_chip(device_name: str | None = None) -> float | None:
     """Device-memory bytes/s of the named card, or None."""
     peaks = _peaks(device_name)
     return peaks[1] if peaks else None
+
+
+def peak_f32_flops_per_chip(device_name: str | None = None) -> float | None:
+    """f32 FLOP/s of the named card's CUDA cores (no TF32), or None."""
+    peaks = _peaks(device_name)
+    return peaks[2] if peaks else None
 
 
 def utilization(

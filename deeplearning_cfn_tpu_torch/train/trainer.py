@@ -14,6 +14,8 @@ JAX package's jitted step, in eager PyTorch:
   gradients summed, then divided by ``k``.
 - The state is updated in place (PyTorch parameters and optimizer state are
   mutable); ``train_step`` returns the same ``TrainState`` object.
+- With no ``loss_fn``, the default classification objective: softmax
+  cross-entropy (no label smoothing) and accuracy.
 
 One device only: ``strategy="fsdp"`` (or ``"dp"``) is the identity.  Meshes,
 comms overlap, multi-step programs, checkpointing and live reshard are
@@ -144,8 +146,22 @@ def _check_in_slice(cfg: TrainerConfig) -> None:
         raise ValueError(f"grad_accum_steps must be >= 1, got {cfg.grad_accum_steps}")
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of integer labels, the log-softmax in f32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[..., None]).mean()
+
+
+def classification_objective(model: nn.Module, x: torch.Tensor, y: torch.Tensor):
+    """The JAX trainer's default objective: ``softmax_xent`` and accuracy."""
+    logits = model(x)
+    acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+    return softmax_xent(logits, y), {"accuracy": acc}
+
+
 class Trainer:
-    """Runs ``loss_fn(model, x, y) -> (loss, aux)`` steps on one device.
+    """Runs ``loss_fn(model, x, y) -> (loss, aux)`` steps on one device
+    (``classification_objective`` when no ``loss_fn`` is given).
 
     ``model_fn(generator)`` builds the model (its weights drawn from the
     generator); ``analytic_flops_fn(x)`` gives the training FLOPs of one
@@ -155,14 +171,15 @@ class Trainer:
         self,
         model_fn: Callable[[torch.Generator], nn.Module],
         config: TrainerConfig,
-        loss_fn: Callable[[nn.Module, torch.Tensor, torch.Tensor], tuple[torch.Tensor, dict]],
+        loss_fn: Callable[[nn.Module, torch.Tensor, torch.Tensor], tuple[torch.Tensor, dict]]
+        | None = None,
         device: torch.device | str | None = None,
         analytic_flops_fn: Callable[[Any], float] | None = None,
     ):
         _check_in_slice(config)
         self.model_fn = model_fn
         self.config = config
-        self.loss_fn = loss_fn
+        self.loss_fn = loss_fn or classification_objective
         self.device = resolve_device(device)
         self.analytic_flops_fn = analytic_flops_fn
         # Set by fit(): seconds from fit entry to the first completed step,

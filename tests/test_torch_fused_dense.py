@@ -1,0 +1,317 @@
+"""The port's fused dense against the JAX package's Pallas fused dense.
+
+On the CPU the JAX side runs the Pallas kernels in interpret mode and the
+port runs its plain versions, on the same numpy inputs.  Tolerances:
+
+- f32: both accumulate the same products in f32 in another order (K <= 256
+  terms of O(1/sqrt(K)) each), so 1e-5 relative and absolute.
+- bf16 outputs: both take the f32 sum and round it to bf16 once, and the sums
+  differ in their last f32 bits, so an output whose sum lies next to a
+  rounding boundary may land one bf16 ulp apart: 2**-7 relative.
+- gradients: the same f32 products in another order; dx and dw are rounded
+  to bf16 on the bf16 cases, so the same one-ulp rule applies there.
+- quantization: the same f32 divisions and round-half-to-even, so equal.
+
+The CUDA kernels are held to the plain versions by the ``cuda`` tests at the
+end, on a card (``python -m pytest -m cuda tests/test_torch_fused_dense.py``;
+the card's host has no JAX, so the JAX comparisons skip there).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from deeplearning_cfn_tpu.models import fused_layers as jax_fused_layers
+    from deeplearning_cfn_tpu.ops import pallas_fused as jax_fused
+    from deeplearning_cfn_tpu.ops import quant as jax_quant
+except ImportError:  # the card's host: only the tests without the JAX reference run
+    jax = None
+
+from deeplearning_cfn_tpu_torch.models.fused_layers import FusedDense  # noqa: E402
+from deeplearning_cfn_tpu_torch.ops import _kernels, quant  # noqa: E402
+from deeplearning_cfn_tpu_torch.ops import fused_dense as port  # noqa: E402
+
+torch.set_num_threads(1)
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2**-7, atol=1e-5)
+ACTIVATIONS = [None, "relu", "gelu"]
+# (M, K, N): one aligned shape and the ragged one (no dim a multiple of a tile).
+SHAPES = {"aligned": (32, 128, 256), "ragged": (37, 200, 300)}
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX, the reference")
+
+
+def _operands(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    return x, w, b
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, jnp.float32).astype(dtype)
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _dtypes(name):
+    return (torch.float32, jnp.float32, F32_TOL) if name == "f32" else (
+        torch.bfloat16, jnp.bfloat16, BF16_TOL)
+
+
+@needs_jax
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_forward_matches_pallas_interpret(activation, shape, dtype):
+    tdt, jdt, tol = _dtypes(dtype)
+    x, w, b = _operands(*SHAPES[shape])
+    got = port.fused_dense(_torch(x, tdt), _torch(w, tdt), _torch(b, tdt), activation=activation)
+    ref = jax_fused.fused_dense(_jax(x, jdt), _jax(w, jdt), _jax(b, jdt), activation=activation,
+                                interpret=True)
+    assert got.dtype == tdt and got.shape == ref.shape
+    np.testing.assert_allclose(_f32(got), _f32(ref), **tol)
+
+
+@needs_jax
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_gradients_match_jax_custom_vjp(activation, dtype):
+    tdt, jdt, tol = _dtypes(dtype)
+    x, w, b = _operands(*SHAPES["ragged"], seed=1)
+    r = np.random.default_rng(2).standard_normal((x.shape[0], w.shape[1])).astype(np.float32)
+
+    def jloss(x, w, b):
+        out = jax_fused.fused_dense(x, w, b, activation=activation, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * r)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(_jax(x, jdt), _jax(w, jdt), _jax(b, jdt))
+    tx, tw, tb = (_torch(a, tdt).requires_grad_() for a in (x, w, b))
+    out = port.fused_dense(tx, tw, tb, activation=activation)
+    (out.to(torch.float32) * torch.from_numpy(r)).sum().backward()
+    for name, t, j in (("dx", tx, jgrads[0]), ("dw", tw, jgrads[1]), ("db", tb, jgrads[2])):
+        assert t.grad.dtype == tdt, name
+        np.testing.assert_allclose(_f32(t.grad), _f32(j), err_msg=name, **tol)
+
+
+@needs_jax
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_quantized_matches_pallas_interpret(activation, dtype):
+    tdt, jdt, tol = _dtypes(dtype)
+    x, w, b = _operands(*SHAPES["ragged"], seed=3)
+    wq, scale = (np.array(a) for a in jax_quant.quantize_weight(jnp.asarray(w)))
+    ref = jax_fused.fused_dense_quantized(
+        _jax(x, jdt), jnp.asarray(wq), jnp.asarray(scale), _jax(b, jdt),
+        activation=activation, interpret=True,
+    )
+    got = port.fused_dense_quantized(
+        _torch(x, tdt), torch.from_numpy(wq), torch.from_numpy(scale), _torch(b, tdt),
+        activation=activation,
+    )
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_f32(got), _f32(ref), **tol)
+
+
+@needs_jax
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+def test_fused_dense_module_matches_jax_module(activation, dtype):
+    tdt, jdt, tol = _dtypes(dtype)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32)
+    jmod = jax_fused_layers.FusedDense(40, activation=activation, dtype=jdt)
+    params = jmod.init(jax.random.key(0), jnp.asarray(x))["params"]
+    params = jax.tree_util.tree_map(lambda a: a + 0.1, params)  # a non-zero bias
+    mod = FusedDense(48, 40, activation=activation, dtype=tdt)
+    mod.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in params.items()})
+    ref = jmod.apply({"params": params}, jnp.asarray(x))
+    got = mod(torch.from_numpy(x))
+    assert got.shape == (2, 5, 40) and got.dtype == tdt
+    np.testing.assert_allclose(_f32(got), _f32(ref), **tol)
+
+
+def test_fused_dense_module_init_distributions():
+    mod = FusedDense(512, 256, generator=torch.Generator().manual_seed(0))
+    k = mod.kernel.detach()
+    # lecun normal: truncated at two standard deviations, variance 1/fan_in.
+    np.testing.assert_allclose(k.std().item(), 512**-0.5, rtol=0.02)
+    assert k.abs().max().item() <= 2 * 512**-0.5 / 0.87962566103423978
+    assert torch.count_nonzero(mod.bias) == 0
+
+
+@needs_jax
+@pytest.mark.parametrize("shape", [(64,), (48, 40), (3, 3, 8, 16)])
+def test_quantize_weight_matches_jax(shape):
+    w = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    w[..., 0] = 0.0  # a zero-range channel takes scale 1
+    jwq, jscale = jax_quant.quantize_weight(jnp.asarray(w))
+    wq, scale = quant.quantize_weight(torch.from_numpy(w))
+    assert wq.dtype == torch.int8 and scale.dtype == torch.float32
+    np.testing.assert_array_equal(wq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    np.testing.assert_array_equal(
+        quant.dequantize_weight(wq, scale).numpy(),
+        np.asarray(jax_quant.dequantize_weight(jwq, jscale)),
+    )
+    q, s = quant.quantize_flat(torch.from_numpy(w.reshape(-1)))
+    jq, js = jax_quant.quantize_flat(jnp.asarray(w.reshape(-1)))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert s.item() == float(js)
+    np.testing.assert_array_equal(quant.dequantize_flat(q, s).numpy(),
+                                  np.asarray(jax_quant.dequantize_flat(jq, js)))
+
+
+@needs_jax
+def test_quantize_tree_matches_jax():
+    rng = np.random.default_rng(6)
+    tree = {
+        "dense": {"kernel": rng.standard_normal((16, 8)).astype(np.float32),
+                  "bias": rng.standard_normal(8).astype(np.float32)},
+        "norm": {"scale": rng.standard_normal(8).astype(np.float32)},
+        "conv": {"kernel": rng.standard_normal((3, 3, 4, 8)).astype(np.float32)},
+        "vec": {"kernel": rng.standard_normal(8).astype(np.float32)},  # rank 1: stays float
+    }
+    jq, jp = jax_quant.quantize_tree(jax.tree_util.tree_map(jnp.asarray, tree))
+    jback = jax_quant.dequantize_tree(jq, jp)
+    state = {f"{a}.{b}": torch.from_numpy(v) for a, d in tree.items() for b, v in d.items()}
+    q, p = quant.quantize_tree(state)
+    assert [k for k, v in q.items() if v is not None] == ["dense.kernel", "conv.kernel"]
+    for name in ("dense", "conv"):
+        np.testing.assert_array_equal(q[f"{name}.kernel"]["wq"].numpy(),
+                                      np.asarray(jq[name]["kernel"]["wq"]))
+        np.testing.assert_array_equal(q[f"{name}.kernel"]["scale"].numpy(),
+                                      np.asarray(jq[name]["kernel"]["scale"]))
+    assert p["dense.kernel"] is None and p["norm.scale"] is state["norm.scale"]
+    back = quant.dequantize_tree(q, p)
+    for key, v in back.items():
+        a, b = key.split(".")
+        assert v.dtype == torch.float32
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jback[a][b]))
+
+
+@needs_jax
+def test_fused_dense_bytes_matches_jax():
+    assert port.fused_dense_bytes(4096, 768, 3072, 2) == jax_fused.fused_dense_bytes(4096, 768, 3072, 2)
+
+
+def test_argument_errors():
+    x, w, b = (torch.zeros(s) for s in ((4, 8), (8, 3), (3,)))
+    with pytest.raises(ValueError, match="unknown activation"):
+        port.fused_dense(x, w, b, activation="tanh")
+    with pytest.raises(ValueError, match="x\\[M,K\\]"):
+        port.fused_dense(x[None], w, b)
+    with pytest.raises(ValueError, match="x\\[M,K\\]"):
+        port.fused_dense(x, w, b[None])
+    with pytest.raises(ValueError, match="int8"):
+        port.fused_dense_quantized(x, w, torch.ones(3), b)
+    with pytest.raises(ValueError, match="unknown activation"):
+        port.fused_dense_quantized(x, w.to(torch.int8), torch.ones(3), b, activation="silu")
+    # The CUDA wrappers refuse what the kernels do not take, before any build.
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.fused_dense(x, w, b, activation=None)
+    with pytest.raises(TypeError, match="one dtype"):
+        _kernels.fused_dense(x, w.to(torch.bfloat16), b, activation=None)
+    with pytest.raises(TypeError, match="int8 wq"):
+        _kernels.fused_dense_quantized(x, w, torch.ones(3), b, activation=None)
+
+
+def test_force_reference_is_scoped():
+    assert not port._FORCE_REFERENCE.get()
+    with port.force_reference():
+        assert port._FORCE_REFERENCE.get()
+    assert not port._FORCE_REFERENCE.get()
+
+
+# --- on the card -------------------------------------------------------------
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true f32
+    return torch.device("cuda")
+
+
+# (M, K, N, dtype): tensor-core path with 16-byte rows, ragged K chunk, the
+# element-wise loader (N not a multiple of 8), the f32 path.
+CUDA_CASES = {
+    "bf16-aligned": (256, 256, 384, torch.bfloat16),
+    "bf16-ragged-k": (37, 200, 304, torch.bfloat16),
+    "bf16-ragged": (37, 200, 300, torch.bfloat16),
+    "f32-ragged": (37, 200, 300, torch.float32),
+}
+
+
+def _cuda_operands(m, k, n, dtype, device, seed=0):
+    return tuple(_torch(a, dtype).to(device) for a in _operands(m, k, n, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_kernel_matches_plain_version_on_card(cuda_device, case, activation):
+    m, k, n, dtype = CUDA_CASES[case]
+    x, w, b = _cuda_operands(m, k, n, dtype, cuda_device)
+    before = _kernels.launch_counts["fused_dense"]
+    got = port.fused_dense(x, w, b, activation=activation)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_dense"] == before + 1
+    ref = port.fused_dense_reference(x, w, b, activation)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_row_strides_on_card(cuda_device):
+    x, w, b = _cuda_operands(64, 200, 300, torch.bfloat16, cuda_device)
+    xs, ws = x[:, :120], w[:120, :250]  # row strides 200 and 300: w rows off 16 bytes
+    got = _kernels.fused_dense(xs, ws, b[:250], activation="gelu")
+    ref = port.fused_dense_reference(xs, ws, b[:250], "gelu")
+    torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    x, w, b = _cuda_operands(37, 200, 300, dtype, cuda_device)
+    wq, scale = quant.quantize_weight(w.float())
+    before = _kernels.launch_counts["fused_dense_quantized"]
+    got = port.fused_dense_quantized(x, wq, scale, b, activation="relu")
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_dense_quantized"] == before + 1
+    ref = port._quant_reference(x, wq, scale, b, "relu", dtype)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradients_through_kernel_match_plain_autograd_on_card(cuda_device, dtype):
+    """The backward reads only x, w, b and g, so the kernel forward and the
+    plain one give the same gradients."""
+    base = _cuda_operands(64, 96, 80, dtype, cuda_device)
+    r = torch.randn(64, 80, device=cuda_device)
+    kx, kw, kb = (t.clone().requires_grad_() for t in base)
+    px, pw, pb = (t.clone().requires_grad_() for t in base)
+    (port.FusedDenseFunction.apply(kx, kw, kb, "gelu").float() * r).sum().backward()
+    (port.fused_dense_reference(px, pw, pb, "gelu").float() * r).sum().backward()
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    for a, p in ((kx, px), (kw, pw), (kb, pb)):
+        torch.testing.assert_close(a.grad.float(), p.grad.float(), **tol)

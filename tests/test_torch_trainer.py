@@ -147,6 +147,7 @@ def test_gpu_peaks_tell_the_parts_apart():
     assert metrics.peak_hbm_bytes_per_chip("NVIDIA H100 80GB HBM3") == 3.35e12
     assert metrics.peak_flops_per_chip("NVIDIA H100 PCIe") == 756e12
     assert metrics.peak_flops_per_chip("NVIDIA H100 NVL") == 835e12
+    assert metrics.peak_f32_flops_per_chip("NVIDIA H100 80GB HBM3") == 67e12
     assert metrics.peak_flops_per_chip("TPU v5 lite") is None
     assert metrics.utilization(1.0, None) is None and metrics.utilization(1.0, 4.0) == 0.25
     assert metrics.json_safe({"a": float("nan"), "b": torch.tensor(2.0)}) == {"a": None, "b": 2.0}
