@@ -12,18 +12,29 @@ Phases, one JSON line each:
            one compiler process per source, all started together.
 3. kernel  each kernel against its plain PyTorch version on the card, at the
            shapes the main paths give it and at edge shapes (flash: GQA,
-           ragged non-causal, f32; fused dense: ragged bf16, the ResNet head
-           in f32; int8-weight dense: BERT's mlp_in and a ragged f32 shape),
-           with its time beside the plain version's, the PyTorch library
-           call that computes the same function (timed here only as a
-           yardstick; the port never calls it) and the bound.
+           ragged non-causal at head dim 64, causal ragged, q/k/v as strided
+           views of one packed tensor, f32; fused dense: ragged with 16-byte
+           rows, ragged with odd rows, the ResNet head in f32; int8-weight
+           dense: BERT's mlp_in and a ragged f32 shape), with the variant
+           the launcher reported for the row's launch, its time beside the
+           plain version's, the PyTorch library call that computes the same
+           function (timed here only as a yardstick; the port never calls
+           it) and the bound.  ``kernel_ms``, ``plain_ms`` and ``library_ms``
+           are CUDA-event times a call, the host's share included;
+           ``device_ms`` and ``library_device_ms`` are the device time alone
+           (``torch.profiler``), ``host_ms`` and ``library_host_ms`` the
+           host's time to issue one call.
+           Then the flash crossover: the kernel against the materialised-
+           score attention the model takes below ``FLASH_CROSSOVER_SEQ``, at
+           the m435 heads and sequence lengths 512 to 4096 with the tokens
+           per call held equal, forward alone and forward plus backward.
 4. grad    autograd through ``FlashAttention`` and ``FusedDenseFunction``
            (kernel forward + torch backward) against autograd through the
            plain references.
 5. slice   the Llama path: ``examples.llama_train.main`` at the m435
            shape, seq 2048, batch 8, six adamw steps; the launch counters
            are zeroed just before and read just after, and every kernel of
-           the path must have launched.  Then one forward with the kernel
+           the path must have launched, each launch in the wgmma variant.  Then one forward with the kernel
            against one with the plain flash forward, on the same weights.
 6. learn   six steps on one repeated batch at the same shape must lower the
            loss (the main path's synthetic tokens are uniform over the vocab,
@@ -32,12 +43,15 @@ Phases, one JSON line each:
 7. bert    the BERT path: ``examples.bert_pretrain.main`` at BERT-base, seq
            128, batch 32, ``--use_pallas_mlp``, forty adamw steps; the launch
            counters are zeroed just before and read just after, the
-           fused-dense kernel must have launched 24 times a step, and the
-           loss must fall.  The same run on the plain cuBLAS MLP beside it;
+           fused-dense kernel must have launched 24 times a step, all in its
+           wgmma variants (ping-pong at mlp_in, 128 x 192 at mlp_out), and
+           the loss must fall.  The same run on the plain cuBLAS MLP beside it;
            one forward with the kernel against one with the plain fused
            dense, on the same weights; two steps of each path profiled by
            kernel.
 
+The variants are read from the launch counters, which count each launch
+under the variant its C launcher reports.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line; with no CUDA card, or
@@ -99,6 +113,10 @@ BERT_ARGS = [
 # mean of 1e-2.
 BERT_LOGITS_MAX_ATOL = 0.125
 BERT_LOGITS_MEAN_ATOL = 1e-2
+# Flash crossover: sequence lengths at the m435 heads, tokens per call held
+# at the Llama path's batch 8 x seq 2048.
+CROSSOVER_SEQS = (512, 1024, 2048, 4096)
+CROSSOVER_TOKENS = 8 * 2048
 
 
 def _emit(obj: dict) -> None:
@@ -122,6 +140,54 @@ def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels and
+    copies it ran on the card (``torch.profiler``), over ``iters`` calls.
+    The host's time between launches (Python, the wrapper, ctypes) is not in
+    it; :func:`_time_ms` has it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False))
+    return total_us / 1e3 / iters
+
+
+def _variants(counts: dict, kernel: str) -> dict:
+    """Launches of ``kernel`` by variant, from the launch counters."""
+    return {k.split("/", 1)[1]: n for k, n in counts.items() if k.startswith(kernel + "/")}
+
+
+def _launched_variant(kernels_mod, kernel: str, call):
+    """Run ``call`` (one launch of ``kernel``) with the counters zeroed and
+    return its result and the variant the launcher reported."""
+    kernels_mod.reset_launch_counts()
+    result = call()
+    launched = _variants(kernels_mod.launch_counts, kernel)
+    _require(list(launched.values()) == [1], f"{kernel}: one launch expected, got {launched}")
+    return result, next(iter(launched))
+
+
+def _host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Host time of one call of ``fn``: the wall time to issue ``iters``
+    calls back to back, without waiting for the card (its launch queue holds
+    far more than ``iters`` launches), then a wait for it to catch up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host_ms
 
 
 def _attention_work(B, Sq, Sk, Hq, Hkv, D, causal, elt) -> tuple[float, float]:
@@ -197,8 +263,10 @@ def main() -> int:
     from deeplearning_cfn_tpu_torch.models import bert, llama
     from deeplearning_cfn_tpu_torch.ops import _kernels
     from deeplearning_cfn_tpu_torch.ops import fused_dense as fd
+    from deeplearning_cfn_tpu_torch.ops.attention import dot_product_attention
     from deeplearning_cfn_tpu_torch.ops.flash_attention import (
         FlashAttention,
+        flash_attention,
         flash_attention_reference,
     )
     from deeplearning_cfn_tpu_torch.ops.quant import dequantize_weight, quantize_weight
@@ -237,7 +305,7 @@ def main() -> int:
         libs = list(pool.map(_kernels.build, sources))
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for lib in libs for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "arning" in ln]
     _emit({"phase": "build", "seconds": build_s, "libraries": [p.name for p in libs],
            "ptxas": ptxas})
 
@@ -248,24 +316,35 @@ def main() -> int:
         return [torch.randn(B, S, h, D, device="cuda", generator=gen, dtype=torch.float32).to(dtype)
                 for h in (Hq, Hkv, Hkv)]
 
-    shapes = {  # name: (B, S, Hq, Hkv, D, causal, dtype)
-        "slice": (8, 2048, 8, 8, 128, True, torch.bfloat16),
-        "gqa": (1, 2048, 32, 8, 128, True, torch.bfloat16),
-        "ragged-full": (2, 1000, 8, 8, 64, False, torch.bfloat16),
-        "f32": (1, 300, 4, 2, 64, True, torch.float32),
+    shapes = {  # name: (B, S, Hq, Hkv, D, causal, dtype, packed)
+        "slice": (8, 2048, 8, 8, 128, True, torch.bfloat16, False),
+        "gqa": (1, 2048, 32, 8, 128, True, torch.bfloat16, False),
+        "ragged-full": (2, 1000, 8, 8, 64, False, torch.bfloat16, False),
+        # The diagonal and Sk-edge masks on one tile, with TMA's zero fill.
+        "causal-ragged": (2, 1000, 8, 8, 128, True, torch.bfloat16, False),
+        # q, k and v as views of one [B, S, 3, H, D] tensor: the tensor maps' strides.
+        "strided": (2, 2048, 8, 8, 128, True, torch.bfloat16, True),
+        "f32": (1, 300, 4, 2, 64, True, torch.float32, False),
     }
     kernel_rows = {}
-    for label, (B, S, Hq, Hkv, D, causal, dtype) in shapes.items():
-        q, k, v = qkv(B, S, Hq, Hkv, D, dtype)
+    for label, (B, S, Hq, Hkv, D, causal, dtype, packed) in shapes.items():
+        if packed:
+            qkv_packed = torch.randn(B, S, 3, Hq, D, device="cuda", generator=gen).to(dtype)
+            q, k, v = (qkv_packed[:, :, i] for i in range(3))
+        else:
+            q, k, v = qkv(B, S, Hq, Hkv, D, dtype)
         scale = D**-0.5
-        out, lse = _kernels.flash_attn_fwd(q, k, v, causal=causal, sm_scale=scale)
+        (out, lse), variant = _launched_variant(_kernels, "flash_attention_fwd", lambda: (
+            _kernels.flash_attn_fwd(q, k, v, causal=causal, sm_scale=scale)))
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, causal=causal, sm_scale=scale)
         out_err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         out_tol = BF16_OUT_ATOL if dtype == torch.bfloat16 else F32_OUT_ATOL
-        row = {"phase": "kernel", "shape": label, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
-               "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+        row = {"phase": "kernel", "kernel": "flash_attention_fwd", "shape": label, "B": B, "S": S,
+               "Hq": Hq, "Hkv": Hkv, "D": D, "causal": causal,
+               "dtype": str(dtype).replace("torch.", ""), "packed_qkv": packed,
+               "variant": variant,
                "out_max_abs_err": out_err, "out_atol": out_tol,
                "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
                "finite": bool(torch.isfinite(out).all())}
@@ -273,13 +352,18 @@ def main() -> int:
             flops, nbytes = _attention_work(B, S, S, Hq, Hkv, D, causal, q.element_size())
             t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            kernel = lambda: _kernels.flash_attn_fwd(q, k, v, causal=causal, sm_scale=scale)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=Hq != Hkv)
             row.update({
-                "kernel_ms": _time_ms(torch, lambda: _kernels.flash_attn_fwd(
-                    q, k, v, causal=causal, sm_scale=scale), iters=20),
+                "kernel_ms": _time_ms(torch, kernel, iters=20),
+                "device_ms": _device_ms(torch, kernel, iters=20),
                 "plain_ms": _time_ms(torch, lambda: flash_attention_reference(
                     q, k, v, causal=causal, sm_scale=scale), iters=3, warmup=1),
-                "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=Hq != Hkv), iters=20),
+                "library_ms": _time_ms(torch, library, iters=20),
+                "library_device_ms": _device_ms(torch, library, iters=20),
+                "host_ms": _host_ms(torch, kernel, iters=20),
+                "library_host_ms": _host_ms(torch, library, iters=20),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -289,8 +373,35 @@ def main() -> int:
         _require(row["finite"], f"{label}: non-finite kernel output")
         _require(out_err <= out_tol, f"{label}: out error {out_err} > {out_tol}")
         _require(lse_err <= LSE_ATOL, f"{label}: lse error {lse_err} > {LSE_ATOL}")
+        _require(row["variant"] == ("wgmma_tma" if dtype == torch.bfloat16 else "simt"),
+                 f"{label}: flash variant {row['variant']}")
         kernel_rows[label] = row
         del q, k, v, out, lse, ref_out, ref_lse
+    torch.cuda.synchronize()
+
+    # Flash crossover: the kernel against the materialised-score path the
+    # model takes below FLASH_CROSSOVER_SEQ, at equal tokens per call.
+    Hc, Dc = 8, 128
+    for S in CROSSOVER_SEQS:
+        B = CROSSOVER_TOKENS // S
+        q, k, v = qkv(B, S, Hc, Hc, Dc, torch.bfloat16)
+        g = torch.randn(B, S, Hc, Dc, device="cuda", generator=gen).to(torch.bfloat16)
+        grads = [x.detach().requires_grad_() for x in (q, k, v)]
+
+        def fwd_bwd(attn):
+            attn(*grads).backward(g)
+
+        flash = lambda *t: flash_attention(*t, causal=True)  # noqa: E731
+        plain = lambda *t: dot_product_attention(*t, causal=True)  # noqa: E731
+        with torch.no_grad():
+            row = {"phase": "crossover", "B": B, "S": S, "Hq": Hc, "D": Dc, "causal": True,
+                   "tokens": B * S,
+                   "flash_fwd_ms": _time_ms(torch, lambda: flash(q, k, v), iters=10),
+                   "materialised_fwd_ms": _time_ms(torch, lambda: plain(q, k, v), iters=10)}
+        row["flash_fwd_bwd_ms"] = _time_ms(torch, lambda: fwd_bwd(flash), iters=3, warmup=1)
+        row["materialised_fwd_bwd_ms"] = _time_ms(torch, lambda: fwd_bwd(plain), iters=3, warmup=1)
+        _emit(row)
+        del q, k, v, g, grads
     torch.cuda.synchronize()
 
     def dense_operands(M, K, N, dtype):
@@ -313,27 +424,43 @@ def main() -> int:
     dense_shapes = {  # name: (M, K, N, dtype, activation)
         "mlp_in": (BERT_BATCH * BERT_SEQ, 768, 3072, torch.bfloat16, "gelu"),
         "mlp_out": (BERT_BATCH * BERT_SEQ, 3072, 768, torch.bfloat16, None),
+        # Ragged M, K and N with 16-byte rows: TMA's zero fill, the epilogue's guards.
+        "aligned-ragged": (1000, 200, 304, torch.bfloat16, "relu"),
         "ragged": (1000, 200, 300, torch.bfloat16, "relu"),
         "resnet_head": (128, 2048, 1000, torch.float32, None),
     }
+    # The launcher's choice on an H100 (132 SMs): ping-pong where there are
+    # two 128 x 128 tiles or more an SM, else cooperative 128 x 192; mma.sync
+    # for bf16 rows TMA cannot read; CUDA cores for f32.
+    dense_variants = {"mlp_in": "wgmma_tma_pingpong_128x128", "mlp_out": "wgmma_tma_128x192",
+                      "aligned-ragged": "wgmma_tma_128x192", "ragged": "mma_sync",
+                      "resnet_head": "simt"}
     dense_rows = {}
     for label, (M, K, N, dtype, act) in dense_shapes.items():
         x, w, b = dense_operands(M, K, N, dtype)
-        got = _kernels.fused_dense(x, w, b, activation=act)
+        got, variant = _launched_variant(_kernels, "fused_dense", lambda: (
+            _kernels.fused_dense(x, w, b, activation=act)))
         torch.cuda.synchronize()
         row = dense_check(label, "fused_dense", got, fd.fused_dense_reference(x, w, b, act), dtype)
-        row.update({"M": M, "K": K, "N": N, "activation": act})
+        row.update({"M": M, "K": K, "N": N, "activation": act, "variant": variant})
         peak_ops = peak_flops if dtype == torch.bfloat16 else peak_f32
         row.update(_dense_work(M, K, N, x.element_size(), w.element_size(), peak_ops, peak_bw))
+        kernel = lambda: _kernels.fused_dense(x, w, b, activation=act)  # noqa: E731
+        library = lambda: library_act[act](torch.addmm(b, x, w))  # noqa: E731
         row.update({
-            "kernel_ms": _time_ms(torch, lambda: _kernels.fused_dense(x, w, b, activation=act),
-                                  iters=50),
+            "kernel_ms": _time_ms(torch, kernel, iters=50),
+            "device_ms": _device_ms(torch, kernel, iters=50),
             "plain_ms": _time_ms(torch, lambda: fd.fused_dense_reference(x, w, b, act), iters=10),
-            "library_ms": _time_ms(torch, lambda: library_act[act](torch.addmm(b, x, w)), iters=50),
+            "library_ms": _time_ms(torch, library, iters=50),
+            "library_device_ms": _device_ms(torch, library, iters=50),
+            "host_ms": _host_ms(torch, kernel, iters=50),
+            "library_host_ms": _host_ms(torch, library, iters=50),
         })
         row["tflops"] = row["gflop"] / row["kernel_ms"]
         _emit(row)
         _require(row["finite"] and row["within_tolerance"], f"fused_dense {label}: {row}")
+        _require(row["variant"] == dense_variants[label],
+                 f"fused_dense {label}: variant {row['variant']}")
         dense_rows[label] = row
 
     quant_shapes = {  # name: (M, K, N, x dtype, activation)
@@ -344,21 +471,26 @@ def main() -> int:
     for label, (M, K, N, dtype, act) in quant_shapes.items():
         x, w, b = dense_operands(M, K, N, dtype)
         wq, scale = quantize_weight(w.float())
-        got = _kernels.fused_dense_quantized(x, wq, scale, b, activation=act)
+        got, variant = _launched_variant(_kernels, "fused_dense_quantized", lambda: (
+            _kernels.fused_dense_quantized(x, wq, scale, b, activation=act)))
         torch.cuda.synchronize()
         ref = fd._quant_reference(x, wq, scale, b, act, dtype)
         row = dense_check(label, "fused_dense_quantized", got, ref, dtype)
-        row.update({"M": M, "K": K, "N": N, "activation": act})
+        row.update({"M": M, "K": K, "N": N, "activation": act, "variant": variant})
         # An f32 product on the CUDA cores: bound by the f32 peak.
         row.update(_dense_work(M, K, N, x.element_size(), 1, peak_f32, peak_bw))
         x32, b32, w32 = x.float(), b.float(), dequantize_weight(wq, scale)
+        kernel = lambda: _kernels.fused_dense_quantized(x, wq, scale, b, activation=act)  # noqa: E731
+        library = lambda: library_act[act](torch.addmm(b32, x32, w32))  # noqa: E731
         row.update({
-            "kernel_ms": _time_ms(torch, lambda: _kernels.fused_dense_quantized(
-                x, wq, scale, b, activation=act), iters=20),
+            "kernel_ms": _time_ms(torch, kernel, iters=20),
+            "device_ms": _device_ms(torch, kernel, iters=20),
             "plain_ms": _time_ms(torch, lambda: fd._quant_reference(x, wq, scale, b, act, dtype),
                                  iters=10),
-            "library_ms": _time_ms(torch, lambda: library_act[act](torch.addmm(b32, x32, w32)),
-                                   iters=20),
+            "library_ms": _time_ms(torch, library, iters=20),
+            "library_device_ms": _device_ms(torch, library, iters=20),
+            "host_ms": _host_ms(torch, kernel, iters=20),
+            "library_host_ms": _host_ms(torch, library, iters=20),
         })
         row["tflops"] = row["gflop"] / row["kernel_ms"]
         _emit(row)
@@ -413,9 +545,13 @@ def main() -> int:
     cfg = llama.LlamaConfig.m435(seq_len=2048)
     run = _run_summary(result, tokens_per_step, tokens_per_step)
     losses = run["losses"]
+    slice_variants = _variants(llama_launches, "flash_attention_fwd")
     _emit({"phase": "slice", "args": SLICE_ARGS, **run, "wall_s": wall_s,
            "max_memory_allocated_bytes": peak_mem, "launches": llama_launches,
-           "flash_launches_per_step": llama_launches["flash_attention_fwd"] / STEPS})
+           "flash_launches_per_step": llama_launches["flash_attention_fwd"] / STEPS,
+           "flash_variants": slice_variants})
+    _require(slice_variants == {"wgmma_tma": llama_launches["flash_attention_fwd"]},
+             f"the Llama path launched flash variants {slice_variants}")
     _require(len(losses) == STEPS and all(math.isfinite(x) for x in losses), "non-finite loss")
     _require(llama_launches["flash_attention_fwd"] >= cfg.n_layers * STEPS,
              f"flash kernel launched {llama_launches['flash_attention_fwd']} times, "
@@ -503,6 +639,14 @@ def main() -> int:
              f"fused_dense launched {bert_launches['fused_dense']} times, expected >= "
              f"{2 * bcfg.n_layers} per step")
     _require(bert_runs["plain"]["launches"]["fused_dense"] == 0, "plain BERT path ran the kernel")
+    # Every launch of the kernel path in a wgmma variant: ping-pong at mlp_in
+    # (768 tiles of 128 x 128), cooperative 128 x 192 at mlp_out (128 tiles).
+    bert_variants = _variants(bert_launches, "fused_dense")
+    _require(sum(bert_variants.values()) == bert_launches["fused_dense"]
+             and bert_variants.get("wgmma_tma_pingpong_128x128", 0) >= bcfg.n_layers * BERT_STEPS
+             and bert_variants.get("wgmma_tma_128x192", 0) >= bcfg.n_layers * BERT_STEPS
+             and sum(n for v, n in bert_variants.items() if not v.startswith("wgmma_tma")) == 0,
+             f"the BERT path launched fused-dense variants {bert_variants}")
 
     # Same weights as the trainer started from (seed 0), one forward each way.
     model = bert.BertEncoder(bcfg, torch.Generator().manual_seed(0)).to("cuda")
@@ -546,9 +690,10 @@ def main() -> int:
     def kernel_entry(name, source, replaces, launches, max_abs_err, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_abs_err, "ms": row["kernel_ms"],
-                "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                "device_ms": row["device_ms"], "host_ms": row["host_ms"],
+                "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"], "variant": row["variant"], "shape": row["shape"]}
 
     csrc = "deeplearning_cfn_tpu_torch/ops/csrc/"
     _emit({"kernels": [

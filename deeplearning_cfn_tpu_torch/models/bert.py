@@ -232,6 +232,15 @@ def mlm_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> tuple[torch.
     return loss, {"masked_accuracy": acc}
 
 
+def jax_kernel_shapes(cfg: BertConfig) -> dict[str, tuple[int, ...]]:
+    """Kernels the port stores in another shape than the JAX leaf: each
+    layer's ``qkv`` kernel, Flax ``DenseGeneral`` ``[dim, 3, heads,
+    head_dim]``, stored ``[dim, 3 * dim]``.  For ``ops.quant.quantize_tree``,
+    whose scales follow the leaf's last axis."""
+    shape = (cfg.dim, 3, cfg.n_heads, cfg.dim // cfg.n_heads)
+    return {f"layers.{i}.qkv.kernel": shape for i in range(cfg.n_layers)}
+
+
 def param_count(cfg: BertConfig) -> int:
     """Parameters of ``BertEncoder``."""
     d, m = cfg.dim, cfg.mlp_dim

@@ -1,9 +1,11 @@
 """Build, load and launch the port's CUDA kernels.
 
 Each kernel is a ``.cu`` file under ``ops/csrc/`` with a plain ``extern "C"``
-launcher.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library under ``build/torch_kernels/`` (named by a hash of the source
-and the flags, so an edited source is rebuilt) and loaded with ``ctypes``.
+launcher; the headers beside them (``*.cuh``, such as ``hopper.cuh``) hold
+what several kernels share.  At first use a source is compiled by ``nvcc``
+for ``sm_90a`` into a shared library under ``build/torch_kernels/`` (named by
+a hash of the source, every header and the flags, so an edited source or
+header is rebuilt) and loaded with ``ctypes``.
 Nothing here runs at import time: the CPU tests import this module on hosts
 with no ``nvcc`` and no card.
 
@@ -12,7 +14,9 @@ Python int would be passed as a 32-bit int and cut the pointer.
 
 Each wrapper counts its launches in ``launch_counts``, incremented only
 where the kernel is launched, so a run can show that its path went through
-the kernel.
+the kernel: under the kernel's name, and under ``"<name>/<variant>"`` for the
+variant the C launcher reports it launched (for example
+``"fused_dense/wgmma_tma_pingpong_128x128"``).
 """
 
 from __future__ import annotations
@@ -34,18 +38,29 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills, kept in the build log
 )
 
-launch_counts: dict[str, int] = {
-    "flash_attention_fwd": 0,
-    "fused_dense": 0,
-    "fused_dense_quantized": 0,
+_KERNELS = ("flash_attention_fwd", "fused_dense", "fused_dense_quantized")
+launch_counts: dict[str, int] = dict.fromkeys(_KERNELS, 0)
+
+# Codes of each launcher's `enum Variant`.
+_VARIANTS = {
+    "flash_attention_fwd": {0: "simt", 1: "wgmma_tma"},
+    "fused_dense": {0: "simt", 1: "mma_sync", 2: "wgmma_tma_128x192",
+                    3: "wgmma_tma_pingpong_128x128"},
+    "fused_dense_quantized": {0: "simt"},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    launch_counts.clear()
+    launch_counts.update(dict.fromkeys(_KERNELS, 0))
+
+
+def _count_launch(name: str, variant: ctypes.c_int) -> None:
+    launch_counts[name] += 1
+    key = f"{name}/{_VARIANTS[name][variant.value]}"
+    launch_counts[key] = launch_counts.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -60,9 +75,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source, of
+    every header under ``csrc/`` (any of them may be included) and of the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -73,7 +93,7 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
@@ -83,14 +103,15 @@ def build(name: str) -> Path:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)  # the launcher writes the variant it launched
 # Launchers of each source and their argument types.
 _SIGNATURES: dict[str, dict[str, list]] = {
     "flash_attn_fwd": {
-        "flash_attn_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _I, _P],
+        "flash_attn_fwd": [_P] * 5 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _I, _P, _PI],
     },
     "fused_dense": {
-        "fused_dense": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _I, _P],
-        "fused_dense_quantized": [_P] * 5 + [_I] * 3 + [_LL] * 2 + [_I, _I, _P],
+        "fused_dense": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _I, _P, _PI],
+        "fused_dense_quantized": [_P] * 5 + [_I] * 3 + [_LL] * 2 + [_I, _I, _P, _PI],
     },
 }
 
@@ -111,22 +132,13 @@ def _load(name: str) -> ctypes.CDLL:
 _FLASH_HEAD_DIMS = (64, 128)
 
 
-def flash_attn_fwd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool,
-    sm_scale: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_attn_fwd.cu``: ``(out [B,Sq,Hq,D], lse [B,Hq,Sq] f32)``.
-
-    Takes CUDA tensors of one dtype (bf16 through the tensor-core path, f32
-    through the scalar path), head dim 64 or 128, unit stride on the head
-    dim; any other strides are read as given."""
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What ``csrc/flash_attn_fwd.cu`` takes, checked before anything is
+    built or launched: one dtype (bf16: the wgmma/TMA kernel, f32: the scalar
+    one), ``[B, S, H, D]`` with D 64 or 128, non-empty, unit stride on the
+    head dim; for bf16 TMA's rule, 16-byte-aligned bases and strides a
+    multiple of 8 elements; q, k and v on one CUDA device."""
     tensors = (q, k, v)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("flash_attn_fwd takes q, k, v on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"flash_attn_fwd takes bf16 or f32 q/k/v of one dtype, got "
                         f"{[t.dtype for t in tensors]}")
@@ -144,25 +156,46 @@ def flash_attn_fwd(
         raise ValueError("flash_attn_fwd takes non-empty batch and sequences")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash_attn_fwd needs unit stride on the head dim")
-    is_bf16 = q.dtype == torch.bfloat16
-    if is_bf16 and any(
+    if q.dtype == torch.bfloat16 and any(
         t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in tensors
     ):
         raise ValueError("bf16 rows must start on 16-byte boundaries (strides a multiple of 8)")
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("flash_attn_fwd takes q, k, v on one CUDA device")
+
+
+def flash_attn_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    sm_scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_attn_fwd.cu``: ``(out [B,Sq,Hq,D], lse [B,Hq,Sq] f32)``.
+
+    Takes CUDA tensors of one dtype (bf16 through the wgmma/TMA path, f32
+    through the scalar path), head dim 64 or 128, unit stride on the head
+    dim; any other strides are read as given (see :func:`_check_flash`)."""
+    _check_flash(q, k, v)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = _load("flash_attn_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(sm_scale), int(bool(causal)), int(is_bf16), stream,
+            float(sm_scale), int(bool(causal)), int(q.dtype == torch.bfloat16), stream,
+            ctypes.byref(variant),
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
-    launch_counts["flash_attention_fwd"] += 1
+    _count_launch("flash_attention_fwd", variant)
     return out, lse
 
 
@@ -210,14 +243,16 @@ def fused_dense(
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _load("fused_dense")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         err = lib.fused_dense(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
             x.stride(0), w.stride(0), act, int(x.dtype == torch.bfloat16), stream,
+            ctypes.byref(variant),
         )
     if err != 0:
         raise RuntimeError(f"fused_dense launch failed with CUDA error {err}")
-    launch_counts["fused_dense"] += 1
+    _count_launch("fused_dense", variant)
     return out
 
 
@@ -245,12 +280,14 @@ def fused_dense_quantized(
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _load("fused_dense")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         err = lib.fused_dense_quantized(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(), out.data_ptr(),
             M, N, K, x.stride(0), wq.stride(0), act, int(x.dtype == torch.bfloat16), stream,
+            ctypes.byref(variant),
         )
     if err != 0:
         raise RuntimeError(f"fused_dense_quantized launch failed with CUDA error {err}")
-    launch_counts["fused_dense_quantized"] += 1
+    _count_launch("fused_dense_quantized", variant)
     return out

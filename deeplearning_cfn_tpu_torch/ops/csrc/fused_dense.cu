@@ -15,36 +15,71 @@
 // Bound on one H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s f32 on CUDA
 // cores, 3.35 TB/s).  At BERT-base's MLP shapes (batch 32 x seq 128 tokens),
 // mlp_in (M 4096, K 768, N 3072, gelu) and mlp_out (M 4096, K 3072, N 768)
-// each do 2*M*N*K = 19.3 GFLOP, 19.5 us at the bf16 peak, and must move
-// 36.2 MB (x, w and b read once, out written once), 10.8 us: compute-bound.
+// each do 2*M*N*K = 19.3 GFLOP, 0.0195 ms at the bf16 peak, and must move
+// 36.2 MB (x, w and b read once, out written once), 0.0108 ms: compute-bound.
 // The quantized kernel at mlp_in does the same 19.3 GFLOP at the f32 peak,
-// 288 us, against 33.7 MB (10 us): compute-bound too.
+// 0.288 ms, against 33.7 MB (0.010 ms): compute-bound too.
 //
-// Design (first version: right and simple; wgmma, TMA and warp
-// specialisation are later work).
-//   - The TPU kernel holds the whole K axis of a 256-row tile in VMEM.  A
-//     Hopper block cannot (a 64-row bf16 x tile at K 3072 is 384 KB against
-//     227 KB of shared memory), so a block owns one output tile and loops over
-//     K in chunks through shared memory, into one f32 accumulator per element.
-//   - bf16: 128x128 output tile, 8 warps of 64x32, K chunks of 32.  Tiles are
-//     double-buffered with cp.async (16-byte copies, zero-filled past the
-//     matrix edge) when the rows are 16-byte aligned, and loaded element by
-//     element with bounds checks otherwise (ragged N or K, odd strides).
-//     Fragments come from shared memory through ldmatrix (x4 for A, x4.trans
-//     for B, which reads the row-major w [K,N] as the column-major operand
-//     mma wants); mma.sync m16n8k16, bf16 in, f32 accumulate.  Rows are padded
-//     by 16 bytes so neither the copies nor ldmatrix conflict on banks.
+// The TPU kernel holds the whole K axis of a 256-row tile in VMEM.  A Hopper
+// block cannot (a 64-row bf16 x tile at K 3072 is 384 KB against 227 KB of
+// shared memory), so a block owns one output tile and loops over K in chunks
+// through shared memory, into one f32 accumulator per element.  M, N and K
+// need no padding: the TPU kernel's jnp.pad copies are not carried over.
+//
+// Three variants, chosen by shape and alignment (never after a failure):
+//   - bf16, 16-byte-aligned rows (x and w bases on 16 bytes, row strides, K
+//     and N multiples of 8 elements, K > 0): the wgmma/TMA kernel.  A
+//     persistent grid (at most one CTA per SM) walks 128 x BN output tiles;
+//     each CTA has three warpgroups.
+//       Warpgroup 0 is the producer (setmaxnreg 40): one thread issues TMA
+//     loads of the x chunk [128, 64] and the w chunk [64, BN] into a ring
+//     (4 or 5 stages, 128-160 KB) with "full" and "empty" mbarriers, running
+//     ahead across tile boundaries.  TMA zero-fills past M, N and K, so the
+//     ragged edges need no code in the loop.  K chunks of 64 bf16 are 128
+//     bytes, one swizzle atom.
+//       Warpgroups 1 and 2 (setmaxnreg 232) run wgmma m64nBNk16 SS: x is the
+//     K-major A operand; w stays [K, N] row-major, the JAX layout, and is the
+//     N-major B operand read with the transpose bit, so nothing is copied
+//     transposed.  One chunk's products stay in flight while the next
+//     chunk's are issued (wgmma.wait_group 1); a stage goes back to the
+//     producer when the products that read it have completed, so no
+//     __syncthreads stalls the loop.
+//       The epilogue adds the bias (read into registers before the tile's
+//     mainloop), applies the activation in f32, writes bf16 pairs into a
+//     128-byte-swizzled staging tile in shared memory (conflict-free), and
+//     one thread stores it with TMA, which clips past M and N (4-byte stores
+//     straight from the accumulator layout would write half sectors).
+//       Two modes.  Ping-pong, where there are at least two 128 x 128 tiles
+//     for every SM (mlp_in: 768 tiles): each consumer warpgroup owns whole
+//     128 x 128 tiles, every other tile of its CTA, and an mbarrier pair
+//     hands the tensor cores from one to the other after each mainloop, so
+//     one warpgroup's epilogue (the gelu's tanhf is tens of instructions an
+//     element) runs under the other's products.  Cooperative 128 x 192
+//     otherwise (mlp_out: N 768 gives 192 tiles of 128 x 128 on 132 SMs):
+//     both warpgroups share each tile, 64 rows each; at mlp_out that is 128
+//     tiles, one for each of 128 SMs, where ping-pong would run two
+//     128 x 128 mainloops one after the other on 60 SMs.
+//       The host side of a launch (tensor maps, the shared-memory attribute,
+//     the SM count) is cached, so a launch on shapes seen before costs what
+//     a plain kernel launch costs.
+//   - bf16 otherwise (ragged N or K, odd strides): 128x128 output tile, 8
+//     warps of 64x32 with mma.sync m16n8k16, K chunks of 32 loaded element by
+//     element with bounds checks, fragments through ldmatrix (x4 for A,
+//     x4.trans for B, which reads the row-major w [K,N] as the column-major
+//     operand mma wants).  Rows are padded by 16 bytes so ldmatrix does not
+//     conflict on banks.
 //   - f32 and int8: 64x64 output tile, 256 threads of 4x4 outputs, K chunks
 //     of 16, on CUDA cores (no TF32).  The loader converts each element to
 //     f32 on its way into shared memory; for int8 it multiplies by the
 //     column's scale there, so the weight crosses device memory as int8.
-//   - The epilogue stays in registers: bias (read in the storage dtype, added
-//     in f32), activation in f32, cast, bounds-checked store.  M, N and K
-//     need no padding: the TPU kernel's jnp.pad copies are not carried over.
+// The mma.sync and CUDA-core epilogues stay in registers: bias (read in the
+// storage dtype, added in f32), activation in f32, cast, bounds-checked store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,7 +113,186 @@ __device__ __forceinline__ float to_f32(int8_t v) { return float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------------------------- bf16 path: wgmma and TMA
+
+constexpr int kWM = 128, kWK = 64;
+constexpr int kWsThreads = 384;     // producer warpgroup + 2 consumer warpgroups
+
+// Cooperative: both consumer warpgroups share each 128 x BN tile, 64 rows
+// each.  Ping-pong: each consumer warpgroup owns whole 128 x BN tiles, every
+// other tile of its CTA, and the two take turns at the tensor cores.
+template <int BN, bool kPingpong>
+struct DenseCfg {
+  static constexpr int kRows = kPingpong ? 128 : 64;  // tile rows a consumer warpgroup owns
+  static constexpr int kStageBytes = (kWM * kWK + kWK * BN) * 2;
+  static constexpr int kOutBytes = kRows * BN * 2;    // a warpgroup's output staging tile
+  // The ring takes what ~208 KB leaves after the two staging tiles.
+  static constexpr int kStages = (208 * 1024 - 2 * kOutBytes) / kStageBytes;
+  static constexpr int kReleases = kPingpong ? 4 : 8;  // consumer warps reading each stage
+};
+
+template <int BN, bool kPingpong>
+struct __align__(1024) DenseSmem {
+  using Cfg = DenseCfg<BN, kPingpong>;
+  __nv_bfloat16 a[Cfg::kStages][kWM * kWK];  // x chunk [128 rows][64 k], 16 KB
+  __nv_bfloat16 b[Cfg::kStages][kWK * BN];   // w chunk: BN/64 column blocks of [64 k][64 n]
+  __nv_bfloat16 out[2][Cfg::kRows * BN];     // per warpgroup: BN/64 blocks of [kRows][64]
+  uint64_t full[Cfg::kStages], empty[Cfg::kStages];
+  uint64_t turn[2];                          // ping-pong: whose mainloop is next
+};
+
+template <int BN, bool kPingpong>
+constexpr size_t smem_wgmma() {
+  return sizeof(DenseSmem<BN, kPingpong>) + 1024;  // + room to align the base to 1024 bytes
+}
+
+// Persistent: CTA c walks output tiles c, c + gridDim.x, ... (N fastest).
+// The producer runs ahead across tile boundaries, so the ring fills with the
+// next tile's chunks while the consumers run an epilogue.
+template <int BN, bool kPingpong>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fused_dense_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_w,
+                      const __grid_constant__ CUtensorMap tm_out, const DenseParams p) {
+  using namespace hopper;
+  using Cfg = DenseCfg<BN, kPingpong>;
+  constexpr int kStages = Cfg::kStages, kRows = Cfg::kRows, kMBlocks = kRows / 64;
+  extern __shared__ uint8_t dense_smem[];
+  DenseSmem<BN, kPingpong>& sm = *reinterpret_cast<DenseSmem<BN, kPingpong>*>(
+      (reinterpret_cast<uintptr_t>(dense_smem) + 1023) & ~uintptr_t(1023));
+  const int tiles_n = (p.N + BN - 1) / BN;
+  const int num_tiles = ((p.M + kWM - 1) / kWM) * tiles_n;
+  const int num_k = (p.K + kWK - 1) / kWK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], Cfg::kReleases);
+    }
+    mbar_init(&sm.turn[0], 4);
+    mbar_init(&sm.turn[1], 4);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: chunk `it` counts across this CTA's tiles in order.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kWM, n0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < num_k; ++kt, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&sm.full[s], Cfg::kStageBytes);
+          tma_load_2d(sm.a[s], &tm_x, &sm.full[s], kt * kWK, m0);
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c) {
+            tma_load_2d(sm.b[s] + c * kWK * 64, &tm_w, &sm.full[s], n0 + c * 64, kt * kWK);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.b);
+    uint8_t* staging = reinterpret_cast<uint8_t*>(sm.out[cw]);
+    int local = 0;  // index of the tile among this CTA's tiles
+    for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, ++local) {
+      if (kPingpong && (local & 1) != cw) continue;
+      const int m0 = (tile / tiles_n) * kWM, n0 = (tile % tiles_n) * BN;
+      const int row_base = kPingpong ? 0 : 64 * cw;  // this warpgroup's first row in the tile
+      // This thread's bias pairs, read before the mainloop so that their
+      // latency hides behind it.
+      __nv_bfloat162 bias2[BN / 8];
+#pragma unroll
+      for (int jt = 0; jt < BN / 8; ++jt) {
+        const int col = n0 + 8 * jt + 2 * t;
+        bias2[jt] = col < p.N ? __halves2bfloat162(bias[col], bias[col + 1])
+                              : __floats2bfloat162_rn(0.f, 0.f);
+      }
+      float acc[kMBlocks][BN / 2];
+#pragma unroll
+      for (int mb = 0; mb < kMBlocks; ++mb)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0.f;
+
+      // Ping-pong: wait for the other warpgroup to have issued its mainloop
+      // (warpgroup 0 goes first).
+      if (kPingpong) mbar_wait(&sm.turn[cw], ((local >> 1) & 1) ^ (cw == 0 ? 1 : 0));
+      int it = local * num_k;
+      for (int kt = 0; kt < num_k; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sm.full[s], (it / kStages) & 1);
+#pragma unroll
+        for (int mb = 0; mb < kMBlocks; ++mb) fence_operand(acc[mb]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWK / 16; ++kk) {
+          const uint64_t db = make_desc_sw128(sm.b[s] + kk * 16 * 64, kWK * 64 * 2, 1024);
+#pragma unroll
+          for (int mb = 0; mb < kMBlocks; ++mb) {
+            const uint64_t da =
+                make_desc_sw128(sm.a[s] + (row_base + 64 * mb) * kWK + kk * 16, 16, 1024);
+            wgmma_ss<1>(acc[mb], da, db, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done: hand its stage back
+#pragma unroll
+        for (int mb = 0; mb < kMBlocks; ++mb) fence_operand(acc[mb]);
+        if (kt > 0 && lane == 0) mbar_arrive(&sm.empty[(it - 1) % kStages]);
+      }
+      if (kPingpong && lane == 0) mbar_arrive(&sm.turn[cw ^ 1]);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mb = 0; mb < kMBlocks; ++mb) fence_operand(acc[mb]);
+      if (num_k > 0 && lane == 0) mbar_arrive(&sm.empty[(it - 1) % kStages]);
+
+      // Epilogue: bias and activation in f32, bf16 pairs into the staging
+      // tile (128-byte-swizzled like a TMA box: conflict-free), then one
+      // thread stores it with TMA, which clips rows and columns past M and N.
+      if (tid == 0) tma_store_wait_read<0>();  // the previous store has read the tile
+      named_barrier_sync(1 + cw, 128);
+#pragma unroll
+      for (int mb = 0; mb < kMBlocks; ++mb) {
+#pragma unroll
+        for (int jt = 0; jt < BN / 8; ++jt) {
+          const float b0 = __low2float(bias2[jt]), b1 = __high2float(bias2[jt]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int rr = 64 * mb + 16 * warp + g + 8 * r;  // row in the staging tile
+            const float v0 = activate(acc[mb][4 * jt + 2 * r] + b0, p.act);
+            const float v1 = activate(acc[mb][4 * jt + 2 * r + 1] + b1, p.act);
+            *reinterpret_cast<uint32_t*>(staging + (jt / 8) * (kRows * 128) + rr * 128 +
+                                         (((jt % 8) ^ g) * 16) + 4 * t) = pack_bf16(v0, v1);
+          }
+        }
+      }
+      fence_proxy_async();
+      named_barrier_sync(1 + cw, 128);
+      if (tid == 0 && m0 + row_base < p.M) {
+#pragma unroll
+        for (int cb = 0; cb < BN / 64; ++cb) {
+          if (n0 + 64 * cb < p.N) {
+            tma_store_2d(&tm_out, staging + cb * (kRows * 128), n0 + 64 * cb, m0 + row_base);
+          }
+        }
+        tma_store_commit();
+      }
+    }
+    if (tid == 0) tma_store_wait<0>();
+  }
+}
+
+// ------------------------------------------ bf16 path: unaligned rows (mma.sync)
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N, 64x32 each
@@ -90,14 +304,6 @@ struct SmemBf16 {
   __nv_bfloat16 a[kStages][kBM * kALd];
   __nv_bfloat16 b[kStages][kBK * kBLd];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;  // 0: nothing is read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -123,47 +329,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage the x tile [m0:m0+128, k0:k0+32] and the w tile [k0:k0+32, n0:n0+128];
-// zeros past M, N and K.  kAligned: every row starts on 16 bytes and K, N are
-// multiples of 8, so a 16-byte chunk lies wholly inside or wholly outside.
-template <bool kAligned>
+// Stage the x tile [m0:m0+128, k0:k0+32] and the w tile [k0:k0+32, n0:n0+128]
+// element by element; zeros past M, N and K.
 __device__ __forceinline__ void load_tiles_bf16(SmemBf16& sm, int stage, const DenseParams& p,
                                                 int m0, int n0, int k0) {
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
   __nv_bfloat16* sa = sm.a[stage];
   __nv_bfloat16* sb = sm.b[stage];
-  if (kAligned) {
-#pragma unroll
-    for (int i = 0; i < (kBM * kBK / 8) / kThreads; ++i) {  // 2 chunks a thread
-      const int c = threadIdx.x + i * kThreads;
-      const int r = c / (kBK / 8), cc = (c % (kBK / 8)) * 8;
-      const bool ok = m0 + r < p.M && k0 + cc < p.K;
-      cp_async16(sa + r * kALd + cc, ok ? x + (long long)(m0 + r) * p.ldx + k0 + cc : x, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < (kBK * kBN / 8) / kThreads; ++i) {
-      const int c = threadIdx.x + i * kThreads;
-      const int r = c / (kBN / 8), cc = (c % (kBN / 8)) * 8;
-      const bool ok = k0 + r < p.K && n0 + cc < p.N;
-      cp_async16(sb + r * kBLd + cc, ok ? w + (long long)(k0 + r) * p.ldw + n0 + cc : w, ok);
-    }
-  } else {
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, c = e % kBK;
-      sa[r * kALd + c] =
-          (m0 + r < p.M && k0 + c < p.K) ? x[(long long)(m0 + r) * p.ldx + k0 + c] : zero;
-    }
-    for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
-      const int r = e / kBN, c = e % kBN;
-      sb[r * kBLd + c] =
-          (k0 + r < p.K && n0 + c < p.N) ? w[(long long)(k0 + r) * p.ldw + n0 + c] : zero;
-    }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
+    const int r = e / kBK, c = e % kBK;
+    sa[r * kALd + c] =
+        (m0 + r < p.M && k0 + c < p.K) ? x[(long long)(m0 + r) * p.ldx + k0 + c] : zero;
+  }
+  for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
+    const int r = e / kBN, c = e % kBN;
+    sb[r * kBLd + c] =
+        (k0 + r < p.K && n0 + c < p.N) ? w[(long long)(k0 + r) * p.ldw + n0 + c] : zero;
   }
 }
 
-template <bool kAligned>
 __global__ void __launch_bounds__(kThreads) fused_dense_bf16(const DenseParams p) {
   __shared__ __align__(16) SmemBf16 sm;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
@@ -178,13 +364,11 @@ __global__ void __launch_bounds__(kThreads) fused_dense_bf16(const DenseParams p
     for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
   const int num_k = (p.K + kBK - 1) / kBK;
-  load_tiles_bf16<kAligned>(sm, 0, p, m0, n0, 0);
-  cp_async_commit();
+  if (num_k > 0) load_tiles_bf16(sm, 0, p, m0, n0, 0);
   for (int kt = 0; kt < num_k; ++kt) {
-    if (kt + 1 < num_k) load_tiles_bf16<kAligned>(sm, (kt + 1) & 1, p, m0, n0, (kt + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait_1();  // every group but the newest has landed: stage kt is ready
-    __syncthreads();
+    // Stage (kt + 1) & 1 was last read in step kt - 1, behind its closing barrier.
+    if (kt + 1 < num_k) load_tiles_bf16(sm, (kt + 1) & 1, p, m0, n0, (kt + 1) * kBK);
+    __syncthreads();  // stage kt is written
     const __nv_bfloat16* sa = sm.a[kt & 1];
     const __nv_bfloat16* sb = sm.b[kt & 1];
 #pragma unroll
@@ -210,7 +394,6 @@ __global__ void __launch_bounds__(kThreads) fused_dense_bf16(const DenseParams p
     }
     __syncthreads();  // every warp is done with stage kt before it is refilled
   }
-  asm volatile("cp.async.wait_all;\n" ::);  // K == 0 leaves the first (zero-fill) group pending
 
   // Epilogue: bias, activation, bf16 store of (row, col) and (row, col + 1).
   const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.b);
@@ -317,6 +500,70 @@ int launch(Kernel kernel, int bm, int bn, cudaStream_t stream, const DenseParams
   return int(cudaGetLastError());
 }
 
+// The current device's SM count, asked once per device.
+int num_sms() {
+  static std::atomic<int> known[64];  // 0: not asked yet
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < 64 && (sms = known[dev].load(std::memory_order_relaxed)) > 0) return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms <= 0) {
+    return 132;
+  }
+  if (dev < 64) known[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
+enum Variant { kSimt = 0, kMmaSync = 1, kCoop192 = 2, kPingpong128 = 3 };
+
+// The wgmma kernel for an M x N output.  With at least two 128 x 128 tiles
+// for every SM, ping-pong: one warpgroup's epilogue runs under the other's
+// products.  Otherwise cooperative 128 x 192: fewer, wider tiles, each
+// reading less of x and w a product.
+Variant wgmma_variant(int M, int N) {
+  const long long tiles = (long long)((M + kWM - 1) / kWM) * ((N + 127) / 128);
+  return tiles >= 2LL * num_sms() ? kPingpong128 : kCoop192;
+}
+
+Variant dense_variant(const void* x, const void* w, int M, int N, int K, long long ldx,
+                      long long ldw, int is_bf16) {
+  if (!is_bf16) return kSimt;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 && ldx % 8 == 0 &&
+                       ldw % 8 == 0 && K % 8 == 0 && N % 8 == 0 && K > 0;
+  return aligned ? wgmma_variant(M, N) : kMmaSync;
+}
+
+template <int BN, bool kPingpong>
+int launch_wgmma(cudaStream_t stream, const DenseParams& p) {
+  using Cfg = DenseCfg<BN, kPingpong>;
+  CUtensorMap tx, tw, tout;
+  const cuuint64_t x_dims[2] = {cuuint64_t(p.K), cuuint64_t(p.M)};
+  const cuuint64_t x_strides[1] = {cuuint64_t(p.ldx) * 2};
+  const cuuint32_t x_box[2] = {kWK, kWM};
+  const cuuint64_t w_dims[2] = {cuuint64_t(p.N), cuuint64_t(p.K)};
+  const cuuint64_t w_strides[1] = {cuuint64_t(p.ldw) * 2};
+  const cuuint32_t w_box[2] = {64, kWK};
+  const cuuint64_t o_dims[2] = {cuuint64_t(p.N), cuuint64_t(p.M)};
+  const cuuint64_t o_strides[1] = {cuuint64_t(p.N) * 2};
+  const cuuint32_t o_box[2] = {64, Cfg::kRows};
+  if (!hopper::cached_tensor_map_bf16<2>(&tx, p.x, x_dims, x_strides, x_box) ||
+      !hopper::cached_tensor_map_bf16<2>(&tw, p.w, w_dims, w_strides, w_box) ||
+      !hopper::cached_tensor_map_bf16<2>(&tout, p.out, o_dims, o_strides, o_box)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_wgmma<BN, kPingpong>();
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      hopper::set_max_dynamic_smem_once(smem_set, fused_dense_wgmma<BN, kPingpong>, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long tiles = (long long)((p.N + BN - 1) / BN) * ((p.M + kWM - 1) / kWM);
+  const int sms = num_sms();
+  const int grid = int(tiles < sms ? tiles : sms);
+  fused_dense_wgmma<BN, kPingpong><<<grid, kWsThreads, smem, stream>>>(tx, tw, tout, p);
+  return int(cudaGetLastError());
+}
+
 bool valid(int M, int N, int K, int act) {
   return M > 0 && N > 0 && K >= 0 && act >= kNone && act <= kGelu && (M + kSBM - 1) / kSBM < 65536;
 }
@@ -325,32 +572,34 @@ bool valid(int M, int N, int K, int act) {
 
 // x [M,K], w [K,N], b [N], all bf16 (is_bf16) or all f32; out [M,N] contiguous,
 // in the same dtype.  Row strides in elements.  act: 0 none, 1 relu, 2 gelu
-// (tanh form).  Returns the cudaError_t of the launch (0 = success).
+// (tanh form).  Returns the cudaError_t of the launch (0 = success) and, in
+// *variant, which kernel it launched (enum Variant).
 extern "C" int fused_dense(const void* x, const void* w, const void* b, void* out, int M, int N,
                            int K, long long ldx, long long ldw, int act, int is_bf16,
-                           void* stream) {
+                           void* stream, int* variant) {
   if (!valid(M, N, K, act)) return int(cudaErrorInvalidValue);
   DenseParams p{x, w, b, nullptr, out, M, N, K, ldx, ldw, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(w) % 16 == 0 && ldx % 8 == 0 &&
-                         ldw % 8 == 0 && K % 8 == 0 && N % 8 == 0;
-    if (aligned) return launch(fused_dense_bf16<true>, kBM, kBN, st, p);
-    return launch(fused_dense_bf16<false>, kBM, kBN, st, p);
+  *variant = dense_variant(x, w, M, N, K, ldx, ldw, is_bf16);
+  switch (*variant) {
+    case kPingpong128: return launch_wgmma<128, true>(st, p);
+    case kCoop192: return launch_wgmma<192, false>(st, p);
+    case kMmaSync: return launch(fused_dense_bf16, kBM, kBN, st, p);
+    default: return launch(fused_dense_simt<float, float>, kSBM, kSBN, st, p);
   }
-  return launch(fused_dense_simt<float, float>, kSBM, kSBN, st, p);
 }
 
 // x [M,K] and b [N] bf16 (x_is_bf16) or f32; wq [K,N] int8; scale [N] f32;
-// out [M,N] contiguous in x's dtype.  The product is f32 on CUDA cores.
+// out [M,N] contiguous in x's dtype.  The product is f32 on CUDA cores
+// (*variant is kSimt).
 extern "C" int fused_dense_quantized(const void* x, const void* wq, const void* scale,
                                      const void* b, void* out, int M, int N, int K,
                                      long long ldx, long long ldw, int act, int x_is_bf16,
-                                     void* stream) {
+                                     void* stream, int* variant) {
   if (!valid(M, N, K, act) || scale == nullptr) return int(cudaErrorInvalidValue);
   DenseParams p{x, wq, b, static_cast<const float*>(scale), out, M, N, K, ldx, ldw, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *variant = kSimt;
   if (x_is_bf16) return launch(fused_dense_simt<__nv_bfloat16, int8_t>, kSBM, kSBN, st, p);
   return launch(fused_dense_simt<float, int8_t>, kSBM, kSBN, st, p);
 }

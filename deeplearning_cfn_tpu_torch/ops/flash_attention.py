@@ -30,8 +30,16 @@ DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 512
 
 # Sequence length from which models/llama.py dispatches to flash attention.
-# This is the crossover measured on the TPU against XLA's fused attention;
-# it waits for a re-measure on the H100 against dot_product_attention.
+# The value is the crossover measured on the TPU against XLA's fused
+# attention.  On an NVIDIA H100 80GB HBM3 at a 700 W limit (chip_smoke.py's
+# crossover rows: m435 heads, 8 of 128, causal, 16,384 tokens a call), the
+# kernel's forward beats the materialised-score path at every length from
+# 512 (0.10 against 1.49 ms) to 4096 (0.28 against 10.6 ms); forward plus
+# backward, where this port's flash backward is f32 torch ops, the
+# materialised path is faster at every length measured, 3.6 against 6.9 ms
+# at 512 and 24.2 against 26.4 ms at 4096.  So on that card the training
+# crossover lies above 4096 until the backward is a kernel.  The value stays
+# the TPU's until a change to it is planned.
 FLASH_CROSSOVER_SEQ = 2048
 
 # Block clamping constants of the JAX package (TPU tiling).  Kept so that the

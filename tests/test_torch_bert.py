@@ -217,3 +217,37 @@ def test_interop_accepts_bf16_leaves_and_checks_depth():
         _f32(as_bf16["layer0"]["qkv"]["kernel"]).reshape(tcfg.dim, 3 * tcfg.dim))
     with pytest.raises(ValueError, match="layers"):
         interop.bert_params_from_jax(dataclasses.replace(tcfg, n_layers=3), params)
+
+
+def test_quantize_tree_matches_jax_on_bert_qkv():
+    """The port quantizes BERT's qkv kernel in its JAX leaf shape
+    [dim, 3, H, hd], per hd, as ``jax_quant.quantize_tree`` does: the same
+    int8 values and scales at every kernel, and the same dequantized weights
+    once both are flattened to the port's state dict."""
+    from deeplearning_cfn_tpu.ops import quant as jax_quant
+    from deeplearning_cfn_tpu_torch.ops import quant
+
+    jcfg, tcfg = _configs("f32", False)
+    tok, _ = _batch()
+    params = jax_bert.BertEncoder(jcfg).init(jax.random.key(0), jnp.asarray(tok))["params"]
+    jq, jp = jax_quant.quantize_tree(params)
+    jback = interop.bert_params_from_jax(tcfg, jax.device_get(jax_quant.dequantize_tree(jq, jp)))
+    jq_np = jax.device_get(jq)
+
+    state = interop.bert_params_from_jax(tcfg, jax.device_get(params))
+    q, p = quant.quantize_tree(state, bert.jax_kernel_shapes(tcfg))
+    kernels = [name for name, v in q.items() if v is not None]
+    assert "layers.0.qkv.kernel" in kernels and "layers.0.mlp_in.kernel" in kernels
+    for name in kernels:
+        leaf = jq_np
+        for key in name.replace("layers.", "layer").split("."):
+            leaf = leaf[key]
+        np.testing.assert_array_equal(q[name]["wq"].numpy(), np.asarray(leaf["wq"]), err_msg=name)
+        np.testing.assert_array_equal(q[name]["scale"].numpy(), np.asarray(leaf["scale"]),
+                                      err_msg=name)
+    assert q["layers.0.qkv.kernel"]["scale"].shape == (tcfg.dim // tcfg.n_heads,)
+    back = quant.dequantize_tree(q, p)
+    assert back.keys() == jback.keys()
+    for name, t in back.items():
+        assert t.shape == state[name].shape, name
+        np.testing.assert_array_equal(t.numpy(), jback[name].numpy(), err_msg=name)

@@ -6,8 +6,8 @@ torch blockwise backward.  Both run the same f32 online-softmax arithmetic
 with the same kv blocking, so they agree to f32 rounding of sums over at
 most a few hundred terms: 1e-5 relative, 2e-6 absolute on O(1) values.
 
-The CUDA kernel itself is checked against the reference by the ``cuda``
-tests below on a card (``python -m pytest -m cuda tests/test_torch_flash_attention.py``;
+The CUDA kernel itself (bf16: wgmma and TMA; f32: a scalar path) is checked
+against the reference by the ``cuda`` tests below on a card (``python -m pytest -m cuda tests/test_torch_flash_attention.py``;
 the card's host has no JAX, so there the JAX comparisons skip), and by
 ``chip_smoke.py``.
 """
@@ -216,3 +216,49 @@ def test_cuda_kernel_matches_reference(cuda_device, dtype, atol, shape):
     ref_out, ref_lse = port.flash_attention_reference(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=atol)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, packed): the wgmma/TMA kernel's edges.
+# packed: q, k and v are views of one [B, S, 3, H, D] tensor (the tensor
+# maps' strides); ragged S exercises TMA's zero fill and the Sk-edge mask,
+# causal the diagonal mask and the reversed tile order.
+WGMMA_CASES = {
+    "causal-ragged": (2, 1000, 1000, 8, 8, 128, True, False),
+    "strided-qkv": (2, 512, 512, 8, 8, 128, True, True),
+    "sq-ne-sk-full": (2, 300, 700, 4, 4, 128, False, False),
+    "sq-gt-sk-causal": (1, 700, 300, 4, 4, 64, True, False),
+    "gqa-4-1": (1, 1024, 1024, 8, 2, 128, True, False),
+    "d64-causal": (2, 640, 640, 4, 4, 64, True, False),
+    "d64-full-ragged": (2, 1000, 1000, 8, 8, 64, False, False),
+    "d128-full": (1, 384, 384, 4, 4, 128, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_wgmma_kernel_matches_reference_on_card(cuda_device, case):
+    """bf16 out within two bf16 ulps of O(1) values (p is rounded to bf16 at
+    another blocking of the running max); lse within 1e-3 (f32 sums in
+    another order, exp2 with the scale folded in)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, packed = WGMMA_CASES[case]
+    rng = np.random.default_rng(7)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    if packed:
+        qkv = randn(B, Sq, 3, Hq, D)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = randn(B, Sq, Hq, D), randn(B, Sk, Hkv, D), randn(B, Sk, Hkv, D)
+    before = dict(_kernels.launch_counts)
+    out, lse = _kernels.flash_attn_fwd(q, k, v, causal=causal, sm_scale=D**-0.5)
+    torch.cuda.synchronize()
+    after, key = _kernels.launch_counts, "flash_attention_fwd/wgmma_tma"
+    assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert after[key] == before.get(key, 0) + 1
+    ref_out, ref_lse = port.flash_attention_reference(q, k, v, causal=causal, sm_scale=D**-0.5)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)

@@ -249,8 +249,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (M, K, N, dtype): tensor-core path with 16-byte rows, ragged K chunk, the
-# element-wise loader (N not a multiple of 8), the f32 path.
+# (M, K, N, dtype): the wgmma/TMA kernel (16-byte rows), the same with a
+# ragged K chunk and ragged M, the mma.sync kernel (N not a multiple of 8),
+# the f32 path.
 CUDA_CASES = {
     "bf16-aligned": (256, 256, 384, torch.bfloat16),
     "bf16-ragged-k": (37, 200, 304, torch.bfloat16),
@@ -315,3 +316,29 @@ def test_gradients_through_kernel_match_plain_autograd_on_card(cuda_device, dtyp
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     for a, p in ((kx, px), (kw, pw), (kb, pb)):
         torch.testing.assert_close(a.grad.float(), p.grad.float(), **tol)
+
+
+# (M, K, N, activation, variant): the wgmma/TMA kernel at BERT-base's MLP
+# shapes and at ragged M, K and N with 16-byte-aligned rows (TMA's zero fill
+# and the epilogue's guards), with the mode the launcher picks on an H100
+# (132 SMs): ping-pong where there are two 128 x 128 tiles or more an SM.
+WGMMA_DENSE_CASES = {
+    "mlp_in": (4096, 768, 3072, "gelu", "wgmma_tma_pingpong_128x128"),
+    "mlp_out": (4096, 3072, 768, None, "wgmma_tma_128x192"),
+    "aligned-ragged": (1000, 200, 304, "relu", "wgmma_tma_128x192"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WGMMA_DENSE_CASES))
+def test_wgmma_kernel_matches_plain_version_on_card(cuda_device, case):
+    m, k, n, activation, variant = WGMMA_DENSE_CASES[case]
+    x, w, b = _cuda_operands(m, k, n, torch.bfloat16, cuda_device, seed=5)
+    before = dict(_kernels.launch_counts)
+    got = _kernels.fused_dense(x, w, b, activation=activation)
+    torch.cuda.synchronize()
+    key = f"fused_dense/{variant}"
+    assert _kernels.launch_counts["fused_dense"] == before["fused_dense"] + 1
+    assert _kernels.launch_counts[key] == before.get(key, 0) + 1
+    ref = port.fused_dense_reference(x, w, b, activation)
+    torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL)
