@@ -15,7 +15,10 @@ Phases, one JSON line each:
            ragged non-causal at head dim 64, causal ragged, q/k/v as strided
            views of one packed tensor, f32; fused dense: ragged with 16-byte
            rows, ragged with odd rows, the ResNet head in f32; int8-weight
-           dense: BERT's mlp_in and a ragged f32 shape), with the variant
+           dense: BERT's mlp_in with a bf16 and with an f32 x on the bf16
+           tensor cores, ragged M and K with 16-byte rows, and a ragged shape
+           on the CUDA cores; bound by the design's arithmetic, one bf16
+           pass for a bf16 x and three for an f32 x), with the variant
            the launcher reported for the row's launch, its time beside the
            plain version's, the PyTorch library call that computes the same
            function (timed here only as a yardstick; the port never calls
@@ -465,8 +468,17 @@ def main() -> int:
 
     quant_shapes = {  # name: (M, K, N, x dtype, activation)
         "mlp_in": (BERT_BATCH * BERT_SEQ, 768, 3072, torch.bfloat16, "gelu"),
+        "mlp_in-f32": (BERT_BATCH * BERT_SEQ, 768, 3072, torch.float32, "gelu"),
+        # Ragged M and K chunk with 16-byte rows: TMA's zero fill in all three parts.
+        "aligned-ragged": (1000, 200, 304, torch.float32, "relu"),
         "ragged": (1000, 200, 300, torch.float32, "relu"),
     }
+    # The launcher's choice: bf16 tensor cores (128 x 192 tiles) where TMA
+    # can read the rows, one bf16 part of x for a bf16 x and three (h, m, l)
+    # for an f32 x; CUDA cores where N is off 16 bytes of int8.
+    quant_variants = {"mlp_in": "wgmma_tma_bf16x1_128x192",
+                      "mlp_in-f32": "wgmma_tma_bf16x3_128x192",
+                      "aligned-ragged": "wgmma_tma_bf16x3_128x192", "ragged": "simt"}
     quant_rows = {}
     for label, (M, K, N, dtype, act) in quant_shapes.items():
         x, w, b = dense_operands(M, K, N, dtype)
@@ -477,24 +489,41 @@ def main() -> int:
         ref = fd._quant_reference(x, wq, scale, b, act, dtype)
         row = dense_check(label, "fused_dense_quantized", got, ref, dtype)
         row.update({"M": M, "K": K, "N": N, "activation": act, "variant": variant})
-        # An f32 product on the CUDA cores: bound by the f32 peak.
-        row.update(_dense_work(M, K, N, x.element_size(), 1, peak_f32, peak_bw))
+        # The bound of the design's arithmetic: bf16 products at the bf16
+        # peak, one pass for a bf16 x and three for an f32 x; an f32 product
+        # on the CUDA cores at the f32 peak.
+        if variant == "simt":
+            peak_ops, basis = peak_f32, "f32 CUDA cores"
+        else:
+            parts = 1 if dtype == torch.bfloat16 else 3
+            peak_ops, basis = peak_flops / parts, f"bf16 tensor cores x{parts}"
+        row.update(_dense_work(M, K, N, x.element_size(), 1, peak_ops, peak_bw))
+        row["bound_basis"] = basis
         x32, b32, w32 = x.float(), b.float(), dequantize_weight(wq, scale)
         kernel = lambda: _kernels.fused_dense_quantized(x, wq, scale, b, activation=act)  # noqa: E731
         library = lambda: library_act[act](torch.addmm(b32, x32, w32))  # noqa: E731
         row.update({
-            "kernel_ms": _time_ms(torch, kernel, iters=20),
-            "device_ms": _device_ms(torch, kernel, iters=20),
+            "kernel_ms": _time_ms(torch, kernel, iters=50),
+            "device_ms": _device_ms(torch, kernel, iters=50),
             "plain_ms": _time_ms(torch, lambda: fd._quant_reference(x, wq, scale, b, act, dtype),
                                  iters=10),
-            "library_ms": _time_ms(torch, library, iters=20),
-            "library_device_ms": _device_ms(torch, library, iters=20),
-            "host_ms": _host_ms(torch, kernel, iters=20),
-            "library_host_ms": _host_ms(torch, library, iters=20),
+            "library_ms": _time_ms(torch, library, iters=50),
+            "library_device_ms": _device_ms(torch, library, iters=50),
+            "host_ms": _host_ms(torch, kernel, iters=50),
+            "library_host_ms": _host_ms(torch, library, iters=50),
         })
+        if dtype == torch.bfloat16:
+            # A floor for information only: a bf16 product on the widened
+            # weight, without the scale, bias or activation.
+            wq16 = wq.to(torch.bfloat16)
+            bf16_mm = lambda: torch.mm(x, wq16)  # noqa: E731
+            row["library_bf16_mm_ms"] = _time_ms(torch, bf16_mm, iters=50)
+            row["library_bf16_mm_device_ms"] = _device_ms(torch, bf16_mm, iters=50)
         row["tflops"] = row["gflop"] / row["kernel_ms"]
         _emit(row)
         _require(row["finite"] and row["within_tolerance"], f"fused_dense_quantized {label}: {row}")
+        _require(row["variant"] == quant_variants[label],
+                 f"fused_dense_quantized {label}: variant {row['variant']}")
         quant_rows[label] = row
     del x, w, b, wq, scale, got, ref, x32, b32, w32
 

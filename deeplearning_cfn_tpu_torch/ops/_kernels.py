@@ -41,12 +41,15 @@ NVCC_FLAGS = (
 _KERNELS = ("flash_attention_fwd", "fused_dense", "fused_dense_quantized")
 launch_counts: dict[str, int] = dict.fromkeys(_KERNELS, 0)
 
-# Codes of each launcher's `enum Variant`.
+# Codes of each launcher's variant enum (`enum Variant`; `enum QuantVariant`
+# for the int8-weight launcher, whose bf16x1 / bf16x3 variants run one or
+# three bf16 products a k-step, for a bf16 or an f32 x).
 _VARIANTS = {
     "flash_attention_fwd": {0: "simt", 1: "wgmma_tma"},
     "fused_dense": {0: "simt", 1: "mma_sync", 2: "wgmma_tma_128x192",
                     3: "wgmma_tma_pingpong_128x128"},
-    "fused_dense_quantized": {0: "simt"},
+    "fused_dense_quantized": {0: "simt", 1: "wgmma_tma_bf16x1_128x192",
+                              2: "wgmma_tma_bf16x3_128x192"},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -266,7 +269,16 @@ def fused_dense_quantized(
 ) -> torch.Tensor:
     """Launch the int8-weight kernel of ``csrc/fused_dense.cu``:
     ``act(f32(x) @ (f32(wq) * scale) + b)`` as ``[M, N]`` in x's dtype.  x and
-    b bf16 or f32 of one dtype, ``wq [K, N]`` int8, ``scale [N]`` f32."""
+    b bf16 or f32 of one dtype, ``wq [K, N]`` int8, ``scale [N]`` f32; any
+    row strides, unit stride on the last axis.
+
+    Where TMA can read the rows (16-byte-aligned bases and row strides, N a
+    multiple of 16) the product runs on the bf16 tensor cores: wq widened to
+    bf16 in shared memory (exact), a bf16 x in one product, an f32 x split
+    into three bf16 parts and three products (f32-accurate), the scale
+    applied after the sum.  Elsewhere it runs on CUDA cores in f32.  The
+    launcher picks by shape and alignment and reports its choice, which is
+    counted under ``"fused_dense_quantized/<variant>"``."""
     if x.dtype not in (torch.bfloat16, torch.float32) or b.dtype != x.dtype:
         raise TypeError(f"fused_dense_quantized takes bf16 or f32 x and b of one dtype, got "
                         f"{x.dtype}/{b.dtype}")

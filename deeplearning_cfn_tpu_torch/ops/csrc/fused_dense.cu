@@ -17,8 +17,10 @@
 // mlp_in (M 4096, K 768, N 3072, gelu) and mlp_out (M 4096, K 3072, N 768)
 // each do 2*M*N*K = 19.3 GFLOP, 0.0195 ms at the bf16 peak, and must move
 // 36.2 MB (x, w and b read once, out written once), 0.0108 ms: compute-bound.
-// The quantized kernel at mlp_in does the same 19.3 GFLOP at the f32 peak,
-// 0.288 ms, against 33.7 MB (0.010 ms): compute-bound too.
+// The quantized kernel at mlp_in computes the same product on bf16 tensor
+// cores (below): one bf16 pass for a bf16 x, 0.0195 ms against 33.8 MB
+// (0.0101 ms); three for an f32 x, 0.0586 ms against 65.3 MB (0.0195 ms).
+// Compute-bound either way.
 //
 // The TPU kernel holds the whole K axis of a 256-row tile in VMEM.  A Hopper
 // block cannot (a 64-row bf16 x tile at K 3072 is 384 KB against 227 KB of
@@ -26,7 +28,7 @@
 // through shared memory, into one f32 accumulator per element.  M, N and K
 // need no padding: the TPU kernel's jnp.pad copies are not carried over.
 //
-// Three variants, chosen by shape and alignment (never after a failure):
+// The kernels, chosen by dtype, shape and alignment (never after a failure):
 //   - bf16, 16-byte-aligned rows (x and w bases on 16 bytes, row strides, K
 //     and N multiples of 8 elements, K > 0): the wgmma/TMA kernel.  A
 //     persistent grid (at most one CTA per SM) walks 128 x BN output tiles;
@@ -68,12 +70,54 @@
 //     x4.trans for B, which reads the row-major w [K,N] as the column-major
 //     operand mma wants).  Rows are padded by 16 bytes so ldmatrix does not
 //     conflict on banks.
-//   - f32 and int8: 64x64 output tile, 256 threads of 4x4 outputs, K chunks
-//     of 16, on CUDA cores (no TF32).  The loader converts each element to
-//     f32 on its way into shared memory; for int8 it multiplies by the
-//     column's scale there, so the weight crosses device memory as int8.
+//   - int8 weight, rows TMA can describe (x and wq bases on 16 bytes, x and
+//     wq rows a multiple of 16 bytes apart, N a multiple of 16, K > 0): the
+//     bf16 tensor cores compute the TPU kernel's f32 product, because
+//       1. every int8 value (|q| <= 128) is exact in bf16, and a bf16 x times
+//          bf16(q) is an exact product that wgmma adds in f32, as the TPU
+//          kernel does;
+//       2. the scale is a per-column factor, sum_k x (q s) = s sum_k x q, so
+//          it moves to the epilogue (the two differ by f32 rounding only);
+//       3. an f32 x is split into three bf16 parts, h = x's top 8 significant
+//          bits, m = the top 8 of x - h, l = x - h - m (at most 8 bits left),
+//          so that x = h + m + l exactly; three products against the same B
+//          tile (l, m, then h) give the f32 product at a third of the bf16
+//          rate, still ~5x the f32 CUDA-core peak.
+//     Persistent, as the bf16 kernel, in its cooperative 128 x 192 mode: both
+//     consumer warpgroups share each tile, 64 rows each.  Warpgroup 0's one
+//     thread issues TMA into a landing ring (1-5 stages, as 224 KB allows) of
+//     raw chunks: the x chunk [128][64] (bf16 with the 128-byte swizzle, the
+//     A operand itself; f32 as dense rows) and the int8 w chunk [64][192] as
+//     dense rows.  Before each chunk's products the 256 consumer threads
+//     widen w to bf16 (each byte in the mantissa of an f32 magic number, a
+//     subtraction, the high half) and split an f32 x into h, m, l, writing
+//     exactly the 128-byte-swizzled tiles TMA writes for a bf16 w and x into
+//     a two-stage ring; each thread's fence.proxy.async makes its generic
+//     stores visible to wgmma, and a named barrier waits for all of them.
+//     The previous chunk's products run during the conversion.  The epilogue
+//     reads the tile's scale and bias (loaded before the mainloop) and
+//     applies acc * scale + bias and the activation in f32; bf16 out goes
+//     through the swizzled staging tile and TMA, f32 out from the accumulator
+//     as float2, a quad of threads writing a full 32-byte sector (staging
+//     192 f32 columns would take 48 KB a warpgroup).
+//       Converting is what bounds this kernel: conversion in a producer
+//     warpgroup left the tensor cores waiting (the conversion throughput of
+//     one warpgroup is below their rate), and in ping-pong mode one
+//     warpgroup converts a 128-column chunk alone.  Measured at mlp_in, the
+//     cooperative mode is faster for both x dtypes, so the int8 launcher has
+//     no ping-pong mode and no wave rule (PERF.md).
+//   - f32, and int8 otherwise: 64x64 output tile, 256 threads of 4x4
+//     outputs, K chunks of 16, on CUDA cores (no TF32).  The loader converts
+//     each element to f32 on its way into shared memory; for int8 it
+//     multiplies by the column's scale there, so the weight crosses device
+//     memory as int8.
 // The mma.sync and CUDA-core epilogues stay in registers: bias (read in the
 // storage dtype, added in f32), activation in f32, cast, bounds-checked store.
+//
+// Launch variants, written back through the launchers' last argument:
+// fused_dense (enum Variant) simt, mma_sync, wgmma_tma_128x192,
+// wgmma_tma_pingpong_128x128; fused_dense_quantized (enum QuantVariant) simt,
+// wgmma_tma_bf16x1_128x192 (bf16 x) and wgmma_tma_bf16x3_128x192 (f32 x).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -289,6 +333,351 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
     if (tid == 0) tma_store_wait<0>();
+  }
+}
+
+// ------------------------- int8-weight path: widened in shared memory, wgmma and TMA
+
+// setmaxnreg.inc takes only registers that .dec gave back, so from the
+// launch's 168 a thread (65,536 over 384 threads, in steps of 8) the producer
+// and the two consumer warpgroups may together ask for no more than 3 x 168;
+// more would block the consumers for ever.
+constexpr int kQuantProducerRegs = 40, kQuantConsumerRegs = 232;
+static_assert(kQuantProducerRegs + 2 * kQuantConsumerRegs <= 3 * (65536 / kWsThreads / 8 * 8),
+              "setmaxnreg asks for more registers than the launch holds");
+
+// 128 x 192 output tiles, both consumer warpgroups on each (64 rows each),
+// both converting each chunk.
+constexpr int kQBN = 192;
+constexpr int kQConvThreads = 256;  // the two consumer warpgroups
+constexpr int kQReleases = 8;       // consumer warps that use each stage
+
+// kParts bf16 parts of x: 1 for a bf16 x, 3 (h, m, l) for an f32 x.
+template <int kParts>
+struct QuantCfg {
+  static constexpr int kABytes = kWM * kWK * 2;  // one bf16 part of the x chunk, 16 KB
+  // TMA's landing stage: the x chunk [128][64] (bf16 with the 128-byte
+  // swizzle, which is wgmma's A operand as it lands; or f32 as dense rows),
+  // then the int8 w chunk [64][192] as dense rows.
+  static constexpr int kLandXBytes = kWM * kWK * (kParts == 1 ? 2 : 4);
+  static constexpr int kLandBytes = kLandXBytes + kWK * kQBN;
+  // The consumers' two-stage ring of converted operands: w widened to bf16,
+  // and for an f32 x its parts h, m, l (a bf16 x keeps a 1 KB placeholder).
+  static constexpr int kPartsBytes = kParts == 3 ? 3 * kABytes : 1024;
+  static constexpr int kConvBytes = kWK * kQBN * 2 + kPartsBytes;
+  static constexpr int kOutBytes = kParts == 1 ? 64 * kQBN * 2 : 0;  // bf16 staging tile
+  // The landing ring takes what is left of 224 KB, up to six stages.
+  static constexpr int kFree = 224 * 1024 - 2 * kOutBytes - 2 * kConvBytes;
+  static constexpr int kLand = kFree / kLandBytes < 6 ? kFree / kLandBytes : 6;
+  // A bf16 x's landing stage is held until the products that read it are
+  // done, so its ring needs a stage beyond the two in use.
+  static_assert(kLand >= (kParts == 1 ? 3 : 1), "too few landing stages");
+};
+
+template <int kParts>
+struct __align__(1024) QuantSmem {
+  using Cfg = QuantCfg<kParts>;
+  uint8_t land[Cfg::kLand][Cfg::kLandBytes];
+  __nv_bfloat16 b[2][kWK * kQBN];                    // w chunk, laid out as TMA lays a bf16 w
+  __nv_bfloat16 a[2][Cfg::kPartsBytes / 2];          // f32 x: parts h, m, l, each [128][64]
+  uint8_t out[2][Cfg::kOutBytes > 0 ? Cfg::kOutBytes : 16];
+  alignas(16) float epi[2][2][kQBN];  // per consumer warpgroup: the tile's scale and bias
+  uint64_t land_full[Cfg::kLand], land_empty[Cfg::kLand];
+  uint64_t empty[2];  // the converted ring: its products are done
+};
+
+template <int kParts>
+constexpr size_t smem_quant() {
+  return sizeof(QuantSmem<kParts>) + 1024;
+}
+
+// The high halves of two f32 (their bf16 truncations) as one bf16 pair, a in
+// the low half.
+__device__ __forceinline__ uint32_t high_halves(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+__device__ __forceinline__ float truncate_bf16(float a) {
+  return __uint_as_float(__float_as_uint(a) & 0xFFFF0000u);
+}
+
+// Four int8 (one 32-bit word) to four bf16, exactly: byte q + 128 becomes the
+// low mantissa bits of the f32 2^23 + q + 128, less 2^23 + 128 gives q, and q
+// (|q| <= 128, 8 significant bits) leaves the low 16 bits of its f32 zero, so
+// its bf16 is the high half.
+__device__ __forceinline__ void widen4(uint32_t q, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = q ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = high_halves(f0, f1);
+  hi = high_halves(f2, f3);
+}
+
+// Two f32 values as three bf16 pairs with x = h + m + l exactly: h is x's
+// top 8 significant bits (truncated), the remainder r = x - h is exact in
+// f32 and holds at most the 16 bits below them, m its top 8 significant
+// bits, and l = r - m the at most 8 bits left, exact in bf16.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& h, uint32_t& m, uint32_t& l) {
+  const float r0 = x0 - truncate_bf16(x0), r1 = x1 - truncate_bf16(x1);
+  const float m0 = truncate_bf16(r0), m1 = truncate_bf16(r1);
+  h = high_halves(x0, x1);
+  m = high_halves(m0, m1);
+  l = high_halves(r0 - m0, r1 - m1);
+}
+
+// The int8 w chunk [64 k][BN n] (dense rows) widened into BN/64 column blocks
+// of [64 k][64 n] bf16 with the 128-byte swizzle, the layout TMA gives a bf16
+// w: 16 bytes in, 16 values, two swizzled 16-byte chunks out.  Eight
+// neighbouring threads take four 16-byte pieces of one block in two
+// neighbouring k rows, whose swizzled chunks fall on eight different bank
+// groups.  A fixed count of units a thread, unrolled, so that each thread
+// has several loads in flight.
+template <int BN, int kConvThreads>
+__device__ __forceinline__ void widen_w(const uint8_t* land, __nv_bfloat16* b, int ct) {
+  constexpr int kBlocks = BN / 64, kUnits = kWK * BN / 16;
+  static_assert(kUnits % kConvThreads == 0, "whole units a thread");
+  uint8_t* blocks = reinterpret_cast<uint8_t*>(b);
+#pragma unroll
+  for (int i = 0; i < kUnits / kConvThreads; ++i) {
+    const int u = ct + i * kConvThreads;
+    const int piece = u % 4, blk = (u / 4 / 2) % kBlocks;
+    const int k = 2 * (u / (8 * kBlocks)) + (u / 4) % 2, c = 2 * piece;
+    const uint4 q = *reinterpret_cast<const uint4*>(land + k * BN + blk * 64 + piece * 16);
+    uint4 w0, w1;
+    widen4(q.x, w0.x, w0.y);
+    widen4(q.y, w0.z, w0.w);
+    widen4(q.z, w1.x, w1.y);
+    widen4(q.w, w1.z, w1.w);
+    uint8_t* row = blocks + blk * (kWK * 128) + k * 128;
+    *reinterpret_cast<uint4*>(row + ((c ^ (k % 8)) * 16)) = w0;
+    *reinterpret_cast<uint4*>(row + (((c + 1) ^ (k % 8)) * 16)) = w1;
+  }
+}
+
+// The f32 x chunk [128 rows][64 k] (dense rows) split into the parts h, m, l,
+// each [128][64] bf16 with the 128-byte swizzle, the layout TMA gives a bf16
+// x, one after another from `parts`: 4 values in, 8 bytes out to each part.
+template <int kConvThreads>
+__device__ __forceinline__ void split_x(const float* land, __nv_bfloat16* parts, int ct) {
+  constexpr int kUnits = kWM * kWK / 4;
+  static_assert(kUnits % kConvThreads == 0, "whole units a thread");
+  uint8_t* out = reinterpret_cast<uint8_t*>(parts);
+#pragma unroll 4
+  for (int i = 0; i < kUnits / kConvThreads; ++i) {
+    const int u = ct + i * kConvThreads;
+    const int r = u / 16, q = u % 16;
+    const float4 v = *reinterpret_cast<const float4*>(land + r * kWK + 4 * q);
+    uint2 h, m, l;
+    split2(v.x, v.y, h.x, m.x, l.x);
+    split2(v.z, v.w, h.y, m.y, l.y);
+    const int off = r * 128 + (((q / 2) ^ (r % 8)) * 16) + (q % 2) * 8;
+    *reinterpret_cast<uint2*>(out + off) = h;
+    *reinterpret_cast<uint2*>(out + kWM * kWK * 2 + off) = m;
+    *reinterpret_cast<uint2*>(out + 2 * kWM * kWK * 2 + off) = l;
+  }
+}
+
+// The bf16 kernel's persistent layout in its cooperative 128 x 192 mode,
+// with the conversion in the consumers.  The producer warpgroup's one thread
+// lands raw chunks by TMA in a ring with full/empty mbarriers.  Before each
+// chunk's products both consumer warpgroups convert the chunk into a
+// two-stage ring of bf16 operands (its own empty mbarriers say when the
+// products that read a stage are done), on warps that would otherwise wait
+// for the previous chunk's products, which run meanwhile.  An f32 x's
+// landing stage is free once converted; a bf16 x's, which is the A operand
+// itself, once its products are done.
+template <int kParts>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fused_dense_quant_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                            const __grid_constant__ CUtensorMap tm_w,
+                            const __grid_constant__ CUtensorMap tm_out, const DenseParams p) {
+  using namespace hopper;
+  using Cfg = QuantCfg<kParts>;
+  constexpr int BN = kQBN, kLand = Cfg::kLand;
+  extern __shared__ uint8_t quant_smem[];
+  QuantSmem<kParts>& sm = *reinterpret_cast<QuantSmem<kParts>*>(
+      (reinterpret_cast<uintptr_t>(quant_smem) + 1023) & ~uintptr_t(1023));
+  const int tiles_n = (p.N + BN - 1) / BN;
+  const int num_tiles = ((p.M + kWM - 1) / kWM) * tiles_n;
+  const int num_k = (p.K + kWK - 1) / kWK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int l = 0; l < kLand; ++l) {
+      mbar_init(&sm.land_full[l], 1);
+      mbar_init(&sm.land_empty[l], kQReleases);
+    }
+    mbar_init(&sm.empty[0], kQReleases);
+    mbar_init(&sm.empty[1], kQReleases);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues TMA, as far ahead as the landing ring
+    // allows.  Chunk `it` counts across this CTA's tiles in order.
+    setmaxnreg_dec<kQuantProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kWM, n0 = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < num_k; ++kt, ++it) {
+          const int l = it % kLand;
+          mbar_wait(&sm.land_empty[l], ((it / kLand) & 1) ^ 1);
+          mbar_arrive_expect_tx(&sm.land_full[l], Cfg::kLandBytes);
+          tma_load_2d(sm.land[l], &tm_x, &sm.land_full[l], kt * kWK, m0);
+          tma_load_2d(sm.land[l] + Cfg::kLandXBytes, &tm_w, &sm.land_full[l], n0, kt * kWK);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of each tile.
+    setmaxnreg_inc<kQuantConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int ct = threadIdx.x - 128;  // this thread's index among the converting threads
+    const int row_base = 64 * cw;
+    float* epi_scale = sm.epi[cw][0];
+    float* epi_bias = sm.epi[cw][1];
+    uint8_t* staging = sm.out[cw];
+    constexpr int kCols = (BN + 127) / 128;  // columns of scale and bias a thread loads
+    int it = 0;
+    for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * kWM, n0 = (tile % tiles_n) * BN;
+      // The tile's scale and bias, read before the mainloop so that their
+      // latency hides behind it; they reach the epilogue through shared memory.
+      float col_scale[kCols], col_bias[kCols];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int c = tid + 128 * i, col = n0 + c;
+        const bool in = c < BN && col < p.N;
+        col_scale[i] = in ? p.scale[col] : 0.f;
+        if constexpr (kParts == 1) {
+          col_bias[i] = in ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.b)[col]) : 0.f;
+        } else {
+          col_bias[i] = in ? static_cast<const float*>(p.b)[col] : 0.f;
+        }
+      }
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+      for (int kt = 0; kt < num_k; ++kt, ++it) {
+        const int l = it % kLand, s = it % 2;
+        mbar_wait(&sm.land_full[l], (it / kLand) & 1);
+        mbar_wait(&sm.empty[s], ((it / 2) & 1) ^ 1);
+        // Widen (and split) the landed chunk into the free converted stage
+        // while the previous chunk's products run.
+        widen_w<BN, kQConvThreads>(sm.land[l] + Cfg::kLandXBytes, sm.b[s], ct);
+        if constexpr (kParts == 3) {
+          split_x<kQConvThreads>(reinterpret_cast<const float*>(sm.land[l]), sm.a[s], ct);
+        }
+        // wgmma reads the converted stage, and TMA rewrites the landing
+        // stage, through the async proxy: order this thread's generic stores
+        // and loads before them, then wait for every converting thread.
+        fence_proxy_async();
+        named_barrier_sync(3, kQConvThreads);
+        if (kParts == 3 && lane == 0) mbar_arrive(&sm.land_empty[l]);
+        const __nv_bfloat16* a = kParts == 1 ? reinterpret_cast<const __nv_bfloat16*>(sm.land[l])
+                                             : sm.a[s];
+        fence_operand(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWK / 16; ++kk) {
+          const uint64_t db = make_desc_sw128(sm.b[s] + kk * 16 * 64, kWK * 64 * 2, 1024);
+          // The small parts first: l, m, then h, against the same B tile.
+#pragma unroll
+          for (int part = kParts - 1; part >= 0; --part) {
+            const uint64_t da =
+                make_desc_sw128(a + part * kWM * kWK + row_base * kWK + kk * 16, 16, 1024);
+            wgmma_ss<1>(acc, da, db, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done: hand its stages back
+        fence_operand(acc);
+        if (kt > 0 && lane == 0) {
+          mbar_arrive(&sm.empty[(it - 1) % 2]);
+          if (kParts == 1) mbar_arrive(&sm.land_empty[(it - 1) % kLand]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (num_k > 0 && lane == 0) {
+        mbar_arrive(&sm.empty[(it - 1) % 2]);
+        if (kParts == 1) mbar_arrive(&sm.land_empty[(it - 1) % kLand]);
+      }
+
+      // Epilogue: acc * scale + bias, the activation in f32, x's dtype out.
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        if (tid + 128 * i < BN) {
+          epi_scale[tid + 128 * i] = col_scale[i];
+          epi_bias[tid + 128 * i] = col_bias[i];
+        }
+      }
+      if constexpr (kParts == 1) {
+        if (tid == 0) tma_store_wait_read<0>();  // the previous store has read the staging tile
+      }
+      named_barrier_sync(1 + cw, 128);
+      if constexpr (kParts == 1) {
+        // bf16 pairs into the swizzled staging tile, stored with TMA (as the
+        // bf16 kernel's epilogue).
+#pragma unroll
+        for (int jt = 0; jt < BN / 8; ++jt) {
+          const int cl = 8 * jt + 2 * t;
+          const float2 s2 = *reinterpret_cast<const float2*>(epi_scale + cl);
+          const float2 b2 = *reinterpret_cast<const float2*>(epi_bias + cl);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int rr = 16 * warp + g + 8 * r;
+            const float v0 = activate(acc[4 * jt + 2 * r] * s2.x + b2.x, p.act);
+            const float v1 = activate(acc[4 * jt + 2 * r + 1] * s2.y + b2.y, p.act);
+            *reinterpret_cast<uint32_t*>(staging + (jt / 8) * (64 * 128) + rr * 128 +
+                                         (((jt % 8) ^ g) * 16) + 4 * t) = pack_bf16(v0, v1);
+          }
+        }
+        fence_proxy_async();
+        named_barrier_sync(1 + cw, 128);
+        if (tid == 0 && m0 + row_base < p.M) {
+#pragma unroll
+          for (int cb = 0; cb < BN / 64; ++cb) {
+            if (n0 + 64 * cb < p.N) {
+              tma_store_2d(&tm_out, staging + cb * (64 * 128), n0 + 64 * cb, m0 + row_base);
+            }
+          }
+          tma_store_commit();
+        }
+      } else {
+        // f32 pairs straight from the accumulator: a quad of threads writes
+        // 32 contiguous bytes of a row, a full sector.  N is a multiple of 16,
+        // so a pair is in or out whole.
+        float* out = static_cast<float*>(p.out);
+#pragma unroll
+        for (int jt = 0; jt < BN / 8; ++jt) {
+          const int cl = 8 * jt + 2 * t, col = n0 + cl;
+          const float2 s2 = *reinterpret_cast<const float2*>(epi_scale + cl);
+          const float2 b2 = *reinterpret_cast<const float2*>(epi_bias + cl);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = m0 + row_base + 16 * warp + g + 8 * r;
+            if (row < p.M && col < p.N) {
+              const float2 v = make_float2(activate(acc[4 * jt + 2 * r] * s2.x + b2.x, p.act),
+                                           activate(acc[4 * jt + 2 * r + 1] * s2.y + b2.y, p.act));
+              *reinterpret_cast<float2*>(out + (long long)row * p.N + col) = v;
+            }
+          }
+        }
+        named_barrier_sync(1 + cw, 128);  // scale and bias read before the next tile writes them
+      }
+    }
+    if constexpr (kParts == 1) {
+      if (tid == 0) tma_store_wait<0>();
+    }
   }
 }
 
@@ -564,6 +953,60 @@ int launch_wgmma(cudaStream_t stream, const DenseParams& p) {
   return int(cudaGetLastError());
 }
 
+// Codes of the int8-weight launcher: the CUDA-core kernel, or the wgmma one
+// (cooperative 128 x 192) with one bf16 part of x (bf16 x) or three (f32 x).
+enum QuantVariant { kQuantSimt = 0, kQuantX1Coop192 = 1, kQuantX3Coop192 = 2 };
+
+// The wgmma route where TMA can describe the operands: x and wq bases on 16
+// bytes, x rows and wq rows a multiple of 16 bytes apart, N a multiple of 16
+// (the f32 epilogue's pairs, the bf16 output's TMA rows), K > 0.
+QuantVariant quant_variant(const void* x, const void* wq, int N, int K, long long ldx,
+                           long long ldw, int x_is_bf16) {
+  const long long x_row_bytes = ldx * (x_is_bf16 ? 2 : 4);
+  const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(wq) % 16 == 0 && x_row_bytes % 16 == 0 &&
+                   ldw % 16 == 0 && N % 16 == 0 && K > 0;
+  if (!tma) return kQuantSimt;
+  return x_is_bf16 ? kQuantX1Coop192 : kQuantX3Coop192;
+}
+
+template <int kParts>
+int launch_quant_wgmma(cudaStream_t stream, const DenseParams& p) {
+  CUtensorMap tx, tw, tout;
+  const cuuint64_t x_dims[2] = {cuuint64_t(p.K), cuuint64_t(p.M)};
+  const cuuint64_t x_strides[1] = {cuuint64_t(p.ldx) * (kParts == 1 ? 2 : 4)};
+  const cuuint32_t x_box[2] = {kWK, kWM};
+  const cuuint64_t w_dims[2] = {cuuint64_t(p.N), cuuint64_t(p.K)};
+  const cuuint64_t w_strides[1] = {cuuint64_t(p.ldw)};
+  const cuuint32_t w_box[2] = {kQBN, kWK};
+  bool ok = hopper::cached_tensor_map<2>(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                         CU_TENSOR_MAP_SWIZZLE_NONE, p.w, w_dims, w_strides, w_box);
+  if constexpr (kParts == 1) {
+    const cuuint64_t o_dims[2] = {cuuint64_t(p.N), cuuint64_t(p.M)};
+    const cuuint64_t o_strides[1] = {cuuint64_t(p.N) * 2};
+    const cuuint32_t o_box[2] = {64, 64};
+    ok = ok && hopper::cached_tensor_map_bf16<2>(&tx, p.x, x_dims, x_strides, x_box) &&
+         hopper::cached_tensor_map_bf16<2>(&tout, p.out, o_dims, o_strides, o_box);
+  } else {
+    ok = ok && hopper::cached_tensor_map<2>(&tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                            CU_TENSOR_MAP_SWIZZLE_NONE, p.x, x_dims, x_strides,
+                                            x_box);
+    tout = tx;  // unused: the f32 epilogue stores from registers
+  }
+  if (!ok) return int(cudaErrorInvalidValue);
+  const size_t smem = smem_quant<kParts>();
+  static_assert(smem_quant<kParts>() <= 227 * 1024, "over the 227 KB a block may use");
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      hopper::set_max_dynamic_smem_once(smem_set, fused_dense_quant_wgmma<kParts>, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long tiles = (long long)((p.N + kQBN - 1) / kQBN) * ((p.M + kWM - 1) / kWM);
+  const int sms = num_sms();
+  const int grid = int(tiles < sms ? tiles : sms);
+  fused_dense_quant_wgmma<kParts><<<grid, kWsThreads, smem, stream>>>(tx, tw, tout, p);
+  return int(cudaGetLastError());
+}
+
 bool valid(int M, int N, int K, int act) {
   return M > 0 && N > 0 && K >= 0 && act >= kNone && act <= kGelu && (M + kSBM - 1) / kSBM < 65536;
 }
@@ -590,8 +1033,8 @@ extern "C" int fused_dense(const void* x, const void* w, const void* b, void* ou
 }
 
 // x [M,K] and b [N] bf16 (x_is_bf16) or f32; wq [K,N] int8; scale [N] f32;
-// out [M,N] contiguous in x's dtype.  The product is f32 on CUDA cores
-// (*variant is kSimt).
+// out [M,N] contiguous in x's dtype.  Returns the cudaError_t of the launch
+// and, in *variant, which kernel it launched (enum QuantVariant).
 extern "C" int fused_dense_quantized(const void* x, const void* wq, const void* scale,
                                      const void* b, void* out, int M, int N, int K,
                                      long long ldx, long long ldw, int act, int x_is_bf16,
@@ -599,7 +1042,12 @@ extern "C" int fused_dense_quantized(const void* x, const void* wq, const void* 
   if (!valid(M, N, K, act) || scale == nullptr) return int(cudaErrorInvalidValue);
   DenseParams p{x, wq, b, static_cast<const float*>(scale), out, M, N, K, ldx, ldw, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  *variant = kSimt;
-  if (x_is_bf16) return launch(fused_dense_simt<__nv_bfloat16, int8_t>, kSBM, kSBN, st, p);
-  return launch(fused_dense_simt<float, int8_t>, kSBM, kSBN, st, p);
+  *variant = quant_variant(x, wq, N, K, ldx, ldw, x_is_bf16);
+  switch (*variant) {
+    case kQuantX1Coop192: return launch_quant_wgmma<1>(st, p);
+    case kQuantX3Coop192: return launch_quant_wgmma<3>(st, p);
+    default:
+      if (x_is_bf16) return launch(fused_dense_simt<__nv_bfloat16, int8_t>, kSBM, kSBN, st, p);
+      return launch(fused_dense_simt<float, int8_t>, kSBM, kSBN, st, p);
+  }
 }

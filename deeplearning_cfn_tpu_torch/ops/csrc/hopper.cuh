@@ -2,8 +2,9 @@
 //
 //   - mbarriers: init, arrive, arrive with an expected transaction count, and
 //     a wait on a phase's parity;
-//   - TMA: tensor maps encoded on the host (bf16, 128-byte swizzle, zero fill
-//     past the tensor's edge; cached, like the launch's shared-memory
+//   - TMA: tensor maps encoded on the host (any element type, bf16 operand
+//     tiles with 128-byte swizzle, zero fill past the tensor's edge; cached
+//     by every argument, the element type included, like the launch's shared-memory
 //     attribute, so a launch adds no host work once its shapes have been
 //     seen), 2-D / 4-D tile loads into shared memory that
 //     complete on an mbarrier, and 2-D / 4-D tile stores from shared memory;
@@ -169,34 +170,43 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A rank-R bf16 tensor map: dims innermost first, strides (bytes) of dims
-// 1..R-1, a box of `box` elements, 128-byte swizzle, zeros past every edge.
-// TMA needs a 16-byte-aligned base, strides a multiple of 16 bytes, and
-// box[0] * 2 <= 128 bytes.  Returns false if the driver refuses the map.
+// A rank-R tensor map of `dtype` elements: dims innermost first, strides
+// (bytes) of dims 1..R-1, a box of `box` elements, zeros past every edge
+// (0 for the integer types too).  TMA needs a 16-byte-aligned base, strides a
+// multiple of 16 bytes, box dims of at most 256 and an inner box of a
+// multiple of 16 bytes; with CU_TENSOR_MAP_SWIZZLE_128B the inner box is at
+// most 128 bytes (64 bf16, 128 int8, 32 f32), with no swizzle the box lands
+// in shared memory as dense rows.  Returns false if cuTensorMapEncodeTiled
+// refuses the map.
 template <int R>
-inline bool make_tensor_map_bf16(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[R],
-                                 const cuuint64_t (&strides)[R - 1], const cuuint32_t (&box)[R]) {
+inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                            CUtensorMapSwizzle swizzle, const void* base,
+                            const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                            const cuuint32_t (&box)[R]) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint32_t elem_strides[R];
   for (int i = 0; i < R; ++i) elem_strides[i] = 1;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, dtype, R, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// make_tensor_map_bf16 through a cache.  A map is a pure function of its
+// make_tensor_map through a cache.  A map is a pure function of its
 // arguments, and encoding one is a driver call on the host at every launch;
 // the training paths launch each kernel on a few shapes at addresses the
 // caching allocator hands out again and again.  Direct-mapped, keyed by every
-// argument, so a hit returns exactly the map that encoding would.
+// argument (the data type and the swizzle too: one address may be read as
+// bf16 by one kernel and as bytes by another), so a hit returns exactly the
+// map that encoding would.
 template <int R>
-inline bool cached_tensor_map_bf16(CUtensorMap* map, const void* base,
-                                   const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
-                                   const cuuint32_t (&box)[R]) {
+inline bool cached_tensor_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                              CUtensorMapSwizzle swizzle, const void* base,
+                              const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                              const cuuint32_t (&box)[R]) {
   struct Key {
     const void* base;
+    int dtype, swizzle;
     cuuint64_t dims[R], strides[R - 1];
     cuuint32_t box[R];
   };
@@ -211,6 +221,8 @@ inline bool cached_tensor_map_bf16(CUtensorMap* map, const void* base,
   Key key;
   memset(&key, 0, sizeof key);  // padding bytes take part in the hash and the compare
   key.base = base;
+  key.dtype = int(dtype);
+  key.swizzle = int(swizzle);
   memcpy(key.dims, dims, sizeof dims);
   memcpy(key.strides, strides, sizeof strides);
   memcpy(key.box, box, sizeof box);
@@ -223,11 +235,20 @@ inline bool cached_tensor_map_bf16(CUtensorMap* map, const void* base,
     *map = e.map;
     return true;
   }
-  if (!make_tensor_map_bf16<R>(map, base, dims, strides, box)) return false;
+  if (!make_tensor_map<R>(map, dtype, swizzle, base, dims, strides, box)) return false;
   e.key = key;
   e.map = *map;
   e.used = true;
   return true;
+}
+
+// The bf16 operand tiles of wgmma: 128-byte swizzle (see the layouts above).
+template <int R>
+inline bool cached_tensor_map_bf16(CUtensorMap* map, const void* base,
+                                   const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                                   const cuuint32_t (&box)[R]) {
+  return cached_tensor_map<R>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B,
+                              base, dims, strides, box);
 }
 
 // cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and

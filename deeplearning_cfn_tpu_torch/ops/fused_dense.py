@@ -19,6 +19,9 @@ around the call (``models/fused_layers.FusedDense`` does).
   of ``_fused_core`` and its ``custom_vjp``.
 - :func:`fused_dense_quantized`: the int8-weight variant (``_quant_kernel``),
   forward only: ``act(f32(x) @ (f32(wq) * scale[N]) + b)``, an f32 product.
+  On the card it runs on the bf16 tensor cores without giving up f32: int8
+  values are exact in bf16, the per-column scale moves after the sum, and an
+  f32 x is split into three bf16 parts whose products sum to the f32 one.
 
 Not ported yet: ``fused_dense_profitable``, which reads XLA's
 ``cost_analysis`` to choose between the kernel and the plain path.
@@ -167,7 +170,12 @@ def fused_dense_quantized(
 ) -> torch.Tensor:
     """Fused dense with int8 weights, ``wq [K, N]`` and a per-output-channel
     ``scale [N]`` f32, dequantized next to the product; forward only.  The
-    result is in x's dtype."""
+    result is in x's dtype.
+
+    On a CUDA tensor the kernel computes ``scale * (x @ bf16(wq))`` on the
+    bf16 tensor cores (an f32 x as the sum of three bf16 parts ``h + m + l``),
+    equal to the plain version's ``x @ (wq * scale)`` up to f32 rounding;
+    on a CPU tensor the plain version (:func:`_quant_reference`)."""
     _check_activation(activation)
     if wq.dtype != torch.int8:
         raise ValueError(f"wq must be int8, got {wq.dtype}")

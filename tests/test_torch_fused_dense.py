@@ -11,10 +11,15 @@ port runs its plain versions, on the same numpy inputs.  Tolerances:
 - gradients: the same f32 products in another order; dx and dw are rounded
   to bf16 on the bf16 cases, so the same one-ulp rule applies there.
 - quantization: the same f32 divisions and round-half-to-even, so equal.
+- the int8-weight kernel's tensor-core arithmetic (an f32 x as three bf16
+  parts, each times bf16(wq), the scale after the sum), emulated in plain
+  torch: the same f32 function as the plain version up to f32 rounding, so
+  the f32 tolerance.
 
 The CUDA kernels are held to the plain versions by the ``cuda`` tests at the
 end, on a card (``python -m pytest -m cuda tests/test_torch_fused_dense.py``;
-the card's host has no JAX, so the JAX comparisons skip there).
+the card's host has no JAX, so the JAX comparisons skip there); each
+int8-weight case also checks the variant its launch was counted under.
 """
 
 import numpy as np
@@ -126,6 +131,56 @@ def test_quantized_matches_pallas_interpret(activation, dtype):
     )
     assert got.dtype == tdt
     np.testing.assert_allclose(_f32(got), _f32(ref), **tol)
+
+
+def _truncate_bf16(a):
+    """The top 16 bits of each f32: its bf16 truncation, as an f32."""
+    return (a.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split_product(x, wq, scale, b, activation, parts):
+    """The int8-weight kernel's tensor-core arithmetic in plain torch, in f32:
+    x as ``parts`` bf16 parts (a bf16 x as itself; an f32 x as h = its top 8
+    significant bits, m = the next 8 of x - h, l = x - h - m), each
+    multiplied by bf16(wq) with f32 accumulation (the products are exact),
+    the scale applied after the sum, then the bias and activation."""
+    wb = wq.to(torch.bfloat16).to(torch.float32)
+    x = x.to(torch.float32)
+    if parts == 1:
+        pieces = [x]
+    else:
+        h = _truncate_bf16(x)
+        m = _truncate_bf16(x - h)
+        pieces = [h, m, x - h - m]
+    acc = sum(torch.matmul(p, wb) for p in reversed(pieces))  # l, m, then h, as the kernel
+    return port.ACTIVATIONS[activation](acc * scale + b.to(torch.float32)), pieces
+
+
+@needs_jax
+@pytest.mark.parametrize("x_dtype,parts", [("f32", 3), ("bf16", 1)])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_quantized_tensor_core_arithmetic_matches_pallas_interpret(activation, shape, x_dtype,
+                                                                    parts):
+    """The card's design computes the TPU kernel's f32 function: bf16 parts of
+    x times bf16(wq), the scale after the sum.  Held in f32 to the plain
+    version and, in x's dtype, to the Pallas kernel in interpret mode."""
+    tdt, jdt, tol = _dtypes(x_dtype)
+    x, w, b = _operands(*SHAPES[shape], seed=7)
+    wq, scale = (np.array(a) for a in jax_quant.quantize_weight(jnp.asarray(w)))
+    tx, twq, tscale, tb = _torch(x, tdt), torch.from_numpy(wq), torch.from_numpy(scale), _torch(b, tdt)
+    got, pieces = _split_product(tx, twq, tscale, tb, activation, parts)
+    for piece in pieces:  # every part is exact in bf16, and together they are x
+        assert torch.equal(piece.to(torch.bfloat16).to(torch.float32), piece)
+    if parts == 3:
+        assert torch.equal(pieces[0] + pieces[1] + pieces[2], tx)
+    plain = port._quant_reference(tx, twq, tscale, tb, activation, torch.float32)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **F32_TOL)
+    ref = jax_fused.fused_dense_quantized(
+        _jax(x, jdt), jnp.asarray(wq), jnp.asarray(scale), _jax(b, jdt),
+        activation=activation, interpret=True,
+    )
+    np.testing.assert_allclose(_f32(got.to(tdt)), _f32(ref), **tol)
 
 
 @needs_jax
@@ -288,18 +343,78 @@ def test_kernel_reads_row_strides_on_card(cuda_device):
     torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL)
 
 
+def _quant_variant(dtype, mode):
+    """The int8-weight launcher's variant name: ``simt``, or the wgmma kernel
+    with one bf16 part of x (bf16 x) or three (f32 x) in ``mode``."""
+    if mode == "simt":
+        return "simt"
+    return f"wgmma_tma_bf16x{1 if dtype == torch.bfloat16 else 3}_{mode}"
+
+
+def _check_quant_launch(x, wq, scale, b, activation, variant):
+    """One launch through the public entry point, counted under ``variant``,
+    against the plain version."""
+    before = dict(_kernels.launch_counts)
+    got = port.fused_dense_quantized(x, wq, scale, b, activation=activation)
+    torch.cuda.synchronize()
+    key = f"fused_dense_quantized/{variant}"
+    assert _kernels.launch_counts["fused_dense_quantized"] == before["fused_dense_quantized"] + 1
+    assert _kernels.launch_counts[key] == before.get(key, 0) + 1
+    ref = port._quant_reference(x, wq, scale, b, activation, x.dtype)
+    tol = BF16_TOL if x.dtype == torch.bfloat16 else F32_TOL
+    assert got.dtype == x.dtype
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_kernel_matches_plain_version_on_card(cuda_device, dtype):
     x, w, b = _cuda_operands(37, 200, 300, dtype, cuda_device)
     wq, scale = quant.quantize_weight(w.float())
-    before = _kernels.launch_counts["fused_dense_quantized"]
-    got = port.fused_dense_quantized(x, wq, scale, b, activation="relu")
-    torch.cuda.synchronize()
-    assert _kernels.launch_counts["fused_dense_quantized"] == before + 1
-    ref = port._quant_reference(x, wq, scale, b, "relu", dtype)
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    _check_quant_launch(x, wq, scale, b, "relu", "simt")  # N 300: wq rows off 16 bytes
+
+
+# (M, K, N, mode): the wgmma route on 16-byte rows (cooperative 128 x 192
+# tiles), with more tiles than an H100 has SMs, with a ragged K chunk and with
+# ragged M (TMA's zero fill in every part); the CUDA-core kernel where N is
+# not a multiple of 16.
+QUANT_CUDA_CASES = {
+    "aligned": (256, 256, 384, "128x192"),
+    "many-tiles": (4096, 128, 2048, "128x192"),
+    "ragged-k": (64, 200, 304, "128x192"),
+    "ragged-m": (1000, 256, 256, "128x192"),
+    "simt": (37, 200, 300, "simt"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(QUANT_CUDA_CASES))
+def test_quantized_kernel_variants_match_plain_version_on_card(cuda_device, case, dtype,
+                                                                activation):
+    m, k, n, mode = QUANT_CUDA_CASES[case]
+    x, w, b = _cuda_operands(m, k, n, dtype, cuda_device, seed=8)
+    wq, scale = quant.quantize_weight(w.float())
+    _check_quant_launch(x, wq, scale, b, activation, _quant_variant(dtype, mode))
+
+
+# Views with row strides: x rows 256 elements apart, wq rows 320 apart (16
+# bytes: the wgmma route) or 300 apart (the CUDA-core kernel).
+QUANT_VIEWS = {"tma": (320, "128x192"), "simt": (300, "simt")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", list(QUANT_VIEWS))
+def test_quantized_kernel_reads_row_strides_on_card(cuda_device, view, dtype):
+    ldw, mode = QUANT_VIEWS[view]
+    x, w, b = _cuda_operands(64, 256, ldw, dtype, cuda_device, seed=9)
+    wq, scale = quant.quantize_weight(w.float())
+    xs, wqs = x[:, :200], wq[:200, :288]
+    assert xs.stride(0) == 256 and wqs.stride(0) == ldw
+    _check_quant_launch(xs, wqs, scale[:288], b[:288], "gelu",
+                        _quant_variant(dtype, mode))
 
 
 @pytest.mark.cuda

@@ -72,6 +72,21 @@ def test_every_kernel_source_includes_the_shared_header():
         assert '#include "hopper.cuh"' in (_kernels.CSRC / f"{name}.cu").read_text()
 
 
+def test_tensor_map_cache_is_keyed_by_every_encoding_argument():
+    """The tensor-map cache returns a map for (base, dims, strides, box): its
+    key must hold the element type and the swizzle too, or a map of bf16
+    tiles would be handed back for a byte map of the same address."""
+    import re
+
+    text = (_kernels.CSRC / "hopper.cuh").read_text()
+    cached = text[text.index("inline bool cached_tensor_map("):]
+    key = re.search(r"struct Key \{([^}]*)\}", cached).group(1)
+    for field in ("base", "dtype", "swizzle", "dims", "strides", "box"):
+        assert re.search(rf"\b{field}\b", key), field
+    params = re.search(r"cached_tensor_map\(([^)]*)\)", cached).group(1)
+    assert "CUtensorMapDataType dtype" in params and "CUtensorMapSwizzle swizzle" in params
+
+
 def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
@@ -151,15 +166,21 @@ def test_launch_counts_follow_the_variant_the_launcher_reports():
     assert _kernels.launch_counts == dict.fromkeys(_kernels._KERNELS, 0)
 
 
+# The enum of variant codes each kernel's launcher writes back.
+_VARIANT_ENUMS = {"flash_attention_fwd": "Variant", "fused_dense": "Variant",
+                  "fused_dense_quantized": "QuantVariant"}
+
+
 @pytest.mark.parametrize("source,kernel", [("flash_attn_fwd", "flash_attention_fwd"),
-                                           ("fused_dense", "fused_dense")])
+                                           ("fused_dense", "fused_dense"),
+                                           ("fused_dense", "fused_dense_quantized")])
 def test_variant_names_cover_the_launchers_enum(source, kernel):
-    """Every code of a source's `enum Variant` has a name in the wrapper, and
+    """Every code of a launcher's variant enum has a name in the wrapper, and
     every launcher writes the variant back through its last argument."""
     import re
 
     text = (_kernels.CSRC / f"{source}.cu").read_text()
-    enum = re.search(r"enum Variant \{([^}]*)\}", text).group(1)
+    enum = re.search(rf"enum {_VARIANT_ENUMS[kernel]} \{{([^}}]*)\}}", text).group(1)
     codes = {int(v) for v in re.findall(r"=\s*(\d+)", enum)}
     assert codes == set(_kernels._VARIANTS[kernel])
     for fn, argtypes in _kernels._SIGNATURES[source].items():
