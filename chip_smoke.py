@@ -14,7 +14,12 @@ Phases, one JSON line each:
            shapes the main paths give it and at edge shapes (flash: GQA,
            ragged non-causal at head dim 64, causal ragged, q/k/v as strided
            views of one packed tensor, f32; fused dense: ragged with 16-byte
-           rows, ragged with odd rows, the ResNet head in f32; int8-weight
+           rows, ragged with odd rows; in f32 the ResNet head, split across a
+           thread-block cluster, BERT's mlp_in without a split, both on the
+           bf16 tensor cores with x and w in three parts each (bound by six
+           bf16 passes; the f32 CUDA-core bound beside it), the head's output
+           checked bitwise equal over two calls, and a ragged shape on the
+           CUDA cores; int8-weight
            dense: BERT's mlp_in with a bf16 and with an f32 x on the bf16
            tensor cores, ragged M and K with 16-byte rows, and a ragged shape
            on the CUDA cores; bound by the design's arithmetic, one bf16
@@ -116,6 +121,9 @@ BERT_ARGS = [
 # mean of 1e-2.
 BERT_LOGITS_MAX_ATOL = 0.125
 BERT_LOGITS_MEAN_ATOL = 1e-2
+# The f32 fused dense's variants: split across a cluster, and not.
+F32_SPLITK = "wgmma_tma_bf16x6_splitk_128x192"
+F32_COOP = "wgmma_tma_bf16x6_128x192"
 # Flash crossover: sequence lengths at the m435 heads, tokens per call held
 # at the Llama path's batch 8 x seq 2048.
 CROSSOVER_SEQS = (512, 1024, 2048, 4096)
@@ -431,13 +439,19 @@ def main() -> int:
         "aligned-ragged": (1000, 200, 304, torch.bfloat16, "relu"),
         "ragged": (1000, 200, 300, torch.bfloat16, "relu"),
         "resnet_head": (128, 2048, 1000, torch.float32, None),
+        "mlp_in-f32": (BERT_BATCH * BERT_SEQ, 768, 3072, torch.float32, "gelu"),
+        # N not a multiple of 4: rows TMA cannot read.
+        "ragged-f32": (1000, 200, 301, torch.float32, "relu"),
     }
-    # The launcher's choice on an H100 (132 SMs): ping-pong where there are
-    # two 128 x 128 tiles or more an SM, else cooperative 128 x 192; mma.sync
-    # for bf16 rows TMA cannot read; CUDA cores for f32.
+    # The launcher's choice on an H100 (132 SMs): bf16, ping-pong where there
+    # are two 128 x 128 tiles or more an SM, else cooperative 128 x 192, and
+    # mma.sync for rows TMA cannot read; f32, six bf16 products of parts, K
+    # split across a cluster where 128 x 192 tiles leave half the SMs idle
+    # (the head: 6 tiles, 16 CTAs each), without a split otherwise, and CUDA cores for
+    # rows TMA cannot read.
     dense_variants = {"mlp_in": "wgmma_tma_pingpong_128x128", "mlp_out": "wgmma_tma_128x192",
                       "aligned-ragged": "wgmma_tma_128x192", "ragged": "mma_sync",
-                      "resnet_head": "simt"}
+                      "resnet_head": F32_SPLITK, "mlp_in-f32": F32_COOP, "ragged-f32": "simt"}
     dense_rows = {}
     for label, (M, K, N, dtype, act) in dense_shapes.items():
         x, w, b = dense_operands(M, K, N, dtype)
@@ -446,8 +460,27 @@ def main() -> int:
         torch.cuda.synchronize()
         row = dense_check(label, "fused_dense", got, fd.fused_dense_reference(x, w, b, act), dtype)
         row.update({"M": M, "K": K, "N": N, "activation": act, "variant": variant})
-        peak_ops = peak_flops if dtype == torch.bfloat16 else peak_f32
+        # The bound of the design's arithmetic: bf16 products at the bf16
+        # peak, one pass for bf16 operands and six for f32 ones split in
+        # three; an f32 product on the CUDA cores at the f32 peak, which
+        # stays beside the others for the record.
+        if dtype == torch.bfloat16:
+            peak_ops, basis = peak_flops, "bf16 tensor cores x1"
+        elif variant == "simt":
+            peak_ops, basis = peak_f32, "f32 CUDA cores"
+        else:
+            peak_ops, basis = peak_flops / 6, "bf16 tensor cores x6"
         row.update(_dense_work(M, K, N, x.element_size(), w.element_size(), peak_ops, peak_bw))
+        row["bound_basis"] = basis
+        if dtype == torch.float32:
+            row["bound_f32_cuda_cores_ms"] = _dense_work(
+                M, K, N, 4, 4, peak_f32, peak_bw)["bound_ms"]
+            row["splits"] = _kernels.fused_dense_f32_splits(M, N, K) if variant == F32_SPLITK else 1
+            # The cluster sums its partial tiles in rank order: the same bits each call.
+            again = _kernels.fused_dense(x, w, b, activation=act)
+            torch.cuda.synchronize()
+            row["bitwise_repeatable"] = bool(torch.equal(again, got))
+            _require(row["bitwise_repeatable"], f"fused_dense {label}: two calls differ")
         kernel = lambda: _kernels.fused_dense(x, w, b, activation=act)  # noqa: E731
         library = lambda: library_act[act](torch.addmm(b, x, w))  # noqa: E731
         row.update({
@@ -725,14 +758,26 @@ def main() -> int:
                 "library_ms": row["library_ms"], "variant": row["variant"], "shape": row["shape"]}
 
     csrc = "deeplearning_cfn_tpu_torch/ops/csrc/"
+    # The fused dense by operand dtype: bf16 on the BERT path; f32 on no main
+    # path yet (the ResNet-50 head is a later slice).
+    dense_launches = {"bf16": 0, "f32": 0}
+    for counts in (llama_launches, bert_launches):
+        for v, n in _variants(counts, "fused_dense").items():
+            dense_launches["f32" if v in (F32_SPLITK, F32_COOP, "simt") else "bf16"] += n
+    bf16_rows = [r for r in dense_rows.values() if r["dtype"] == "bfloat16"]
+    f32_rows = [r for r in dense_rows.values() if r["dtype"] == "float32"]
     _emit({"kernels": [
         kernel_entry("flash_attention_fwd", csrc + "flash_attn_fwd.cu",
                      "deeplearning_cfn_tpu/ops/pallas_attention.py:222",
                      llama_launches["flash_attention_fwd"],
                      max(r["out_max_abs_err"] for r in kernel_rows.values()), kernel_rows["slice"]),
         kernel_entry("fused_dense", csrc + "fused_dense.cu",
-                     "deeplearning_cfn_tpu/ops/pallas_fused.py:135", bert_launches["fused_dense"],
-                     max(r["max_abs_err"] for r in dense_rows.values()), dense_rows["mlp_in"]),
+                     "deeplearning_cfn_tpu/ops/pallas_fused.py:135",
+                     dense_launches["bf16"],
+                     max(r["max_abs_err"] for r in bf16_rows), dense_rows["mlp_in"]),
+        kernel_entry("fused_dense_f32", csrc + "fused_dense.cu",
+                     "deeplearning_cfn_tpu/ops/pallas_fused.py:135", dense_launches["f32"],
+                     max(r["max_abs_err"] for r in f32_rows), dense_rows["resnet_head"]),
         kernel_entry("fused_dense_quantized", csrc + "fused_dense.cu",
                      "deeplearning_cfn_tpu/ops/pallas_fused.py:292",
                      bert_launches["fused_dense_quantized"],

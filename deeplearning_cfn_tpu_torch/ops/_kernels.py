@@ -42,12 +42,14 @@ _KERNELS = ("flash_attention_fwd", "fused_dense", "fused_dense_quantized")
 launch_counts: dict[str, int] = dict.fromkeys(_KERNELS, 0)
 
 # Codes of each launcher's variant enum (`enum Variant`; `enum QuantVariant`
-# for the int8-weight launcher, whose bf16x1 / bf16x3 variants run one or
-# three bf16 products a k-step, for a bf16 or an f32 x).
+# for the int8-weight launcher).  bf16xP: P bf16 products a k-step, of the
+# parts an f32 operand is split into (the int8 kernel's bf16x1 / bf16x3 for a
+# bf16 or an f32 x; bf16x6 for the f32 dense, both operands in three parts).
 _VARIANTS = {
     "flash_attention_fwd": {0: "simt", 1: "wgmma_tma"},
     "fused_dense": {0: "simt", 1: "mma_sync", 2: "wgmma_tma_128x192",
-                    3: "wgmma_tma_pingpong_128x128"},
+                    3: "wgmma_tma_pingpong_128x128", 4: "wgmma_tma_bf16x6_128x192",
+                    5: "wgmma_tma_bf16x6_splitk_128x192"},
     "fused_dense_quantized": {0: "simt", 1: "wgmma_tma_bf16x1_128x192",
                               2: "wgmma_tma_bf16x3_128x192"},
 }
@@ -236,8 +238,16 @@ def fused_dense(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, activation: str | None
 ) -> torch.Tensor:
     """Launch ``csrc/fused_dense.cu``: ``act(x @ w + b)`` as ``[M, N]`` in x's
-    dtype.  x, w and b are CUDA tensors of one dtype: bf16 (tensor cores) or
-    f32 (CUDA cores); any row strides, unit stride on the last axis."""
+    dtype.  x, w and b are CUDA tensors of one dtype, bf16 or f32; any row
+    strides, unit stride on the last axis.
+
+    bf16 runs on the tensor cores.  f32 runs there too where TMA can read the
+    rows (16-byte-aligned bases and row strides, N a multiple of 4): both
+    operands split exactly into three bf16 parts, six products of parts
+    (f32-accurate), K split across a thread-block cluster where the output
+    tiles would leave the card's SMs idle (:func:`fused_dense_f32_splits`).
+    Elsewhere f32 runs on CUDA cores.  The launcher picks by dtype, shape and
+    alignment and reports its choice, counted under ``"fused_dense/<variant>"``."""
     if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError(f"fused_dense takes bf16 or f32 x/w/b of one dtype, got "
                         f"{[t.dtype for t in (x, w, b)]}")
@@ -257,6 +267,17 @@ def fused_dense(
         raise RuntimeError(f"fused_dense launch failed with CUDA error {err}")
     _count_launch("fused_dense", variant)
     return out
+
+
+def fused_dense_f32_splits(M: int, N: int, K: int) -> int:
+    """How many CTAs of a cluster the f32 fused dense splits K over for an
+    ``[M, K] x [K, N]`` product with rows TMA can read, on the current card
+    (1: no split, the ``wgmma_tma_bf16x6_128x192`` variant); the launcher's
+    own rule, for the record."""
+    lib = _load("fused_dense")
+    fn = lib.fused_dense_f32_splits
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_int
+    return int(fn(M, N, K))
 
 
 def fused_dense_quantized(

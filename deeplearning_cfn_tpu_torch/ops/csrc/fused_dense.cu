@@ -20,7 +20,11 @@
 // The quantized kernel at mlp_in computes the same product on bf16 tensor
 // cores (below): one bf16 pass for a bf16 x, 0.0195 ms against 33.8 MB
 // (0.0101 ms); three for an f32 x, 0.0586 ms against 65.3 MB (0.0195 ms).
-// Compute-bound either way.
+// Compute-bound either way.  The f32 fused dense runs six bf16 passes
+// (below): at the ResNet-50 head (M 128, K 2048, N 1000) 3.1 GFLOP, 0.0032 ms,
+// against 9.76 MB (0.0029 ms); at mlp_in in f32 116 GFLOP, 0.117 ms, against
+// 72.3 MB (0.022 ms).  Compute-bound, narrowly at the head, where 128 x 192
+// tiles number 6 on 132 SMs: there K is split across a thread-block cluster.
 //
 // The TPU kernel holds the whole K axis of a 256-row tile in VMEM.  A Hopper
 // block cannot (a 64-row bf16 x tile at K 3072 is 384 KB against 227 KB of
@@ -106,18 +110,35 @@
 //     warpgroup converts a 128-column chunk alone.  Measured at mlp_in, the
 //     cooperative mode is faster for both x dtypes, so the int8 launcher has
 //     no ping-pong mode and no wave rule (PERF.md).
-//   - f32, and int8 otherwise: 64x64 output tile, 256 threads of 4x4
-//     outputs, K chunks of 16, on CUDA cores (no TF32).  The loader converts
-//     each element to f32 on its way into shared memory; for int8 it
-//     multiplies by the column's scale there, so the weight crosses device
+//   - f32, rows TMA can describe (x and w bases on 16 bytes, row strides
+//     multiples of 4 elements, N a multiple of 4, K > 0): the f32 product on
+//     the bf16 tensor cores with both operands split in three, x = xh + xm +
+//     xl and w = wh + wm + wl exactly, and the six products of parts whose
+//     size reaches f32's precision (l.h, h.l, m.m, m.h, h.m, h.h, smallest
+//     first) into one f32 accumulator: six bf16 passes, ~2.5x the f32
+//     CUDA-core peak.  The int8 kernel's layout, with both operands landing
+//     as f32 in K chunks of 32 and both split by the consumers; w's parts
+//     are written N-major, read with the transpose bit, so w stays [K, N].
+//     Where 128 x 192 tiles leave half the SMs or more idle (the ResNet-50
+//     head: 6 tiles), split-K: a cluster of up to 16 CTAs shares a tile,
+//     each taking a run of K chunks, and the partial tiles are summed through
+//     distributed shared memory in rank order, each CTA a slice of the rows
+//     (deterministic; no workspace, no atomics).  Elsewhere persistent,
+//     the epilogue from the accumulator.
+//   - f32 otherwise, and int8 otherwise: 64x64 output tile, 256 threads of
+//     4x4 outputs, K chunks of 16, on CUDA cores (no TF32).  The loader
+//     converts each element to f32 on its way into shared memory; for int8
+//     it multiplies by the column's scale there, so the weight crosses device
 //     memory as int8.
 // The mma.sync and CUDA-core epilogues stay in registers: bias (read in the
 // storage dtype, added in f32), activation in f32, cast, bounds-checked store.
 //
 // Launch variants, written back through the launchers' last argument:
 // fused_dense (enum Variant) simt, mma_sync, wgmma_tma_128x192,
-// wgmma_tma_pingpong_128x128; fused_dense_quantized (enum QuantVariant) simt,
-// wgmma_tma_bf16x1_128x192 (bf16 x) and wgmma_tma_bf16x3_128x192 (f32 x).
+// wgmma_tma_pingpong_128x128, wgmma_tma_bf16x6_128x192 and
+// wgmma_tma_bf16x6_splitk_128x192 (f32); fused_dense_quantized (enum
+// QuantVariant) simt, wgmma_tma_bf16x1_128x192 (bf16 x) and
+// wgmma_tma_bf16x3_128x192 (f32 x).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -341,7 +362,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 // setmaxnreg.inc takes only registers that .dec gave back, so from the
 // launch's 168 a thread (65,536 over 384 threads, in steps of 8) the producer
 // and the two consumer warpgroups may together ask for no more than 3 x 168;
-// more would block the consumers for ever.
+// more would block the consumers for ever.  These and the constants below
+// hold for the f32 kernel too, which shares this kernel's layout.
 constexpr int kQuantProducerRegs = 40, kQuantConsumerRegs = 232;
 static_assert(kQuantProducerRegs + 2 * kQuantConsumerRegs <= 3 * (65536 / kWsThreads / 8 * 8),
               "setmaxnreg asks for more registers than the launch holds");
@@ -681,6 +703,345 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
+// ------------------------------ f32 path: both operands split in three, wgmma and TMA
+
+// K chunks of 32 f32 (one 128-byte row of x): with both operands landing as
+// f32 and converted into three bf16 parts each, a 64-deep chunk would leave
+// room for one converted stage only, and the products would wait for every
+// conversion.  At 32 there are two, as in the int8 kernel.
+constexpr int kFK = 32;
+constexpr int kF32BN = kQBN;      // 128 x 192 tiles, as the int8 kernel; split-K: one a cluster
+constexpr int kMaxSplits = 16;    // CTAs a cluster (above 8: non-portable)
+constexpr int kMinSplitChunks = 2;
+
+struct F32Cfg {
+  static constexpr int BN = kF32BN;
+  // TMA's landing stage: the x chunk [128][32] and the w chunk [32][BN], f32 dense rows.
+  static constexpr int kLandXBytes = kWM * kFK * 4;
+  static constexpr int kLandBytes = kLandXBytes + kFK * BN * 4;
+  // x's parts in two [128][64] bf16 tiles with the 128-byte swizzle: h in k
+  // 0..31 and m in k 32..63 of the first, l in k 0..31 of the second, so that
+  // each part is read by the descriptors of a 64-wide tile's k-steps.
+  static constexpr int kABytes = 2 * kWM * 64 * 2;
+  static constexpr int kBPartBytes = kFK * BN * 2;  // one part of w: BN/64 blocks of [32][64]
+  static constexpr int kConvBytes = kABytes + 3 * kBPartBytes;
+  // The landing ring takes what is left of 224 KB after two converted stages, up to four.
+  static constexpr int kFree = 224 * 1024 - 2 * kConvBytes;
+  static constexpr int kLand = kFree / kLandBytes < 4 ? kFree / kLandBytes : 4;
+  static_assert(kLand >= 2, "too few landing stages");
+  // Split-K: the CTA's partial tile, f32 rows padded by 8 floats (float2
+  // stores from the accumulator layout without bank conflicts), written over
+  // the landing ring and x's converted parts once the mainloop is done.
+  static constexpr int kPartLd = BN + 8;
+  static_assert(kWM * kPartLd * 4 <= kLand * kLandBytes + 2 * kABytes, "partial tile over the rings");
+};
+
+struct __align__(1024) F32Smem {
+  using Cfg = F32Cfg;
+  uint8_t land[Cfg::kLand][Cfg::kLandBytes];        // split-K, then: the partial tile over land and a
+  __nv_bfloat16 a[2][Cfg::kABytes / 2];             // x's parts h|m and l
+  __nv_bfloat16 b[2][3][Cfg::kBPartBytes / 2];      // w's parts h, m, l, laid out as TMA lays a bf16 w
+  alignas(16) float bias[2][kF32BN];                    // no split: per consumer warpgroup, the tile's bias
+  uint64_t land_full[Cfg::kLand], land_empty[Cfg::kLand];
+  uint64_t empty[2];  // the converted ring: its products are done
+};
+
+constexpr size_t smem_f32() {
+  return sizeof(F32Smem) + 1024;
+}
+
+// The f32 x chunk [128 rows][32 k] (dense rows) split into h, m, l in the
+// two swizzled tiles of F32Cfg: 4 values in, 8 bytes out to each part.  A
+// warp takes rows r, r + 1, r + 4, r + 5, whose swizzled halves of a row fall
+// on all 32 banks.
+template <int kConvThreads>
+__device__ __forceinline__ void split_x32(const float* land, __nv_bfloat16* a, int ct) {
+  constexpr int kUnits = kWM * kFK / 4;
+  static_assert(kUnits % kConvThreads == 0, "whole units a thread");
+  uint8_t* out = reinterpret_cast<uint8_t*>(a);
+#pragma unroll
+  for (int i = 0; i < kUnits / kConvThreads; ++i) {
+    const int u = ct + i * kConvThreads;
+    const int q = u % 8;  // k 4q .. 4q + 3
+    const int r = (u / 64) * 8 + ((u / 32) % 2) * 2 + ((u / 16) % 2) * 4 + (u / 8) % 2;
+    const float4 v = *reinterpret_cast<const float4*>(land + r * kFK + 4 * q);
+    uint2 h, m, l;
+    split2(v.x, v.y, h.x, m.x, l.x);
+    split2(v.z, v.w, h.y, m.y, l.y);
+    const int row = r * 128, half = (q % 2) * 8;
+    *reinterpret_cast<uint2*>(out + row + (((q / 2) ^ (r % 8)) * 16) + half) = h;
+    *reinterpret_cast<uint2*>(out + row + (((4 + q / 2) ^ (r % 8)) * 16) + half) = m;
+    *reinterpret_cast<uint2*>(out + kWM * 128 + row + (((q / 2) ^ (r % 8)) * 16) + half) = l;
+  }
+}
+
+// The f32 w chunk [32 k][BN n] (dense rows) split into h, m, l, one after
+// another from `parts`, each BN/64 column blocks of [32 k][64 n] bf16 with
+// the 128-byte swizzle: the layout TMA gives a bf16 w, read N-major with the
+// transpose bit.  4 values in, 8 bytes out to each part; sixteen neighbouring
+// threads read 256 contiguous bytes and fill one 128-byte row of a block.
+template <int kConvThreads>
+__device__ __forceinline__ void split_w32(const float* land, __nv_bfloat16* parts, int ct) {
+  constexpr int BN = kF32BN;
+  constexpr int kUnits = kFK * BN / 4, kPartBytes = kFK * BN * 2;
+  static_assert(kUnits % kConvThreads == 0, "whole units a thread");
+  uint8_t* out = reinterpret_cast<uint8_t*>(parts);
+#pragma unroll
+  for (int i = 0; i < kUnits / kConvThreads; ++i) {
+    const int u = ct + i * kConvThreads;
+    const int q = u % 16, k = (u / 16) % kFK, blk = u / (16 * kFK);  // n = 64 blk + 4q
+    const float4 v = *reinterpret_cast<const float4*>(land + k * BN + blk * 64 + 4 * q);
+    uint2 h, m, l;
+    split2(v.x, v.y, h.x, m.x, l.x);
+    split2(v.z, v.w, h.y, m.y, l.y);
+    const int off = blk * (kFK * 128) + k * 128 + (((q / 2) ^ (k % 8)) * 16) + (q % 2) * 8;
+    *reinterpret_cast<uint2*>(out + off) = h;
+    *reinterpret_cast<uint2*>(out + kPartBytes + off) = m;
+    *reinterpret_cast<uint2*>(out + 2 * kPartBytes + off) = l;
+  }
+}
+
+// Split-K: CTA `rank` of a cluster of kSplits sums rows [rank R, rank R + R)
+// (R = 128 / kSplits) of the tile over every CTA's partial tile, through
+// distributed shared memory, in rank order (the same bits whatever the
+// timing), then adds the bias, applies the activation and stores float4s.
+// The peer count is a template argument so that the loads stay in registers.
+template <int kSplits>
+__device__ __forceinline__ void reduce_partials(const float* part, uint32_t rank, int m0, int n0,
+                                                const DenseParams& p, int ct) {
+  constexpr int BN = kF32BN, kPartLd = F32Cfg::kPartLd;
+  constexpr int kRows = kWM / kSplits, kUnits = kRows * BN / 4;
+  const float* bias = static_cast<const float*>(p.b);
+  float* out = static_cast<float*>(p.out);
+  for (int u = ct; u < kUnits; u += kQConvThreads) {
+    const int row = int(rank) * kRows + u / (BN / 4), c = 4 * (u % (BN / 4));
+    const int grow = m0 + row, col = n0 + c;
+    if (grow >= p.M || col >= p.N) continue;  // N is a multiple of 4: a float4 is in or out whole
+    const float* src = part + row * kPartLd + c;
+    float4 v[kSplits];  // every peer's load in flight at once
+#pragma unroll
+    for (int q = 0; q < kSplits; ++q) v[q] = hopper::ld_shared_cluster_f4(hopper::map_shared_rank(src, q));
+    float4 sum = v[0];
+#pragma unroll
+    for (int q = 1; q < kSplits; ++q) {
+      sum.x += v[q].x;
+      sum.y += v[q].y;
+      sum.z += v[q].z;
+      sum.w += v[q].w;
+    }
+    *reinterpret_cast<float4*>(out + (long long)grow * p.N + col) =
+        make_float4(activate(sum.x + bias[col], p.act), activate(sum.y + bias[col + 1], p.act),
+                    activate(sum.z + bias[col + 2], p.act), activate(sum.w + bias[col + 3], p.act));
+  }
+}
+
+// act(x @ w + b) for f32 x, w and b on the bf16 tensor cores.  x = xh + xm
+// + xl and w = wh + wm + wl exactly (split2), and the products of the parts
+// whose size reaches f32's precision run, smallest first (x part . w part):
+// l.h, h.l, m.m, m.h, h.m, h.h.  Each is exact in f32 (8 x 8 significant
+// bits) and added into one f32 accumulator.  Of the three left out, m.l and
+// l.m are below 2^-24 |x| |w| and l.l below 2^-32 |x| |w|, a term.
+//
+// The int8 kernel's layout: warpgroup 0's one thread lands raw f32 chunks
+// by TMA (zero fill past M, N and K); both consumer warpgroups split each
+// chunk into a two-stage ring of bf16 parts while the previous chunk's
+// products run, then run that chunk's products, 64 tile rows each.
+//   No split (kSplit false): persistent, CTA c walks the 128 x BN tiles c,
+// c + gridDim.x, ..., every K chunk of each; the epilogue adds the bias and
+// applies the activation in f32 and stores f32 pairs from the accumulator.
+//   Split-K (kSplit true): a cluster of `splits` CTAs shares one 128 x BN
+// tile, CTA r taking the r-th of `splits` contiguous runs of K chunks.  Each
+// writes its partial tile into its own shared memory; after a cluster
+// barrier, CTA r sums rows [r R, r R + R) (R = 128 / splits) of every CTA's
+// partial through distributed shared memory, in rank order, so the result
+// does not depend on timing; then bias, activation, and float4 stores.  A
+// last cluster barrier keeps every CTA's shared memory alive until its peers
+// have read it.  No workspace in device memory, no atomics.
+template <bool kSplit>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fused_dense_f32_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w, const DenseParams p) {
+  using namespace hopper;
+  using Cfg = F32Cfg;
+  constexpr int BN = kF32BN, kLand = Cfg::kLand;
+  extern __shared__ uint8_t f32_smem[];
+  F32Smem& sm = *reinterpret_cast<F32Smem*>(
+      (reinterpret_cast<uintptr_t>(f32_smem) + 1023) & ~uintptr_t(1023));
+  const int tiles_n = (p.N + BN - 1) / BN;
+  const int num_tiles = ((p.M + kWM - 1) / kWM) * tiles_n;
+  const int num_k = (p.K + kFK - 1) / kFK;
+  const int wg = threadIdx.x / 128;
+  // The tiles this CTA walks and the K chunks it takes of each.
+  int tile0 = blockIdx.x, tile_step = gridDim.x, k_begin = 0, k_end = num_k;
+  uint32_t rank = 0, splits = 1;
+  if constexpr (kSplit) {
+    rank = cluster_ctarank();
+    splits = cluster_nctarank();
+    tile0 = blockIdx.x / splits;
+    tile_step = num_tiles;  // one tile
+    k_begin = int((long long)num_k * rank / splits);
+    k_end = int((long long)num_k * (rank + 1) / splits);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int l = 0; l < kLand; ++l) {
+      mbar_init(&sm.land_full[l], 1);
+      mbar_init(&sm.land_empty[l], kQReleases);
+    }
+    mbar_init(&sm.empty[0], kQReleases);
+    mbar_init(&sm.empty[1], kQReleases);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues TMA, as far ahead as the landing ring allows.
+    setmaxnreg_dec<kQuantProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = tile0; tile < num_tiles; tile += tile_step) {
+        const int m0 = (tile / tiles_n) * kWM, n0 = (tile % tiles_n) * BN;
+        for (int kt = k_begin; kt < k_end; ++kt, ++it) {
+          const int l = it % kLand;
+          mbar_wait(&sm.land_empty[l], ((it / kLand) & 1) ^ 1);
+          mbar_arrive_expect_tx(&sm.land_full[l], Cfg::kLandBytes);
+          tma_load_2d(sm.land[l], &tm_x, &sm.land_full[l], kt * kFK, m0);
+          tma_load_2d(sm.land[l] + Cfg::kLandXBytes, &tm_w, &sm.land_full[l], n0, kt * kFK);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of each tile.
+    setmaxnreg_inc<kQuantConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int ct = threadIdx.x - 128;  // this thread's index among the converting threads
+    const int row_base = 64 * cw;
+    const float* bias = static_cast<const float*>(p.b);
+    constexpr int kCols = (BN + 127) / 128;  // columns of bias a thread loads
+    int it = 0;
+    for (int tile = tile0; tile < num_tiles; tile += tile_step) {
+      const int m0 = (tile / tiles_n) * kWM, n0 = (tile % tiles_n) * BN;
+      float col_bias[kCols];
+      if constexpr (!kSplit) {
+        // Read before the mainloop so that the latency hides behind it.
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          const int c = tid + 128 * i;
+          col_bias[i] = c < BN && n0 + c < p.N ? bias[n0 + c] : 0.f;
+        }
+      }
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+      for (int kt = k_begin; kt < k_end; ++kt, ++it) {
+        const int l = it % kLand, s = it % 2;
+        mbar_wait(&sm.land_full[l], (it / kLand) & 1);
+        mbar_wait(&sm.empty[s], ((it / 2) & 1) ^ 1);
+        split_w32<kQConvThreads>(reinterpret_cast<const float*>(sm.land[l] + Cfg::kLandXBytes),
+                                     sm.b[s][0], ct);
+        split_x32<kQConvThreads>(reinterpret_cast<const float*>(sm.land[l]), sm.a[s], ct);
+        // wgmma reads the converted stage, and TMA rewrites the landing
+        // stage, through the async proxy: order this thread's generic stores
+        // and loads before them, then wait for every converting thread.
+        fence_proxy_async();
+        named_barrier_sync(3, kQConvThreads);
+        if (lane == 0) mbar_arrive(&sm.land_empty[l]);
+        const __nv_bfloat16* a = sm.a[s] + row_base * 64;
+        fence_operand(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kFK / 16; ++kk) {
+          uint64_t db[3];
+#pragma unroll
+          for (int part = 0; part < 3; ++part) {
+            db[part] = make_desc_sw128(sm.b[s][part] + kk * 16 * 64, kFK * 64 * 2, 1024);
+          }
+          const uint64_t xh = make_desc_sw128(a + kk * 16, 16, 1024);
+          const uint64_t xm = make_desc_sw128(a + 32 + kk * 16, 16, 1024);
+          const uint64_t xl = make_desc_sw128(a + kWM * 64 + kk * 16, 16, 1024);
+          wgmma_ss<1>(acc, xl, db[0], 1);
+          wgmma_ss<1>(acc, xh, db[2], 1);
+          wgmma_ss<1>(acc, xm, db[1], 1);
+          wgmma_ss<1>(acc, xm, db[0], 1);
+          wgmma_ss<1>(acc, xh, db[1], 1);
+          wgmma_ss<1>(acc, xh, db[0], 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done: hand its stage back
+        fence_operand(acc);
+        if (kt > k_begin && lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (k_end > k_begin && lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
+
+      if constexpr (kSplit) {
+        // The partial tile into this CTA's shared memory, over the landing
+        // ring and x's parts, once both warpgroups' products are done.
+        named_barrier_sync(3, kQConvThreads);
+        float* part = reinterpret_cast<float*>(sm.land[0]);
+#pragma unroll
+        for (int jt = 0; jt < BN / 8; ++jt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = row_base + 16 * warp + g + 8 * r;
+            *reinterpret_cast<float2*>(part + row * Cfg::kPartLd + 8 * jt + 2 * t) =
+                make_float2(acc[4 * jt + 2 * r], acc[4 * jt + 2 * r + 1]);
+          }
+        }
+      } else {
+        // Epilogue: acc + bias, the activation in f32, f32 pairs straight
+        // from the accumulator: a quad of threads writes 32 contiguous bytes
+        // of a row, a full sector.  N is a multiple of 4, so a pair is in or
+        // out whole.
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          if (tid + 128 * i < BN) sm.bias[cw][tid + 128 * i] = col_bias[i];
+        }
+        named_barrier_sync(1 + cw, 128);
+        float* out = static_cast<float*>(p.out);
+#pragma unroll
+        for (int jt = 0; jt < BN / 8; ++jt) {
+          const int cl = 8 * jt + 2 * t, col = n0 + cl;
+          const float2 b2 = *reinterpret_cast<const float2*>(sm.bias[cw] + cl);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = m0 + row_base + 16 * warp + g + 8 * r;
+            if (row < p.M && col < p.N) {
+              *reinterpret_cast<float2*>(out + (long long)row * p.N + col) =
+                  make_float2(activate(acc[4 * jt + 2 * r] + b2.x, p.act),
+                              activate(acc[4 * jt + 2 * r + 1] + b2.y, p.act));
+            }
+          }
+        }
+        named_barrier_sync(1 + cw, 128);  // the bias read before the next tile writes it
+      }
+    }
+  }
+
+  if constexpr (kSplit) {
+    // Every CTA's partial tile is written (all threads of the cluster take part).
+    cluster_sync();
+    if (wg > 0) {
+      const int m0 = (tile0 / tiles_n) * kWM, n0 = (tile0 % tiles_n) * BN;
+      const float* part = reinterpret_cast<const float*>(sm.land[0]);
+      const int ct = threadIdx.x - 128;
+      switch (splits) {  // a power of two from 2 to 16 (f32_splits)
+        case 2: reduce_partials<2>(part, rank, m0, n0, p, ct); break;
+        case 4: reduce_partials<4>(part, rank, m0, n0, p, ct); break;
+        case 8: reduce_partials<8>(part, rank, m0, n0, p, ct); break;
+        default: reduce_partials<16>(part, rank, m0, n0, p, ct); break;
+      }
+    }
+    // No CTA leaves while a peer may still read its shared memory.
+    cluster_sync();
+  }
+}
+
 // ------------------------------------------ bf16 path: unaligned rows (mma.sync)
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
@@ -814,7 +1175,7 @@ __global__ void __launch_bounds__(kThreads) fused_dense_bf16(const DenseParams p
   }
 }
 
-// ------------------------------------------------- f32 and int8 path (CUDA cores)
+// ------------------------------------ f32 and int8 paths, rows TMA cannot read (CUDA cores)
 
 constexpr int kSBM = 64, kSBN = 64, kSBK = 16;
 constexpr int kSPad = 4;  // keeps float4 rows 16-byte aligned
@@ -903,7 +1264,14 @@ int num_sms() {
   return sms;
 }
 
-enum Variant { kSimt = 0, kMmaSync = 1, kCoop192 = 2, kPingpong128 = 3 };
+enum Variant {
+  kSimt = 0,
+  kMmaSync = 1,
+  kCoop192 = 2,
+  kPingpong128 = 3,
+  kF32Coop192 = 4,
+  kF32SplitK192 = 5
+};
 
 // The wgmma kernel for an M x N output.  With at least two 128 x 128 tiles
 // for every SM, ping-pong: one warpgroup's epilogue runs under the other's
@@ -914,9 +1282,41 @@ Variant wgmma_variant(int M, int N) {
   return tiles >= 2LL * num_sms() ? kPingpong128 : kCoop192;
 }
 
+// The f32 tensor-core kernel's split of K.  Where its 128 x 192 tiles would
+// leave at least half the SMs idle, a cluster of `splits` CTAs shares each
+// tile: the largest power of two up to 16 such that every CTA has an SM of
+// its own (tiles x splits <= SMs), takes at least two K chunks, and every
+// cluster runs at once (the device's occupancy query for clusters of that
+// size, which counts how clusters fit its GPCs: on an H100 SXM 7 clusters of
+// 16 CTAs, 15 of 8).  1: no split.  At the ResNet-50 head, 6 tiles: 16.
+int max_active_f32_clusters(int splits);
+
+int f32_splits(int M, int N, int K) {
+  const long long tiles = (long long)((M + kWM - 1) / kWM) * ((N + kF32BN - 1) / kF32BN);
+  const int num_k = (K + kFK - 1) / kFK, sms = num_sms();
+  int s = 1;
+  while (2 * s <= kMaxSplits && tiles * 2 * s <= sms && num_k >= 2 * s * kMinSplitChunks) s *= 2;
+  while (s > 1 && max_active_f32_clusters(s) < tiles) s /= 2;
+  return s;
+}
+
+// bf16: the wgmma kernel where TMA can read the rows (16-byte-aligned bases
+// and row strides, K and N multiples of 8, K > 0), mma.sync otherwise.  f32:
+// the tensor-core kernel where TMA can read the rows (16-byte-aligned bases
+// and row strides, K > 0) and N is a multiple of 4 (the epilogues' float2
+// and float4 stores), split-K where f32_splits says so; CUDA cores otherwise.
+// *splits is the f32 split of K (1 for the other variants).
 Variant dense_variant(const void* x, const void* w, int M, int N, int K, long long ldx,
-                      long long ldw, int is_bf16) {
-  if (!is_bf16) return kSimt;
+                      long long ldw, int is_bf16, int* splits) {
+  *splits = 1;
+  if (!is_bf16) {
+    const bool tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0 && ldx % 4 == 0 && ldw % 4 == 0 &&
+                     N % 4 == 0 && K > 0;
+    if (!tma) return kSimt;
+    *splits = f32_splits(M, N, K);
+    return *splits > 1 ? kF32SplitK192 : kF32Coop192;
+  }
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0 && ldx % 8 == 0 &&
                        ldw % 8 == 0 && K % 8 == 0 && N % 8 == 0 && K > 0;
@@ -951,6 +1351,68 @@ int launch_wgmma(cudaStream_t stream, const DenseParams& p) {
   const int grid = int(tiles < sms ? tiles : sms);
   fused_dense_wgmma<BN, kPingpong><<<grid, kWsThreads, smem, stream>>>(tx, tw, tout, p);
   return int(cudaGetLastError());
+}
+
+template <bool kSplit>
+int launch_f32_wgmma(cudaStream_t stream, const DenseParams& p, int splits) {
+  CUtensorMap tx, tw;
+  const cuuint64_t x_dims[2] = {cuuint64_t(p.K), cuuint64_t(p.M)};
+  const cuuint64_t x_strides[1] = {cuuint64_t(p.ldx) * 4};
+  const cuuint32_t x_box[2] = {kFK, kWM};
+  const cuuint64_t w_dims[2] = {cuuint64_t(p.N), cuuint64_t(p.K)};
+  const cuuint64_t w_strides[1] = {cuuint64_t(p.ldw) * 4};
+  const cuuint32_t w_box[2] = {kF32BN, kFK};
+  if (!hopper::cached_tensor_map<2>(&tx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE, p.x, x_dims, x_strides, x_box) ||
+      !hopper::cached_tensor_map<2>(&tw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE, p.w, w_dims, w_strides, w_box)) {
+    return int(cudaErrorInvalidValue);
+  }
+  constexpr size_t smem = smem_f32();
+  static_assert(smem <= 227 * 1024, "over the 227 KB a block may use");
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err =
+      hopper::set_max_dynamic_smem_once(smem_set, fused_dense_f32_wgmma<kSplit>, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const long long tiles = (long long)((p.N + kF32BN - 1) / kF32BN) * ((p.M + kWM - 1) / kWM);
+  if constexpr (kSplit) {
+    err = hopper::launch_cluster(fused_dense_f32_wgmma<true>, int(tiles * splits), splits,
+                                 kWsThreads, smem, stream, tx, tw, p);
+    return err != cudaSuccess ? int(err) : int(cudaGetLastError());
+  } else {
+    const int sms = num_sms();
+    const int grid = int(tiles < sms ? tiles : sms);
+    fused_dense_f32_wgmma<false><<<grid, kWsThreads, smem, stream>>>(tx, tw, p);
+    return int(cudaGetLastError());
+  }
+}
+
+// The occupancy query behind f32_splits, asked once per device and size.
+int max_active_f32_clusters(int splits) {
+  static std::atomic<int> known[64][kMaxSplits + 1];  // 0: not asked yet; the answer + 1
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64) {
+    const int k = known[dev][splits].load(std::memory_order_relaxed);
+    if (k > 0) return k - 1;
+  }
+  constexpr size_t smem = smem_f32();
+  auto kernel = fused_dense_f32_wgmma<true>;
+  static std::atomic<uint64_t> attrs_set{0};
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (!(attrs_set.load(std::memory_order_acquire) & bit)) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)) !=
+            cudaSuccess ||
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+            cudaSuccess) {
+      (void)cudaGetLastError();
+      return 0;
+    }
+    attrs_set.fetch_or(bit, std::memory_order_release);
+  }
+  const int n = hopper::max_active_clusters(kernel, splits, kWsThreads, smem);
+  if (dev < 64) known[dev][splits].store(n + 1, std::memory_order_relaxed);
+  return n;
 }
 
 // Codes of the int8-weight launcher: the CUDA-core kernel, or the wgmma one
@@ -1023,13 +1485,23 @@ extern "C" int fused_dense(const void* x, const void* w, const void* b, void* ou
   if (!valid(M, N, K, act)) return int(cudaErrorInvalidValue);
   DenseParams p{x, w, b, nullptr, out, M, N, K, ldx, ldw, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  *variant = dense_variant(x, w, M, N, K, ldx, ldw, is_bf16);
+  int splits = 1;
+  *variant = dense_variant(x, w, M, N, K, ldx, ldw, is_bf16, &splits);
   switch (*variant) {
     case kPingpong128: return launch_wgmma<128, true>(st, p);
     case kCoop192: return launch_wgmma<192, false>(st, p);
     case kMmaSync: return launch(fused_dense_bf16, kBM, kBN, st, p);
+    case kF32SplitK192: return launch_f32_wgmma<true>(st, p, splits);
+    case kF32Coop192: return launch_f32_wgmma<false>(st, p, 1);
     default: return launch(fused_dense_simt<float, float>, kSBM, kSBN, st, p);
   }
+}
+
+// How many CTAs of a cluster the f32 tensor-core kernel splits K over for an
+// [M,K] x [K,N] product on the current device (1: no split), by the rule of
+// f32_splits; for the record, the launcher does not call it.
+extern "C" int fused_dense_f32_splits(int M, int N, int K) {
+  return M > 0 && N > 0 && K > 0 ? f32_splits(M, N, K) : 1;
 }
 
 // x [M,K] and b [N] bf16 (x_is_bf16) or f32; wq [K,N] int8; scale [N] f32;

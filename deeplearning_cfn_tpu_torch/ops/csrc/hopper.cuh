@@ -12,7 +12,10 @@
 //     fence / commit / wait instructions, and m64nNk16 bf16 -> f32 products
 //     with A from shared memory (SS) or from registers (RS);
 //   - setmaxnreg, to move registers from a producer warpgroup to consumers;
-//     named barriers, to synchronise one warpgroup.
+//     named barriers, to synchronise one warpgroup;
+//   - thread-block clusters: rank and size, the cluster barrier, reads of a
+//     peer CTA's shared memory (distributed shared memory), and the host's
+//     cluster launch and occupancy query.
 //
 // Layouts.  TMA with CU_TENSOR_MAP_SWIZZLE_128B writes a box whose inner
 // dimension is 64 bf16 (128 bytes) as rows of 128 bytes, 16-byte chunks
@@ -447,6 +450,89 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(1), "n"(1),
         "n"(kTransB));
+}
+
+// ------------------------------------------------------------------ clusters
+
+// This CTA's rank in its cluster, and the cluster's size in CTAs.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits for all the
+// others: shared-memory writes before the arrival (release) are visible to
+// every read in the cluster after the wait (acquire).  Every thread of the
+// CTA calls it, its warp converged (.aligned).
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Distributed shared memory: the shared::cluster address of `p`, an object
+// in this CTA's shared memory, at the same offset in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t map_shared_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ float4 ld_shared_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// A launch of `grid` CTAs of `threads` threads in clusters of `cluster` CTAs
+// along x (grid a multiple of it), its one attribute kept in `attr`.  A
+// cluster above 8 CTAs needs cudaFuncAttributeNonPortableClusterSizeAllowed
+// set on the kernel.
+inline cudaLaunchConfig_t cluster_config(int grid, int cluster, int threads, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), int grid, int cluster, int threads,
+                                  size_t smem, cudaStream_t stream, Args&&... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, cluster, threads, smem, stream, &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
+}
+
+// How many clusters of `cluster` CTAs (of `threads` threads and `smem` bytes
+// of dynamic shared memory each) the current device can run at once; 0 if
+// the runtime refuses the query (its error is cleared).
+template <typename Kernel>
+inline int max_active_clusters(Kernel kernel, int cluster, int threads, size_t smem) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, threads, smem, nullptr, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    (void)cudaGetLastError();
+    return 0;
+  }
+  return n;
 }
 
 // ------------------------------------------------------------------- registers

@@ -8,8 +8,9 @@ around the call (``models/fused_layers.FusedDense`` does).
 
 - Forward: on a CUDA tensor the hand-written kernel ``ops/csrc/fused_dense.cu``
   (built and launched by ``ops/_kernels.py``), which replaces the Pallas
-  kernel ``_fused_kernel``.  On a CPU tensor :func:`fused_dense_reference`,
-  the plain PyTorch version.  There is no fallback between the two: a CUDA
+  kernel ``_fused_kernel``: bf16 and f32 on the tensor cores (an f32 x and w
+  each split exactly into three bf16 parts, six products of parts).  On a
+  CPU tensor :func:`fused_dense_reference`, the plain PyTorch version.  There is no fallback between the two: a CUDA
   tensor launches the kernel or raises.  :func:`force_reference` runs the
   plain version on the card, to hold the kernel against it.
 - Backward: the JAX package's ``_core_bwd`` as torch ops (plain XLA there):

@@ -15,11 +15,19 @@ port runs its plain versions, on the same numpy inputs.  Tolerances:
   parts, each times bf16(wq), the scale after the sum), emulated in plain
   torch: the same f32 function as the plain version up to f32 rounding, so
   the f32 tolerance.
+- the f32 fused dense's tensor-core arithmetic (x and w each as three bf16
+  parts, six products of parts, K split into runs summed in rank order),
+  emulated likewise: the f32 tolerance.  On operands spread over 80 binades
+  its error is held to the worst-case bound of an f32 product, K + 2 units
+  of 2**-24 of sum |x| |w|.
 
 The CUDA kernels are held to the plain versions by the ``cuda`` tests at the
 end, on a card (``python -m pytest -m cuda tests/test_torch_fused_dense.py``;
-the card's host has no JAX, so the JAX comparisons skip there); each
-int8-weight case also checks the variant its launch was counted under.
+the card's host has no JAX, so the JAX comparisons skip there); each case
+also checks the variant its launch was counted under.  f32 sums of K 2048
+terms (the ResNet-50 head) are held at ``chip_smoke.py``'s f32 tolerance,
+1e-4: two f32 sums of that many O(1) terms in another order differ by up to
+~1e-5 already.
 """
 
 import numpy as np
@@ -138,22 +146,53 @@ def _truncate_bf16(a):
     return (a.view(torch.int32) & -65536).view(torch.float32)
 
 
+def _split3(a):
+    """An f32 tensor as the kernels' three bf16 parts, h + m + l = a exactly:
+    h = its top 8 significant bits, m = the next 8 of a - h, l = a - h - m."""
+    h = _truncate_bf16(a)
+    m = _truncate_bf16(a - h)
+    return [h, m, a - h - m]
+
+
+def _parts_product(xs, ws, pairs, splits=1, chunk=32):
+    """sum of ``xs[i] @ ws[j]`` over ``(i, j)`` in ``pairs``, in that order,
+    with f32 accumulation; K cut into ``chunk``-deep chunks and the chunks
+    into ``splits`` contiguous runs, as a cluster of the f32 kernel cuts them,
+    each run's partial sum added in rank order."""
+    num_k = -(-xs[0].shape[1] // chunk)
+    total = None
+    for r in range(splits):
+        lo, hi = num_k * r // splits * chunk, num_k * (r + 1) // splits * chunk
+        partial = sum(torch.matmul(xs[i][:, lo:hi], ws[j][lo:hi]) for i, j in pairs)
+        total = partial if total is None else total + partial
+    return total
+
+
 def _split_product(x, wq, scale, b, activation, parts):
     """The int8-weight kernel's tensor-core arithmetic in plain torch, in f32:
-    x as ``parts`` bf16 parts (a bf16 x as itself; an f32 x as h = its top 8
-    significant bits, m = the next 8 of x - h, l = x - h - m), each
+    x as ``parts`` bf16 parts (a bf16 x as itself; an f32 x as h, m, l), each
     multiplied by bf16(wq) with f32 accumulation (the products are exact),
     the scale applied after the sum, then the bias and activation."""
     wb = wq.to(torch.bfloat16).to(torch.float32)
     x = x.to(torch.float32)
-    if parts == 1:
-        pieces = [x]
-    else:
-        h = _truncate_bf16(x)
-        m = _truncate_bf16(x - h)
-        pieces = [h, m, x - h - m]
-    acc = sum(torch.matmul(p, wb) for p in reversed(pieces))  # l, m, then h, as the kernel
+    pieces = [x] if parts == 1 else _split3(x)
+    pairs = [(i, 0) for i in reversed(range(parts))]  # l, m, then h, as the kernel
+    acc = _parts_product(pieces, [wb], pairs)
     return port.ACTIVATIONS[activation](acc * scale + b.to(torch.float32)), pieces
+
+
+# The f32 kernel's products of parts, (x part, w part) by index into
+# (h, m, l), in its order, smallest first: l.h, h.l, m.m, m.h, h.m, h.h.  The
+# three left out (m.l, l.m, l.l) are below 2**-23 |x| |w| together.
+F32_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def _f32_split_dense(x, w, b, activation, splits):
+    """The f32 fused dense's tensor-core arithmetic in plain torch: x and w
+    each in three bf16 parts, the six products of parts in the kernel's
+    order, split-K partials in rank order, then the bias and activation."""
+    acc = _parts_product(_split3(x), _split3(w), F32_PAIRS, splits)
+    return port.ACTIVATIONS[activation](acc + b)
 
 
 @needs_jax
@@ -181,6 +220,62 @@ def test_quantized_tensor_core_arithmetic_matches_pallas_interpret(activation, s
         activation=activation, interpret=True,
     )
     np.testing.assert_allclose(_f32(got.to(tdt)), _f32(ref), **tol)
+
+
+@needs_jax
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_f32_tensor_core_arithmetic_matches_pallas_interpret(activation, shape, splits):
+    """The card's f32 design computes the TPU kernel's f32 function: six
+    products of bf16 parts of x and w, without a split of K and split across
+    a cluster of 2 or 4 CTAs.  Held to the plain version and to the Pallas
+    kernel in interpret mode, in f32."""
+    x, w, b = _operands(*SHAPES[shape], seed=10)
+    tx, tw, tb = (_torch(a, torch.float32) for a in (x, w, b))
+    got = _f32_split_dense(tx, tw, tb, activation, splits)
+    plain = port.fused_dense_reference(tx, tw, tb, activation)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **F32_TOL)
+    ref = jax_fused.fused_dense(_jax(x, jnp.float32), _jax(w, jnp.float32), _jax(b, jnp.float32),
+                                activation=activation, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _f32(ref), **F32_TOL)
+
+
+def _spread(shape, seed, lo, hi):
+    """Standard normal values times 2**e, e uniform in [lo, hi], every
+    seventh value zero."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape) * np.exp2(rng.integers(lo, hi + 1, size=shape))
+    a.flat[::7] = 0.0
+    return a.astype(np.float32)
+
+
+# Binades of x and w (2**lo .. 2**hi): products stay normal f32, far from
+# overflow and from the subnormals, where bf16 and f32 differ.
+SPREADS = {"unit": (0, 0), "tiny": (-40, -30), "large": (30, 40), "mixed": (-40, 40)}
+
+
+@pytest.mark.parametrize("spread", list(SPREADS))
+def test_f32_split_is_exact_and_the_products_f32_accurate(spread):
+    """Every part of the split is exact in bf16 and the parts sum to the
+    operand, in any binade; the six products then carry no more error than
+    an f32 product's worst case, K + 2 units of 2**-24 of sum |x| |w| (K
+    roundings of the sum, and the three products left out)."""
+    lo, hi = SPREADS[spread]
+    m, k, n = SHAPES["ragged"]
+    x, w = _spread((m, k), 11, lo, hi), _spread((k, n), 12, lo, hi)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    for a in (tx, tw):
+        parts = _split3(a)
+        for part in parts:
+            assert torch.equal(part.to(torch.bfloat16).to(torch.float32), part)
+        assert torch.equal(parts[0] + parts[1] + parts[2], a)
+    got = _parts_product(_split3(tx), _split3(tw), F32_PAIRS, splits=2).double().numpy()
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    bound = (k + 2) * 2.0**-24 * (np.abs(x).astype(np.float64) @ np.abs(w).astype(np.float64))
+    assert np.all(np.abs(got - exact) <= bound)
+    plain = (tx @ tw).double().numpy()  # the plain version's f32 product, for scale
+    assert np.all(np.abs(plain - exact) <= bound)
 
 
 @needs_jax
@@ -304,14 +399,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (M, K, N, dtype): the wgmma/TMA kernel (16-byte rows), the same with a
-# ragged K chunk and ragged M, the mma.sync kernel (N not a multiple of 8),
-# the f32 path.
+F32_SPLITK = "wgmma_tma_bf16x6_splitk_128x192"
+F32_COOP = "wgmma_tma_bf16x6_128x192"
+# f32 sums of 2048 terms (the ResNet-50 head) in another order: chip_smoke.py's
+# DENSE_TOL["float32"].
+F32_LONG_K_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# (M, K, N, dtype, variant the launcher picks on an H100): the bf16 wgmma/TMA
+# kernel (16-byte rows), the same with a ragged K chunk and ragged M, the
+# mma.sync kernel (N not a multiple of 8); the f32 tensor-core kernel split
+# across a cluster where 128 x 192 tiles leave half the SMs idle (ragged M,
+# N and K; aligned; the ResNet-50 head), without a split where they do not,
+# and the CUDA-core kernel where N is not a multiple of 4.
 CUDA_CASES = {
-    "bf16-aligned": (256, 256, 384, torch.bfloat16),
-    "bf16-ragged-k": (37, 200, 304, torch.bfloat16),
-    "bf16-ragged": (37, 200, 300, torch.bfloat16),
-    "f32-ragged": (37, 200, 300, torch.float32),
+    "bf16-aligned": (256, 256, 384, torch.bfloat16, "wgmma_tma_128x192"),
+    "bf16-ragged-k": (37, 200, 304, torch.bfloat16, "wgmma_tma_128x192"),
+    "bf16-ragged": (37, 200, 300, torch.bfloat16, "mma_sync"),
+    "f32-ragged": (37, 200, 300, torch.float32, F32_SPLITK),
+    "f32-aligned": (256, 256, 384, torch.float32, F32_SPLITK),
+    "f32-ragged-mk": (37, 200, 304, torch.float32, F32_SPLITK),
+    "f32-head": (128, 2048, 1000, torch.float32, F32_SPLITK),
+    "f32-many-tiles": (2048, 256, 2048, torch.float32, F32_COOP),
+    "f32-n301": (37, 200, 301, torch.float32, "simt"),
 }
 
 
@@ -319,19 +428,59 @@ def _cuda_operands(m, k, n, dtype, device, seed=0):
     return tuple(_torch(a, dtype).to(device) for a in _operands(m, k, n, seed))
 
 
+def _dense_tol(dtype, k):
+    if dtype == torch.bfloat16:
+        return BF16_TOL
+    return F32_TOL if k <= 256 else F32_LONG_K_TOL
+
+
+def _check_dense_launch(x, w, b, activation, variant):
+    """One launch through the public entry point, counted under ``variant``,
+    against the plain version; returns the kernel's output."""
+    before = dict(_kernels.launch_counts)
+    got = port.fused_dense(x, w, b, activation=activation)
+    torch.cuda.synchronize()
+    key = f"fused_dense/{variant}"
+    assert _kernels.launch_counts["fused_dense"] == before["fused_dense"] + 1
+    assert _kernels.launch_counts.get(key, 0) == before.get(key, 0) + 1, dict(_kernels.launch_counts)
+    ref = port.fused_dense_reference(x, w, b, activation)
+    assert got.dtype == x.dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), **_dense_tol(x.dtype, x.shape[1]))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 @pytest.mark.parametrize("case", list(CUDA_CASES))
 def test_kernel_matches_plain_version_on_card(cuda_device, case, activation):
-    m, k, n, dtype = CUDA_CASES[case]
+    m, k, n, dtype, variant = CUDA_CASES[case]
     x, w, b = _cuda_operands(m, k, n, dtype, cuda_device)
-    before = _kernels.launch_counts["fused_dense"]
-    got = port.fused_dense(x, w, b, activation=activation)
-    torch.cuda.synchronize()
-    assert _kernels.launch_counts["fused_dense"] == before + 1
-    ref = port.fused_dense_reference(x, w, b, activation)
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    _check_dense_launch(x, w, b, activation, variant)
+
+
+@pytest.mark.cuda
+def test_f32_split_k_is_deterministic_on_card(cuda_device):
+    """The cluster sums its partial tiles in rank order: two calls give the
+    same bits."""
+    x, w, b = _cuda_operands(128, 2048, 1000, torch.float32, cuda_device, seed=10)
+    first = _check_dense_launch(x, w, b, None, F32_SPLITK)
+    for _ in range(3):
+        assert torch.equal(_kernels.fused_dense(x, w, b, activation=None), first)
+
+
+# f32 views with row strides 200 (x) and 300 (w), 16-byte rows: N 248 reads
+# through TMA (split-K), N 250 is not a multiple of 4 (CUDA cores).
+F32_VIEWS = {"tma": (248, F32_SPLITK), "simt": (250, "simt")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", list(F32_VIEWS))
+def test_f32_kernel_reads_row_strides_on_card(cuda_device, view):
+    n, variant = F32_VIEWS[view]
+    x, w, b = _cuda_operands(64, 200, 300, torch.float32, cuda_device, seed=11)
+    xs, ws = x[:, :120], w[:120, :n]
+    assert xs.stride(0) == 200 and ws.stride(0) == 300
+    _check_dense_launch(xs, ws, b[:n], "gelu", variant)
 
 
 @pytest.mark.cuda

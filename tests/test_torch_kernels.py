@@ -8,6 +8,8 @@
   TMA cannot describe, an empty key sequence, a head dim other than 64 or
   128) before anything is built or launched, so the refusal shows on CPU
   tensors too, and no launch is counted.
+- On a card (``cuda`` tests): the f32 fused dense's rule for splitting K
+  across a cluster, and the variant its launch reports.
 """
 
 import shutil
@@ -186,3 +188,42 @@ def test_variant_names_cover_the_launchers_enum(source, kernel):
     for fn, argtypes in _kernels._SIGNATURES[source].items():
         assert argtypes[-1] is _kernels._PI
         assert re.search(rf'extern "C" int {fn}\([^)]*int\* variant\)', text)
+
+
+# --- on the card -------------------------------------------------------------
+
+
+# (M, K, N): the ResNet-50 head (6 tiles of 128 x 192: split), a shape whose
+# tiles fill the card (no split), and one with too few K chunks to split (2).
+F32_SPLIT_SHAPES = {"head": (128, 2048, 1000), "many-tiles": (2048, 256, 2048),
+                    "short-k": (128, 64, 1000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(F32_SPLIT_SHAPES))
+def test_f32_split_rule_and_variant_on_card(shape):
+    """The f32 launcher splits K over a cluster only where 128 x 192 tiles
+    leave half the SMs idle, by a power of two up to 16 that gives every CTA
+    its own SM and two K chunks or more; the variant it reports follows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    m, k, n = F32_SPLIT_SHAPES[shape]
+    splits = _kernels.fused_dense_f32_splits(m, n, k)
+    tiles = -(-m // 128) * -(-n // 192)
+    num_k = -(-k // 32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert splits in (1, 2, 4, 8, 16)
+    if 2 * tiles > sms or num_k < 4:
+        assert splits == 1
+    else:
+        assert splits > 1 and tiles * splits <= sms and num_k >= 2 * splits
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(k, n, device="cuda", generator=gen) / k**0.5
+    b = torch.randn(n, device="cuda", generator=gen)
+    _kernels.reset_launch_counts()
+    _kernels.fused_dense(x, w, b, activation=None)
+    torch.cuda.synchronize()
+    variant = "wgmma_tma_bf16x6_splitk_128x192" if splits > 1 else "wgmma_tma_bf16x6_128x192"
+    assert _kernels.launch_counts == {"flash_attention_fwd": 0, "fused_dense": 1,
+                                      "fused_dense_quantized": 0, f"fused_dense/{variant}": 1}
