@@ -1,0 +1,111 @@
+"""Command line of the port — counterpart of ``deeplearning_cfn_tpu/cli.py``.
+
+Run as ``python -m deeplearning_cfn_tpu_torch.cli <command>``.  Ported so
+far: ``serve``, the counterpart of ``dlcfn serve``.  The JAX package's other
+commands come with the later slices that port what they drive.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+_BROKER_SLICE = "a later slice of the PyTorch port (the cluster plane)"
+
+
+def cmd_serve(args) -> int:
+    """Run the serving plane under deterministic synthetic traffic and print
+    the load report.
+
+    ``--replicas`` continuous-batching engines behind a least-loaded
+    front-end, driven by seeded Poisson traffic on a virtual clock: the
+    smoke of the whole plane (admission, paging, continuous batching,
+    metrics) on a toy model, as ``dlcfn serve`` runs it.  ``--disaggregate``
+    prefills on a device of its own where there are two CUDA devices or
+    more.  ``--journal`` (or ``$DLCFN_FLIGHT_JOURNAL``) records the
+    ``serve_load`` and per-replica ``serve_metrics`` events."""
+    import torch
+
+    from deeplearning_cfn_tpu_torch.analysis.schedules import VirtualClock
+    from deeplearning_cfn_tpu_torch.device import resolve_device
+    from deeplearning_cfn_tpu_torch.models.llama import LlamaConfig, init_model
+    from deeplearning_cfn_tpu_torch.serve import (
+        ContinuousBatchingEngine,
+        ServeConfig,
+        ServeFrontEnd,
+        ServeReplica,
+        TrafficConfig,
+        plan_placement,
+        run_load,
+    )
+
+    if args.serve_broker:
+        raise NotImplementedError(
+            f"--broker (registration and liveness at a broker) is ported in {_BROKER_SLICE}"
+        )
+    if args.journal:
+        os.environ["DLCFN_FLIGHT_JOURNAL"] = args.journal
+    device = resolve_device(args.device)
+    # The demo model: the flagship transformer at toy scale, as dlcfn serve's.
+    cfg = LlamaConfig.tiny(vocab_size=64, seq_len=64, dtype=torch.float32)
+    model = init_model(cfg, seed=0, device=device)
+    scfg = ServeConfig(num_slots=args.slots, block_size=4, blocks_per_slot=8, prefill_len=16)
+    placement = None
+    if args.disaggregate:
+        placement = plan_placement(None if device.type == "cuda" else [device])
+    clock = VirtualClock()
+    replicas = [
+        ServeReplica(
+            ContinuousBatchingEngine(model, scfg, clock=clock, name=f"rep{i}",
+                                     placement=placement),
+            f"rep{i}",
+            group=args.group,
+        )
+        for i in range(args.replicas)
+    ]
+    frontend = ServeFrontEnd(replicas)
+    traffic = TrafficConfig(requests=args.requests, seed=args.seed)
+    report = run_load(frontend, traffic, clock, journal=True)
+    for replica in frontend.replicas.values():
+        replica.engine.journal_metrics()
+    print(json.dumps(report.to_dict(), indent=2))
+    return 0 if report.completed == traffic.requests else 1
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m deeplearning_cfn_tpu_torch.cli",
+        description="the PyTorch/CUDA port of deeplearning_cfn_tpu",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    pv = sub.add_parser(
+        "serve", help="continuous-batching inference replicas under synthetic traffic"
+    )
+    pv.add_argument("--requests", type=int, default=200, help="synthetic requests to serve")
+    pv.add_argument("--seed", type=int, default=0,
+                    help="traffic seed; the run is deterministic per seed")
+    pv.add_argument("--replicas", type=int, default=1, help="engines behind the front-end")
+    pv.add_argument("--slots", type=int, default=4, help="decode slots per replica")
+    pv.add_argument("--group", default="serve",
+                    help="worker-group name for registration/liveness")
+    pv.add_argument("--broker", default=None, dest="serve_broker", metavar="HOST:PORT",
+                    help="register replicas and beat liveness at this broker (not ported yet)")
+    pv.add_argument("--disaggregate", action="store_true",
+                    help="prefill on a dedicated device when >= 2 devices")
+    pv.add_argument("--journal", default=None,
+                    help="flight journal path for serve_metrics events")
+    pv.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu, which runs only when asked for")
+    pv.set_defaults(fn=cmd_serve)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,7 +29,7 @@
 // The TPU kernel holds the whole K axis of a 256-row tile in VMEM.  A Hopper
 // block cannot (a 64-row bf16 x tile at K 3072 is 384 KB against 227 KB of
 // shared memory), so a block owns one output tile and loops over K in chunks
-// through shared memory, into one f32 accumulator per element.  M, N and K
+// through shared memory, into f32 accumulators.  M, N and K
 // need no padding: the TPU kernel's jnp.pad copies are not carried over.
 //
 // The kernels, chosen by dtype, shape and alignment (never after a failure):
@@ -115,7 +115,8 @@
 //     the bf16 tensor cores with both operands split in three, x = xh + xm +
 //     xl and w = wh + wm + wl exactly, and the six products of parts whose
 //     size reaches f32's precision (l.h, h.l, m.m, m.h, h.m, h.h, smallest
-//     first) into one f32 accumulator: six bf16 passes, ~2.5x the f32
+//     first), each K chunk's products summed by wgmma and added into the
+//     running f32 sum on the CUDA cores: six bf16 passes, ~2.5x the f32
 //     CUDA-core peak.  The int8 kernel's layout, with both operands landing
 //     as f32 in K chunks of 32 and both split by the consumers; w's parts
 //     are written N-major, read with the transpose bit, so w stays [K, N].
@@ -839,8 +840,14 @@ __device__ __forceinline__ void reduce_partials(const float* part, uint32_t rank
 // + xl and w = wh + wm + wl exactly (split2), and the products of the parts
 // whose size reaches f32's precision run, smallest first (x part . w part):
 // l.h, h.l, m.m, m.h, h.m, h.h.  Each is exact in f32 (8 x 8 significant
-// bits) and added into one f32 accumulator.  Of the three left out, m.l and
-// l.m are below 2^-24 |x| |w| and l.l below 2^-32 |x| |w|, a term.
+// bits).  Of the three left out, m.l and l.m are below 2^-24 |x| |w| and l.l
+// below 2^-32 |x| |w|, a term.
+//   The twelve products of a K chunk (two k-steps of six) sum into a chunk
+// accumulator, which the CUDA cores then add into the running sum.  wgmma's
+// f32 accumulation does not round to nearest: summing every product into the
+// running sum would cut each of its K/16 x 6 sums toward zero, an error that
+// grows with K (5.7x f32 addmm's at K 768, against a float64 reference).  So
+// the running sum takes one rounded addition a chunk, as an f32 sum does.
 //
 // The int8 kernel's layout: warpgroup 0's one thread lands raw f32 chunks
 // by TMA (zero fill past M, N and K); both consumer warpgroups split each
@@ -933,9 +940,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           col_bias[i] = c < BN && n0 + c < p.N ? bias[n0 + c] : 0.f;
         }
       }
-      float acc[BN / 2];
+      // acc: the sum over the chunks done, added on the CUDA cores (rounded to
+      // nearest); chunk: one K chunk's twelve products, summed by wgmma.
+      float acc[BN / 2], chunk[BN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = chunk[i] = 0.f;
 
       for (int kt = k_begin; kt < k_end; ++kt, ++it) {
         const int l = it % kLand, s = it % 2;
@@ -950,8 +959,17 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         fence_proxy_async();
         named_barrier_sync(3, kQConvThreads);
         if (lane == 0) mbar_arrive(&sm.land_empty[l]);
+        // The previous chunk's products are done (their run overlapped this
+        // chunk's conversion): add them into acc, and hand their stage back.
+        wgmma_wait<0>();
+        fence_operand(chunk);
+        if (kt > k_begin) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += chunk[i];
+          if (lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
+        }
         const __nv_bfloat16* a = sm.a[s] + row_base * 64;
-        fence_operand(acc);
+        fence_operand(chunk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kFK / 16; ++kk) {
@@ -963,21 +981,22 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           const uint64_t xh = make_desc_sw128(a + kk * 16, 16, 1024);
           const uint64_t xm = make_desc_sw128(a + 32 + kk * 16, 16, 1024);
           const uint64_t xl = make_desc_sw128(a + kWM * 64 + kk * 16, 16, 1024);
-          wgmma_ss<1>(acc, xl, db[0], 1);
-          wgmma_ss<1>(acc, xh, db[2], 1);
-          wgmma_ss<1>(acc, xm, db[1], 1);
-          wgmma_ss<1>(acc, xm, db[0], 1);
-          wgmma_ss<1>(acc, xh, db[1], 1);
-          wgmma_ss<1>(acc, xh, db[0], 1);
+          wgmma_ss<1>(chunk, xl, db[0], kk);  // the chunk's first product overwrites
+          wgmma_ss<1>(chunk, xh, db[2], 1);
+          wgmma_ss<1>(chunk, xm, db[1], 1);
+          wgmma_ss<1>(chunk, xm, db[0], 1);
+          wgmma_ss<1>(chunk, xh, db[1], 1);
+          wgmma_ss<1>(chunk, xh, db[0], 1);
         }
         wgmma_commit();
-        wgmma_wait<1>();  // the previous chunk's products are done: hand its stage back
-        fence_operand(acc);
-        if (kt > k_begin && lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
       }
       wgmma_wait<0>();
-      fence_operand(acc);
-      if (k_end > k_begin && lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
+      fence_operand(chunk);
+      if (k_end > k_begin) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += chunk[i];
+        if (lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
+      }
 
       if constexpr (kSplit) {
         // The partial tile into this CTA's shared memory, over the landing
