@@ -72,10 +72,27 @@ Phases, one JSON line each:
            capture, no kernel of the port launched (the path's attention is
            plain torch, as the JAX package's is plain XLA); decode tokens/s,
            TTFT and inter-token latency, prefill time, memory.
+9. resnet  ResNet-50 training at bench.py's configuration: bf16, batch 128,
+           224 x 224, uint8 images from a pool of 4 synthetic batches
+           normalised in the step, label smoothing 0.1, Nesterov momentum at
+           lr 0.1.  In f32, on one batch of one state, the kernel head's
+           logits and head gradients against the plain fused dense's.  Then
+           for each head (the f32 fused-dense kernel, and the plain cuBLAS
+           product): 2 + 8 eager steps through ``Trainer.fit`` with two
+           prefetch producers (the launch counters zeroed just before and
+           read just after: the kernel head launches once a step, split-K),
+           the loss finite and falling, step time, images/s, MFU (analytic
+           FLOPs from ``FlopCounterMode`` over 989 TFLOP/s), memory, the
+           pipeline's counters; two steps profiled by kernel;
+           ``multi_step_fn(4)`` captured as one CUDA graph, its 4 losses
+           against 4 eager steps from the same state, then 3 replays timed
+           (a replay launches no wrapper, so the counters show the warm-up
+           and the capture only); and ``evaluate`` on 2 held-out batches.
 
-The f32 fused-dense rows also hold the kernel and f32 ``addmm`` (TF32 off)
-against the float64 product, and the tensor-core variants must be within
-twice ``addmm``'s error.
+The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
+the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
+dequantised weight) against the float64 product, and the tensor-core
+variants must be within twice ``addmm``'s error.
 The variants are read from the launch counters, which count each launch
 under the variant its C launcher reports.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
@@ -86,6 +103,7 @@ outside the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -121,10 +139,10 @@ F32_GRAD_ATOL = 1e-4
 # sums of up to 2048 terms in another order, each within a few 1e-6 of the
 # float64 product on O(1) outputs (the f32 rows print both errors).
 DENSE_TOL = {"bfloat16": (2**-7, 1e-5), "float32": (1e-5, 1e-5)}  # (rtol, atol)
-# The int8-weight dense with an f32 x sums its three products a k-step in one
-# wgmma accumulator, whose additions do not round to nearest: 1e-4 at K 768
-# (its f32 rows print the float64 errors beside addmm's).
-QUANT_TOL = {"bfloat16": DENSE_TOL["bfloat16"], "float32": (1e-4, 1e-4)}
+# The int8-weight dense: as the fused dense (with an f32 x, each K chunk's
+# products are summed apart and added on the CUDA cores, so it sums as an f32
+# product does; its f32 rows print the float64 errors beside addmm's).
+QUANT_TOL = {"bfloat16": DENSE_TOL["bfloat16"], "float32": DENSE_TOL["float32"]}
 # Gradients through FusedDenseFunction, kernel forward against plain forward:
 # the same torch backward on forwards that differ by f32 rounding, and dw
 # sums 512 products of the gelu derivative at those forwards: 1e-4 in f32.
@@ -167,6 +185,17 @@ SERVE_TRAFFIC = dict(requests=16, seed=0, prompt_len_range=(128, 512),
 # another order through two layers, on logits of O(1), a few 1e-6; 1e-4.
 PARITY_LAYERS, PARITY_PROMPT, PARITY_NEW = 2, 64, 32
 SERVE_LOGITS_ATOL = 1e-4
+# ResNet-50, bench.py's training configuration: bf16, batch 128, 224 x 224,
+# uint8 images from a pool of 4 synthetic batches normalised in the step,
+# label smoothing 0.1, Nesterov momentum at lr 0.1; 2 + 8 eager steps a head,
+# multi_step_fn(4) captured and replayed 3 times a head.
+RESNET_BATCH, RESNET_IMAGE, RESNET_POOL = 128, 224, 4
+RESNET_WARMUP, RESNET_STEPS = 2, 8
+RESNET_K, RESNET_REPLAYS = 4, 3
+# Captured steps against eager ones from the same state: the same kernels on
+# the same inputs, but cuDNN's backward may sum in another order from run to
+# run (atomics), so the losses agree to 1e-3 relative, not always bitwise.
+RESNET_CAPTURE_RTOL = 1e-3
 
 
 def _emit(obj: dict) -> None:
@@ -510,6 +539,188 @@ def _serve_phase(torch, kernels_mod, smi: str, peak_bw: float) -> dict:
     return row
 
 
+def _resnet_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
+    """Phase 9: ResNet-50 training (see the module docstring).  Emits the
+    ``resnet_parity``, ``resnet`` (one a head), ``profile``,
+    ``resnet_captured``, ``resnet_prefetch`` and ``resnet_eval`` lines;
+    returns the fused-dense launches of the kernel head's eager run."""
+    from deeplearning_cfn_tpu_torch.models import resnet
+    from deeplearning_cfn_tpu_torch.ops import fused_dense as fd
+    from deeplearning_cfn_tpu_torch.train.data import (
+        SyntheticDataset,
+        device_put_batch,
+        stack_batches,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    ds = SyntheticDataset.imagenet_like(batch_size=RESNET_BATCH, image_size=RESNET_IMAGE,
+                                        dtype="uint8", pool_batches=RESNET_POOL)
+    cfg = TrainerConfig(learning_rate=0.1, has_train_arg=True, label_smoothing=0.1,
+                        input_stats=ds.input_stats, log_every=1)
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+
+    def make(pallas: bool, dtype=torch.bfloat16) -> Trainer:
+        arch = dict(stage_sizes=(3, 4, 6, 3), dtype=dtype, use_pallas_head=pallas)
+        return Trainer(lambda gen: resnet.ResNet(**arch, generator=gen), cfg, device="cuda",
+                       analytic_flops_fn=lambda x: resnet.train_flops(arch, x.shape))
+
+    pool = list(ds.batches(RESNET_POOL))
+    x0, y0 = device_put_batch(pool[0], torch.device("cuda"))
+
+    # 1. Parity in f32 (TF32 off since phase 1), one batch, the same state:
+    # the kernel head's logits and head gradients against the plain fused
+    # dense's (force_reference), in eval mode (no statistic moves).
+    trainer = make(True, torch.float32)
+    state = trainer.init(seed=0)
+    model = state.model
+    grads, logits = {}, {}
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        with fd.force_reference() if path == "plain" else contextlib.nullcontext():
+            out = model(trainer._normalize_input(x0), train=False)
+            torch.nn.functional.cross_entropy(out, y0.long()).backward()
+        logits[path] = out.detach()
+        grads[path] = {n: getattr(model.head, n).grad.clone() for n in ("kernel", "bias")}
+    rtol, atol = DENSE_TOL["float32"]
+    grtol, gatol = GRAD_TOL["float32"]
+    err = (logits["kernel"] - logits["plain"]).abs()
+    gerr = {n: (grads["kernel"][n] - grads["plain"][n]).abs() for n in grads["kernel"]}
+    parity = {"phase": "resnet_parity", "dtype": "float32", "B": RESNET_BATCH,
+              "logits_max_abs_err": err.max().item(), "rtol": rtol, "atol": atol,
+              "logits_within": bool((err <= atol + rtol * logits["plain"].abs()).all()),
+              "grad_max_abs_err": {n: e.max().item() for n, e in gerr.items()},
+              "grad_rtol": grtol, "grad_atol": gatol,
+              "grad_within": all(bool((gerr[n] <= gatol + grtol * grads["plain"][n].abs()).all())
+                                 for n in gerr),
+              "logits_max_abs": logits["plain"].abs().max().item()}
+    _emit(parity)
+    _require(parity["logits_within"], "resnet: kernel-head logits off the plain head's")
+    _require(parity["grad_within"], "resnet: kernel-head gradients off the plain head's")
+    del trainer, state, model, grads, logits, out, err, gerr
+    torch.cuda.empty_cache()
+
+    # 2. Eager training, kernel head then plain head, through fit (prefetcher
+    # with two producers over the pooled uint8 stream; a readback each step,
+    # so each logged step time is the step's whole time).
+    runs, kernel_launches = {}, {}
+    steps = RESNET_WARMUP + RESNET_STEPS
+    for path, pallas in (("kernel", True), ("plain", False)):
+        trainer = make(pallas)
+        state = trainer.init(seed=0)
+        logger = trainer.throughput_logger(pool[0].x, RESNET_BATCH, name="resnet50", log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, losses = trainer.fit(state, ds.batches(steps), steps=steps, logger=logger,
+                                    prefetch_workers=2)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels_mod.launch_counts)
+        steady = logger.history[RESNET_WARMUP:]
+        rate = statistics.median(h["examples_per_sec"] for h in steady)
+        run = {"phase": "resnet", "head": path, "model": "resnet50", "dtype": "bfloat16",
+               "batch": RESNET_BATCH, "image": RESNET_IMAGE, "steps": steps,
+               "losses": losses, "step_ms": [RESNET_BATCH / h["examples_per_sec"] * 1e3
+                                             for h in logger.history],
+               "steady_step_ms": RESNET_BATCH / rate * 1e3, "images_per_s": rate,
+               "mfu": statistics.median(h["mfu"] for h in steady),
+               "flops_per_step": logger.flops_per_step, "peak_flops": peak_flops,
+               "first_step_s": trainer.first_step_seconds, "wall_s": wall_s,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "fused_dense_launches_per_step": launches["fused_dense"] / steps,
+               "pipeline": trainer.last_pipeline_stats.snapshot(), "nvidia_smi": smi}
+        _emit(run)
+        _require(len(losses) == steps and all(math.isfinite(v) for v in losses),
+                 f"resnet ({path}): non-finite loss")
+        _require(statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
+                 f"resnet ({path}): the loss did not fall: {losses}")
+        if pallas:
+            kernel_launches = launches
+            _require(launches["fused_dense"] == steps
+                     and _variants(launches, "fused_dense") == {F32_SPLITK: steps},
+                     f"resnet: the kernel head launched {launches}, expected one "
+                     f"{F32_SPLITK} a step")
+            _require(run["pipeline"]["batches"] == steps, "resnet: prefetcher batch count")
+            _emit({"phase": "resnet_prefetch", "workers": 2, **run["pipeline"]})
+        else:
+            _require(launches["fused_dense"] == 0, "resnet: the plain head ran the kernel")
+        x, y = device_put_batch(pool[1], torch.device("cuda"))
+
+        def step():
+            nonlocal state
+            state, _ = trainer.train_step(state, x, y)
+
+        _emit({"phase": "profile", "path": "resnet50", "head": path, **_profile(torch, step, 2)})
+        runs[path] = run
+        if not pallas:
+            # 3. Eval on two held-out batches, eval mode, running statistics.
+            held_out = SyntheticDataset(shape=shape[1:], num_classes=1000,
+                                        batch_size=RESNET_BATCH, seed=10_000, template_seed=0,
+                                        dtype="uint8")
+            ev = trainer.evaluate(state, held_out.batches(2), steps=2)
+            _emit({"phase": "resnet_eval", **ev})
+            _require(math.isfinite(ev["loss"]) and 0.0 <= ev["accuracy"] <= 1.0
+                     and ev["examples"] == 2 * RESNET_BATCH, f"resnet eval: {ev}")
+        del trainer, state, logger, x, y
+        torch.cuda.empty_cache()
+
+    # 4. multi_step_fn(RESNET_K) captured as one CUDA graph, against as many
+    # eager steps from the same state on the same stacked batches; then
+    # replays timed on the host's clock (each call ends in a readback).
+    stack = next(stack_batches(iter(pool), RESNET_K))
+    xs, ys = device_put_batch(stack, torch.device("cuda"))
+    for path, pallas in (("kernel", True), ("plain", False)):
+        trainer = make(pallas)
+        eager_state = trainer.init(seed=0)
+        eager = []
+        for i in range(RESNET_K):
+            eager_state, m = trainer.train_step(eager_state, xs[i], ys[i])
+            eager.append(m["loss"])
+        eager = torch.stack(eager).tolist()
+        del eager_state
+        torch.cuda.empty_cache()
+        state = trainer.init(seed=0)
+        kfn = trainer.multi_step_fn(RESNET_K)
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, captured = kfn(state, xs, ys)
+        captured = captured.tolist()
+        capture_s = time.perf_counter() - t0
+        launches = dict(kernels_mod.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RESNET_REPLAYS):
+            state, losses = kfn(state, xs, ys)
+            losses.tolist()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (RESNET_REPLAYS * RESNET_K)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(captured, eager))
+        row = {"phase": "resnet_captured", "head": path, "k": RESNET_K,
+               "replays": RESNET_REPLAYS, "eager_losses": eager, "captured_losses": captured,
+               "max_rel_diff": rel, "rtol": RESNET_CAPTURE_RTOL,
+               "bitwise_equal": captured == eager, "first_call_s": capture_s,
+               "captures": kfn.captures, "step_ms": step_ms,
+               "images_per_s": RESNET_BATCH / step_ms * 1e3,
+               "mfu": runs[path]["flops_per_step"] / (step_ms / 1e3) / peak_flops,
+               "launches_in_warmup_and_capture": launches,
+               "replay_launches": "not counted: a replay launches no wrapper"}
+        _emit(row)
+        _require(rel <= RESNET_CAPTURE_RTOL, f"resnet ({path}): captured losses {captured} "
+                 f"off the eager {eager}")
+        _require(kfn.captures == 1, f"resnet ({path}): {kfn.captures} captures")
+        if pallas:
+            _require(_variants(launches, "fused_dense") == {F32_SPLITK: 1 + RESNET_K},
+                     f"resnet: the captured kernel head launched {launches}, expected one "
+                     f"warm-up and {RESNET_K} captured {F32_SPLITK} launches")
+        runs[path]["captured"] = row
+        del trainer, state, kfn
+        torch.cuda.empty_cache()
+    del xs, ys, x0, y0
+    torch.cuda.empty_cache()
+    return kernel_launches
+
+
 def main() -> int:
     import torch
 
@@ -801,7 +1012,13 @@ def main() -> int:
         kernel = lambda: _kernels.fused_dense_quantized(x, wq, scale, b, activation=act)  # noqa: E731
         library = lambda: library_act[act](torch.addmm(b32, x32, w32))  # noqa: E731
         if dtype == torch.float32:
-            row.update(f64_errors(got, x32, w32, b32, act, library))
+            # Against x @ (wq * scale) in float64; addmm on the dequantised weight.
+            row.update(f64_errors(got, x32, wq.double() * scale.double(), b32, act, library))
+            if variant != "simt":
+                _require(row["f64_kernel_over_library"] <= 2,
+                         f"fused_dense_quantized {label}: float64 error "
+                         f"{row['f64_kernel_max_abs_err']} over twice addmm's "
+                         f"{row['f64_library_max_abs_err']}")
         row.update({
             "kernel_ms": _time_ms(torch, kernel, iters=50),
             "device_ms": _device_ms(torch, kernel, iters=50),
@@ -1021,6 +1238,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _serve_phase(torch, _kernels, smi, peak_bw)
 
+    # 9. resnet: ResNet-50 training, the head through the f32 fused dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resnet_launches = _resnet_phase(torch, _kernels, smi, peak_flops)
+
     def kernel_entry(name, source, replaces, launches, max_abs_err, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_abs_err, "ms": row["kernel_ms"],
@@ -1030,10 +1252,10 @@ def main() -> int:
                 "library_ms": row["library_ms"], "variant": row["variant"], "shape": row["shape"]}
 
     csrc = "deeplearning_cfn_tpu_torch/ops/csrc/"
-    # The fused dense by operand dtype: bf16 on the BERT path; f32 on no main
-    # path yet (the ResNet-50 head is a later slice).
+    # The fused dense by operand dtype: bf16 on the BERT path; f32 on the
+    # ResNet-50 path (its kernel head's eager run).
     dense_launches = {"bf16": 0, "f32": 0}
-    for counts in (llama_launches, bert_launches):
+    for counts in (llama_launches, bert_launches, resnet_launches):
         for v, n in _variants(counts, "fused_dense").items():
             dense_launches["f32" if v in (F32_SPLITK, F32_COOP, "simt") else "bf16"] += n
     bf16_rows = [r for r in dense_rows.values() if r["dtype"] == "bfloat16"]

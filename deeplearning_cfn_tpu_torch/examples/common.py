@@ -1,5 +1,6 @@
 """Shared plumbing for the port's example trainers — the parts of
-``deeplearning_cfn_tpu/examples/common.py`` that ``llama_train`` reads."""
+``deeplearning_cfn_tpu/examples/common.py`` that ``llama_train``,
+``bert_pretrain`` and ``resnet_imagenet`` read."""
 
 from __future__ import annotations
 
@@ -22,6 +23,19 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         "--data_dir",
         default=os.environ.get("DLCFN_DATA_DIR"),
         help="colon-separated candidate dirs of DLC1 record files; unset = synthetic data",
+    )
+    p.add_argument(
+        "--augment_flip", action="store_true",
+        help="horizontal-flip augmentation of image batches, on the device (train steps only)",
+    )
+    p.add_argument(
+        "--augment_crop", action="store_true",
+        help="random-crop augmentation of image batches, on the device: same-size images "
+             "get the pad-and-crop recipe (see --crop_pad)",
+    )
+    p.add_argument(
+        "--crop_pad", type=int, default=4,
+        help="zero padding per side for --augment_crop on images at the model's input size",
     )
     p.add_argument(
         "--lr_schedule", choices=["constant", "cosine", "step"], default="constant",
@@ -49,6 +63,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument(
         "--grad_accum", type=int, default=1,
         help="microbatches per optimizer update",
+    )
+    p.add_argument(
+        "--prefetch_workers", type=int, default=1,
+        help="producer threads behind the device prefetcher (the order is kept)",
     )
     p.add_argument(
         "--metrics_dir",
@@ -92,3 +110,25 @@ def metrics_sink(args, run_name: str):
     from deeplearning_cfn_tpu_torch.train.metrics import JsonlMetricsSink
 
     return JsonlMetricsSink.for_run(args.metrics_dir, run_name)
+
+
+def device_image_pipeline(args, image_shape, fallback_ds, eval_mode: bool = False):
+    """``(batches_fn, input_stats, augment)`` for an image trainer: the
+    synthetic dataset's stream, its uint8 ``input_stats`` (normalised on the
+    device, in the step), and ``--augment_flip`` / ``--augment_crop`` as a
+    ``train.augment.DeviceAugment`` for ``TrainerConfig.augment`` (None when
+    it would do nothing, and always for eval).  ``--data_dir`` record
+    streams are a later slice's."""
+    from deeplearning_cfn_tpu_torch.train.augment import DeviceAugment
+
+    if getattr(args, "data_dir", None):
+        raise NotImplementedError("--data_dir (image records) is ported in a later slice "
+                                  "of the PyTorch port")
+    stats = getattr(fallback_ds, "input_stats", None)
+    if eval_mode:
+        return fallback_ds.batches, stats, None
+    crop, pad = None, 0
+    if getattr(args, "augment_crop", False):
+        crop, pad = (int(image_shape[0]), int(image_shape[1])), int(getattr(args, "crop_pad", 4) or 0)
+    aug = DeviceAugment(flip=bool(getattr(args, "augment_flip", False)), crop=crop, pad=pad)
+    return fallback_ds.batches, stats, None if aug.is_identity else aug

@@ -10,7 +10,11 @@ is transposed):
 - ``bert_params_from_jax``: the Flax tree of ``BertEncoder`` or
   ``BertClassifier``, ``layer{i}`` as ``layers.{i}``, the ``DenseGeneral``
   ``qkv`` kernel ``[dim, 3, H, hd]`` and bias ``[3, H, hd]`` flattened in that
-  order.
+  order;
+- ``resnet_params_from_jax``: the Flax ``ResNet`` tree and its
+  ``batch_stats``.  Convolutions are the one exception to the orientation
+  rule: PyTorch's are ``[out, in, kh, kw]``, so Flax's ``[kh, kw, in, out]``
+  kernels are transposed.
 """
 
 from __future__ import annotations
@@ -70,4 +74,31 @@ def bert_params_from_jax(cfg, params_np: dict) -> dict[str, torch.Tensor]:
     visit([], params_np)
     if n_layers != cfg.n_layers:
         raise ValueError(f"params have {n_layers} layers, config has {cfg.n_layers}")
+    return sd
+
+
+def resnet_params_from_jax(params_np: dict, batch_stats_np: dict | None = None) -> dict[str, torch.Tensor]:
+    """Flax ``ResNet`` params and ``batch_stats`` (numpy leaves) -> the port's
+    ``ResNet`` state dict: conv ``kernel [kh, kw, in, out]`` -> ``weight [out,
+    in, kh, kw]`` (and the folded variant's conv ``bias``); norm ``scale`` /
+    ``bias`` -> ``weight`` / ``bias`` (GroupNorm's inner ``gn`` scope dropped);
+    ``batch_stats`` ``mean`` / ``var`` -> the BatchNorm buffers; the head's
+    ``[in, out]`` kernel and bias as they are."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def visit(path: list[str], node) -> None:
+        if isinstance(node, dict):
+            for key, child in node.items():
+                visit(path + [key], child)
+            return
+        scope = [p for p in path[:-1] if p != "gn"]
+        leaf, arr = path[-1], np.asarray(node)
+        if scope[-1].startswith("conv") and leaf == "kernel":
+            leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif scope[-1].startswith("bn") and leaf == "scale":
+            leaf = "weight"
+        sd[".".join(scope + [leaf])] = _tensor(arr)
+
+    visit([], params_np)
+    visit([], batch_stats_np or {})
     return sd

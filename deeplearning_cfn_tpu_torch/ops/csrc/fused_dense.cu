@@ -585,7 +585,13 @@ __global__ void __launch_bounds__(kWsThreads, 1)
           col_bias[i] = in ? static_cast<const float*>(p.b)[col] : 0.f;
         }
       }
-      float acc[BN / 2];
+      // acc: the sum over the chunks done.  With an f32 x, chunk holds one K
+      // chunk's products, summed by wgmma (its first product overwrites it),
+      // and the CUDA cores add it into acc, rounded to nearest: wgmma's own
+      // f32 additions do not round to nearest, and three products a k-step
+      // added into one running sum drift over a long K.  A bf16 x has one
+      // product a k-step, summed in acc as bf16 mm sums it.
+      float acc[BN / 2], chunk[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
@@ -604,32 +610,61 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         // and loads before them, then wait for every converting thread.
         fence_proxy_async();
         named_barrier_sync(3, kQConvThreads);
-        if (kParts == 3 && lane == 0) mbar_arrive(&sm.land_empty[l]);
         const __nv_bfloat16* a = kParts == 1 ? reinterpret_cast<const __nv_bfloat16*>(sm.land[l])
                                              : sm.a[s];
-        fence_operand(acc);
-        wgmma_fence();
+        if constexpr (kParts == 3) {
+          if (lane == 0) mbar_arrive(&sm.land_empty[l]);
+          // The previous chunk's products are done (their run overlapped this
+          // chunk's conversion): add them into acc, and hand their stage back.
+          wgmma_wait<0>();
+          fence_operand(chunk);
+          if (kt > 0) {
 #pragma unroll
-        for (int kk = 0; kk < kWK / 16; ++kk) {
-          const uint64_t db = make_desc_sw128(sm.b[s] + kk * 16 * 64, kWK * 64 * 2, 1024);
-          // The small parts first: l, m, then h, against the same B tile.
+            for (int i = 0; i < BN / 2; ++i) acc[i] += chunk[i];
+            if (lane == 0) mbar_arrive(&sm.empty[(it - 1) % 2]);
+          }
+          fence_operand(chunk);
+          wgmma_fence();
 #pragma unroll
-          for (int part = kParts - 1; part >= 0; --part) {
-            const uint64_t da =
-                make_desc_sw128(a + part * kWM * kWK + row_base * kWK + kk * 16, 16, 1024);
+          for (int kk = 0; kk < kWK / 16; ++kk) {
+            const uint64_t db = make_desc_sw128(sm.b[s] + kk * 16 * 64, kWK * 64 * 2, 1024);
+            // The small parts first: l, m, then h, against the same B tile.
+#pragma unroll
+            for (int part = kParts - 1; part >= 0; --part) {
+              const uint64_t da =
+                  make_desc_sw128(a + part * kWM * kWK + row_base * kWK + kk * 16, 16, 1024);
+              wgmma_ss<1>(chunk, da, db, kk > 0 || part < kParts - 1);
+            }
+          }
+          wgmma_commit();
+        } else {
+          fence_operand(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWK / 16; ++kk) {
+            const uint64_t db = make_desc_sw128(sm.b[s] + kk * 16 * 64, kWK * 64 * 2, 1024);
+            const uint64_t da = make_desc_sw128(a + row_base * kWK + kk * 16, 16, 1024);
             wgmma_ss<1>(acc, da, db, 1);
           }
-        }
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous chunk's products are done: hand its stages back
-        fence_operand(acc);
-        if (kt > 0 && lane == 0) {
-          mbar_arrive(&sm.empty[(it - 1) % 2]);
-          if (kParts == 1) mbar_arrive(&sm.land_empty[(it - 1) % kLand]);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous chunk's products are done: hand its stages back
+          fence_operand(acc);
+          if (kt > 0 && lane == 0) {
+            mbar_arrive(&sm.empty[(it - 1) % 2]);
+            mbar_arrive(&sm.land_empty[(it - 1) % kLand]);
+          }
         }
       }
       wgmma_wait<0>();
-      fence_operand(acc);
+      if constexpr (kParts == 3) {
+        fence_operand(chunk);
+        if (num_k > 0) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += chunk[i];
+        }
+      } else {
+        fence_operand(acc);
+      }
       if (num_k > 0 && lane == 0) {
         mbar_arrive(&sm.empty[(it - 1) % 2]);
         if (kParts == 1) mbar_arrive(&sm.land_empty[(it - 1) % kLand]);

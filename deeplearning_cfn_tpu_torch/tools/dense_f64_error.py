@@ -1,5 +1,6 @@
-"""The f32 fused dense's error against a float64 reference, beside f32
-``addmm``'s, and the error split by term.
+"""The f32 fused dense's and the int8-weight fused dense's errors against a
+float64 reference, beside f32 ``addmm``'s, and the f32 dense's error split by
+term.
 
 Run from the repository root on a host with one CUDA card:
 
@@ -16,7 +17,10 @@ of
 - ``six_f32``: the same six products, each an f32 matmul (cuBLAS, TF32 off)
   summed in f32 in the kernel's order, so dropped products plus an f32 sum;
 
-with the ratio of the kernel's error to ``addmm``'s.
+with the ratio of the kernel's error to ``addmm``'s.  Then, for the
+int8-weight kernel with an f32 x (``_kernels.fused_dense_quantized``), the
+same against ``x.double() @ (wq.double() * scale) + b``, beside f32 ``addmm``
+on the dequantised weight (``quant_kernel``, ``quant_addmm``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ SHAPES = {  # name: (M, K, N)
     "k256": (1024, 256, 1024),
     "k3072": (1024, 3072, 1024),
 }
+# The int8-weight kernel with an f32 x: BERT-base's mlp_in, and K 200 with a
+# ragged last K chunk.
+QUANT_SHAPES = {"quant_mlp_in-f32": (4096, 768, 3072), "quant_k200": (1000, 200, 304)}
 # (x part, w part) by index into (h, m, l), the kernel's order.
 F32_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 
@@ -51,6 +58,7 @@ def main() -> int:
         print("dense_f64_error: no CUDA device", file=sys.stderr)
         return 2
     from deeplearning_cfn_tpu_torch.ops import _kernels
+    from deeplearning_cfn_tpu_torch.ops.quant import dequantize_weight, quantize_weight
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -76,6 +84,23 @@ def main() -> int:
                                 ("six_f32", six32))}
         print(json.dumps({"shape": label, "M": M, "K": K, "N": N, "variant": variant,
                           "max_abs_err": errs, "kernel_over_addmm": errs["kernel"] / errs["addmm"],
+                          "exact_max_abs": exact.abs().max().item()}), flush=True)
+    for label, (M, K, N) in QUANT_SHAPES.items():
+        x = torch.randn(M, K, device="cuda", generator=gen)
+        w = torch.randn(K, N, device="cuda", generator=gen) / K**0.5
+        b = 0.1 * torch.randn(N, device="cuda", generator=gen)
+        wq, scale = quantize_weight(w)
+        exact = x.double() @ (wq.double() * scale.double()) + b.double()
+        _kernels.reset_launch_counts()
+        kernel = _kernels.fused_dense_quantized(x, wq, scale, b, activation=None)
+        variant = [k for k in _kernels.launch_counts if k.startswith("fused_dense_quantized/")]
+        addmm = torch.addmm(b, x, dequantize_weight(wq, scale))
+        torch.cuda.synchronize()
+        errs = {name: (t.double() - exact).abs().max().item()
+                for name, t in (("quant_kernel", kernel), ("quant_addmm", addmm))}
+        print(json.dumps({"shape": label, "M": M, "K": K, "N": N, "variant": variant,
+                          "max_abs_err": errs,
+                          "kernel_over_addmm": errs["quant_kernel"] / errs["quant_addmm"],
                           "exact_max_abs": exact.abs().max().item()}), flush=True)
     return 0
 

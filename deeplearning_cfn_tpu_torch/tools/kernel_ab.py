@@ -34,7 +34,7 @@ from pathlib import Path
 M, K, N = 4096, 768, 3072
 HEAD_M, HEAD_K, HEAD_N = 128, 2048, 1000
 F32_TOL = (1e-5, 1e-5)  # chip_smoke.py's DENSE_TOL["float32"]
-QUANT_F32_TOL = (1e-4, 1e-4)  # chip_smoke.py's QUANT_TOL["float32"]
+QUANT_F32_TOL = (1e-5, 1e-5)  # chip_smoke.py's QUANT_TOL["float32"]
 
 
 def _events_ms(torch, fn, iters: int) -> float:

@@ -1,16 +1,22 @@
 """Input data — the port's own copy of the parts of
-``deeplearning_cfn_tpu/train/data.py`` that the Llama and BERT slices use.
+``deeplearning_cfn_tpu/train/data.py`` that the Llama, BERT and ResNet slices
+use.
 
-``SyntheticTokenDataset``, ``SyntheticMLMDataset`` and
+``SyntheticDataset``, ``SyntheticTokenDataset``, ``SyntheticMLMDataset`` and
 ``SyntheticSeqClassificationDataset`` draw the same numpy streams as the JAX
-package's for the same seeds, so both frameworks see byte-identical batches.  Batches
-reach the card through pinned host memory with a non-blocking copy.
+package's for the same seeds, so both frameworks see byte-identical batches.
+Batches reach the card through pinned host memory with a non-blocking copy;
+:class:`DevicePrefetcher` does that on producer threads, ahead of the step,
+and :func:`stack_batches` folds ``k`` batches into one ``[k, B, ...]`` stack
+for ``Trainer.multi_step_fn(k)``.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -18,8 +24,95 @@ import torch
 
 @dataclass
 class Batch:
-    x: np.ndarray
-    y: np.ndarray
+    x: Any  # numpy arrays on the host, tensors once placed; y may be a dict of them
+    y: Any
+
+
+@dataclass
+class SyntheticDataset:
+    """Deterministic synthetic classification images: a fixed random
+    template per class plus noise, so the labels can be learnt.
+
+    ``dtype="uint8"`` maps samples affinely into [0, 255] and quantizes them
+    (4x fewer bytes to the card than f32); ``input_stats`` gives the
+    ``(mean, std)`` that make ``dequantize_normalize`` invert the map.
+    ``template_seed`` seeds the templates (the task) apart from the samples,
+    so a held-out stream (another ``seed``) scores the same task.
+    ``pool_batches`` draws that many batches once and cycles through them."""
+
+    shape: tuple[int, ...] = (28, 28, 1)
+    num_classes: int = 10
+    batch_size: int = 32
+    seed: int = 0
+    dtype: str = "float32"
+    noise_scale: float = 1.0
+    template_seed: int | None = None
+    pool_batches: int | None = None
+
+    _U8_OFFSET = 0.5
+    _U8_SCALE = 0.125
+
+    @property
+    def input_stats(self) -> tuple[tuple[float, ...], tuple[float, ...]] | None:
+        """Per-channel (mean, std) in the /255 domain for
+        ``TrainerConfig.input_stats``; None for float dtypes."""
+        if self.dtype != "uint8":
+            return None
+        c = int(self.shape[-1])
+        return ((self._U8_OFFSET,) * c, (self._U8_SCALE,) * c)
+
+    def _quantize(self, x: np.ndarray) -> np.ndarray:
+        scaled = (x * self._U8_SCALE + self._U8_OFFSET) * 255.0
+        return np.clip(np.rint(scaled), 0, 255).astype(np.uint8)
+
+    def _finalize(self, x: np.ndarray) -> np.ndarray:
+        return self._quantize(x) if self.dtype == "uint8" else x.astype(self.dtype)
+
+    def _templates(self, rng: np.random.Generator) -> np.ndarray:
+        template_rng = (
+            np.random.default_rng(self.template_seed) if self.template_seed is not None else rng
+        )
+        return template_rng.standard_normal((self.num_classes, *self.shape)).astype(np.float32)
+
+    def batches(self, steps: int) -> Iterator[Batch]:
+        if self.pool_batches:
+            yield from self._pooled_batches(steps)
+            return
+        rng = np.random.default_rng(self.seed)
+        templates = self._templates(rng)
+        for _ in range(steps):
+            y = rng.integers(0, self.num_classes, size=self.batch_size).astype(np.int32)
+            noise = rng.standard_normal((self.batch_size, *self.shape)).astype(np.float32)
+            yield Batch(x=self._finalize(templates[y] + self.noise_scale * noise), y=y)
+
+    def _pooled_batches(self, steps: int) -> Iterator[Batch]:
+        """The whole pool in two draws (labels, then noise), then cycled.  The
+        pool is always ``pool_batches`` long, whatever ``steps`` is, so a short
+        run and a long one see the same stream."""
+        rng = np.random.default_rng(self.seed)
+        templates = self._templates(rng)
+        k = max(1, int(self.pool_batches))
+        y = rng.integers(0, self.num_classes, size=(k, self.batch_size)).astype(np.int32)
+        noise = rng.standard_normal((k, self.batch_size, *self.shape), dtype=np.float32)
+        x = self._finalize(templates[y] + self.noise_scale * noise)
+        for i in range(steps):
+            yield Batch(x=x[i % k], y=y[i % k])
+
+    @classmethod
+    def mnist_like(cls, batch_size: int, seed: int = 0) -> "SyntheticDataset":
+        return cls(shape=(28, 28, 1), num_classes=10, batch_size=batch_size, seed=seed)
+
+    @classmethod
+    def imagenet_like(
+        cls,
+        batch_size: int,
+        image_size: int = 224,
+        seed: int = 0,
+        dtype: str = "float32",
+        pool_batches: int | None = None,
+    ) -> "SyntheticDataset":
+        return cls(shape=(image_size, image_size, 3), num_classes=1000, batch_size=batch_size,
+                   seed=seed, dtype=dtype, pool_batches=pool_batches)
 
 
 @dataclass
@@ -100,15 +193,193 @@ class SyntheticSeqClassificationDataset:
             yield Batch(x=x, y=y)
 
 
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of equally shaped trees of dicts, lists and tuples."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device``.  For CUDA the array is staged in
     pinned memory and copied without blocking the host; PyTorch's pinned
-    allocator keeps the staging buffer alive until the copy is done."""
+    allocator keeps the staging buffer alive until the copy is done.  A
+    tensor already on ``device`` (a prefetched batch) passes as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
 
-def device_put_batch(batch: Batch, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    return to_device(batch.x, device), to_device(batch.y, device)
+def device_put_batch(batch: Batch, device: torch.device):
+    return (tree_map(lambda a: to_device(a, device), batch.x),
+            tree_map(lambda a: to_device(a, device), batch.y))
+
+
+def stack_batches(batches: Iterator[Batch], k: int) -> Iterator[Batch]:
+    """Fold ``k`` consecutive host batches into one ``Batch(x=[k, B, ...],
+    y=[k, B, ...])`` (numpy, before the prefetcher's copy, so a stack crosses
+    to the card as one transfer): the input ``Trainer.multi_step_fn(k)``
+    takes.  A trailing group of fewer than ``k`` batches is not yielded."""
+    if k < 1:
+        raise ValueError(f"stack_batches needs k >= 1, got {k}")
+    group: list[Batch] = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield Batch(x=tree_map(lambda *ls: np.stack(ls), *[g.x for g in group]),
+                        y=tree_map(lambda *ls: np.stack(ls), *[g.y for g in group]))
+            group = []
+
+
+class DevicePrefetcher:
+    """Background host-to-device pipeline: producer threads pull batches from
+    the host iterator and copy them to ``device``, up to ``size`` batches
+    ahead of the consumer, so the copy overlaps the previous step.
+
+    On CUDA each producer stages a batch in pinned memory and copies it
+    without blocking on a side stream of its own; the batch carries an event
+    recorded after its copy, which the consumer's stream waits on, and its
+    tensors are marked as used on the consumer's stream (``record_stream``)
+    so that the allocator does not hand their memory out while the step
+    reads them.  On the CPU a producer copies with no streams.
+
+    The JAX package's reorder-buffer contract: the source is pulled under a
+    lock (sequence numbers in source order) while copies proceed in
+    parallel, so iteration order is exactly the source order at any
+    ``workers``, and a source exception re-raises at the position it
+    occurred.  ``close()`` (or exhausting the iterator) stops every
+    producer.  ``stats`` (a ``train.pipeline.PipelineStats``) counts
+    transfer bytes, host-input seconds, producer stalls and consumer waits;
+    ``close()`` journals it once."""
+
+    _DONE = object()
+
+    def __init__(self, batches: Iterator[Batch], device, size: int = 2, workers: int = 1,
+                 stats=None):
+        self._src = iter(batches)
+        self._device = torch.device(device)
+        self._size = max(1, size)
+        self._stats = stats
+        self._stop = threading.Event()
+        # _src_lock serialises source pulls (sequence numbers); _cond guards
+        # the reorder buffer and the consumer's cursor.
+        self._src_lock = threading.Lock()
+        self._cond = threading.Condition()
+        self._buf: dict[int, object] = {}  # seq -> (Batch, event) | exception | _DONE
+        self._next_pull = 0
+        self._next_out = 0
+        self._done = False
+        cuda = self._device.type == "cuda"
+        self._threads = [
+            threading.Thread(target=self._produce,
+                             args=(torch.cuda.Stream(self._device) if cuda else None,),
+                             daemon=True)
+            for _ in range(max(1, int(workers)))
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _pull(self):
+        """One serialised source pull -> (seq, item): a Batch, an exception
+        (re-raised by the consumer at this position), _DONE, or (None, None)
+        once the source is done or the prefetcher stopped."""
+        with self._src_lock:
+            if self._done or self._stop.is_set():
+                return None, None
+            seq = self._next_pull
+            t0 = time.perf_counter()
+            try:
+                item = next(self._src)
+            except StopIteration:
+                item = self._DONE
+            except BaseException as e:  # re-raised in the consumer's __iter__
+                item = e
+            if self._stats is not None:
+                self._stats.add_host_input(time.perf_counter() - t0)
+            self._next_pull = seq + 1
+            if item is self._DONE or isinstance(item, BaseException):
+                self._done = True
+            return seq, item
+
+    def _copy(self, batch: Batch, stream):
+        if stream is None:
+            return device_put_batch(batch, self._device), None
+        with torch.cuda.stream(stream):
+            placed = device_put_batch(batch, self._device)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return placed, event
+
+    def _produce(self, stream) -> None:
+        while not self._stop.is_set():
+            seq, item = self._pull()
+            if seq is None:
+                return
+            terminal = item is self._DONE or isinstance(item, BaseException)
+            if not terminal:
+                if self._stats is not None:
+                    from deeplearning_cfn_tpu_torch.train.pipeline import nbytes_of
+
+                    self._stats.add_transfer(nbytes_of((item.x, item.y)))
+                item = self._copy(item, stream)
+            t0 = time.perf_counter()
+            with self._cond:
+                # At most ``size`` batches ahead of the consumer (the
+                # stream's end always lands).
+                while (not terminal and seq >= self._next_out + self._size
+                       and not self._stop.is_set()):
+                    self._cond.wait(0.1)
+                if self._stop.is_set():
+                    return
+                self._buf[seq] = item
+                self._cond.notify_all()
+            if self._stats is not None and not terminal:
+                self._stats.add_producer_stall(time.perf_counter() - t0)
+            if terminal:
+                return
+
+    def __iter__(self) -> Iterator[Batch]:
+        try:
+            while True:
+                t0 = time.perf_counter()
+                with self._cond:
+                    while self._next_out not in self._buf and not self._stop.is_set():
+                        self._cond.wait(0.1)
+                    if self._next_out not in self._buf:
+                        return  # stopped
+                    item = self._buf.pop(self._next_out)
+                    self._next_out += 1
+                    self._cond.notify_all()
+                if self._stats is not None:
+                    self._stats.add_consumer_wait(time.perf_counter() - t0)
+                if item is self._DONE:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                (x, y), event = item
+                if event is not None:
+                    consumer = torch.cuda.current_stream(self._device)
+                    consumer.wait_event(event)
+                    tree_map(lambda t: t.record_stream(consumer), (x, y))
+                yield Batch(x=x, y=y)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+        if self._stats is not None:
+            self._stats.journal()
+
+    def __enter__(self) -> "DevicePrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -9,16 +9,26 @@ JAX package's jitted step, in eager PyTorch:
   global-norm clip is optax's (scale by ``max_norm / norm`` only when
   ``norm >= max_norm``, no epsilon), applied before the update; the learning
   rate comes from the 0-based step.  Adam moments follow the parameter
-  dtype, as optax's do.
+  dtype, as optax's do.  ``sgd`` and ``momentum`` are the port's own
+  :class:`SGD` (optax's trace, the decay added to the gradient first), whose
+  learning rate may be a device tensor, so a captured step can read it.
+- The input stage in front of every loss, as the JAX step composes it:
+  ``augment`` (train steps only, keyed by the step), then uint8
+  ``input_stats`` normalisation (``train.pipeline.dequantize_normalize``).
 - Gradient accumulation over strided microbatches ``x[a::k]``: part
   gradients summed, then divided by ``k``.
-- The state is updated in place (PyTorch parameters and optimizer state are
-  mutable); ``train_step`` returns the same ``TrainState`` object.
+- The state is updated in place (PyTorch parameters, buffers and optimizer
+  state are mutable); ``train_step`` returns the same ``TrainState`` object.
+  A model with ``has_train_arg`` is called with ``train=``; its BatchNorm
+  statistics move in train steps only.
 - With no ``loss_fn``, the default classification objective: softmax
-  cross-entropy (no label smoothing) and accuracy.
+  cross-entropy with ``label_smoothing`` and accuracy.
+- ``multi_step_fn(k)``: on the card, ``k`` train steps captured once as one
+  CUDA graph and replayed; on the CPU, ``k`` eager steps.
+- ``fit`` feeds the steps through ``train.data.DevicePrefetcher``.
 
 One device only: ``strategy="fsdp"`` (or ``"dp"``) is the identity.  Meshes,
-comms overlap, multi-step programs, checkpointing and live reshard are
+comms overlap, checkpointing, live reshard, ``lamb`` and ``adafactor`` are
 ported in later slices and raise ``NotImplementedError``.
 """
 
@@ -29,12 +39,20 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 from torch import nn
 
 from deeplearning_cfn_tpu_torch.device import resolve_device
-from deeplearning_cfn_tpu_torch.train.data import device_put_batch
+from deeplearning_cfn_tpu_torch.train.data import (
+    Batch,
+    DevicePrefetcher,
+    tree_map,
+    device_put_batch,
+    stack_batches,
+)
 from deeplearning_cfn_tpu_torch.train.metrics import ThroughputLogger, peak_flops_per_chip
+from deeplearning_cfn_tpu_torch.train.pipeline import PipelineStats, dequantize_normalize
 
 _LATER = "a later slice of the PyTorch port"
 
@@ -97,6 +115,49 @@ def _param_groups(model: nn.Module, weight_decay: float) -> list[dict]:
     return [g for g in groups if g["params"]]
 
 
+class SGD(torch.optim.Optimizer):
+    """optax's ``sgd(lr, momentum, nesterov)`` behind ``add_decayed_weights``:
+    ``g += weight_decay·p``; with momentum ``t = momentum·t + g`` (t starts
+    at zero) and the update ``g + momentum·t`` (Nesterov) or ``t``; then
+    ``p -= lr·update``.  ``lr`` is a float or a 0-d device tensor, read the
+    same way (a captured step reads the tensor).  Foreach ops, no host
+    synchronisation."""
+
+    def __init__(self, params, lr, momentum: float = 0.0, nesterov: bool = False,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum, nesterov=nesterov,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Create the momentum buffers (zeros, as optax's trace starts)."""
+        for group in self.param_groups:
+            if group["momentum"]:
+                for p in group["params"]:
+                    if "momentum_buffer" not in self.state[p]:
+                        self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.init_state()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            m = group["momentum"]
+            if m:
+                trace = [self.state[p]["momentum_buffer"] for p in params]
+                torch._foreach_mul_(trace, m)
+                torch._foreach_add_(trace, grads)
+                updates = torch._foreach_add(grads, trace, alpha=m) if group["nesterov"] else trace
+            else:
+                updates = grads
+            torch._foreach_sub_(params, torch._foreach_mul(updates, group["lr"]))
+
+
 def _make_optimizer(model: nn.Module, cfg: TrainerConfig) -> torch.optim.Optimizer:
     lr = cfg.learning_rate
     groups = _param_groups(model, cfg.weight_decay)
@@ -104,9 +165,9 @@ def _make_optimizer(model: nn.Module, cfg: TrainerConfig) -> torch.optim.Optimiz
         return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if cfg.optimizer == "sgd":
         # L2 decay joins the gradient before the update, on the decay group.
-        return torch.optim.SGD(groups, lr=lr)
+        return SGD(groups, lr=lr)
     if cfg.optimizer == "momentum":
-        return torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum, nesterov=True, dampening=0.0)
+        return SGD(groups, lr=lr, momentum=cfg.momentum, nesterov=True)
     if cfg.optimizer in ("lamb", "adafactor"):
         raise NotImplementedError(f"optimizer {cfg.optimizer!r} is ported in {_LATER}")
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
@@ -129,12 +190,7 @@ def _check_in_slice(cfg: TrainerConfig) -> None:
     unsupported = {
         "comms_overlap": cfg.comms_overlap,
         "overlap_compress": cfg.overlap_compress,
-        "has_train_arg": cfg.has_train_arg,
-        "bf16_compute": cfg.bf16_compute,
         "remat": cfg.remat,
-        "input_stats": cfg.input_stats is not None,
-        "augment": cfg.augment is not None,
-        "label_smoothing": bool(cfg.label_smoothing),
         "matmul_precision": cfg.matmul_precision is not None,
     }
     for name, on in unsupported.items():
@@ -146,26 +202,28 @@ def _check_in_slice(cfg: TrainerConfig) -> None:
         raise ValueError(f"grad_accum_steps must be >= 1, got {cfg.grad_accum_steps}")
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy of integer labels, the log-softmax in f32."""
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy of integer labels, the log-softmax in f32.  With
+    ``smoothing`` the target is ``onehot·(1 − s) + s/classes``, formed in
+    the logits' dtype, as the JAX package forms it."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return -torch.gather(logp, -1, labels.long()[..., None]).mean()
-
-
-def classification_objective(model: nn.Module, x: torch.Tensor, y: torch.Tensor):
-    """The JAX trainer's default objective: ``softmax_xent`` and accuracy."""
-    logits = model(x)
-    acc = (logits.argmax(-1) == y).to(torch.float32).mean()
-    return softmax_xent(logits, y), {"accuracy": acc}
+    if not smoothing:
+        return -torch.gather(logp, -1, labels.long()[..., None]).mean()
+    num_classes = logits.shape[-1]
+    # scatter_, not F.one_hot: the same one-hot, with no host sync (capturable).
+    onehot = torch.zeros_like(logits).scatter_(-1, labels.long()[..., None], 1.0)
+    onehot = onehot * (1.0 - smoothing) + smoothing / num_classes
+    return -torch.mean(torch.sum(onehot.to(torch.float32) * logp, dim=-1))
 
 
 class Trainer:
-    """Runs ``loss_fn(model, x, y) -> (loss, aux)`` steps on one device
-    (``classification_objective`` when no ``loss_fn`` is given).
+    """Runs ``loss_fn(model, x, y) -> (loss, aux)`` steps on one device (the
+    default classification objective when no ``loss_fn`` is given).
 
     ``model_fn(generator)`` builds the model (its weights drawn from the
     generator); ``analytic_flops_fn(x)`` gives the training FLOPs of one
-    step on batch ``x``, the MFU numerator."""
+    step on batch ``x``, the MFU numerator (``models.resnet.train_flops``
+    counts them with ``FlopCounterMode``)."""
 
     def __init__(
         self,
@@ -179,13 +237,16 @@ class Trainer:
         _check_in_slice(config)
         self.model_fn = model_fn
         self.config = config
-        self.loss_fn = loss_fn or classification_objective
+        self.loss_fn = loss_fn
         self.device = resolve_device(device)
         self.analytic_flops_fn = analytic_flops_fn
         # Set by fit(): seconds from fit entry to the first completed step,
-        # and the perf_counter stamp of that completion.
+        # the perf_counter stamp of that completion, and the input
+        # pipeline's counters.
         self.first_step_seconds: float | None = None
         self.first_step_at: float | None = None
+        self.last_pipeline_stats: PipelineStats | None = None
+        self._input_stats: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def init(self, seed: int = 0) -> TrainState:
         """Build the model from ``seed`` on the trainer's device, and its optimizer."""
@@ -193,10 +254,49 @@ class Trainer:
         model = self.model_fn(gen).to(self.device)
         return TrainState(step=0, model=model, optimizer=_make_optimizer(model, self.config))
 
+    # --- the input stage and the objective ---------------------------------
+    def _normalize_input(self, x):
+        """uint8 images -> normalised f32 (``config.input_stats``); other
+        inputs pass as they are."""
+        stats = self.config.input_stats
+        if stats is None or not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
+            return x
+        # The (mean, std) tensors are made once per device, outside any
+        # graph capture (a host-to-device copy cannot be captured).
+        if x.device not in self._input_stats:
+            self._input_stats[x.device] = tuple(
+                torch.tensor(v, dtype=torch.float32, device=x.device) for v in stats)
+        return dequantize_normalize(x, *self._input_stats[x.device])
+
+    def _prepare(self, step: int, x, train: bool, decisions=None):
+        """The input stage of a step: augmentation (train steps only; from
+        ``decisions`` when given, else drawn for ``step``), then
+        normalisation."""
+        augment = self.config.augment
+        if train and augment is not None:
+            x = augment(step, x) if decisions is None else augment.apply(x, *decisions)
+        return self._normalize_input(x)
+
+    def _default_objective(self, model: nn.Module, x, y, train: bool):
+        """Softmax cross-entropy (with ``label_smoothing``) and accuracy;
+        eval (``train=False``) reads BatchNorm's running statistics."""
+        x = self._normalize_input(x)
+        if self.config.bf16_compute:
+            x = x.to(torch.bfloat16)
+        logits = model(x, train=train) if self.config.has_train_arg else model(x)
+        loss = softmax_xent(logits, y, self.config.label_smoothing)
+        acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+        return loss, {"accuracy": acc}
+
+    def _loss(self, model: nn.Module, x, y, train: bool = True):
+        if self.loss_fn is not None:
+            return self.loss_fn(model, x, y)
+        return self._default_objective(model, x, y, train)
+
     def _grads(self, model: nn.Module, x, y) -> tuple[torch.Tensor, dict]:
         accum = self.config.grad_accum_steps
         if accum == 1:
-            loss, aux = self.loss_fn(model, x, y)
+            loss, aux = self._loss(model, x, y)
             loss.backward()
             return loss.detach(), {k: v.detach() for k, v in aux.items()}
         n = x.shape[0]
@@ -204,7 +304,8 @@ class Trainer:
             raise ValueError(f"batch axis {n} not divisible by grad_accum_steps={accum}")
         losses, auxes = [], []
         for a in range(accum):
-            loss, aux = self.loss_fn(model, x[a::accum], y[a::accum])
+            part = lambda t: t[a::accum]  # noqa: E731
+            loss, aux = self._loss(model, tree_map(part, x), tree_map(part, y))
             loss.backward()  # .grad sums the part gradients
             losses.append(loss.detach())
             auxes.append({k: v.detach() for k, v in aux.items()})
@@ -214,26 +315,69 @@ class Trainer:
         aux = {k: torch.stack([d[k] for d in auxes]).mean() for k in auxes[0]}
         return torch.stack(losses).mean(), aux
 
-    def train_step(self, state: TrainState, x: torch.Tensor, y: torch.Tensor):
-        """One optimizer update; returns ``(state, metrics)`` with the metrics
-        as device tensors (no host sync)."""
-        cfg = self.config
+    def _update(self, state: TrainState, x, y, lr, decisions=None):
+        """One optimizer update at learning rate ``lr`` (a float, or a device
+        tensor in a captured step); returns the loss and the aux metrics."""
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
+        x = self._prepare(state.step, x, train=True, decisions=decisions)
         loss, aux = self._grads(model, x, y)
-        if cfg.grad_clip_norm:
-            clip_by_global_norm(model.parameters(), cfg.grad_clip_norm)
-        lr = cfg.lr_schedule(state.step) if cfg.lr_schedule is not None else cfg.learning_rate
+        if self.config.grad_clip_norm:
+            clip_by_global_norm(model.parameters(), self.config.grad_clip_norm)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
+        return loss, aux
+
+    def _lr(self, step: int) -> float:
+        cfg = self.config
+        return cfg.lr_schedule(step) if cfg.lr_schedule is not None else cfg.learning_rate
+
+    # --- steps -------------------------------------------------------------
+    def train_step(self, state: TrainState, x, y):
+        """One optimizer update; returns ``(state, metrics)`` with the metrics
+        as device tensors (no host sync)."""
+        loss, aux = self._update(state, x, y, self._lr(state.step))
         state.step += 1
         return state, {"loss": loss, **aux}
 
-    def multi_step_fn(self, k: int):
-        raise NotImplementedError(f"multi-step programs are ported in {_LATER}")
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, x, y) -> dict:
+        """The no-gradient eval step: the model in eval mode (BatchNorm on its
+        running statistics, nothing updated), uint8 inputs normalised, no
+        augmentation; returns the metrics as device tensors."""
+        model = state.model
+        model.eval()
+        try:
+            loss, aux = self._loss(model, self._normalize_input(x), y, train=False)
+        finally:
+            model.train()
+        return {"loss": loss, **aux}
 
+    def multi_step_fn(self, k: int):
+        """``fn(state, xs [k, B, ...], ys [k, B, ...]) -> (state, losses [k])``:
+        ``k`` consecutive train steps, the inputs stacked on a leading axis
+        (``train.data.stack_batches``).  On the card the ``k`` steps are
+        captured once as one CUDA graph (:class:`CapturedSteps`) and replayed
+        at each call; on the CPU they run eagerly."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if self.device.type == "cuda":
+            return CapturedSteps(self, k)
+
+        def k_steps(state: TrainState, xs, ys):
+            xs, ys = device_put_batch(Batch(x=xs, y=ys), self.device)
+            losses = []
+            for i in range(k):
+                state, metrics = self.train_step(
+                    state, tree_map(lambda t: t[i], xs), tree_map(lambda t: t[i], ys))
+                losses.append(metrics["loss"])
+            return state, torch.stack(losses)
+
+        return k_steps
+
+    # --- loops ---------------------------------------------------------------
     def fit(
         self,
         state: TrainState,
@@ -241,51 +385,133 @@ class Trainer:
         steps: int,
         logger: ThroughputLogger | None = None,
         checkpointer: Any = None,
+        stop_fn: Callable[[dict], bool] | None = None,
+        prefetch: int = 2,
+        prefetch_workers: int = 1,
         reshard: Any = None,
+        profiler: Any = None,
         steps_per_call: int = 1,
+        datastream: Any = None,
     ) -> tuple[TrainState, list[float]]:
         """Train on at most ``steps`` batches.  Losses are read back to the
-        host every ``config.log_every`` steps (and at the end), not per step."""
+        host every ``config.log_every`` steps (and at the end), not per step;
+        ``stop_fn(metrics)`` runs there and ends the run when it returns True.
+        ``prefetch`` > 0 copies batches to the device on ``prefetch_workers``
+        producer threads, ``prefetch`` batches ahead (0: inline copies);
+        the counters land on ``self.last_pipeline_stats``.
+        ``steps_per_call`` > 1 stacks that many batches and runs them through
+        ``multi_step_fn``; a remainder runs step by step."""
         for name, on in (("checkpointer", checkpointer is not None),
                          ("reshard", reshard is not None),
-                         ("steps_per_call > 1", steps_per_call != 1)):
+                         ("profiler", profiler is not None),
+                         ("datastream", datastream is not None)):
             if on:
                 raise NotImplementedError(f"fit({name}) is ported in {_LATER}")
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+        if steps_per_call > 1:
+            return self._fit_multi(state, batches, steps, steps_per_call, logger, stop_fn,
+                                   prefetch, prefetch_workers)
         losses: list[float] = []
         pending: list[torch.Tensor] = []
         sync_every = max(1, int(self.config.log_every))
         t_fit = time.perf_counter()
-        for i, batch in enumerate(itertools.islice(batches, steps)):
-            x, y = device_put_batch(batch, self.device)
-            state, metrics = self.train_step(state, x, y)
-            pending.append(metrics["loss"])
-            if i == 0:
-                float(metrics["loss"])  # waits for the first step
-                self.first_step_seconds = time.perf_counter() - t_fit
-                self.first_step_at = time.perf_counter()
-            if logger:
-                logger.step(state.step, metrics["loss"])
-            if state.step % sync_every == 0 or i == steps - 1:
-                losses.extend(torch.stack(pending).tolist())
-                pending.clear()
+        batches, prefetcher = self._pipeline(itertools.islice(batches, steps), prefetch,
+                                             prefetch_workers)
+        try:
+            for i, batch in enumerate(batches):
+                x, y = device_put_batch(batch, self.device)
+                state, metrics = self.train_step(state, x, y)
+                pending.append(metrics["loss"])
+                if i == 0:
+                    float(metrics["loss"])  # waits for the first step
+                    self.first_step_seconds = time.perf_counter() - t_fit
+                    self.first_step_at = time.perf_counter()
+                if logger:
+                    logger.step(state.step, metrics["loss"])
+                if state.step % sync_every == 0 or i == steps - 1:
+                    losses.extend(torch.stack(pending).tolist())
+                    pending.clear()
+                    if stop_fn is not None and stop_fn(metrics):
+                        break
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
         if pending:
             losses.extend(torch.stack(pending).tolist())
         return state, losses
 
-    @torch.no_grad()
-    def evaluate(self, state: TrainState, batches, steps: int | None = None) -> dict:
-        """Example-weighted mean of the loss and metrics over the batches,
-        with no gradients, plus ``examples``."""
-        model = state.model
-        model.eval()
+    def _pipeline(self, batches, prefetch: int, workers: int, name: str = "fit"):
+        """``batches`` behind a DevicePrefetcher when ``prefetch`` > 0."""
+        self.last_pipeline_stats = stats = PipelineStats(name=name)
+        if prefetch <= 0:
+            return batches, None
+        prefetcher = DevicePrefetcher(batches, self.device, prefetch, workers=workers, stats=stats)
+        return prefetcher, prefetcher
+
+    def _fit_multi(self, state, batches, steps, k, logger, stop_fn, prefetch, workers):
+        """The ``steps_per_call=k`` loop: ``[k, B, ...]`` stacks, prefetched
+        to the device, one ``multi_step_fn(k)`` call each; then the
+        ``steps % k`` remainder step by step on the same iterator."""
+        kfn = self.multi_step_fn(k)
+        losses: list[float] = []
+        pending: list[torch.Tensor] = []
+        sync_every = max(1, -(-int(self.config.log_every) // k))  # in calls
+        t_fit = time.perf_counter()
+        batches = itertools.islice(batches, steps)
+        calls = steps // k
+        stacks, prefetcher = self._pipeline(
+            stack_batches(itertools.islice(batches, calls * k), k), prefetch, workers)
+        stopped = False
+        try:
+            for i, stack in enumerate(stacks):
+                xs, ys = device_put_batch(stack, self.device)
+                state, kloss = kfn(state, xs, ys)
+                pending.append(kloss)
+                if i == 0:
+                    float(kloss[-1])
+                    self.first_step_seconds = time.perf_counter() - t_fit
+                    self.first_step_at = time.perf_counter()
+                if logger:
+                    logger.step(state.step, kloss[-1])
+                if (i + 1) % sync_every == 0 or i == calls - 1:
+                    losses.extend(torch.cat(pending).tolist())
+                    pending.clear()
+                    if stop_fn is not None and stop_fn({"loss": losses[-1]}):
+                        stopped = True
+                        break
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if pending:
+            losses.extend(torch.cat(pending).tolist())
+        if not stopped and steps % k:
+            tail = []
+            for batch in batches:
+                x, y = device_put_batch(batch, self.device)
+                state, metrics = self.train_step(state, x, y)
+                tail.append(metrics["loss"])
+                if logger:
+                    logger.step(state.step, metrics["loss"])
+            if tail:
+                losses.extend(torch.stack(tail).tolist())
+        return state, losses
+
+    def evaluate(self, state: TrainState, batches, steps: int | None = None,
+                 prefetch: int = 2) -> dict:
+        """Example-weighted mean of the eval step's metrics over the batches,
+        plus ``examples``; one readback at the end."""
         if steps is not None:
             batches = itertools.islice(batches, steps)
+        batches, prefetcher = self._pipeline(batches, prefetch, 1, name="eval")
         per_batch: list[tuple[int, dict]] = []
-        for batch in batches:
-            x, y = device_put_batch(batch, self.device)
-            loss, aux = self.loss_fn(model, x, y)
-            per_batch.append((len(batch.x), {"loss": loss, **aux}))
-        model.train()
+        try:
+            for batch in batches:
+                x, y = device_put_batch(batch, self.device)
+                per_batch.append((len(batch.x), self.eval_step(state, x, y)))
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
         examples = sum(n for n, _ in per_batch)
         if examples == 0:
             return {"examples": 0}
@@ -306,13 +532,17 @@ class Trainer:
         sink: Any = None,
         log_every: int | None = None,
     ) -> ThroughputLogger:
-        """A ThroughputLogger whose MFU numerator is the model's analytic
-        FLOPs per step and whose denominator is this card's peak (no MFU on
-        the CPU or an unknown card)."""
+        """A ThroughputLogger whose MFU numerator is ``analytic_flops_fn`` of
+        the model's input (after an augment crop) and whose denominator is
+        this card's peak (no MFU on the CPU or an unknown card)."""
         peak = peak_flops_per_chip() if self.device.type == "cuda" else None
         flops = None
         if peak is not None and self.analytic_flops_fn is not None:
-            flops = self.analytic_flops_fn(sample_x)
+            shape = list(sample_x.shape)
+            crop = getattr(self.config.augment, "crop", None)
+            if crop is not None:
+                shape[1:3] = crop
+            flops = self.analytic_flops_fn(np.empty(shape, dtype=np.uint8))
         return ThroughputLogger(
             global_batch_size=examples_per_step,
             log_every=log_every if log_every is not None else self.config.log_every,
@@ -321,3 +551,101 @@ class Trainer:
             flops_per_step=flops,
             peak_flops=peak,
         )
+
+
+class CapturedSteps:
+    """``k`` train steps of ``trainer`` captured once as one CUDA graph.
+
+    The graph reads static device buffers: the ``[k, B, ...]`` inputs, the
+    ``k`` learning rates (a device tensor the optimizer reads, not a float
+    baked into the graph) and, with augmentation, the ``k`` steps' flip and
+    crop decisions, drawn before each replay for the steps it runs.
+    Parameters, BatchNorm statistics and momentum buffers are updated in
+    place inside the graph.  Capture follows one warm-up step on a side
+    stream (cuDNN and cuBLAS workspaces, the kernels' attributes), whose
+    changes to the state are undone.  A kernel wrapper's launch counter
+    counts the warm-up's launches and the capture's, not the replays'.
+
+    Takes ``sgd`` and ``momentum`` (the port's :class:`SGD`); capturing
+    AdamW is a later slice's."""
+
+    def __init__(self, trainer: Trainer, k: int):
+        self.trainer, self.k = trainer, k
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._owner: nn.Module | None = None
+        self.captures = 0
+
+    def _state_tensors(self, state: TrainState) -> list[torch.Tensor]:
+        opt = state.optimizer
+        return ([p.data for p in state.model.parameters()] + list(state.model.buffers())
+                + [s["momentum_buffer"] for s in opt.state.values() if "momentum_buffer" in s])
+
+    def _run(self, state: TrainState, n: int) -> torch.Tensor:
+        losses = []
+        for i in range(n):
+            decisions = None if self.decisions is None else tuple(
+                None if d is None else d[i] for d in self.decisions)
+            loss, _ = self.trainer._update(state, tree_map(lambda t: t[i], self.xs),
+                                           tree_map(lambda t: t[i], self.ys), self.lrs[i],
+                                           decisions)
+            losses.append(loss)
+        return torch.stack(losses)
+
+    def _fill(self, state: TrainState, xs, ys) -> None:
+        """The replay's inputs into the static buffers."""
+        tree_map(lambda dst, src: dst.copy_(src, non_blocking=True), self.xs, xs)
+        tree_map(lambda dst, src: dst.copy_(src, non_blocking=True), self.ys, ys)
+        t = self.trainer
+        lrs = torch.tensor([t._lr(state.step + i) for i in range(self.k)], dtype=torch.float32)
+        self.lrs.copy_(lrs.pin_memory(), non_blocking=True)
+        augment = t.config.augment
+        if self.decisions is not None:
+            b, h, w = self.xs.shape[1:4]
+            drawn = [augment.decisions(state.step + i, b, h, w, device=t.device)
+                     for i in range(self.k)]
+            for j, buf in enumerate(self.decisions):
+                if buf is not None:
+                    buf.copy_(torch.stack([d[j] for d in drawn]))
+
+    def _capture(self, state: TrainState, xs, ys) -> None:
+        t = self.trainer
+        if not isinstance(state.optimizer, SGD):
+            raise NotImplementedError(f"capturing {t.config.optimizer!r} steps is ported in "
+                                      f"{_LATER}")
+        self.xs = tree_map(torch.empty_like, xs)
+        self.ys = tree_map(torch.empty_like, ys)
+        self.lrs = torch.zeros(self.k, dtype=torch.float32, device=t.device)
+        self.decisions = None
+        augment = t.config.augment
+        if augment is not None and not augment.is_identity:
+            b, h, w = xs.shape[1:4]
+            self.decisions = tuple(None if d is None else torch.stack([d] * self.k)
+                                   for d in augment.decisions(state.step, b, h, w, t.device))
+        self._fill(state, xs, ys)
+        state.optimizer.init_state()
+        saved = [s.clone() for s in self._state_tensors(state)]
+        side = torch.cuda.Stream(t.device)
+        side.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(side):
+            self._run(state, 1)
+        torch.cuda.current_stream(t.device).wait_stream(side)
+        with torch.no_grad():
+            for dst, src in zip(self._state_tensors(state), saved):
+                dst.copy_(src)
+        del saved
+        state.optimizer.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the prefetcher's producers may copy while this captures.
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.losses = self._run(state, self.k)
+        self._owner = state.model
+        self.captures += 1
+
+    def __call__(self, state: TrainState, xs, ys):
+        xs, ys = device_put_batch(Batch(x=xs, y=ys), self.trainer.device)
+        if self.graph is None or self._owner is not state.model:
+            self._capture(state, xs, ys)
+        self._fill(state, xs, ys)
+        self.graph.replay()
+        state.step += self.k
+        return state, self.losses.clone()

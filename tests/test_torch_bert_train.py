@@ -106,15 +106,22 @@ def test_default_objective_matches_jax_softmax_xent():
     got = trainer.softmax_xent(torch.from_numpy(logits), torch.from_numpy(labels))
     want = jax_softmax_xent(jnp.asarray(logits), jnp.asarray(labels))
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
-    loss, aux = trainer.classification_objective(
+    loss, aux = trainer.Trainer(lambda g: None, trainer.TrainerConfig(), device="cpu")._loss(
         lambda x: x, torch.from_numpy(logits), torch.from_numpy(labels))
     assert loss.item() == got.item()
     assert aux["accuracy"].item() == pytest.approx(np.mean(logits.argmax(-1) == labels))
 
 
 def test_label_smoothing_is_out_of_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        trainer.Trainer(lambda g: None, trainer.TrainerConfig(label_smoothing=0.1), device="cpu")
+    """Label smoothing came into the port with the image slice: the default
+    objective's smoothed cross-entropy equals the JAX trainer's."""
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((6, 5)).astype(np.float32) * 3
+    labels = rng.integers(0, 5, size=6).astype(np.int32)
+    got = trainer.softmax_xent(torch.from_numpy(logits), torch.from_numpy(labels), 0.1)
+    want = jax_softmax_xent(jnp.asarray(logits), jnp.asarray(labels), 0.1)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    trainer.Trainer(lambda g: None, trainer.TrainerConfig(label_smoothing=0.1), device="cpu")
 
 
 @pytest.mark.parametrize("pallas", [False, True], ids=["dense", "fused"])

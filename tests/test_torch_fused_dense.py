@@ -520,7 +520,7 @@ def _quant_variant(dtype, mode):
 
 def _check_quant_launch(x, wq, scale, b, activation, variant):
     """One launch through the public entry point, counted under ``variant``,
-    against the plain version."""
+    against the plain version; returns the kernel's output."""
     before = dict(_kernels.launch_counts)
     got = port.fused_dense_quantized(x, wq, scale, b, activation=activation)
     torch.cuda.synchronize()
@@ -531,6 +531,7 @@ def _check_quant_launch(x, wq, scale, b, activation, variant):
     tol = BF16_TOL if x.dtype == torch.bfloat16 else F32_TOL
     assert got.dtype == x.dtype
     torch.testing.assert_close(got.float(), ref.float(), **tol)
+    return got
 
 
 @pytest.mark.cuda
@@ -542,14 +543,16 @@ def test_quantized_kernel_matches_plain_version_on_card(cuda_device, dtype):
 
 
 # (M, K, N, mode): the wgmma route on 16-byte rows (cooperative 128 x 192
-# tiles), with more tiles than an H100 has SMs, with a ragged K chunk and with
-# ragged M (TMA's zero fill in every part); the CUDA-core kernel where N is
-# not a multiple of 16.
+# tiles), with more tiles than an H100 has SMs, with a ragged K chunk, with
+# ragged M (TMA's zero fill in every part) and at BERT-base's mlp_in (K 768,
+# twelve K chunks summed at the f32 tolerance); the CUDA-core kernel where N
+# is not a multiple of 16.
 QUANT_CUDA_CASES = {
     "aligned": (256, 256, 384, "128x192"),
     "many-tiles": (4096, 128, 2048, "128x192"),
     "ragged-k": (64, 200, 304, "128x192"),
     "ragged-m": (1000, 256, 256, "128x192"),
+    "mlp_in": (4096, 768, 3072, "128x192"),
     "simt": (37, 200, 300, "simt"),
 }
 
@@ -564,6 +567,25 @@ def test_quantized_kernel_variants_match_plain_version_on_card(cuda_device, case
     x, w, b = _cuda_operands(m, k, n, dtype, cuda_device, seed=8)
     wq, scale = quant.quantize_weight(w.float())
     _check_quant_launch(x, wq, scale, b, activation, _quant_variant(dtype, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 768, 3072), (1000, 200, 304)])
+def test_quantized_f32_error_is_an_f32_sums_on_card(cuda_device, shape):
+    """Against a float64 reference, the int8-weight kernel's largest error
+    with an f32 x is within twice f32 ``addmm``'s on the dequantised weight
+    (TF32 off), at BERT-base's mlp_in (K 768) and at K 200 with a ragged K
+    chunk: each K chunk's products are summed apart and added into the
+    running sum on the CUDA cores, as an f32 product sums."""
+    m, k, n = shape
+    x, w, b = _cuda_operands(m, k, n, torch.float32, cuda_device, seed=14)
+    wq, scale = quant.quantize_weight(w)
+    exact = x.double() @ (wq.double() * scale.double()) + b.double()
+    got = _check_quant_launch(x, wq, scale, b, None, _quant_variant(torch.float32, "128x192"))
+    kernel_err = (got.double() - exact).abs().max().item()
+    addmm_err = (torch.addmm(b, x, quant.dequantize_weight(wq, scale)).double() - exact)
+    addmm_err = addmm_err.abs().max().item()
+    assert kernel_err <= 2 * addmm_err, (kernel_err, addmm_err)
 
 
 # Views with row strides: x rows 256 elements apart, wq rows 320 apart (16

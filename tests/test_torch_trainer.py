@@ -165,14 +165,13 @@ def test_throughput_logger_and_sink(tmp_path):
     assert len(lines) == 2
 
 
-@pytest.mark.parametrize("kw", [{"checkpointer": object()}, {"reshard": object()}, {"steps_per_call": 2}])
+@pytest.mark.parametrize("kw", [{"checkpointer": object()}, {"reshard": object()},
+                                {"datastream": object()}])
 def test_out_of_slice_fit_options_raise(kw):
     ttrainer = llama.make_trainer(llama.LlamaConfig.tiny(dtype=torch.float32),
                                   trainer.TrainerConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         ttrainer.fit(None, iter(()), steps=1, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttrainer.multi_step_fn(2)
 
 
 def test_out_of_slice_trainer_options_raise():
