@@ -77,7 +77,12 @@ Phases, one JSON line each:
            normalised in the step, label smoothing 0.1, Nesterov momentum at
            lr 0.1.  In f32, on one batch of one state, the kernel head's
            logits and head gradients against the plain fused dense's.  Then
-           for each head (the f32 fused-dense kernel, and the plain cuBLAS
+           the example a user runs, ``examples.resnet_imagenet.main`` at
+           ResNet-50, batch 128, 224 x 224, bf16, ``--use_pallas_head``, on
+           its own f32 synthetic stream with two prefetch producers: 3 steps
+           and one held-out eval batch, the launch counters zeroed just
+           before and read just after (one split-K launch a step and one for
+           the eval batch).  Then for each head (the f32 fused-dense kernel, and the plain cuBLAS
            product): 2 + 8 eager steps through ``Trainer.fit`` with two
            prefetch producers (the launch counters zeroed just before and
            read just after: the kernel head launches once a step, split-K),
@@ -192,6 +197,7 @@ SERVE_LOGITS_ATOL = 1e-4
 RESNET_BATCH, RESNET_IMAGE, RESNET_POOL = 128, 224, 4
 RESNET_WARMUP, RESNET_STEPS = 2, 8
 RESNET_K, RESNET_REPLAYS = 4, 3
+RESNET_EXAMPLE_STEPS = 3
 # Captured steps against eager ones from the same state: the same kernels on
 # the same inputs, but cuDNN's backward may sum in another order from run to
 # run (atomics), so the losses agree to 1e-3 relative, not always bitwise.
@@ -541,9 +547,10 @@ def _serve_phase(torch, kernels_mod, smi: str, peak_bw: float) -> dict:
 
 def _resnet_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
     """Phase 9: ResNet-50 training (see the module docstring).  Emits the
-    ``resnet_parity``, ``resnet`` (one a head), ``profile``,
+    ``resnet_parity``, ``resnet_example``, ``resnet`` (one a head), ``profile``,
     ``resnet_captured``, ``resnet_prefetch`` and ``resnet_eval`` lines;
     returns the fused-dense launches of the kernel head's eager run."""
+    from deeplearning_cfn_tpu_torch.examples import resnet_imagenet
     from deeplearning_cfn_tpu_torch.models import resnet
     from deeplearning_cfn_tpu_torch.ops import fused_dense as fd
     from deeplearning_cfn_tpu_torch.train.data import (
@@ -599,7 +606,36 @@ def _resnet_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
     del trainer, state, model, grads, logits, out, err, gerr
     torch.cuda.empty_cache()
 
-    # 2. Eager training, kernel head then plain head, through fit (prefetcher
+    # 2. The example, as a user runs it, with the kernel head: its own
+    # synthetic stream (f32 images, as the JAX example's), its trainer, fit
+    # with two producers, then one held-out eval batch.
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = resnet_imagenet.main([
+        "--depth", "50", "--global_batch_size", str(RESNET_BATCH),
+        "--image_size", str(RESNET_IMAGE), "--steps", str(RESNET_EXAMPLE_STEPS),
+        "--log_every", "1", "--eval_steps", "1", "--prefetch_workers", "2",
+        "--use_pallas_head", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(kernels_mod.launch_counts)
+    example = {"phase": "resnet_example", "args": "--depth 50 --use_pallas_head",
+               "steps": result["steps"], "final_loss": result["final_loss"],
+               "losses": [h["loss"] for h in result["history"]],
+               "step_ms": [RESNET_BATCH / h["examples_per_sec"] * 1e3 for h in result["history"]],
+               "eval": result["eval"], "params": result["params"],
+               "first_step_s": result["first_step_s"], "wall_s": time.perf_counter() - t0,
+               "launches": launches}
+    _emit(example)
+    _require(result["steps"] == RESNET_EXAMPLE_STEPS
+             and all(math.isfinite(v) for v in example["losses"])
+             and math.isfinite(result["eval"]["loss"]), f"resnet example: {example}")
+    _require(_variants(launches, "fused_dense") == {F32_SPLITK: RESNET_EXAMPLE_STEPS + 1},
+             f"resnet example: the kernel head launched {launches}, expected one "
+             f"{F32_SPLITK} a step and one for the eval batch")
+    del result
+    torch.cuda.empty_cache()
+
+    # 3. Eager training, kernel head then plain head, through fit (prefetcher
     # with two producers over the pooled uint8 stream; a readback each step,
     # so each logged step time is the step's whole time).
     runs, kernel_launches = {}, {}
@@ -655,7 +691,7 @@ def _resnet_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
         _emit({"phase": "profile", "path": "resnet50", "head": path, **_profile(torch, step, 2)})
         runs[path] = run
         if not pallas:
-            # 3. Eval on two held-out batches, eval mode, running statistics.
+            # 4. Eval on two held-out batches, eval mode, running statistics.
             held_out = SyntheticDataset(shape=shape[1:], num_classes=1000,
                                         batch_size=RESNET_BATCH, seed=10_000, template_seed=0,
                                         dtype="uint8")
@@ -666,7 +702,7 @@ def _resnet_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
         del trainer, state, logger, x, y
         torch.cuda.empty_cache()
 
-    # 4. multi_step_fn(RESNET_K) captured as one CUDA graph, against as many
+    # 5. multi_step_fn(RESNET_K) captured as one CUDA graph, against as many
     # eager steps from the same state on the same stacked batches; then
     # replays timed on the host's clock (each call ends in a readback).
     stack = next(stack_batches(iter(pool), RESNET_K))

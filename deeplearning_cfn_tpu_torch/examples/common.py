@@ -112,21 +112,19 @@ def metrics_sink(args, run_name: str):
     return JsonlMetricsSink.for_run(args.metrics_dir, run_name)
 
 
-def device_image_pipeline(args, image_shape, fallback_ds, eval_mode: bool = False):
+def device_image_pipeline(args, image_shape, fallback_ds):
     """``(batches_fn, input_stats, augment)`` for an image trainer: the
     synthetic dataset's stream, its uint8 ``input_stats`` (normalised on the
     device, in the step), and ``--augment_flip`` / ``--augment_crop`` as a
     ``train.augment.DeviceAugment`` for ``TrainerConfig.augment`` (None when
-    it would do nothing, and always for eval).  ``--data_dir`` record
-    streams are a later slice's."""
+    it would do nothing).  ``--data_dir`` record streams are a later
+    slice's."""
     from deeplearning_cfn_tpu_torch.train.augment import DeviceAugment
 
     if getattr(args, "data_dir", None):
         raise NotImplementedError("--data_dir (image records) is ported in a later slice "
                                   "of the PyTorch port")
     stats = getattr(fallback_ds, "input_stats", None)
-    if eval_mode:
-        return fallback_ds.batches, stats, None
     crop, pad = None, 0
     if getattr(args, "augment_crop", False):
         crop, pad = (int(image_shape[0]), int(image_shape[1])), int(getattr(args, "crop_pad", 4) or 0)

@@ -11,10 +11,13 @@ What changes the numbers, and how the port keeps Flax's:
   (0, 1) on an even input, not (1, 1); the pool pads with −inf.  Asymmetric
   pads are applied with ``F.pad``, then the op runs with ``padding=0``.
 - :class:`BatchNorm` is Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``:
-  batch statistics in f32 as ``E[x²] − E[x]²`` clipped at 0, running
-  statistics updated as ``0.9·r + 0.1·batch`` with the biased variance, in
-  train steps only; f32 parameters and statistics, output in the compute
-  dtype.  ``bn3``'s scale starts at zero.
+  batch statistics in f32, running statistics updated as ``0.9·r +
+  0.1·batch`` with the biased variance, in train steps only; f32 parameters
+  and statistics, output in the compute dtype.  ``bn3``'s scale starts at
+  zero.  The batch statistics come from PyTorch's batch-norm kernel in one
+  pass over the activation, not from Flax's ``E[x²] − E[x]²``: the two
+  agree to f32 rounding unless a channel's mean is large against its
+  standard deviation, where the one pass is the more exact.
 - The head: ``mean`` over H, W in f32, rounded once to the compute dtype
   (``jnp.mean`` of bf16), then cast to f32.  With ``use_pallas_head`` it is
   ``FusedDense(2048, 1000, dtype=float32)``: on the card the f32 fused-dense
@@ -92,38 +95,17 @@ class Conv(nn.Module):
         return y
 
 
-class _BatchNormFunction(torch.autograd.Function):
-    """Normalise ``x`` with given batch statistics (mean, invstd of x itself):
-    PyTorch's batch-norm kernels forward and backward, the backward through
-    the statistics as a train-mode batch norm's."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, mean, var, eps):
-        out = torch.ops.aten.native_batch_norm(x, weight, bias, mean, var, False, 0.0, eps)[0]
-        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
-        ctx.eps = eps
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, weight, mean, invstd = ctx.saved_tensors
-        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
-               else torch.contiguous_format)
-        dx, dw, db = torch.ops.aten.native_batch_norm_backward(
-            g.contiguous(memory_format=fmt), x, weight, None, None, mean, invstd,
-            True, ctx.eps, list(ctx.needs_input_grad[:3]))
-        return dx, dw, db, None, None, None
-
-
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` over the
     channel axis (1) of an NCHW tensor.
 
-    Train mode: the batch's mean and variance in f32 (``E[x²] − E[x]²``,
-    clipped at 0), and the running statistics (buffers ``mean``, ``var``)
-    updated in place with them.  Eval mode: the running statistics.  The
-    normalisation is ``(x − mean)·rsqrt(var + ε)·weight + bias`` in f32,
-    out in ``dtype``."""
+    Train mode: PyTorch's batch-norm kernel in train form, which computes the
+    batch's mean and inverse standard deviation in f32 from the
+    compute-dtype input in one pass (the gradient flows through them); the
+    running statistics (buffers ``mean``, ``var``) are updated in place from
+    those two, the biased variance as ``invstd⁻² − ε`` clipped at 0.  Eval
+    mode: the running statistics.  The normalisation is
+    ``(x − mean)·rsqrt(var + ε)·weight + bias`` in f32, out in ``dtype``."""
 
     def __init__(self, channels: int, dtype=torch.float32, zero_scale: bool = False):
         super().__init__()
@@ -134,18 +116,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if train:
-            with torch.no_grad():
-                x32 = x.to(torch.float32)
-                mean = x32.mean(dim=(0, 2, 3))
-                var = torch.clamp_min(x32.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
-                del x32
-                self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
-                self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)
-        else:
-            mean, var = self.mean, self.var
         x = x.to(self.dtype)
-        return _BatchNormFunction.apply(x, self.weight, self.bias, mean, var, EPS)
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0, EPS)
+        out, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, EPS)
+        with torch.no_grad():
+            var = torch.clamp_min(invstd.reciprocal().square() - EPS, 0.0)
+            self.mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
+            self.var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
+        return out
 
 
 class GroupNorm32(nn.Module):

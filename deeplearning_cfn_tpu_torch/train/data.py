@@ -99,10 +99,6 @@ class SyntheticDataset:
             yield Batch(x=x[i % k], y=y[i % k])
 
     @classmethod
-    def mnist_like(cls, batch_size: int, seed: int = 0) -> "SyntheticDataset":
-        return cls(shape=(28, 28, 1), num_classes=10, batch_size=batch_size, seed=seed)
-
-    @classmethod
     def imagenet_like(
         cls,
         batch_size: int,

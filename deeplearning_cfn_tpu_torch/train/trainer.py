@@ -385,7 +385,6 @@ class Trainer:
         steps: int,
         logger: ThroughputLogger | None = None,
         checkpointer: Any = None,
-        stop_fn: Callable[[dict], bool] | None = None,
         prefetch: int = 2,
         prefetch_workers: int = 1,
         reshard: Any = None,
@@ -394,13 +393,13 @@ class Trainer:
         datastream: Any = None,
     ) -> tuple[TrainState, list[float]]:
         """Train on at most ``steps`` batches.  Losses are read back to the
-        host every ``config.log_every`` steps (and at the end), not per step;
-        ``stop_fn(metrics)`` runs there and ends the run when it returns True.
-        ``prefetch`` > 0 copies batches to the device on ``prefetch_workers``
-        producer threads, ``prefetch`` batches ahead (0: inline copies);
-        the counters land on ``self.last_pipeline_stats``.
-        ``steps_per_call`` > 1 stacks that many batches and runs them through
-        ``multi_step_fn``; a remainder runs step by step."""
+        host each time the step count passes a multiple of
+        ``config.log_every`` (and at the end), not per step.  ``prefetch`` > 0
+        copies batches to the device on ``prefetch_workers`` producer
+        threads, ``prefetch`` batches ahead (0: inline copies); the counters
+        land on ``self.last_pipeline_stats``.  ``steps_per_call`` = k > 1
+        stacks k batches a call and runs them through ``multi_step_fn(k)``;
+        the ``steps % k`` remainder runs one step a call, in the same loop."""
         for name, on in (("checkpointer", checkpointer is not None),
                          ("reshard", reshard is not None),
                          ("profiler", profiler is not None),
@@ -409,36 +408,42 @@ class Trainer:
                 raise NotImplementedError(f"fit({name}) is ported in {_LATER}")
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-        if steps_per_call > 1:
-            return self._fit_multi(state, batches, steps, steps_per_call, logger, stop_fn,
-                                   prefetch, prefetch_workers)
+        k = steps_per_call
+        stacked = steps // k if k > 1 else 0  # calls of k steps, first
+        batches = itertools.islice(batches, steps)
+        if stacked:
+            kfn = self.multi_step_fn(k)
+            batches = itertools.chain(stack_batches(itertools.islice(batches, stacked * k), k),
+                                      batches)
         losses: list[float] = []
         pending: list[torch.Tensor] = []
         sync_every = max(1, int(self.config.log_every))
         t_fit = time.perf_counter()
-        batches, prefetcher = self._pipeline(itertools.islice(batches, steps), prefetch,
-                                             prefetch_workers)
+        batches, prefetcher = self._pipeline(batches, prefetch, prefetch_workers)
         try:
             for i, batch in enumerate(batches):
                 x, y = device_put_batch(batch, self.device)
-                state, metrics = self.train_step(state, x, y)
-                pending.append(metrics["loss"])
+                before = state.step
+                if i < stacked:
+                    state, loss = kfn(state, x, y)
+                else:
+                    state, metrics = self.train_step(state, x, y)
+                    loss = metrics["loss"][None]
+                pending.append(loss)
                 if i == 0:
-                    float(metrics["loss"])  # waits for the first step
+                    float(loss[-1])  # waits for the first call
                     self.first_step_seconds = time.perf_counter() - t_fit
                     self.first_step_at = time.perf_counter()
                 if logger:
-                    logger.step(state.step, metrics["loss"])
-                if state.step % sync_every == 0 or i == steps - 1:
-                    losses.extend(torch.stack(pending).tolist())
+                    logger.step(state.step, loss[-1])
+                if state.step // sync_every > before // sync_every:
+                    losses.extend(torch.cat(pending).tolist())
                     pending.clear()
-                    if stop_fn is not None and stop_fn(metrics):
-                        break
         finally:
             if prefetcher is not None:
                 prefetcher.close()
         if pending:
-            losses.extend(torch.stack(pending).tolist())
+            losses.extend(torch.cat(pending).tolist())
         return state, losses
 
     def _pipeline(self, batches, prefetch: int, workers: int, name: str = "fit"):
@@ -449,61 +454,13 @@ class Trainer:
         prefetcher = DevicePrefetcher(batches, self.device, prefetch, workers=workers, stats=stats)
         return prefetcher, prefetcher
 
-    def _fit_multi(self, state, batches, steps, k, logger, stop_fn, prefetch, workers):
-        """The ``steps_per_call=k`` loop: ``[k, B, ...]`` stacks, prefetched
-        to the device, one ``multi_step_fn(k)`` call each; then the
-        ``steps % k`` remainder step by step on the same iterator."""
-        kfn = self.multi_step_fn(k)
-        losses: list[float] = []
-        pending: list[torch.Tensor] = []
-        sync_every = max(1, -(-int(self.config.log_every) // k))  # in calls
-        t_fit = time.perf_counter()
-        batches = itertools.islice(batches, steps)
-        calls = steps // k
-        stacks, prefetcher = self._pipeline(
-            stack_batches(itertools.islice(batches, calls * k), k), prefetch, workers)
-        stopped = False
-        try:
-            for i, stack in enumerate(stacks):
-                xs, ys = device_put_batch(stack, self.device)
-                state, kloss = kfn(state, xs, ys)
-                pending.append(kloss)
-                if i == 0:
-                    float(kloss[-1])
-                    self.first_step_seconds = time.perf_counter() - t_fit
-                    self.first_step_at = time.perf_counter()
-                if logger:
-                    logger.step(state.step, kloss[-1])
-                if (i + 1) % sync_every == 0 or i == calls - 1:
-                    losses.extend(torch.cat(pending).tolist())
-                    pending.clear()
-                    if stop_fn is not None and stop_fn({"loss": losses[-1]}):
-                        stopped = True
-                        break
-        finally:
-            if prefetcher is not None:
-                prefetcher.close()
-        if pending:
-            losses.extend(torch.cat(pending).tolist())
-        if not stopped and steps % k:
-            tail = []
-            for batch in batches:
-                x, y = device_put_batch(batch, self.device)
-                state, metrics = self.train_step(state, x, y)
-                tail.append(metrics["loss"])
-                if logger:
-                    logger.step(state.step, metrics["loss"])
-            if tail:
-                losses.extend(torch.stack(tail).tolist())
-        return state, losses
-
-    def evaluate(self, state: TrainState, batches, steps: int | None = None,
-                 prefetch: int = 2) -> dict:
+    def evaluate(self, state: TrainState, batches, steps: int | None = None) -> dict:
         """Example-weighted mean of the eval step's metrics over the batches,
-        plus ``examples``; one readback at the end."""
+        plus ``examples``; one readback at the end.  Batches are prefetched
+        two ahead by one producer."""
         if steps is not None:
             batches = itertools.islice(batches, steps)
-        batches, prefetcher = self._pipeline(batches, prefetch, 1, name="eval")
+        batches, prefetcher = self._pipeline(batches, 2, 1, name="eval")
         per_batch: list[tuple[int, dict]] = []
         try:
             for batch in batches:

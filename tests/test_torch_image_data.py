@@ -63,12 +63,10 @@ def test_synthetic_dataset_is_byte_identical_to_jax(case):
 
 
 def test_synthetic_dataset_constructors_match_jax():
-    for name, kw in (("imagenet_like", dict(batch_size=2, image_size=16, dtype="uint8",
-                                            pool_batches=2)),
-                     ("mnist_like", dict(batch_size=3, seed=2))):
-        a = next(iter(getattr(data.SyntheticDataset, name)(**kw).batches(1)))
-        b = next(iter(getattr(jax_data.SyntheticDataset, name)(**kw).batches(1)))
-        assert a.x.tobytes() == b.x.tobytes() and a.y.tobytes() == b.y.tobytes()
+    kw = dict(batch_size=2, image_size=16, dtype="uint8", pool_batches=2)
+    a = next(iter(data.SyntheticDataset.imagenet_like(**kw).batches(1)))
+    b = next(iter(jax_data.SyntheticDataset.imagenet_like(**kw).batches(1)))
+    assert a.x.tobytes() == b.x.tobytes() and a.y.tobytes() == b.y.tobytes()
 
 
 # --- dequantize_normalize ------------------------------------------------------

@@ -1,8 +1,11 @@
 """The port's ResNet against the JAX package's, on the CPU, on the same weights.
 
 ``ResNet(stage_sizes=(1, 1), num_filters=8, num_classes=10)`` is initialised
-in JAX from ``jax.random.key(0)``; its params and ``batch_stats`` reach the
-port through ``interop.resnet_params_from_jax``.  Inputs are NHWC numpy
+in JAX from ``jax.random.key(0)``, then every norm's scale, bias, mean and
+variance is drawn at random (Flax's ``bn3`` scale of 0 would leave each
+block's residual branch, its stride-2 ``conv2`` among them, out of the
+logits); params and ``batch_stats`` reach the port through
+``interop.resnet_params_from_jax``.  Inputs are NHWC numpy
 draws, 32x32 (even: the stride-2 conv and the max-pool pad (0, 1)) and 33x33
 (odd: (1, 1)).  The head is ``nn.Dense`` / the plain ``x @ kernel + bias``
 (``use_pallas_head`` off) or ``FusedDense`` (on: the Pallas kernel in
@@ -14,7 +17,8 @@ interpret mode in JAX, the plain fused dense in the port).  Tolerances:
 - the running statistics after one train-mode call (momentum 0.9, biased
   variance): 1e-5 absolute.
 - gradients of a fixed random projection of the logits: 1e-4 of each
-  tensor's largest entry (a relative bound would be meaningless at zeros).
+  tensor's largest entry (a relative bound would be meaningless at zeros),
+  and none of them all zeros.
 - bf16 logits: 2**-5 of the largest logit.  Both round every conv and
   BatchNorm output to bf16, at other places (XLA fuses, PyTorch does not),
   and the differences carry through the network: a few bf16 ulps.
@@ -50,13 +54,35 @@ def _images(size: int, seed: int = 0) -> np.ndarray:
 _INIT: dict = {}
 
 
+def _randomise_norms(node, rng, path=()):
+    """Numpy draws for every norm's scale and bias (params) and mean and var
+    (batch_stats), in place of Flax's init (scale 1, or 0 for ``bn3``, which
+    would hide each block's residual branch; bias and mean 0, var 1)."""
+    for key, child in node.items():
+        if isinstance(child, dict):
+            _randomise_norms(child, rng, path + (key,))
+        elif any(p.startswith("bn") for p in path):
+            shape, dtype = np.shape(child), np.asarray(child).dtype
+            draw = {"scale": lambda: rng.uniform(0.5, 1.5, shape),
+                    "var": lambda: rng.uniform(0.5, 1.5, shape),
+                    "bias": lambda: 0.2 * rng.standard_normal(shape),
+                    "mean": lambda: 0.2 * rng.standard_normal(shape)}[key]
+            node[key] = draw().astype(dtype)
+
+
 def _jax_variables(norm: str, size: int):
-    """Numpy params and batch_stats of the JAX model, once per (norm, size)."""
+    """Numpy params and batch_stats of the JAX model, once per (norm, size):
+    Flax's conv and head weights, the norms' variables drawn at random
+    (``_randomise_norms``), the same arrays on both sides."""
     key = (norm, size)
     if key not in _INIT:
         model = jax_resnet.ResNet(**ARCH, norm=norm)
         variables = model.init(jax.random.key(0), jnp.asarray(_images(size)), train=False)
-        _INIT[key] = jax.device_get(variables)
+        variables = jax.tree_util.tree_map(np.array, jax.device_get(variables))
+        rng = np.random.default_rng(7)
+        for tree in variables.values():
+            _randomise_norms(tree, rng)
+        _INIT[key] = variables
     return _INIT[key]
 
 
@@ -145,7 +171,8 @@ def test_gradients_match_jax(size, norm, pallas):
     assert set(grads) == set(named)
     for name, g in grads.items():
         got = named[name].grad.numpy()
-        scale = max(float(np.abs(g.numpy()).max()), 1e-30)
+        scale = float(np.abs(g.numpy()).max())
+        assert scale > 0, name  # every branch reaches the logits
         assert np.abs(got - g.numpy()).max() <= 1e-4 * scale, name
 
 

@@ -13,7 +13,8 @@
 - ``evaluate`` against the JAX ``evaluate`` on two held-out batches
   (eval mode, running statistics): loss to 1e-5 relative, accuracy equal.
 - ``multi_step_fn(2)`` on the CPU against two ``train_step``s, and
-  ``fit(steps_per_call=2)`` against single steps: bitwise (the same ops).
+  ``fit(steps_per_call=k)`` (k 2, 3, 6 over 5 batches) against single
+  steps: bitwise (the same ops).
 - ``resnet_imagenet.main`` end to end at a tiny size on the CPU, and its
   boundaries.
 
@@ -140,27 +141,21 @@ def test_multi_step_fn_on_cpu_is_two_train_steps():
         assert torch.equal(a, b), name
 
 
-def test_fit_steps_per_call_matches_single_steps():
-    """``fit(steps_per_call=2)`` over 5 batches: two stacked calls and one
-    single step, the same losses and state as five single steps."""
+@pytest.mark.parametrize("k,log_every", [(2, 1), (3, 2), (6, 1)])
+def test_fit_steps_per_call_matches_single_steps(k, log_every):
+    """``fit(steps_per_call=k)`` over 5 batches: ``5 // k`` stacked calls,
+    then the remainder one step a call through the same prefetcher, the same
+    losses and state as five single steps (k 6: no stacked call)."""
+    kwargs = {**_config_kwargs(1), "log_every": log_every}
     ttrainer = trainer.Trainer(lambda g: resnet.ResNet(**ARCH, generator=g),
-                               trainer.TrainerConfig(**_config_kwargs(1)), device="cpu")
+                               trainer.TrainerConfig(**kwargs), device="cpu")
     one, two = ttrainer.init(seed=0), ttrainer.init(seed=0)
     one, single = ttrainer.fit(one, _dataset().batches(5), steps=5)
-    two, stacked = ttrainer.fit(two, _dataset().batches(5), steps=5, steps_per_call=2)
+    two, stacked = ttrainer.fit(two, _dataset().batches(5), steps=5, steps_per_call=k)
     assert stacked == single and two.step == 5
-    assert ttrainer.last_pipeline_stats.snapshot()["batches"] == 2  # two stacks prefetched
+    assert ttrainer.last_pipeline_stats.snapshot()["batches"] == 5 // k + 5 % k
     for (name, a), b in zip(two.model.state_dict().items(), one.model.state_dict().values()):
         assert torch.equal(a, b), name
-
-
-def test_fit_stop_fn_ends_the_run():
-    ttrainer = trainer.Trainer(lambda g: resnet.ResNet(**ARCH, generator=g),
-                               trainer.TrainerConfig(**_config_kwargs(1)), device="cpu")
-    state = ttrainer.init(seed=0)
-    state, losses = ttrainer.fit(state, _dataset().batches(5), steps=5,
-                                 stop_fn=lambda metrics: True)
-    assert state.step == 1 and len(losses) == 1
 
 
 def test_captured_steps_refuse_adamw_without_a_card():
