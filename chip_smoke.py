@@ -48,6 +48,30 @@ Phases, one JSON line each:
            loss (the main path's synthetic tokens are uniform over the vocab,
            so its loss starts at the entropy floor and cannot fall); the last
            two steps are profiled by kernel.
+6b. moe    ``examples.llama_train.main`` at m435, seq 2048, batch 8, with
+           ``--experts 8`` (top-2, capacity factor 1.25, aux weight 0.01),
+           six adamw steps: the losses finite, ``moe_aux_loss`` reported, flash
+           launched in its wgmma variant as often a step as in ``slice``; step
+           time, tokens/s, MFU on the active parameters, peak memory.  Then
+           one f32 forward of the MoE model with the kernel (its f32 variant)
+           against one with the plain flash forward, on the same weights
+           (the logits' largest and mean error gated); one bf16 forward at
+           the step's shape, every layer's kernel output (wgmma variant)
+           against the plain flash forward on the same q, k, v; two steps
+           profiled.
+6c. adafactor  ``llama_train.main --size 3b --optimizer adafactor``, seq
+           2048, batch 4, four steps: losses finite, flash 2 a block and step;
+           the optimizer state's bytes (reckoned) beside AdamW's.
+6d. mesh   a one-rank NCCL process group; the m435 step with
+           ``strategy="fsdp"`` over ``build_mesh(MeshSpec(fsdp=1))`` (FSDP2:
+           every parameter the specs shard a DTensor) for four steps on one
+           repeated batch (a loss that falls), against the same steps without
+           a mesh: losses and final parameters, beside the numbers a planted
+           run that never updates would give, which the limits must catch.
+6e. llama_captured  ``multi_step_fn(4)`` of the m435 AdamW step captured as
+           one CUDA graph: its losses and final parameters against four eager
+           steps from the same state on one repeated batch, held as in
+           ``mesh``, then two replays timed, beside the eager step.
 7. bert    the BERT path: ``examples.bert_pretrain.main`` at BERT-base, seq
            128, batch 32, ``--use_pallas_mlp``, forty adamw steps; the launch
            counters are zeroed just before and read just after, the
@@ -100,6 +124,9 @@ dequantised weight) against the float64 product, and the tensor-core
 variants must be within twice ``addmm``'s error.
 The variants are read from the launch counters, which count each launch
 under the variant its C launcher reports.
+The flash row of the kernels line counts the launches of every Llama path
+(``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``; by path in
+``launches_by_path``), each counted from zero just before its run.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line; with no CUDA card, or
@@ -202,6 +229,53 @@ RESNET_EXAMPLE_STEPS = 3
 # the same inputs, but cuDNN's backward may sum in another order from run to
 # run (atomics), so the losses agree to 1e-3 relative, not always bitwise.
 RESNET_CAPTURE_RTOL = 1e-3
+# The parallelism slice's Llama paths (phases 6b-6e).  moe: the m435 shape at
+# full depth and width with 8 experts (JAX's defaults: top-2, capacity factor
+# 1.25, aux weight 0.01); adafactor: the 3b rung; mesh: MeshSpec(fsdp=1) on a
+# one-rank NCCL group against the same steps without a mesh; llama_captured:
+# multi_step_fn(LLAMA_K) of the m435 AdamW step against as many eager steps.
+MOE_STEPS = 6
+MOE_ARGS = SLICE_ARGS[:SLICE_ARGS.index("--steps")] + [
+    "--steps", str(MOE_STEPS), "--log_every", "1", "--experts", "8", "--device", "cuda"]
+ADAFACTOR_STEPS = 4
+ADAFACTOR_ARGS = ["--size", "3b", "--optimizer", "adafactor", "--seq_len", "2048",
+                  "--global_batch_size", "4", "--steps", str(ADAFACTOR_STEPS), "--log_every", "1",
+                  "--device", "cuda"]
+MESH_STEPS = 4
+LLAMA_K, LLAMA_REPLAYS = 4, 2
+# The MoE path's attention, kernel against plain: every layer's flash call
+# in one bf16 forward of the MoE model at the step's shape (batch 8, seq
+# 2048, the wgmma variant) is recorded, and the plain flash forward runs on
+# the recorded q, k, v.  Routing never enters: the inputs are the same.  The
+# kernel rows hold outputs of |out| <= 1 at BF16_OUT_ATOL, two bf16 ulps
+# there; down the residual stream the outputs grow (past 4 in later layers)
+# and their ulps with them, so each layer is held at BF16_OUT_ATOL times its
+# largest |out| (when above 1): the same two ulps, at that layer's scale.
+# MoE logits, kernel path against the plain flash forward, in f32 (the
+# kernel's f32 variant), batch 2: in f32 each layer's attention output agrees
+# to a few 1e-7 and the logits, of O(1), to 2.1e-6 at most and 2.4e-7 on
+# the mean (H100, 700 W).  A routing flip (a token whose two best experts'
+# scores lie within that rounding of each other) would move that token's
+# logits by O(0.1); at these seeds none happens, and the run is deterministic,
+# so the limits sit ten and four times above the readings and a flip fails.
+MOE_LOGITS_ATOL, MOE_LOGITS_MEAN_ATOL = 2e-5, 1e-6
+# The mesh run against the unsharded run, and the captured steps against
+# eager ones, on one repeated batch, whose loss falls (10.39 to 9.87 in four
+# steps), so a run that never updates shows: its losses sit 5.2e-2 from the
+# sound run's, and its parameters a whole run's travel (a gap of 1.0 below).
+# Losses: relative; parameters: the worst parameter's
+# ||p_a - p_b|| / ||p_b - p_0||, the gap over the distance travelled.  Sound
+# runs differ only by rounding: both pairs were bitwise equal (H100, 700 W),
+# but the backward may sum in another order from run to run (captured losses
+# 1.9e-6 apart on uniform tokens), and a bf16 weight near 0.03 takes steps of
+# ~2.5 ulps, so one rounding flip moves an element by ~40% of its step: an
+# AdamW that rounded differently on one side gave losses 2.0e-5 and a
+# parameter gap of 0.049 apart.  The limits sit five and four times above
+# that, and the planted no-update run past them by NO_UPDATE_MARGIN at least.
+MESH_LOSS_RTOL = 1e-4
+LLAMA_CAPTURE_RTOL = 1e-4
+PARAM_GAP_MAX = 0.2
+NO_UPDATE_MARGIN = 4
 
 
 def _emit(obj: dict) -> None:
@@ -349,9 +423,332 @@ def _llama_on_card(torch, llama, cfg, seed: int):
         for pname, p in model.named_parameters():
             if pname.endswith("norm"):
                 p.fill_(1.0)
-            else:
-                p.normal_(generator=gen).mul_(p.shape[0] ** -0.5)
+            else:  # the fan-in: [in, out] matrices, [E, in, out] expert banks
+                p.normal_(generator=gen).mul_(p.shape[-2] ** -0.5)
     return model
+
+
+def _flash_check(launches: dict, steps: int, per_step: float, what: str) -> dict:
+    """Flash launches of a Llama run: every one in the wgmma variant, at
+    ``per_step`` a step (the ``slice`` phase's count a block and step — one
+    forward and one remat recompute — times the run's blocks)."""
+    n = launches.get("flash_attention_fwd", 0)
+    variants = _variants(launches, "flash_attention_fwd")
+    _require(variants == {"wgmma_tma": n} and n > 0,
+             f"{what}: the Llama path launched flash variants {variants}")
+    _require(n == per_step * steps, f"{what}: flash launched {n} times in {steps} steps, "
+             f"expected {per_step} a step")
+    return {"flash_launches": n, "flash_launches_per_step": n / steps, "flash_variants": variants}
+
+
+def _adafactor_state_bytes(llama, optimizers, cfg, elt: int = 2) -> int:
+    """The Adafactor state of ``cfg``'s JAX leaves, in the parameter dtype:
+    row plus column means for a factored leaf (per layer when stacked),
+    the full second moment otherwise."""
+    leaves = [(cfg.vocab_size, cfg.dim), (cfg.dim,)]
+    leaves += [(cfg.n_layers, *shape) for shape in llama.layer_param_shapes(cfg).values()]
+    total = 0
+    for shape in leaves:
+        dims = optimizers.factored_dims(shape)
+        n = math.prod(shape)
+        total += n if dims is None else n // shape[dims[1]] + n // shape[dims[0]]
+    return total * elt
+
+
+def _param_copy(model) -> dict:
+    """Each parameter's local values (a DTensor's shard: the whole tensor on
+    one rank), copied."""
+    from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+
+    return {n: local_part(p).detach().clone() for n, p in model.named_parameters()}
+
+
+def _param_gap(a: dict, b: dict, p0: dict) -> dict:
+    """The worst parameter's ``||a - b|| / ||b - p0||``, the gap between two
+    runs from ``p0`` over the distance run ``b`` travelled: 0 for equal
+    runs, 1 for a run ``a`` that never moved."""
+    gaps = {}
+    for n in b:
+        gap = (a[n].float() - b[n].float()).norm().item()
+        travelled = (b[n].float() - p0[n].float()).norm().item()
+        gaps[n] = gap / travelled if travelled else (0.0 if gap == 0 else math.inf)
+    worst = max(gaps, key=gaps.get)
+    return {"param_gap_max": gaps[worst], "param_gap_worst": worst,
+            "param_gap_median": statistics.median(gaps.values())}
+
+
+def _held_runs(losses: list, ref_losses: list, gap: dict, p0_gap: dict, rtol: float) -> dict:
+    """A run's losses and parameter ``gap`` against the reference run's, and
+    the same numbers for a planted run that never updates: its losses all
+    the reference's first, its parameters ``p0`` (``p0_gap``)."""
+    return {"max_rel_loss_diff": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+            "rtol": rtol, **gap, "param_gap_limit": PARAM_GAP_MAX,
+            "no_update_control": {
+                "max_rel_loss_diff": max(abs(ref_losses[0] - b) / abs(b) for b in ref_losses),
+                "param_gap_max": p0_gap["param_gap_max"]}}
+
+
+def _check_held(what: str, row: dict) -> None:
+    """The run within the limits, and the planted no-update run
+    ``NO_UPDATE_MARGIN`` times past them (so the limits can catch it)."""
+    control = row["no_update_control"]
+    _require(control["max_rel_loss_diff"] > NO_UPDATE_MARGIN * row["rtol"]
+             and control["param_gap_max"] > NO_UPDATE_MARGIN * row["param_gap_limit"],
+             f"{what}: the limits would pass a run that never updates: {control}")
+    _require(row["max_rel_loss_diff"] <= row["rtol"],
+             f"{what}: losses {row['max_rel_loss_diff']} apart, relative")
+    _require(row["param_gap_max"] <= row["param_gap_limit"],
+             f"{what}: parameter {row['param_gap_worst']} {row['param_gap_max']} apart")
+
+
+def _slice5a_phases(torch, kernels_mod, smi: str, flash_per_block: float,
+                    peak_flops: float) -> dict:
+    """Phases 6b-6e: ``moe``, ``adafactor``, ``mesh`` and ``llama_captured``
+    (see the module docstring).  Returns each path's flash launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from deeplearning_cfn_tpu_torch.examples import llama_train
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel import sharding
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning_cfn_tpu_torch.train import optimizers
+    from deeplearning_cfn_tpu_torch.train.data import (
+        SyntheticTokenDataset,
+        device_put_batch,
+        stack_batches,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    launches_by_path = {}
+
+    def run_example(name, args, steps, batch, n_layers):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = llama_train.main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(kernels_mod.launch_counts)
+        launches_by_path[name] = launches.get("flash_attention_fwd", 0)
+        tokens = batch * 2048
+        run = {"phase": name, "args": args, **_run_summary(result, tokens, tokens),
+               "active_params": result["active_params"], "wall_s": wall_s,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               **_flash_check(launches, steps, flash_per_block * n_layers, name),
+               "nvidia_smi": smi}
+        _require(len(run["losses"]) == steps and all(math.isfinite(v) for v in run["losses"]),
+                 f"{name}: non-finite loss {run['losses']}")
+        return result, run
+
+    # 6b. moe: the m435 shape at full depth and width with 8 experts, top-2.
+    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    flash_per_step = flash_per_block * cfg.n_layers
+    result, run = run_example("moe", MOE_ARGS, MOE_STEPS, 8, cfg.n_layers)
+    run["moe_aux_loss"] = result["moe_aux_loss"]
+    _emit(run)
+    _require(math.isfinite(run["moe_aux_loss"]) and run["moe_aux_loss"] > 0,
+             f"moe: the aux loss {run['moe_aux_loss']}")
+    mcfg = dataclasses.replace(cfg, n_experts=8, dtype=torch.float32)
+    model = _llama_on_card(torch, llama, mcfg, seed=0)
+    tokens = torch.from_numpy(next(SyntheticTokenDataset(
+        seq_len=2048, vocab_size=cfg.vocab_size, batch_size=2).batches(1)).x).cuda()
+    kernels_mod.reset_launch_counts()
+    with torch.no_grad():
+        logits_kernel = llama.forward(model, tokens)
+        with llama.force_attention_kind("flash_reference"):
+            logits_plain = llama.forward(model, tokens)
+    f32_variants = _variants(kernels_mod.launch_counts, "flash_attention_fwd")
+    diff = (logits_kernel - logits_plain).abs()
+    row = {"phase": "logits", "path": "moe", "flash_variants": f32_variants, "dtype": "float32", "B": 2, "S": 2048,
+           "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+           "atol": MOE_LOGITS_ATOL, "mean_atol": MOE_LOGITS_MEAN_ATOL,
+           "logits_max_abs": logits_plain.abs().max().item(),
+           "finite": bool(torch.isfinite(logits_kernel).all())}
+    _emit(row)
+    _require(row["finite"], "moe: non-finite logits")
+    _require(f32_variants == {"simt": mcfg.n_layers}, f"moe: f32 forward launched {f32_variants}")
+    _require(row["max_abs_err"] <= MOE_LOGITS_ATOL, "moe: logits max error")
+    _require(row["mean_abs_err"] <= MOE_LOGITS_MEAN_ATOL, "moe: logits mean error")
+    del model, logits_kernel, logits_plain, diff, result
+    torch.cuda.empty_cache()
+    # Two steps of the same bf16 MoE step profiled by kernel, after two
+    # warm-up steps, on weights drawn on the card.
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+    mcfg = dataclasses.replace(cfg, n_experts=8)
+    trainer = Trainer(lambda gen: _llama_on_card(torch, llama, mcfg, seed=0), TrainerConfig(
+        optimizer="adamw", learning_rate=3e-4, weight_decay=0.1, grad_clip_norm=1.0),
+        loss_fn=llama.causal_lm_loss, device="cuda")
+    state = trainer.init(seed=0)
+    x, y = device_put_batch(next(SyntheticTokenDataset(
+        seq_len=2048, vocab_size=cfg.vocab_size, batch_size=8).batches(1)), torch.device("cuda"))
+
+    # Every layer's attention in one bf16 forward at the step's shape: the
+    # kernel's output against the plain flash forward on the same q, k, v.
+    kernel_flash, errs = llama.flash_attention, []
+
+    def checked_flash(q, k, v, causal):
+        out = kernel_flash(q, k, v, causal=causal)
+        ref = llama.flash_attention_reference(q, k, v, causal=causal)[0]
+        errs.append(torch.stack([(out.float() - ref.float()).abs().max(),
+                                 ref.float().abs().max()]))
+        return out
+
+    kernels_mod.reset_launch_counts()
+    llama.flash_attention = checked_flash
+    try:
+        with torch.no_grad():
+            llama.forward(state.model, x)
+    finally:
+        llama.flash_attention = kernel_flash
+    errs, scales = torch.stack(errs).T.tolist()
+    limits = [BF16_OUT_ATOL * max(1.0, m) for m in scales]
+    row = {"phase": "attention", "path": "moe", "dtype": "bfloat16", "B": 8, "S": 2048,
+           "flash_variants": _variants(kernels_mod.launch_counts, "flash_attention_fwd"),
+           "max_abs_err_by_layer": errs, "max_abs_out_by_layer": scales,
+           "atol_by_layer": limits}
+    _emit(row)
+    _require(row["flash_variants"] == {"wgmma_tma": mcfg.n_layers},
+             f"moe: the bf16 forward launched {row['flash_variants']}")
+    _require(all(e <= lim for e, lim in zip(errs, limits)),
+             f"moe: attention off the plain forward by {errs}, limits {limits}")
+
+    def moe_step():
+        nonlocal state
+        state, _ = trainer.train_step(state, x, y)
+
+    for _ in range(2):
+        moe_step()
+    _emit({"phase": "profile", "path": "moe", **_profile(torch, moe_step, 2)})
+    del trainer, state, x, y
+
+    # 6c. adafactor: the 3b rung with the memory-lean optimizer.
+    bcfg = llama.LlamaConfig.b3(seq_len=2048)
+    result, run = run_example("adafactor", ADAFACTOR_ARGS, ADAFACTOR_STEPS, 4, bcfg.n_layers)
+    run["optimizer_state_bytes"] = _adafactor_state_bytes(llama, optimizers, bcfg)
+    run["adamw_state_bytes"] = 2 * 2 * llama.param_count(bcfg)  # mu and nu in bf16
+    run["param_bytes"] = 2 * llama.param_count(bcfg)
+    _emit(run)
+    del result
+
+    # 6d. mesh: a one-rank NCCL group, the m435 path with strategy "fsdp"
+    # over build_mesh(MeshSpec(fsdp=1)) (FSDP2, every parameter a DTensor),
+    # against the same steps on one repeated batch without a mesh.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshSpec(fsdp=1))
+        tcfg = TrainerConfig(strategy="fsdp", optimizer="adamw", learning_rate=3e-4,
+                             weight_decay=0.1, grad_clip_norm=1.0, log_every=1)
+        batch = device_put_batch(next(SyntheticTokenDataset(
+            seq_len=2048, vocab_size=cfg.vocab_size, batch_size=8).batches(1)), torch.device("cuda"))
+        batches = [batch] * MESH_STEPS
+        runs, finals = {}, {}
+        for path, m in (("mesh", mesh), ("no_mesh", None)):
+            trainer = llama.make_trainer(cfg, tcfg, device="cuda", mesh=m)
+            state = trainer.init(seed=0)
+            if m is None:
+                p0 = _param_copy(state.model)
+            dtensors = sum(hasattr(p, "placements") for p in state.model.parameters())
+            torch.cuda.synchronize()
+            kernels_mod.reset_launch_counts()
+            losses, step_ms = [], []
+            for x, y in batches:
+                t0 = time.perf_counter()
+                state, metrics = trainer.train_step(state, x, y)
+                losses.append(metrics["loss"].item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(kernels_mod.launch_counts)
+            runs[path] = {"losses": losses, "step_ms": step_ms,
+                          "steady_step_ms": statistics.median(step_ms[1:]),
+                          "dtensor_params": dtensors, "launches": launches,
+                          **_flash_check(launches, MESH_STEPS, flash_per_step, f"mesh ({path})")}
+            if m is not None:
+                launches_by_path["mesh"] = launches["flash_attention_fwd"]
+            finals[path] = _param_copy(state.model)
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    row = {"phase": "mesh", "mesh": "MeshSpec(fsdp=1), one NCCL rank", "steps": MESH_STEPS,
+           **{f"{k}_{p}": v for p, r in runs.items() for k, v in r.items()},
+           **_held_runs(runs["mesh"]["losses"], runs["no_mesh"]["losses"],
+                        _param_gap(finals["mesh"], finals["no_mesh"], p0),
+                        _param_gap(p0, finals["no_mesh"], p0), MESH_LOSS_RTOL),
+           "nvidia_smi": smi}
+    _emit(row)
+    # FSDP2 holds every parameter the specs shard; the norms stay whole.
+    n_sharded = sum(sharding.fsdp_dim(spec) is not None for spec in llama.param_specs(cfg).values())
+    _require(runs["mesh"]["dtensor_params"] == n_sharded and runs["no_mesh"]["dtensor_params"] == 0,
+             f"mesh: {runs['mesh']['dtensor_params']} parameters sharded, expected {n_sharded}")
+    _require(all(math.isfinite(v) for v in runs["mesh"]["losses"]), "mesh: non-finite loss")
+    _check_held("mesh", row)
+    del batches, batch, finals
+
+    # 6e. llama_captured: multi_step_fn(LLAMA_K) of the m435 AdamW step as one
+    # CUDA graph, against as many eager steps from the same state, on one
+    # repeated batch.
+    trainer = llama.make_trainer(cfg, TrainerConfig(
+        optimizer="adamw", learning_rate=3e-4, weight_decay=0.1, grad_clip_norm=1.0,
+        log_every=1), device="cuda")
+    one = next(SyntheticTokenDataset(seq_len=2048, vocab_size=cfg.vocab_size, batch_size=8).batches(1))
+    xs, ys = device_put_batch(next(stack_batches(iter([one] * LLAMA_K), LLAMA_K)),
+                              torch.device("cuda"))
+    eager_state = trainer.init(seed=0)
+    p0 = _param_copy(eager_state.model)
+    eager, eager_ms = [], []
+    for i in range(LLAMA_K):
+        t0 = time.perf_counter()
+        eager_state, m = trainer.train_step(eager_state, xs[i], ys[i])
+        eager.append(m["loss"].item())
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    eager_final = _param_copy(eager_state.model)
+    del eager_state, m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init(seed=0)
+    kfn = trainer.multi_step_fn(LLAMA_K)
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, captured = kfn(state, xs, ys)
+    captured = captured.tolist()
+    capture_s = time.perf_counter() - t0
+    held = _held_runs(captured, eager, _param_gap(_param_copy(state.model), eager_final, p0),
+                      _param_gap(p0, eager_final, p0), LLAMA_CAPTURE_RTOL)
+    del p0, eager_final
+    launches = dict(kernels_mod.launch_counts)
+    launches_by_path["llama_captured"] = launches.get("flash_attention_fwd", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LLAMA_REPLAYS):
+        state, losses = kfn(state, xs, ys)
+        losses.tolist()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (LLAMA_REPLAYS * LLAMA_K)
+    flops = llama.train_flops_per_token(cfg, 2048) * 8 * 2048
+    row = {"phase": "llama_captured", "k": LLAMA_K, "replays": LLAMA_REPLAYS,
+           "eager_losses": eager, "captured_losses": captured, **held,
+           "bitwise_equal": captured == eager,
+           "first_call_s": capture_s, "captures": kfn.captures,
+           "step_ms": step_ms, "eager_step_ms": eager_ms,
+           "eager_steady_step_ms": statistics.median(eager_ms[1:]),
+           "tokens_per_s": 8 * 2048 / step_ms * 1e3, "mfu": flops / (step_ms / 1e3) / peak_flops,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches_in_warmup_and_capture": launches,
+           "replay_launches": "not counted: a replay launches no wrapper", "nvidia_smi": smi}
+    _emit(row)
+    _require(kfn.captures == 1, f"llama_captured: {kfn.captures} captures")
+    _check_held("llama_captured", row)
+    _flash_check(launches, 1 + LLAMA_K, flash_per_step, "llama_captured (warm-up + capture)")
+    del trainer, state, kfn, xs, ys
+    torch.cuda.empty_cache()
+    return launches_by_path
 
 
 def _serve_phase(torch, kernels_mod, smi: str, peak_bw: float) -> dict:
@@ -1186,6 +1583,14 @@ def main() -> int:
     _emit({"phase": "profile", "path": "llama", **llama_profile})
     del state, trainer, x, y
 
+    # 6b-6e. The parallelism slice's Llama paths: MoE, adafactor, the mesh,
+    # the captured AdamW step.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_per_block = llama_launches["flash_attention_fwd"] / STEPS / cfg.n_layers
+    flash_by_path = {"slice": llama_launches["flash_attention_fwd"],
+                     **_slice5a_phases(torch, _kernels, smi, flash_per_block, peak_flops)}
+
     # 7. bert: the BERT path, through the entry point a user calls
     bert_launches, bert_runs = {}, {}
     for path, extra in (("kernel", ["--use_pallas_mlp"]), ("plain", [])):
@@ -1297,10 +1702,12 @@ def main() -> int:
     bf16_rows = [r for r in dense_rows.values() if r["dtype"] == "bfloat16"]
     f32_rows = [r for r in dense_rows.values() if r["dtype"] == "float32"]
     _emit({"kernels": [
-        kernel_entry("flash_attention_fwd", csrc + "flash_attn_fwd.cu",
-                     "deeplearning_cfn_tpu/ops/pallas_attention.py:222",
-                     llama_launches["flash_attention_fwd"],
-                     max(r["out_max_abs_err"] for r in kernel_rows.values()), kernel_rows["slice"]),
+        {**kernel_entry("flash_attention_fwd", csrc + "flash_attn_fwd.cu",
+                        "deeplearning_cfn_tpu/ops/pallas_attention.py:222",
+                        sum(flash_by_path.values()),
+                        max(r["out_max_abs_err"] for r in kernel_rows.values()),
+                        kernel_rows["slice"]),
+         "launches_by_path": flash_by_path},
         kernel_entry("fused_dense", csrc + "fused_dense.cu",
                      "deeplearning_cfn_tpu/ops/pallas_fused.py:135",
                      dense_launches["bf16"],

@@ -9,11 +9,13 @@ a CUDA C++ kernel written by hand under ``ops/csrc/`` and built with
 The port imports nothing from the JAX package: where it needs code that
 lives there (synthetic data, schedules, metrics), it keeps its own copy.
 
-Ported so far, on one device: Llama causal-LM training
-(``examples/llama_train.py``) through the flash-attention forward kernel, and
-BERT masked-LM pretraining and fine-tuning (``examples/bert_pretrain.py``,
-``examples/bert_finetune.py``) through the fused-dense kernel, beside which
-sits its int8-weight variant.
+Ported so far: Llama causal-LM training (``examples/llama_train.py``)
+through the flash-attention forward kernel, on one device or over a mesh of
+ranks (``parallel/``: dp as DDP, fsdp as FSDP2, MoE experts over ep), with
+AdamW, LAMB or Adafactor; BERT masked-LM pretraining and fine-tuning
+(``examples/bert_pretrain.py``, ``examples/bert_finetune.py``) through the
+fused-dense kernel, beside which sits its int8-weight variant; ResNet
+training (``examples/resnet_imagenet.py``); Llama serving (``serve/``).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Shared plumbing for the port's example trainers — the parts of
 ``deeplearning_cfn_tpu/examples/common.py`` that ``llama_train``,
-``bert_pretrain`` and ``resnet_imagenet`` read."""
+``bert_pretrain``, ``resnet_imagenet`` and ``multiprocess_smoke`` read."""
 
 from __future__ import annotations
 
@@ -9,6 +9,47 @@ import os
 import time
 
 from deeplearning_cfn_tpu_torch.train.schedules import build_schedule
+
+
+def maybe_init_distributed(device: str = "cuda") -> int:
+    """Join the process group when the cluster contract says this process is
+    one of many: ``DEEPLEARNING_WORKERS_COUNT`` processes, this one
+    ``DLCFN_PROCESS_ID``, meeting at ``DEEPLEARNING_COORDINATOR``
+    (``host:port``), the env the discovery agent publishes.  NCCL on the
+    card (each process on ``cuda:<id mod cards>``), gloo on the CPU.
+    Returns this process's id; a single process joins nothing."""
+    import torch
+    import torch.distributed as dist
+
+    n = int(os.environ.get("DEEPLEARNING_WORKERS_COUNT", "1"))
+    pid = int(os.environ.get("DLCFN_PROCESS_ID", "0"))
+    coordinator = os.environ.get("DEEPLEARNING_COORDINATOR")
+    if n > 1 and coordinator and not dist.is_initialized():
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.set_device(pid % torch.cuda.device_count())
+        dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://{coordinator}",
+                                world_size=n, rank=pid)
+    return pid
+
+
+def default_mesh(strategy: str = "dp"):
+    """The flat mesh over every rank: all fsdp, or all dp.  A multi-slice
+    cluster (``DEEPLEARNING_SLICES_COUNT`` > 1) needs the hybrid mesh, which
+    raises."""
+    import torch.distributed as dist
+
+    from deeplearning_cfn_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+        hybrid_mesh_for_slices,
+    )
+
+    n = dist.get_world_size()
+    n_slices = int(os.environ.get("DEEPLEARNING_SLICES_COUNT", "1") or "1")
+    if n_slices > 1:
+        return hybrid_mesh_for_slices(n_slices)
+    return build_mesh(MeshSpec.fsdp_parallel(n) if strategy == "fsdp" else MeshSpec.data_parallel(n))
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:

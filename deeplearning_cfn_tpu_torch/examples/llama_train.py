@@ -1,10 +1,15 @@
-"""Llama causal-LM training on one device — counterpart of
-``deeplearning_cfn_tpu/examples/llama_train.py``.
+"""Llama causal-LM training over the mesh of the processes that run it —
+counterpart of ``deeplearning_cfn_tpu/examples/llama_train.py``.
 
-The same flags and the same result dict; ``--device`` (default ``cuda``)
-picks the device, and the run raises when CUDA is missing unless
-``--device cpu`` was given.  At ``--seq_len`` 2048 and up, the flash-attention
-presets (435m, 1b, 3b) run attention through the CUDA flash kernel.
+The same flags, the same mesh arithmetic and the same result dict.  One
+process trains on one device; processes started with the cluster contract's
+env (``examples.common.maybe_init_distributed``) train over a mesh of
+``--fsdp`` (default: every rank left after ``--ep``), ``--ep`` and dp (what
+remains), the experts of ``--experts`` split over ``ep``.  ``--device``
+(default ``cuda``) picks the device, and the run raises when CUDA is missing
+unless ``--device cpu`` was given.  At ``--seq_len`` 2048 and up, the
+flash-attention presets (435m, 1b, 3b) run attention through the CUDA flash
+kernel.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.llama_train --size 435m --seq_len 2048``
 """
@@ -14,14 +19,18 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch.distributed as dist
+
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
     first_step_clock,
     make_lr_schedule,
+    maybe_init_distributed,
     metrics_sink,
 )
 from deeplearning_cfn_tpu_torch.models import llama
+from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B, MeshSpec, build_mesh
 from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset
 from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
 
@@ -30,20 +39,16 @@ _LATER = "a later slice of the PyTorch port"
 
 def _reject_out_of_slice(args) -> None:
     checks = (
-        (args.tp > 1, "--tp (tensor parallelism)"),
-        (args.sp > 1, "--sp (sequence parallelism)"),
-        (args.pp > 1, "--pp (pipeline stages)"),
-        (args.ep > 1, "--ep (expert parallelism)"),
-        (args.experts > 0, "--experts (MoE)"),
-        (args.ring_attention, "--ring_attention"),
-        ((args.fsdp or 1) > 1, "--fsdp > 1 (sharding across devices)"),
-        (args.optimizer == "adafactor", "--optimizer adafactor"),
-        (bool(args.data_dir), "--data_dir (record data)"),
-        (bool(args.checkpoint_dir), "--checkpoint_dir (checkpointing)"),
+        (args.tp > 1, "--tp (tensor parallelism)", SLICE_5B),
+        (args.sp > 1, "--sp (sequence parallelism)", SLICE_5B),
+        (args.pp > 1, "--pp (pipeline stages)", SLICE_5B),
+        (args.ring_attention, "--ring_attention", SLICE_5B),
+        (bool(args.data_dir), "--data_dir (record data)", _LATER),
+        (bool(args.checkpoint_dir), "--checkpoint_dir (checkpointing)", _LATER),
     )
-    for on, what in checks:
+    for on, what, where in checks:
         if on:
-            raise NotImplementedError(f"{what} is ported in {_LATER}")
+            raise NotImplementedError(f"{what} is ported in {where}")
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -51,8 +56,11 @@ def main(argv: list[str] | None = None) -> dict:
     p = base_parser(__doc__)
     p.add_argument("--size", choices=["tiny", "435m", "1b", "3b", "8b"], default="tiny")
     p.add_argument("--seq_len", type=int, default=512)
-    p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw")
-    p.add_argument("--fsdp", type=int, default=None, help="fsdp axis size (one device: 1)")
+    p.add_argument("--optimizer", choices=["adamw", "adafactor"], default="adamw",
+                   help="adafactor: factored second moments, no first moment (the "
+                        "memory-lean rung)")
+    p.add_argument("--fsdp", type=int, default=None,
+                   help="fsdp axis size (default: every rank left after the other axes)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--ring_attention", action="store_true")
@@ -68,6 +76,14 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     _reject_out_of_slice(args)
     device = resolve_device(args.device)
+    maybe_init_distributed(args.device)
+
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    tp, sp, pp, ep = args.tp, args.sp, args.pp, args.ep
+    fsdp = args.fsdp or max(1, n // (tp * sp * pp * ep))
+    dp = max(1, n // (fsdp * tp * sp * pp * ep))
+    spec = MeshSpec(dp=dp, fsdp=fsdp, pp=pp, sp=sp, tp=tp, ep=ep).validate(n)
+    mesh = build_mesh(spec) if dist.is_initialized() else None
 
     if args.size == "8b":
         cfg = llama.LlamaConfig.llama3_8b()
@@ -81,9 +97,13 @@ def main(argv: list[str] | None = None) -> dict:
         cfg = llama.LlamaConfig.tiny(vocab_size=512, seq_len=args.seq_len)
     if args.fused_qkv:
         cfg = dataclasses.replace(cfg, fused_qkv=True)
+    if args.experts:
+        cfg = dataclasses.replace(cfg, n_experts=args.experts)
 
-    batch = args.global_batch_size or 1
-    lr = args.learning_rate or 3e-4
+    batch = args.global_batch_size or max(1, dp * fsdp)
+    # Per-optimizer default: adafactor's clipped, parameter-scaled updates
+    # want a much larger step than the adam family (the JAX example's sweep).
+    lr = args.learning_rate or (1e-2 if args.optimizer == "adafactor" else 3e-4)
     trainer = llama.make_trainer(
         cfg,
         TrainerConfig(
@@ -97,6 +117,7 @@ def main(argv: list[str] | None = None) -> dict:
             log_every=args.log_every,
         ),
         device=device,
+        mesh=mesh,
     )
     ds = SyntheticTokenDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
     sample = next(iter(ds.batches(1)))
@@ -114,11 +135,15 @@ def main(argv: list[str] | None = None) -> dict:
     result = {
         "final_loss": losses[-1],
         "steps": len(losses),
-        "device": str(device),
+        "device": str(trainer.device),
+        "mesh": spec.axis_sizes(),
         "params": llama.param_count(cfg),
+        "active_params": llama.active_param_count(cfg),
         "first_step_s": first_step_clock(trainer, t_main),
         "history": logger.history,
     }
+    if cfg.moe is not None:
+        result["moe_aux_loss"] = float(trainer.last_metrics["moe_aux_loss"])
     if args.eval_steps:
         eval_ds = SyntheticTokenDataset(
             seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch, seed=10_000

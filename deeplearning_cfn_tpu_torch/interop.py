@@ -6,7 +6,9 @@ Each function takes a JAX parameter tree as numpy arrays
 orientation (the port computes ``x @ W`` as the JAX package does, so nothing
 is transposed):
 
-- ``llama_params_from_jax``: the stacked ``[L, ...]`` leaves split per layer;
+- ``llama_params_from_jax``: the stacked ``[L, ...]`` leaves split per layer
+  (MoE's ``layers/moe`` leaves as ``layers.{i}.moe.*``, and with
+  ``ep_size`` > 1 only ``ep_rank``'s experts);
 - ``bert_params_from_jax``: the Flax tree of ``BertEncoder`` or
   ``BertClassifier``, ``layer{i}`` as ``layers.{i}``, the ``DenseGeneral``
   ``qkv`` kernel ``[dim, 3, H, hd]`` and bias ``[3, H, hd]`` flattened in that
@@ -32,16 +34,26 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def llama_params_from_jax(cfg, params_np: dict) -> dict[str, torch.Tensor]:
-    """JAX ``init_params`` tree (numpy leaves) -> ``Llama`` state dict."""
-    if cfg.n_experts > 0 or cfg.pp_stages > 1:
+def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0,
+                          ep_size: int = 1) -> dict[str, torch.Tensor]:
+    """JAX ``init_params`` tree (numpy leaves) -> ``Llama`` state dict; with
+    ``ep_size`` > 1, the expert leaves cut to ``ep_rank``'s experts (the
+    state dict of a model after ``MoE.shard_experts``)."""
+    if cfg.pp_stages > 1:
         raise NotImplementedError(
-            "MoE and pipeline-stacked parameters are converted in a later slice"
+            "pipeline-stacked parameters are converted in a later slice (slice 5b)"
         )
     sd = {"embed": _tensor(params_np["embed"]), "final_norm": _tensor(params_np["final_norm"])}
     if not cfg.tied_embeddings:
         sd["output"] = _tensor(params_np["output"])
-    for name, stacked in params_np["layers"].items():
+    layers = dict(params_np["layers"])
+    for name, stacked in layers.pop("moe", {}).items():
+        arr = np.asarray(stacked)  # [L, E, ...] (the router [L, d, E])
+        if name != "router" and ep_size > 1:
+            per = arr.shape[1] // ep_size
+            arr = arr[:, ep_rank * per:(ep_rank + 1) * per]
+        layers[f"moe.{name}"] = arr
+    for name, stacked in layers.items():
         arr = np.asarray(stacked)
         if arr.shape[0] != cfg.n_layers:
             raise ValueError(f"layers/{name} has {arr.shape[0]} layers, config has {cfg.n_layers}")

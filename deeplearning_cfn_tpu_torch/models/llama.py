@@ -16,9 +16,15 @@ tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
 - Attention dispatch (:func:`attention_kind`): the CUDA flash kernel at and
   above ``FLASH_CROSSOVER_SEQ`` on CUDA, materialised-score attention
   otherwise.
+- Mixture of experts (``n_experts > 0``): each block's MLP is an
+  ``ops.moe.MoE`` named ``moe`` (JAX's ``layers/moe`` leaves, ``[E, d, m]``);
+  the blocks' aux losses are summed into the objective.
+- :func:`param_specs`: each parameter's spec over the mesh axes, the JAX
+  package's, less the stacked layer axis; the trainer reads the ``fsdp`` and
+  ``ep`` dims from it.
 
-Not in this slice: MoE (``n_experts > 0``), pipeline stages, ring attention
-and every mesh or sharding spec; they raise ``NotImplementedError``.
+Not in this slice: pipeline stages, ring attention, and the tp and sp axes;
+they raise ``NotImplementedError`` naming slice 5b.
 """
 
 from __future__ import annotations
@@ -49,8 +55,8 @@ from deeplearning_cfn_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
-
-_LATER_SLICE = "a later slice of the PyTorch port (the parallelism surface)"
+from deeplearning_cfn_tpu_torch.ops.moe import MoE, MoEConfig, moe_param_specs
+from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B
 
 
 @dataclass(frozen=True)
@@ -72,14 +78,30 @@ class LlamaConfig:
     tied_embeddings: bool = False
     use_flash_attention: bool = False
     fused_qkv: bool = False
-    # Out of this slice; a model built with any of them set raises.
-    use_ring_attention: bool = False
+    # Mixture of experts (ops/moe.py): n_experts > 0 replaces each block's
+    # SwiGLU with a top-k routed expert bank.  0 = dense.
     n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    # Slice 5b's; a model built with either set raises.
+    use_ring_attention: bool = False
     pp_stages: int = 1
 
     def __post_init__(self):
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}")
+        if self.n_experts > 0 and not (1 <= self.moe_top_k <= self.n_experts):
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} must be in [1, n_experts={self.n_experts}]")
+
+    @property
+    def moe(self) -> MoEConfig | None:
+        if self.n_experts <= 0:
+            return None
+        return MoEConfig(n_experts=self.n_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         aux_loss_weight=self.moe_aux_weight)
 
     @property
     def head_dim(self) -> int:
@@ -153,14 +175,16 @@ class LlamaConfig:
             **kw,
         )
 
+    @classmethod
+    def tiny_moe(cls, n_experts: int = 4, **kw) -> "LlamaConfig":
+        return cls.tiny(n_experts=n_experts, **kw)
+
 
 def _check_in_slice(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"MoE (n_experts > 0) is ported in {_LATER_SLICE}")
     if cfg.pp_stages > 1:
-        raise NotImplementedError(f"pipeline stages (pp_stages > 1) are ported in {_LATER_SLICE}")
+        raise NotImplementedError(f"pipeline stages (pp_stages > 1) are ported in {SLICE_5B}")
     if cfg.use_ring_attention:
-        raise NotImplementedError(f"ring attention is ported in {_LATER_SLICE}")
+        raise NotImplementedError(f"ring attention is ported in {SLICE_5B}")
 
 
 # --- parameters ---------------------------------------------------------
@@ -179,12 +203,17 @@ def layer_param_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
         shapes["wv"] = (d, cfg.n_kv_heads * hd)
     shapes["wo"] = (cfg.n_heads * hd, d)
     shapes["mlp_norm"] = (d,)
-    if cfg.fused_qkv:
+    if cfg.moe is not None:
+        E, m = cfg.n_experts, cfg.mlp_dim
+        shapes.update({"moe.router": (d, E), "moe.w_gate": (E, d, m), "moe.w_up": (E, d, m),
+                       "moe.w_down": (E, m, d)})
+    elif cfg.fused_qkv:
         shapes["w_gate_up"] = (d, 2 * cfg.mlp_dim)
     else:
         shapes["w_gate"] = (d, cfg.mlp_dim)
         shapes["w_up"] = (d, cfg.mlp_dim)
-    shapes["w_down"] = (cfg.mlp_dim, d)
+    if cfg.moe is None:
+        shapes["w_down"] = (cfg.mlp_dim, d)
     return shapes
 
 
@@ -247,12 +276,17 @@ class LlamaBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         for name, shape in layer_param_shapes(cfg).items():
+            if name.startswith("moe."):
+                continue
             if name.endswith("norm"):
                 setattr(self, name, _ones(shape[0]))
             else:
                 setattr(self, name, _dense(shape, cfg.dtype, generator))
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.moe, cfg.dim, cfg.mlp_dim, cfg.dtype, generator)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """The block's output; with MoE, ``(output, aux_loss)``."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -278,6 +312,9 @@ class LlamaBlock(nn.Module):
             attn = dot_product_attention(q, k, v, causal=True)
         x = x + attn.reshape(B, S, nh * hd) @ self.wo
         h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
+        if cfg.moe is not None:
+            y, aux = self.moe(h)
+            return x + y, aux
         if cfg.fused_qkv:
             gu = h @ self.w_gate_up
             gate = F.silu(gu[..., : cfg.mlp_dim].to(torch.float32)).to(h.dtype)
@@ -296,6 +333,10 @@ class Llama(nn.Module):
     """tokens ``[B, S]`` -> logits ``[B, S, V]`` in the compute dtype (the
     loss converts inside its reductions, as the JAX package's does)."""
 
+    # The JAX model stacks each layer weight into one [L, ...] leaf; the
+    # per-leaf optimizers (lamb, adafactor) read layers.{i}.<name> as one.
+    stacked_layers = True
+
     def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None):
         super().__init__()
         _check_in_slice(cfg)
@@ -306,7 +347,9 @@ class Llama(nn.Module):
         if not cfg.tied_embeddings:
             self.output = _dense((cfg.dim, cfg.vocab_size), cfg.dtype, generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, return_aux: bool = False):
+        """Logits; with ``return_aux``, ``(logits, aux)``: the blocks' MoE
+        balancing losses summed (0 for a dense model)."""
         cfg = self.cfg
         S = tokens.shape[1]
         table = self.embed.to(cfg.dtype)
@@ -319,15 +362,18 @@ class Llama(nn.Module):
                 remat_kw["context_fn"] = partial(
                     create_selective_checkpoint_contexts, _save_matmuls
                 )
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for layer in self.layers:
             if remat_kw is None:
                 x = layer(x, positions)
             else:
                 x = checkpoint(layer, x, positions, **remat_kw)
+            if cfg.moe is not None:
+                x, layer_aux = x
+                aux = aux + layer_aux
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        if cfg.tied_embeddings:
-            return x @ table.T
-        return x @ self.output
+        logits = x @ table.T if cfg.tied_embeddings else x @ self.output
+        return (logits, aux) if return_aux else logits
 
 
 def init_model(
@@ -355,10 +401,39 @@ def _numel(shape: tuple[int, ...]) -> int:
 
 
 def active_param_count(cfg: LlamaConfig) -> int:
-    """Parameters a token flows through.  For the dense models of this slice
-    that is every parameter (MoE, where experts count at top_k/n_experts,
-    comes with MoE)."""
-    return param_count(cfg)
+    """Parameters a token flows through: MoE expert banks count at
+    top_k/n_experts, the router and everything else fully."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    expert = 3 * cfg.n_layers * cfg.n_experts * cfg.dim * cfg.mlp_dim
+    return total - expert + expert * cfg.moe_top_k // cfg.n_experts
+
+
+def param_specs(cfg: LlamaConfig) -> dict[str, tuple]:
+    """Each parameter's spec over the mesh axes (by ``named_parameters``
+    name): the JAX package's ``param_specs`` less the stacked layer axis.
+    FSDP shards the input dim of ``wq``/``wk``/``wv``/``w_gate``/``w_up``,
+    the output dim of ``wo``/``w_down``, the model dim of ``embed``; experts
+    split over ``ep``; norms and the router are replicated."""
+    _check_in_slice(cfg)
+    layer = {"attn_norm": (None,), "wo": ("tp", "fsdp"), "mlp_norm": (None,)}
+    if cfg.fused_qkv:
+        layer["wqkv"] = ("fsdp", "tp")
+    else:
+        layer.update(wq=("fsdp", "tp"), wk=("fsdp", "tp"), wv=("fsdp", "tp"))
+    if cfg.moe is not None:
+        layer.update({f"moe.{k}": v for k, v in moe_param_specs().items()})
+    elif cfg.fused_qkv:
+        layer.update(w_gate_up=("fsdp", "tp"), w_down=("tp", "fsdp"))
+    else:
+        layer.update(w_gate=("fsdp", "tp"), w_up=("fsdp", "tp"), w_down=("tp", "fsdp"))
+    specs = {"embed": ("tp", "fsdp"), "final_norm": (None,)}
+    if not cfg.tied_embeddings:
+        specs["output"] = ("fsdp", "tp")
+    for i in range(cfg.n_layers):
+        specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return specs
 
 
 def train_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
@@ -372,9 +447,9 @@ def train_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
 
 def forward_with_aux(model: Llama, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(logits in the compute dtype, aux loss): aux is the MoE balancing
-    loss, 0 for the dense models of this slice."""
-    logits = model(tokens)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss summed over layers, 0 for a dense model.  ``model`` may be the
+    ``Llama`` or a wrapper that forwards keywords (DDP)."""
+    return model(tokens, return_aux=True)
 
 
 def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
@@ -387,7 +462,9 @@ def causal_lm_loss(
 ) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy, last position excluded (its rolled
     target wraps to the sequence start).  ``lse(logits) - gold`` with the
-    logsumexp in f32, reading the compute-dtype logits."""
+    logsumexp in f32, reading the compute-dtype logits.  MoE models add the
+    aux loss to the objective (not to perplexity) and report it as
+    ``moe_aux_loss``."""
     logits, aux = forward_with_aux(model, tokens)
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
@@ -395,12 +472,18 @@ def causal_lm_loss(
     mask = torch.ones_like(nll)
     mask[:, -1] = 0.0
     loss = (nll * mask).sum() / mask.sum()
-    return loss + aux, {"perplexity": torch.exp(loss.detach())}
+    metrics = {"perplexity": torch.exp(loss.detach())}
+    if getattr(model, "module", model).cfg.moe is not None:  # DDP holds the Llama as .module
+        metrics["moe_aux_loss"] = aux.detach()
+    return loss + aux, metrics
 
 
-def make_trainer(cfg: LlamaConfig, trainer_config, device: torch.device | str | None = None):
-    """Wire a Llama config into the Trainer: causal-LM loss and the analytic
-    FLOPs numerator (the flash kernel's work is counted analytically)."""
+def make_trainer(cfg: LlamaConfig, trainer_config, device: torch.device | str | None = None,
+                 mesh=None):
+    """Wire a Llama config into the Trainer: causal-LM loss, the explicit
+    parameter specs (:func:`param_specs`) over ``mesh`` when given, and the
+    analytic FLOPs numerator (the flash kernel's work is counted
+    analytically)."""
     from deeplearning_cfn_tpu_torch.train.trainer import Trainer
 
     return Trainer(
@@ -408,6 +491,8 @@ def make_trainer(cfg: LlamaConfig, trainer_config, device: torch.device | str | 
         trainer_config,
         loss_fn=causal_lm_loss,
         device=device,
+        mesh=mesh,
+        param_specs=param_specs(cfg),
         analytic_flops_fn=lambda x: (
             train_flops_per_token(cfg, x.shape[1]) * x.shape[0] * x.shape[1]
         ),

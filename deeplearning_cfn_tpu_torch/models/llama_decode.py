@@ -21,8 +21,9 @@ The same inference path in PyTorch idiom:
 
 The decode path reads the unfused ``wq``/``wk``/``wv`` and
 ``w_gate``/``w_up``, as the JAX package's does, so a model built with
-``fused_qkv`` is refused.  MoE and pipeline-stacked models come with the
-parallelism surface and raise ``NotImplementedError``.
+``fused_qkv`` is refused.  An MoE model routes each step's tokens through
+its experts as one group, as the JAX decode step does.  Pipeline-stacked
+models come with slice 5b and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from deeplearning_cfn_tpu_torch.ops.attention import (
     rotary_embedding,
 )
 
-_LATER_SLICE = "slice 5 of the PyTorch port (the parallelism surface)"
+_LATER_SLICE = "slice 5b of the PyTorch port (pipeline stages)"
 
 
 @dataclass(frozen=True)
@@ -64,8 +65,6 @@ def init_cache(
 
 def check_decodable(cfg: LlamaConfig) -> None:
     """Refuse the configs the decode path cannot read."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"MoE decoding (n_experts > 0) is ported in {_LATER_SLICE}")
     if cfg.pp_stages > 1:
         raise NotImplementedError(f"decoding pipeline stages is ported in {_LATER_SLICE}")
     if cfg.fused_qkv:
@@ -110,10 +109,14 @@ def finish_block(
     cfg: LlamaConfig, layer: LlamaBlock, x: torch.Tensor, attn: torch.Tensor
 ) -> torch.Tensor:
     """The rest of the block after attention: the output projection and
-    the SwiGLU MLP, each with its residual."""
+    the SwiGLU MLP (or, with MoE, the expert bank routing these ``B·T``
+    tokens as one group, as the JAX decode step does), each with its
+    residual."""
     B, T = x.shape[:2]
     x = x + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ layer.wo
     h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + layer.moe(h)[0]
     gate = F.silu((h @ layer.w_gate).to(torch.float32)).to(h.dtype)
     return x + (gate * (h @ layer.w_up)) @ layer.w_down
 

@@ -1,0 +1,107 @@
+"""Sharding rules — counterpart of ``deeplearning_cfn_tpu/parallel/sharding.py``.
+
+A spec is a tuple with one entry a dimension: a mesh axis name, a tuple of
+names, or ``None`` (replicated), as a JAX ``PartitionSpec`` holds them.  The
+port reads two things from a parameter's spec:
+
+- its ``fsdp`` dimension, which FSDP2 shards (``placement_fn``); FSDP2
+  shards dim 0 unless told otherwise, while the JAX Llama shards the input
+  dim of ``wq``/``wk``/``wv``/``w_gate``/``w_up`` and the output dim of
+  ``wo``/``w_down``/``embed``;
+- its ``ep`` dimension, the expert axis split over the ``ep`` ranks
+  (``ops/moe.py``).
+
+A parameter whose spec names no ``fsdp`` dim (norms, the MoE router, arrays
+the rule leaves whole) is replicated, as in JAX: the trainer keeps it out of
+FSDP2 (``ignored_params``) and averages its gradient over the data ranks
+itself.
+
+The batch is split over ``("dp", "fsdp")``: each rank takes its contiguous
+slice of the global batch (:func:`local_batch`), as ``BATCH_SPEC`` and
+``make_array_from_process_local_data`` split it in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+import torch
+
+# Logical axis names -> mesh axes (or tuples, or None: replicated).
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("dp", "fsdp"),
+    "sequence": "sp",
+    "embed": "fsdp",
+    "mlp": "tp",
+    "heads": "tp",
+    "kv": None,
+    "vocab": "tp",
+    "expert": "ep",
+    "layers": None,
+    "conv_kernel": None,
+    "stage": "pp",
+}
+
+MIN_SHARD_ELEMS = 2**14
+
+
+def spec_for(logical_axes: Sequence[str | None], rules: dict[str, Any] | None = None) -> tuple:
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return tuple(rules.get(a) if a is not None else None for a in logical_axes)
+
+
+def fsdp_spec_for_shape(shape: Sequence[int], fsdp: int,
+                        min_shard_elems: int = MIN_SHARD_ELEMS) -> tuple:
+    """The FSDP rule for an array the model gives no spec for: shard the
+    largest dim the fsdp size divides; replicate small arrays (below
+    ``min_shard_elems`` elements), where sharding buys nothing but latency."""
+    shape = tuple(shape)
+    if fsdp <= 1 or len(shape) == 0 or math.prod(shape) < min_shard_elems:
+        return (None,) * len(shape)
+    # Python's sort is stable, as is the JAX package's sorted() of the dims.
+    for d in sorted(range(len(shape)), key=lambda d: shape[d], reverse=True):
+        if shape[d] % fsdp == 0:
+            return tuple("fsdp" if i == d else None for i in range(len(shape)))
+    return (None,) * len(shape)
+
+
+def _names(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axis_dim(spec: Sequence, axis: str) -> int | None:
+    """The dim of ``spec`` sharded over mesh ``axis``, or None."""
+    for d, entry in enumerate(spec):
+        if axis in _names(entry):
+            return d
+    return None
+
+
+def fsdp_dim(spec: Sequence) -> int | None:
+    return axis_dim(spec, "fsdp")
+
+
+def placement_fn(specs: dict[int, tuple]):
+    """``shard_placement_fn`` for ``fully_shard``: each parameter (by
+    ``id``) on its spec's ``fsdp`` dim."""
+    from torch.distributed.tensor import Shard
+
+    def fn(param: torch.nn.Parameter):
+        d = fsdp_dim(specs[id(param)])
+        if d is None:
+            raise ValueError(f"a parameter {tuple(param.shape)} with no fsdp dim reached FSDP2")
+        return Shard(d)
+
+    return fn
+
+
+def local_batch(x: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """This data shard's contiguous slice of the global batch ``x``."""
+    n = x.shape[0]
+    if n % count:
+        raise ValueError(f"global batch {n} does not split over {count} data shards")
+    per = n // count
+    return x[index * per:(index + 1) * per]

@@ -1,17 +1,30 @@
-"""The trainer — counterpart of ``deeplearning_cfn_tpu/train/trainer.py`` for
-one device.
+"""The trainer — counterpart of ``deeplearning_cfn_tpu/train/trainer.py``.
 
 The same ``TrainerConfig`` field names and the same step semantics as the
 JAX package's jitted step, in eager PyTorch:
 
-- Optimizers ``adamw``, ``sgd`` and ``momentum`` as optax builds them:
-  ``decay_mask`` becomes two parameter groups (decay and no decay); the
-  global-norm clip is optax's (scale by ``max_norm / norm`` only when
-  ``norm >= max_norm``, no epsilon), applied before the update; the learning
-  rate comes from the 0-based step.  Adam moments follow the parameter
-  dtype, as optax's do.  ``sgd`` and ``momentum`` are the port's own
-  :class:`SGD` (optax's trace, the decay added to the gradient first), whose
-  learning rate may be a device tensor, so a captured step can read it.
+- Optimizers ``adamw``, ``lamb``, ``adafactor`` (``train/optimizers.py``),
+  ``sgd`` and ``momentum`` as optax builds them: ``decay_mask`` becomes two
+  parameter groups (decay and no decay); the global-norm clip is optax's
+  (scale by ``max_norm / norm`` only when ``norm >= max_norm``, no
+  epsilon), applied before the update; the learning rate comes from the
+  0-based step.  Moments follow the parameter dtype, as optax's do.
+  ``adafactor`` decays at ``weight_decay × learning_rate`` (the JAX
+  trainer's translation, so ``weight_decay`` means one thing across
+  optimizers).  ``sgd`` and ``momentum`` are the port's own :class:`SGD`
+  (optax's trace, the decay added to the gradient first).  Every learning
+  rate may be a device tensor, so a captured step can read it.
+- ``matmul_precision`` (JAX's names) sets PyTorch's f32 matmul precision,
+  and cuDNN's TF32 switch, for the trainer's steps only.
+- Over a mesh (``parallel/mesh.build_mesh``), each rank takes its slice of
+  the global batch over ``("dp", "fsdp")``; ``strategy="dp"`` replicates the
+  parameters (DDP over the data ranks), ``"fsdp"`` shards them with FSDP2
+  ``fully_shard`` over the fsdp sub-mesh (HSDP over ``("dp", "fsdp")`` when
+  dp > 1), one unit per block and one at the root.  A model's explicit
+  specs (Llama's ``param_specs``) decide each parameter's fsdp dim, and
+  shard whenever fsdp > 1, whatever the strategy, as in the JAX trainer.
+  MoE experts split over ``ep``.  The loss and every gradient are the
+  global batch's; so are the logged metrics.
 - The input stage in front of every loss, as the JAX step composes it:
   ``augment`` (train steps only, keyed by the step), then uint8
   ``input_stats`` normalisation (``train.pipeline.dequantize_normalize``).
@@ -24,26 +37,39 @@ JAX package's jitted step, in eager PyTorch:
 - With no ``loss_fn``, the default classification objective: softmax
   cross-entropy with ``label_smoothing`` and accuracy.
 - ``multi_step_fn(k)``: on the card, ``k`` train steps captured once as one
-  CUDA graph and replayed; on the CPU, ``k`` eager steps.
+  CUDA graph and replayed (every optimizer); on the CPU, ``k`` eager steps.
 - ``fit`` feeds the steps through ``train.data.DevicePrefetcher``.
 
-One device only: ``strategy="fsdp"`` (or ``"dp"``) is the identity.  Meshes,
-comms overlap, checkpointing, live reshard, ``lamb`` and ``adafactor`` are
-ported in later slices and raise ``NotImplementedError``.
+Without a mesh the trainer runs on one device and ``strategy`` is the
+identity.  Comms overlap, checkpointing and live reshard are ported in
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import re
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from deeplearning_cfn_tpu_torch.device import resolve_device
+from deeplearning_cfn_tpu_torch.parallel import mesh as mesh_lib
+from deeplearning_cfn_tpu_torch.parallel import sharding
+from deeplearning_cfn_tpu_torch.train.optimizers import (
+    Adafactor,
+    Lamb,
+    Leaf,
+    all_reduce_over,
+    local_part,
+    shard_groups,
+)
 from deeplearning_cfn_tpu_torch.train.data import (
     Batch,
     DevicePrefetcher,
@@ -61,10 +87,12 @@ _LATER = "a later slice of the PyTorch port"
 class TrainerConfig:
     learning_rate: float = 0.01
     has_train_arg: bool = False
-    optimizer: str = "momentum"  # sgd | momentum | adamw
+    optimizer: str = "momentum"  # sgd | momentum | adamw | lamb | adafactor
     momentum: float = 0.9
     weight_decay: float = 0.0
-    strategy: str = "dp"  # dp | fsdp; both are the identity on one device
+    strategy: str = "dp"  # dp | fsdp; both the identity without a mesh
+    # JAX's names: "float32"/"highest", "tensorfloat32"/"high", "bfloat16";
+    # None (or "default") keeps PyTorch's setting.
     matmul_precision: str | None = None
     bf16_compute: bool = False
     remat: bool = False
@@ -85,6 +113,9 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    # What a step calls: the DDP wrapper under strategy "dp" over a mesh,
+    # else the model itself.
+    runner: nn.Module | None = None
 
 
 _EXCLUDED = ("norm", "bias", "scale")
@@ -158,32 +189,88 @@ class SGD(torch.optim.Optimizer):
             torch._foreach_sub_(params, torch._foreach_mul(updates, group["lr"]))
 
 
-def _make_optimizer(model: nn.Module, cfg: TrainerConfig) -> torch.optim.Optimizer:
+def _make_optimizer(model: nn.Module, cfg: TrainerConfig,
+                    leaves: list[Leaf]) -> torch.optim.Optimizer:
+    """``leaves`` (the JAX tree's, ``Trainer._leaves``) for the per-leaf
+    optimizers.  On the card AdamW is capturable, with or without a mesh:
+    its step count stays on the device, it reads a device learning rate (a
+    CUDA graph's), and every path runs one arithmetic."""
     lr = cfg.learning_rate
     groups = _param_groups(model, cfg.weight_decay)
     if cfg.optimizer == "adamw":
-        return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 capturable=next(model.parameters()).is_cuda)
+    if cfg.optimizer == "lamb":
+        return Lamb(groups, lr, leaves)
+    if cfg.optimizer == "adafactor":
+        # optax.adafactor decays by weight_decay_rate raw (after the lr
+        # scaling); adamw by lr·wd.  The rate is wd at the base lr, so one
+        # config value means one effective decay across optimizers.
+        return Adafactor(_param_groups(model, cfg.weight_decay * lr), lr, leaves)
     if cfg.optimizer == "sgd":
         # L2 decay joins the gradient before the update, on the decay group.
         return SGD(groups, lr=lr)
     if cfg.optimizer == "momentum":
         return SGD(groups, lr=lr, momentum=cfg.momentum, nesterov=True)
-    if cfg.optimizer in ("lamb", "adafactor"):
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is ported in {_LATER}")
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
 @torch.no_grad()
-def clip_by_global_norm(parameters, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(parameters, max_norm: float,
+                        split_groups: dict[int, tuple] | None = None) -> torch.Tensor:
     """optax.clip_by_global_norm on the gradients: ``g / norm * max_norm``
-    when ``norm >= max_norm``, untouched otherwise.  Returns the norm.  No
-    host sync: the choice is made on the device."""
-    grads = [p.grad for p in parameters if p.grad is not None]
-    norm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads))
+    when ``norm >= max_norm``, untouched otherwise.  Returns the norm.
+
+    The norm is that of the whole gradient tree: a DTensor gradient (FSDP2)
+    contributes its local shard, summed over the groups it is sharded on,
+    and a gradient split over other ranks (MoE experts over ``ep``:
+    ``split_groups[id(param)]``) is summed over those.  One all-reduce for
+    each distinct set of groups; no host sync: the choice is made on the
+    device."""
+    split_groups = split_groups or {}
+    sums: dict[tuple, list[torch.Tensor]] = {}
+    grads = []
+    for p in parameters:
+        if p.grad is None:
+            continue
+        g = local_part(p.grad)
+        grads.append(g)
+        groups = tuple(grp for _, grp in shard_groups(p.grad)) + tuple(split_groups.get(id(p), ()))
+        sums.setdefault(groups, []).append(g.to(torch.float32).square().sum())
+    if not grads:
+        return torch.zeros(())
+    total = []
+    for groups, parts in sums.items():
+        total.append(all_reduce_over(torch.stack(parts).sum(), groups))
+    norm = torch.sqrt(torch.stack(total).sum())
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
     return norm
+
+
+# JAX's precision names -> torch.set_float32_matmul_precision's.
+_PRECISION = {"float32": "highest", "highest": "highest", "tensorfloat32": "high",
+              "high": "high", "bfloat16": "medium"}
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str | None):
+    """f32 matmul precision (and cuDNN's TF32 switch) for the block only;
+    None or "default" leaves PyTorch's settings."""
+    if name is None or name == "default":
+        yield
+        return
+    if name not in _PRECISION:
+        raise ValueError(f"unknown matmul_precision {name!r}")
+    before = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision(_PRECISION[name])
+    torch.backends.cudnn.allow_tf32 = _PRECISION[name] != "highest"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cudnn.allow_tf32 = before[1]
 
 
 def _check_in_slice(cfg: TrainerConfig) -> None:
@@ -191,7 +278,6 @@ def _check_in_slice(cfg: TrainerConfig) -> None:
         "comms_overlap": cfg.comms_overlap,
         "overlap_compress": cfg.overlap_compress,
         "remat": cfg.remat,
-        "matmul_precision": cfg.matmul_precision is not None,
     }
     for name, on in unsupported.items():
         if on:
@@ -217,13 +303,16 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 
 
 
 class Trainer:
-    """Runs ``loss_fn(model, x, y) -> (loss, aux)`` steps on one device (the
-    default classification objective when no ``loss_fn`` is given).
+    """Runs ``loss_fn(model, x, y) -> (loss, aux)`` steps (the default
+    classification objective when no ``loss_fn`` is given), on one device
+    or, with ``mesh``, on this rank's share of the mesh.
 
     ``model_fn(generator)`` builds the model (its weights drawn from the
     generator); ``analytic_flops_fn(x)`` gives the training FLOPs of one
     step on batch ``x``, the MFU numerator (``models.resnet.train_flops``
-    counts them with ``FlopCounterMode``)."""
+    counts them with ``FlopCounterMode``).  ``param_specs`` maps parameter
+    names to their specs over the mesh axes (``parallel/sharding.py``);
+    without them the FSDP rule picks each fsdp dim."""
 
     def __init__(
         self,
@@ -233,26 +322,154 @@ class Trainer:
         | None = None,
         device: torch.device | str | None = None,
         analytic_flops_fn: Callable[[Any], float] | None = None,
+        mesh=None,
+        param_specs: dict[str, tuple] | None = None,
     ):
         _check_in_slice(config)
         self.model_fn = model_fn
         self.config = config
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.analytic_flops_fn = analytic_flops_fn
+        self.mesh = mesh
+        self.param_specs = param_specs
+        self._split_groups: dict[int, tuple] = {}
+        self._replicated: list[nn.Parameter] = []  # outside FSDP2, synced by the step
+        if mesh is not None:
+            sizes = mesh_lib.mesh_spec(mesh)
+            self._data_index, self._data_count = mesh_lib.data_rank(mesh)
+            self._data_group = mesh_lib.data_group(mesh)
+            self._sizes = sizes
         # Set by fit(): seconds from fit entry to the first completed step,
         # the perf_counter stamp of that completion, and the input
         # pipeline's counters.
         self.first_step_seconds: float | None = None
         self.first_step_at: float | None = None
         self.last_pipeline_stats: PipelineStats | None = None
+        # Set by fit(): the last eager step's metrics (device tensors).
+        self.last_metrics: dict | None = None
         self._input_stats: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def init(self, seed: int = 0) -> TrainState:
-        """Build the model from ``seed`` on the trainer's device, and its optimizer."""
+        """Build the model from ``seed`` on the trainer's device, lay it out
+        over the mesh (when there is one), and build its optimizer."""
         gen = torch.Generator().manual_seed(seed)
         model = self.model_fn(gen).to(self.device)
-        return TrainState(step=0, model=model, optimizer=_make_optimizer(model, self.config))
+        runner = self._distribute(model) if self.mesh is not None else None
+        return TrainState(step=0, model=model, runner=runner,
+                          optimizer=_make_optimizer(model, self.config, self._leaves(model)))
+
+    # --- the layout over the mesh -------------------------------------------
+    def _specs(self, model: nn.Module) -> dict[str, tuple]:
+        """Each parameter's spec: the model's explicit one, else the FSDP
+        rule on its shape."""
+        fsdp = self._sizes.fsdp if self.mesh is not None else 1
+        specs = {}
+        for name, p in model.named_parameters():
+            if self.param_specs is not None and name in self.param_specs:
+                specs[name] = self.param_specs[name]
+            elif self.config.strategy == "fsdp":
+                specs[name] = sharding.fsdp_spec_for_shape(p.shape, fsdp)
+            else:
+                specs[name] = (None,) * p.ndim
+        return specs
+
+    def _distribute(self, model: nn.Module) -> nn.Module | None:
+        """Split the experts over ``ep``, then shard (FSDP2) or replicate
+        (DDP) over the data ranks.  Returns the DDP wrapper, or None."""
+        sizes = self._sizes
+        if sizes.ep > 1:
+            ep_rank, ep_group = mesh_lib.axis_rank(self.mesh, "ep"), self.mesh.get_group("ep")
+            for module in model.modules():
+                if hasattr(module, "shard_experts"):
+                    module.shard_experts(ep_rank, sizes.ep, ep_group)
+        specs = self._specs(model)
+        for name, p in model.named_parameters():
+            if sharding.axis_dim(specs[name], "ep") is not None and sizes.ep > 1:
+                self._split_groups[id(p)] = (self.mesh.get_group("ep"),)
+        sharded = any(sharding.fsdp_dim(s) is not None for s in specs.values())
+        if self.config.strategy == "fsdp" or (sharded and sizes.fsdp > 1):
+            from torch.distributed.fsdp import fully_shard
+
+            dmesh = self.mesh["dp", "fsdp"] if sizes.dp > 1 else self.mesh["fsdp"]
+            by_id = {id(p): specs[n] for n, p in model.named_parameters()}
+            # What the specs replicate (norms, the router, arrays the rule
+            # leaves whole) stays out of FSDP2: whole on every rank, its
+            # gradient averaged over the data ranks by the step.  (FSDP2 would
+            # shard every parameter of a unit, and needs one dtype a unit,
+            # while the norms and the router are f32 in a bf16 model.)
+            self._replicated = [p for n, p in model.named_parameters()
+                                if sharding.fsdp_dim(specs[n]) is None]
+            fn = sharding.placement_fn(by_id)
+            ignored = set(self._replicated)
+            for unit in getattr(model, "layers", []):
+                fully_shard(unit, mesh=dmesh, shard_placement_fn=fn, ignored_params=ignored)
+            fully_shard(model, mesh=dmesh, shard_placement_fn=fn, ignored_params=ignored)
+            # FSDP2 made new (DTensor) parameters: key the split groups anew.
+            old = {n: self._split_groups.get(i) for n, i in zip(specs, by_id)}
+            self._split_groups = {id(p): old[n] for n, p in model.named_parameters() if old[n]}
+            return None
+        from torch.nn.parallel import DistributedDataParallel as DDP
+
+        return DDP(model, process_group=self._data_group,
+                   device_ids=[self.device.index] if self.device.type == "cuda" else None)
+
+    def _leaves(self, model: nn.Module) -> list[Leaf]:
+        """The JAX parameter tree's leaves over the model's parameters: a
+        model whose ``stacked_layers`` is set (Llama) stacks
+        ``layers.{i}.<name>`` into one ``[L, ...]`` leaf, as the JAX model
+        does; experts split over ``ep`` count at their global size."""
+        stacked = getattr(model, "stacked_layers", False)
+        groups: dict[str, list] = {}
+        for name, p in model.named_parameters():
+            key = re.sub(r"(^|\.)layers\.\d+\.", r"\1layers.", name) if stacked else name
+            groups.setdefault(key, []).append(p)
+        leaves = []
+        for key, params in groups.items():
+            p = params[0]
+            split = self._split_groups.get(id(p), ())
+            shape = list(p.shape)
+            for g in split:
+                shape[0] *= dist.get_world_size(g)  # the expert axis
+            is_stacked = stacked and key.startswith("layers.")
+            leaf_shape = (len(params), *shape) if is_stacked else tuple(shape)
+            leaves.append(Leaf(params, tuple(leaf_shape), is_stacked, split))
+        return leaves
+
+    def _local_batch(self, t):
+        """This rank's contiguous slice of a global batch (no mesh: all)."""
+        if self.mesh is None:
+            return t
+        return tree_map(lambda a: sharding.local_batch(a, self._data_index, self._data_count), t)
+
+    def _sync_replicated_grads(self) -> None:
+        """Average the gradients of the parameters FSDP2 does not hold over
+        the data ranks: one all-reduce a dtype."""
+        if not self._replicated or self._data_count == 1:
+            return
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for p in self._replicated:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self._data_group)
+            flat /= self._data_count
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+
+    def _global_metrics(self, loss: torch.Tensor, aux: dict) -> tuple[torch.Tensor, dict]:
+        """The metrics' means over the data ranks (one all-reduce; the ranks
+        hold equal shares of the batch)."""
+        if self.mesh is None or self._data_count == 1:
+            return loss, aux
+        keys = list(aux)
+        vec = torch.stack([loss.float()] + [aux[k].float() for k in keys])
+        dist.all_reduce(vec, group=self._data_group)
+        vec = vec / self._data_count
+        return vec[0], {k: vec[i + 1] for i, k in enumerate(keys)}
 
     # --- the input stage and the objective ---------------------------------
     def _normalize_input(self, x):
@@ -317,18 +534,23 @@ class Trainer:
 
     def _update(self, state: TrainState, x, y, lr, decisions=None):
         """One optimizer update at learning rate ``lr`` (a float, or a device
-        tensor in a captured step); returns the loss and the aux metrics."""
+        tensor in a captured step) on this rank's share of the global batch
+        ``x``, ``y``; returns the global batch's loss and aux metrics."""
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
+        x, y = self._local_batch(x), self._local_batch(y)
         x = self._prepare(state.step, x, train=True, decisions=decisions)
-        loss, aux = self._grads(model, x, y)
-        if self.config.grad_clip_norm:
-            clip_by_global_norm(model.parameters(), self.config.grad_clip_norm)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        return loss, aux
+        with matmul_precision(self.config.matmul_precision):
+            loss, aux = self._grads(state.runner or model, x, y)
+            self._sync_replicated_grads()
+            if self.config.grad_clip_norm:
+                clip_by_global_norm(model.parameters(), self.config.grad_clip_norm,
+                                    self._split_groups)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+        return self._global_metrics(loss, aux)
 
     def _lr(self, step: int) -> float:
         cfg = self.config
@@ -349,10 +571,14 @@ class Trainer:
         augmentation; returns the metrics as device tensors."""
         model = state.model
         model.eval()
+        x, y = self._local_batch(x), self._local_batch(y)
         try:
-            loss, aux = self._loss(model, self._normalize_input(x), y, train=False)
+            with matmul_precision(self.config.matmul_precision):
+                loss, aux = self._loss(state.runner or model, self._normalize_input(x), y,
+                                       train=False)
         finally:
             model.train()
+        loss, aux = self._global_metrics(loss, aux)
         return {"loss": loss, **aux}
 
     def multi_step_fn(self, k: int):
@@ -428,6 +654,7 @@ class Trainer:
                     state, loss = kfn(state, x, y)
                 else:
                     state, metrics = self.train_step(state, x, y)
+                    self.last_metrics = metrics
                     loss = metrics["loss"][None]
                 pending.append(loss)
                 if i == 0:
@@ -523,8 +750,10 @@ class CapturedSteps:
     changes to the state are undone.  A kernel wrapper's launch counter
     counts the warm-up's launches and the capture's, not the replays'.
 
-    Takes ``sgd`` and ``momentum`` (the port's :class:`SGD`); capturing
-    AdamW is a later slice's."""
+    Takes every optimizer of :func:`_make_optimizer`: their learning rate
+    and step count are device tensors.  Optimizer state that the warm-up
+    creates is zeroed after it, which is where every one of them starts.
+    One device only (no mesh)."""
 
     def __init__(self, trainer: Trainer, k: int):
         self.trainer, self.k = trainer, k
@@ -533,9 +762,9 @@ class CapturedSteps:
         self.captures = 0
 
     def _state_tensors(self, state: TrainState) -> list[torch.Tensor]:
-        opt = state.optimizer
-        return ([p.data for p in state.model.parameters()] + list(state.model.buffers())
-                + [s["momentum_buffer"] for s in opt.state.values() if "momentum_buffer" in s])
+        return (list(state.model.parameters()) + list(state.model.buffers())
+                + [v for s in state.optimizer.state.values() for v in s.values()
+                   if isinstance(v, torch.Tensor)])
 
     def _run(self, state: TrainState, n: int) -> torch.Tensor:
         losses = []
@@ -566,9 +795,11 @@ class CapturedSteps:
 
     def _capture(self, state: TrainState, xs, ys) -> None:
         t = self.trainer
-        if not isinstance(state.optimizer, SGD):
-            raise NotImplementedError(f"capturing {t.config.optimizer!r} steps is ported in "
-                                      f"{_LATER}")
+        if t.device.type != "cuda":
+            raise RuntimeError("a CUDA graph captures steps on the card only; "
+                               "multi_step_fn runs them eagerly on the CPU")
+        if t.mesh is not None:
+            raise NotImplementedError("capturing a step over a mesh is not ported")
         self.xs = tree_map(torch.empty_like, xs)
         self.ys = tree_map(torch.empty_like, ys)
         self.lrs = torch.zeros(self.k, dtype=torch.float32, device=t.device)
@@ -579,16 +810,18 @@ class CapturedSteps:
             self.decisions = tuple(None if d is None else torch.stack([d] * self.k)
                                    for d in augment.decisions(state.step, b, h, w, t.device))
         self._fill(state, xs, ys)
-        state.optimizer.init_state()
-        saved = [s.clone() for s in self._state_tensors(state)]
+        saved = {id(s): (s, s.detach().clone()) for s in self._state_tensors(state)}
         side = torch.cuda.Stream(t.device)
         side.wait_stream(torch.cuda.current_stream(t.device))
         with torch.cuda.stream(side):
             self._run(state, 1)
         torch.cuda.current_stream(t.device).wait_stream(side)
         with torch.no_grad():
-            for dst, src in zip(self._state_tensors(state), saved):
-                dst.copy_(src)
+            for s in self._state_tensors(state):
+                if id(s) in saved:
+                    s.copy_(saved[id(s)][1])
+                else:  # made by the warm-up
+                    s.zero_()
         del saved
         state.optimizer.zero_grad(set_to_none=True)
         self.graph = torch.cuda.CUDAGraph()

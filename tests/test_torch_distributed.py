@@ -1,0 +1,243 @@
+"""The port over several ranks against the JAX trainer over the same mesh.
+
+Spawned gloo ranks on the CPU (``tests/torch_dist_ranks.py``, started with
+the cluster contract's env, importing no JAX) run three steps of the tiny
+Llama from the JAX package's initial weights on the same global batches; the
+JAX trainer runs them here over the same ``MeshSpec`` on the conftest's
+virtual CPU devices.  Cases:
+
+- ``dp``: dp=2, DDP over the data ranks;
+- ``fsdp``: fsdp=2, FSDP2, each parameter sharded on its spec's fsdp dim;
+- ``adafactor_fsdp``: fsdp=2 at a width (dim 128, mlp 256) where Adafactor
+  factors, so its row and column statistics span the shards;
+- ``moe_dp``: MoE at dp=2, two routing groups (JAX's G = 2);
+- ``moe_ep``: MoE at ep=2, the experts split over the two ranks;
+- ``hsdp``: dp=2 × fsdp=2 on four ranks (HSDP).
+
+Each case checks the losses (equal on every rank: the global batch's), the
+global norm of the first batch's gradients (across shards and expert
+ranks), and the final parameters.  Then ``multiprocess_smoke`` (LeNet) runs
+as two processes from the env contract: its losses agree across the
+processes and fall.
+
+Tolerances: f32; the ranks sum each gradient over the data ranks in another
+order than XLA, so losses and the norm agree to 1e-5 relative, and the
+parameters after three steps as ``tests/test_torch_trainer.py`` holds them
+(Adam: at most 0.1% of a tensor's elements off by more than 2e-6, none by
+more than lr a step).
+
+Each spawn has a free port, ``torch.set_num_threads(1)`` in every rank, and
+a join timeout that fails the test; several cases share one spawn.
+"""
+
+import dataclasses
+import json
+import os
+import pickle
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from deeplearning_cfn_tpu.models import llama as jax_llama  # noqa: E402
+from deeplearning_cfn_tpu.parallel.mesh import MeshSpec, build_mesh  # noqa: E402
+from deeplearning_cfn_tpu.train import data as jax_data  # noqa: E402
+from deeplearning_cfn_tpu.train.trainer import TrainerConfig as JaxTrainerConfig  # noqa: E402
+from deeplearning_cfn_tpu.utils.compat import set_mesh  # noqa: E402
+from deeplearning_cfn_tpu_torch.models import llama  # noqa: E402
+from deeplearning_cfn_tpu_torch.parallel import sharding  # noqa: E402
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+SEQ, STEPS, JOIN_TIMEOUT = 16, 3, 420
+TRAIN = dict(optimizer="adamw", learning_rate=1e-3, weight_decay=0.1, grad_clip_norm=1.0,
+             log_every=1)
+WIDE = dict(vocab_size=256, dim=128, mlp_dim=256, n_heads=4, n_kv_heads=2)
+CASES = {  # name: (ranks, mesh, config overrides, trainer overrides, global batch)
+    "dp": (2, dict(dp=2), dict(vocab_size=64), dict(strategy="dp"), 4),
+    "fsdp": (2, dict(fsdp=2), dict(vocab_size=64), dict(strategy="fsdp"), 4),
+    "adafactor_fsdp": (2, dict(fsdp=2), WIDE,
+                       dict(strategy="fsdp", optimizer="adafactor", learning_rate=1e-2), 4),
+    "moe_dp": (2, dict(dp=2), dict(vocab_size=64, n_experts=4), dict(strategy="dp"), 4),
+    "moe_ep": (2, dict(ep=2), dict(vocab_size=64, n_experts=4), dict(strategy="fsdp"), 4),
+    "hsdp": (4, dict(dp=2, fsdp=2), dict(vocab_size=64), dict(strategy="fsdp"), 8),
+}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _contract_env(n: int, pid: int, port: int) -> dict:
+    env = dict(os.environ)
+    env.update(DEEPLEARNING_WORKERS_COUNT=str(n), DLCFN_PROCESS_ID=str(pid),
+               DEEPLEARNING_COORDINATOR=f"127.0.0.1:{port}", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO))
+    return env
+
+
+def _spawn(n: int, argv: list[str]) -> list[str]:
+    """Run ``argv`` as ``n`` processes of one group; their stdouts.  A rank
+    that fails, or a group that outlives the join timeout, fails the test."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, *argv], env=_contract_env(n, i, port), cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=JOIN_TIMEOUT)
+            assert p.returncode == 0, f"rank failed:\n{err[-3000:]}"
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"ranks did not finish within {JOIN_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _jax_reference(name: str) -> dict:
+    """The JAX trainer over the case's mesh: initial weights, batches,
+    losses, the first batch's global gradient norm, final weights."""
+    n, mesh_kw, cfg_kw, train_kw, batch = CASES[name]
+    jcfg = dataclasses.replace(jax_llama.LlamaConfig.tiny(seq_len=SEQ, dtype=jnp.float32), **cfg_kw)
+    mesh = build_mesh(MeshSpec(**mesh_kw), jax.devices()[:n])
+    cfg = JaxTrainerConfig(**{**TRAIN, **train_kw})
+    jtrainer = jax_llama.make_trainer(jcfg, mesh, cfg)
+    ds = jax_data.SyntheticTokenDataset(seq_len=SEQ, vocab_size=jcfg.vocab_size, batch_size=batch)
+    batches = [(np.asarray(b.x), np.asarray(b.y)) for b in ds.batches(STEPS)]
+    state = jtrainer.init(jax.random.key(0), jnp.asarray(batches[0][0]))
+    init = jax.device_get(state.params)
+    x0, y0 = (jnp.asarray(a) for a in batches[0])
+    with set_mesh(mesh):
+        grads = jax.jit(jax.grad(
+            lambda p: jax_llama.causal_lm_loss(jcfg, p, x0, y0, mesh)[0]))(state.params)
+    norm = float(optax.global_norm(grads))
+    losses, aux = [], []
+    for x, y in batches:
+        state, metrics = jtrainer.train_step(
+            state, *(jax.device_put(jnp.asarray(a), jtrainer.batch_sharding) for a in (x, y)))
+        losses.append(float(metrics["loss"]))
+        if "moe_aux_loss" in metrics:
+            aux.append(float(metrics["moe_aux_loss"]))
+    rank_case = {"mesh": mesh_kw, "cfg": {"max_seq_len": SEQ, **cfg_kw},
+                 "trainer": {**TRAIN, **train_kw}, "init": init, "batches": batches}
+    return {"rank_case": rank_case, "losses": losses, "aux": aux, "norm": norm,
+            "final": jax.device_get(state.params), "lr": cfg.learning_rate}
+
+
+def _run_ranks(tmp_path_factory, names: list[str]) -> dict:
+    n = CASES[names[0]][0]
+    refs = {name: _jax_reference(name) for name in names}
+    path = tmp_path_factory.mktemp("ranks") / "cases.pkl"
+    path.write_bytes(pickle.dumps({k: r["rank_case"] for k, r in refs.items()}))
+    _spawn(n, [str(REPO / "tests" / "torch_dist_ranks.py"), str(path)])
+    ranks = [pickle.loads(Path(f"{path}.rank{i}").read_bytes()) for i in range(n)]
+    return {name: (refs[name], [r[name] for r in ranks]) for name in names}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    return _run_ranks(tmp_path_factory, [k for k, v in CASES.items() if v[0] == 2])
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    return _run_ranks(tmp_path_factory, ["hsdp"])
+
+
+def _check(name, ref, ranks):
+    from deeplearning_cfn_tpu_torch import interop
+
+    for r in ranks:
+        assert r["losses"] == ranks[0]["losses"], "ranks disagree on the global loss"
+        np.testing.assert_allclose(r["norm"], ref["norm"], rtol=1e-5)
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)
+    assert ref["norm"] > TRAIN["grad_clip_norm"]  # the clip is active
+    cfg_kw = CASES[name][2]
+    tcfg = dataclasses.replace(llama.LlamaConfig.tiny(dtype=torch.float32), **cfg_kw)
+    final = interop.llama_params_from_jax(tcfg, ref["final"])
+    ep = CASES[name][1].get("ep", 1)
+    by_ep = {r["ep_rank"]: r["params"] for r in ranks}
+    lr = ref["lr"]
+    for pname, want in final.items():
+        parts = [by_ep[e][pname] for e in range(ep)]
+        got = parts[0] if ep == 1 or ".moe.w_" not in pname else np.concatenate(parts)
+        diff = np.abs(got - want.numpy())
+        assert diff.max() <= lr * STEPS, (pname, diff.max())
+        assert np.mean(diff > 2e-6) <= 1e-3, (pname, diff.max())
+    return tcfg
+
+
+def _check_sharding(tcfg, rank):
+    """Every parameter the specs shard is a DTensor sharded on its fsdp dim;
+    the ones they replicate (norms, the router) are whole."""
+    specs = llama.param_specs(tcfg)
+    want = {n: sharding.fsdp_dim(s) for n, s in specs.items() if sharding.fsdp_dim(s) is not None}
+    assert {n: dims[-1] for n, dims in rank["sharded"].items()} == want
+    assert any(n.endswith("norm") for n in specs if n not in want)
+
+
+def test_dp_is_ddp_and_matches_jax(two_ranks):
+    ref, ranks = two_ranks["dp"]
+    _check("dp", ref, ranks)
+    assert all(r["ddp"] and not r["sharded"] for r in ranks)
+
+
+def test_fsdp_shards_on_the_spec_dims_and_matches_jax(two_ranks):
+    ref, ranks = two_ranks["fsdp"]
+    tcfg = _check("fsdp", ref, ranks)
+    _check_sharding(tcfg, ranks[0])
+
+
+def test_adafactor_under_fsdp_matches_jax(two_ranks):
+    ref, ranks = two_ranks["adafactor_fsdp"]
+    tcfg = _check("adafactor_fsdp", ref, ranks)
+    _check_sharding(tcfg, ranks[0])
+    # The widths that make Adafactor factor, with the factored dims sharded.
+    assert ranks[0]["sharded"]["embed"] == [1] and ranks[0]["sharded"]["layers.0.wq"] == [0]
+
+
+def test_moe_two_routing_groups_match_jax(two_ranks):
+    ref, ranks = two_ranks["moe_dp"]
+    _check("moe_dp", ref, ranks)
+    np.testing.assert_allclose(ranks[0]["aux"], ref["aux"], rtol=1e-5)
+
+
+def test_moe_expert_parallel_matches_jax(two_ranks):
+    ref, ranks = two_ranks["moe_ep"]
+    _check("moe_ep", ref, ranks)
+    np.testing.assert_allclose(ranks[0]["aux"], ref["aux"], rtol=1e-5)
+    assert sorted(r["ep_rank"] for r in ranks) == [0, 1]
+    assert ranks[0]["params"]["layers.0.moe.w_gate"].shape[0] == 2  # 4 experts over ep=2
+
+
+def test_hsdp_on_four_ranks_matches_jax(four_ranks):
+    ref, ranks = four_ranks["hsdp"]
+    tcfg = _check("hsdp", ref, ranks)
+    _check_sharding(tcfg, ranks[0])
+
+
+def test_multiprocess_smoke_lenet_from_the_env_contract():
+    outs = _spawn(2, ["-m", "deeplearning_cfn_tpu_torch.examples.multiprocess_smoke",
+                      "--device", "cpu"])
+    results = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert [r["process_id"] for r in results] == [0, 1]
+    assert all(r["processes"] == 2 and r["model"] == "lenet" for r in results)
+    assert results[0]["losses"] == results[1]["losses"]
+    losses = results[0]["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses

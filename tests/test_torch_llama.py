@@ -159,7 +159,7 @@ def test_attention_kind_dispatch():
 
 
 @pytest.mark.parametrize(
-    "kw", [{"n_experts": 4}, {"pp_stages": 2}, {"use_ring_attention": True}]
+    "kw", [{"pp_stages": 2}, {"use_ring_attention": True}]
 )
 def test_out_of_slice_configs_raise(kw):
     _, tcfg = _configs()

@@ -178,12 +178,11 @@ def test_generate_refuses_a_prompt_past_max_seq_len():
 @pytest.mark.parametrize(
     "kw,error,match",
     [({"pp_stages": 2}, NotImplementedError, "slice 5"),
-     ({"n_experts": 4}, NotImplementedError, "slice 5"),
      ({"fused_qkv": True}, ValueError, "unfused")],
 )
 def test_decode_refuses_configs_it_cannot_read(kw, error, match):
-    """Pipeline-stacked and MoE models come with the parallelism surface;
-    the decode path reads unfused projections, as the JAX package's does."""
+    """Pipeline-stacked models come with slice 5b; the decode path reads
+    unfused projections, as the JAX package's does."""
     with pytest.raises(error, match=match):
         llama_decode.check_decodable(_cfg(**kw))
     if kw == {"fused_qkv": True}:

@@ -160,7 +160,7 @@ def test_fit_steps_per_call_matches_single_steps(k, log_every):
 
 def test_captured_steps_refuse_adamw_without_a_card():
     """The CPU runs multi_step_fn eagerly for any optimizer; the CUDA graph
-    path takes the port's SGD only (checked before any capture)."""
+    path, which takes AdamW too, refuses a CPU device before any capture."""
     cfg = trainer.TrainerConfig(optimizer="adamw", **{k: v for k, v in _config_kwargs(1).items()})
     ttrainer = trainer.Trainer(lambda g: resnet.ResNet(**ARCH, generator=g), cfg, device="cpu")
     state = ttrainer.init(seed=0)
@@ -168,7 +168,7 @@ def test_captured_steps_refuse_adamw_without_a_card():
     state, losses = ttrainer.multi_step_fn(2)(state, stack.x, stack.y)
     assert state.step == 2 and torch.isfinite(losses).all()
     captured = trainer.CapturedSteps(ttrainer, 2)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="on the card only"):
         captured._capture(state, torch.from_numpy(stack.x), torch.from_numpy(stack.y))
 
 

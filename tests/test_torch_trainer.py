@@ -179,4 +179,5 @@ def test_out_of_slice_trainer_options_raise():
         trainer.Trainer(lambda g: None, trainer.TrainerConfig(comms_overlap=True),
                         loss_fn=None, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        trainer._make_optimizer(torch.nn.Linear(2, 2), trainer.TrainerConfig(optimizer="adafactor"))
+        trainer.Trainer(lambda g: None, trainer.TrainerConfig(overlap_compress=True),
+                        loss_fn=None, device="cpu")
