@@ -118,6 +118,32 @@ Phases, one JSON line each:
            (a replay launches no wrapper, so the counters show the warm-up
            and the capture only); and ``evaluate`` on 2 held-out batches.
 
+10. checkpoint  save and resume (``train/checkpoint.Checkpointer`` on
+           ``torch.distributed.checkpoint``), checkpoints under a temporary
+           directory removed at the end.  m435 (seq 2048, batch 8, AdamW,
+           full depth) on 8 synthetic batches: 8 steps straight; 4 steps, a
+           synchronous save, then in a fresh trainer from another seed a
+           restore (every tensor of the state bitwise the saved one: no
+           weight moved on the way in) and the straight run's batches 5-8:
+           losses and the whole final state bitwise the straight run's, the
+           flash kernel launched 2 a block and step; a planted control (the
+           model restored, the optimizer fresh) that must land past
+           ``PARAM_GAP_MAX``.  The saving run goes on through ``fit`` with
+           async saves every 2 steps (steps 7 and 8 update the state in
+           place while step 6 is written): each checkpoint bitwise the
+           parameters of its step, the losses the straight run's; bytes,
+           save, staging, restore and write times, the steps' times with
+           and without the saves.  ResNet-50 at the ``resnet`` phase's
+           configuration, the kernel head, cuDNN deterministic: 2 + 2 steps
+           across a restore bitwise 4 straight (losses, parameters, BatchNorm
+           statistics, momentum traces), the f32 fused dense launched once a
+           resumed step; ``multi_step_fn(2)`` captured on one state, a
+           restore into it, a replay: equal to eager steps from the restored
+           state.  Then ``examples.llama_train.main`` (m435) and
+           ``examples.resnet_imagenet.main`` (ResNet-50, kernel head), each
+           run twice with ``--checkpoint_dir``: the second resumes at the
+           first's last step.
+
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
 dequantised weight) against the float64 product, and the tensor-core
@@ -125,8 +151,11 @@ variants must be within twice ``addmm``'s error.
 The variants are read from the launch counters, which count each launch
 under the variant its C launcher reports.
 The flash row of the kernels line counts the launches of every Llama path
-(``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``; by path in
-``launches_by_path``), each counted from zero just before its run.
+(``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, and the
+resumed m435 run of ``checkpoint``; by path in ``launches_by_path``), each
+counted from zero just before its run; the f32 fused dense's counts the
+``resnet`` phase's eager kernel-head run and the resumed ResNet-50 run of
+``checkpoint``.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line; with no CUDA card, or
@@ -276,6 +305,12 @@ MESH_LOSS_RTOL = 1e-4
 LLAMA_CAPTURE_RTOL = 1e-4
 PARAM_GAP_MAX = 0.2
 NO_UPDATE_MARGIN = 4
+# Checkpoint and resume (phase 10): the m435 AdamW run over CKPT_STEPS
+# batches, saved at half of them; every checkpoint is written under a
+# temporary directory, which must have CKPT_DISK_BYTES free (at most three
+# m435 checkpoints of ~2.6 GB at once, one of them in flight).
+CKPT_STEPS, CKPT_EXAMPLE_STEPS = 8, 2
+CKPT_DISK_BYTES = 10 * 10**9
 
 
 def _emit(obj: dict) -> None:
@@ -1154,6 +1189,355 @@ def _resnet_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
     return kernel_launches
 
 
+def _state_copy(state) -> dict:
+    """Every tensor of a TrainState's state dict (parameters, buffers,
+    optimizer state, step), copied, by path."""
+    out = {}
+
+    def walk(prefix, t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        elif hasattr(t, "detach"):
+            out[prefix] = t.detach().clone()
+
+    walk("", state.state_dict())
+    return out
+
+
+def _unequal(a: dict, b: dict) -> list:
+    """The paths whose tensors are not bitwise equal (or missing)."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not bool((a[k] == b[k]).all()))
+
+
+class _StepClock:
+    """A ``fit`` logger that times each step on the host's clock (fit calls
+    it after each step, before that step's checkpoint save; the loss
+    readback is the sync), and copies the parameters at the steps asked."""
+
+    def __init__(self, model, copies=()):
+        self.model, self.at, self.copies, self.ms = model, set(copies), {}, []
+        self._t = time.perf_counter()
+
+    def step(self, step: int, loss) -> None:
+        float(loss)
+        now = time.perf_counter()
+        self.ms.append((now - self._t) * 1e3)
+        if step in self.at:
+            self.copies[step] = _param_copy(self.model)
+        self._t = time.perf_counter()
+
+
+def _checkpoint_phase(torch, kernels_mod, smi: str) -> dict:
+    """Phase 10: checkpoint and resume (see the module docstring).  Emits
+    ``checkpoint_llama``, ``checkpoint_async``, ``checkpoint_resnet``,
+    ``checkpoint_captured`` and ``checkpoint_example`` (one an example);
+    returns the launches of the resumed runs, by kernel."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from deeplearning_cfn_tpu_torch.examples import llama_train, resnet_imagenet
+    from deeplearning_cfn_tpu_torch.models import llama, resnet
+    from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_cfn_tpu_torch.train.data import (
+        SyntheticDataset,
+        SyntheticTokenDataset,
+        device_put_batch,
+        stack_batches,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig, _make_optimizer
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt-"))
+    launches: dict = {}
+    try:
+        free = shutil.disk_usage(root).free
+        _emit({"phase": "checkpoint_disk", "dir": str(root), "free_bytes": free})
+        _require(free > CKPT_DISK_BYTES, f"checkpoint: {free} bytes free under {root}, "
+                 f"the phase writes up to {CKPT_DISK_BYTES}")
+
+        # (a) Llama m435 across a synchronous save and a restore into a fresh
+        # trainer from another seed, fed the straight run's batches 5-8.
+        cfg = llama.LlamaConfig.m435(seq_len=2048)
+        tcfg = TrainerConfig(strategy="fsdp", optimizer="adamw", learning_rate=3e-4,
+                             weight_decay=0.1, grad_clip_norm=1.0, log_every=1)
+        batches = list(SyntheticTokenDataset(seq_len=2048, vocab_size=cfg.vocab_size,
+                                             batch_size=8).batches(CKPT_STEPS))
+        half = CKPT_STEPS // 2
+
+        def run(state, trainer, part, ckpt=None, copies=()):
+            """fit over ``part`` (a readback a step): the losses, each step's
+            wall time (a checkpoint saved after a step is in the next one's),
+            and the parameters copied at the steps in ``copies``."""
+            clock = _StepClock(state.model, copies)
+            state, losses = trainer.fit(state, iter(part), steps=len(part), logger=clock,
+                                        checkpointer=ckpt, prefetch=0)
+            return state, losses, clock.ms, clock.copies
+
+        trainer = llama.make_trainer(cfg, tcfg, device="cuda")
+        state = trainer.init(seed=0)
+        p0 = _param_copy(state.model)
+        state, straight, straight_ms, _ = run(state, trainer, batches)
+        straight_state = _state_copy(state)
+        del state, trainer
+        torch.cuda.empty_cache()
+
+        trainer = llama.make_trainer(cfg, tcfg, device="cuda")
+        state = trainer.init(seed=0)
+        state, first, _, _ = run(state, trainer, batches[:half])
+        at_half = _state_copy(state)
+        sync = Checkpointer(root / "llama", interval_s=None, async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.save(state.step, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        saved = sync.last_save
+        del state, trainer, sync
+        torch.cuda.empty_cache()
+
+        # (b) The same run through fit with async saves every 2 steps; the
+        # parameters copied at steps 6 and 8 (before their saves), which
+        # steps 7 and 8 then update in place while step 6 is written.
+        trainer = llama.make_trainer(cfg, tcfg, device="cuda")
+        state = trainer.init(seed=0)
+        ck = Checkpointer(root / "llama_async", interval_s=None, every_steps=2, max_to_keep=2,
+                          async_save=True)
+        saves = []
+        record = ck.save  # each save's record, completed when it commits
+
+        def save(step, st):
+            record(step, st)
+            saves.append(ck.last_save)
+
+        ck.save = save
+        state, async_losses, async_ms, copies = run(state, trainer, batches, ck, copies=(6, 8))
+        t0 = time.perf_counter()
+        ck.wait()
+        tail_wait_ms = (time.perf_counter() - t0) * 1e3
+        row_async = {"phase": "checkpoint_async", "every_steps": 2, "steps": CKPT_STEPS,
+                     "saves": saves, "tail_wait_ms": tail_wait_ms,
+                     "step_ms_with_async": async_ms, "step_ms_without": straight_ms,
+                     "median_step_ms_with_async": statistics.median(async_ms[1:]),
+                     "median_step_ms_without": statistics.median(straight_ms[1:]),
+                     "losses_bitwise_equal_straight": async_losses == straight}
+        at_6, at_8 = copies[6], copies[8]
+        del state, trainer, ck, copies
+        torch.cuda.empty_cache()
+
+        # The fresh trainer, from another seed: restore, check that no weight
+        # moved on the way in (nothing but the load may write them), 4 steps.
+        trainer = llama.make_trainer(cfg, tcfg, device="cuda")
+        state = trainer.init(seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, step = Checkpointer(root / "llama").restore_latest(state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored_unequal = _unequal(_state_copy(state), at_half)
+        kernels_mod.reset_launch_counts()
+        state, rest, rest_ms, _ = run(state, trainer, batches[half:])
+        launches["flash_attention_fwd"] = kernels_mod.launch_counts.get("flash_attention_fwd", 0)
+        flash = _flash_check(dict(kernels_mod.launch_counts), CKPT_STEPS - half,
+                             2 * cfg.n_layers, "checkpoint (resumed m435)")
+        resumed_unequal = _unequal(_state_copy(state), straight_state)
+        resumed_final = _param_copy(state.model)
+        del state, trainer
+        torch.cuda.empty_cache()
+
+        # The planted control: the model restored alone, a fresh optimizer.
+        trainer = llama.make_trainer(cfg, tcfg, device="cuda")
+        state = trainer.init(seed=2)
+        Checkpointer(root / "llama").restore_latest(state)
+        state.optimizer = _make_optimizer(state.model, tcfg, trainer._leaves(state.model))
+        state, control, _, _ = run(state, trainer, batches[half:])
+        control_gap = _param_gap(_param_copy(state.model), resumed_final, p0)
+        del state, trainer
+        torch.cuda.empty_cache()
+        row = {"phase": "checkpoint_llama", "model": "m435", "seq": 2048, "batch": 8,
+               "optimizer": "adamw", "steps": [half, CKPT_STEPS - half],
+               "straight_losses": straight, "resumed_losses": first + rest,
+               "losses_bitwise_equal": first + rest == straight,
+               "restored_state_unequal": restored_unequal,
+               "final_state_unequal": resumed_unequal, "restored_step": step,
+               "bytes": saved.get("bytes"), "staged_bytes": saved["staged_bytes"],
+               "save_ms": save_ms, "save_staging_ms": saved["staging_ms"],
+               "save_write_s": saved["write_s"], "restore_ms": restore_ms,
+               "first_save_of_a_checkpointer": "staging allocates its pinned host buffers",
+               "step_ms_straight": straight_ms, "step_ms_resumed": rest_ms, **flash,
+               "control": {"what": "the model restored, the optimizer fresh",
+                           "losses": first + control,
+                           "max_rel_loss_diff": max(abs(a - b) / abs(b) for a, b in
+                                                    zip(control, straight[half:])),
+                           **control_gap},
+               "nvidia_smi": smi}
+        _emit(row)
+        _require(step == half and not restored_unequal,
+                 f"checkpoint: the restored m435 state differs at {restored_unequal[:5]}")
+        _require(row["losses_bitwise_equal"] and not resumed_unequal,
+                 f"checkpoint: the resumed m435 run differs from the straight one at "
+                 f"{resumed_unequal[:5]}: {first + rest} against {straight}")
+        _require(control_gap["param_gap_max"] > PARAM_GAP_MAX,
+                 f"checkpoint: the planted control (fresh optimizer) lies within "
+                 f"{PARAM_GAP_MAX} of the resumed run: {control_gap}")
+        del straight_state, at_half, resumed_final, p0
+
+        # (b)'s gate: each async checkpoint holds the parameters of its step.
+        ck = Checkpointer(root / "llama_async")
+        row_async["committed_steps"] = ck.all_steps()
+        unequal = {}
+        for step, want in ((6, at_6), (8, at_8)):
+            t0 = time.perf_counter()
+            sd, _ = ck.restore_raw(step)
+            row_async.setdefault("raw_restore_ms", []).append((time.perf_counter() - t0) * 1e3)
+            unequal[step] = sorted(n for n, w in want.items()
+                                   if not torch.equal(sd["model"][n], w.cpu()))
+            del sd
+        row_async["params_unequal"] = unequal
+        row_async["nvidia_smi"] = smi
+        _emit(row_async)
+        _require(row_async["committed_steps"] == [6, 8], f"checkpoint async: {row_async}")
+        _require(not unequal[6] and not unequal[8],
+                 f"checkpoint async: a checkpoint differs from its step's parameters: {unequal}")
+        _require(row_async["losses_bitwise_equal_straight"],
+                 "checkpoint async: the run with saves differs from the straight run")
+        del at_6, at_8, ck
+        shutil.rmtree(root / "llama")
+        shutil.rmtree(root / "llama_async")
+        torch.cuda.empty_cache()
+
+        # (c) ResNet-50 at bench.py's configuration, the kernel head: 2 + 2
+        # steps across a restore against 4 straight.  cuDNN deterministic, so
+        # that two runs of the same steps may be held bitwise.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            ds = SyntheticDataset.imagenet_like(batch_size=RESNET_BATCH, image_size=RESNET_IMAGE,
+                                                dtype="uint8", pool_batches=RESNET_POOL)
+            rcfg = TrainerConfig(learning_rate=0.1, has_train_arg=True, label_smoothing=0.1,
+                                 input_stats=ds.input_stats, log_every=1)
+            arch = dict(stage_sizes=(3, 4, 6, 3), dtype=torch.bfloat16, use_pallas_head=True)
+
+            def make():
+                return Trainer(lambda gen: resnet.ResNet(**arch, generator=gen), rcfg,
+                               device="cuda")
+
+            t = make()
+            state, straight = t.fit(t.init(seed=0), ds.batches(4), steps=4)
+            straight_state = _state_copy(state)
+            del state, t
+            t = make()
+            state, first = t.fit(t.init(seed=0), ds.batches(2), steps=2)
+            at_2 = _state_copy(state)
+            sync = Checkpointer(root / "resnet", interval_s=None, async_save=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync.save(state.step, state)
+            rsave_ms = (time.perf_counter() - t0) * 1e3
+            rsaved = dict(sync.last_save)
+            del state, t
+            t = make()
+            state = t.init(seed=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Checkpointer(root / "resnet").restore_latest(state)
+            torch.cuda.synchronize()
+            rrestore_ms = (time.perf_counter() - t0) * 1e3
+            kernels_mod.reset_launch_counts()
+            state, rest = t.fit(state, itertools.islice(ds.batches(4), 2, None), steps=2)
+            head = dict(kernels_mod.launch_counts)
+            launches["fused_dense_f32"] = sum(_variants(head, "fused_dense").values())
+            unequal = _unequal(_state_copy(state), straight_state)
+            del state, t
+            row = {"phase": "checkpoint_resnet", "model": "resnet50", "dtype": "bfloat16",
+                   "batch": RESNET_BATCH, "image": RESNET_IMAGE, "steps": [2, 2],
+                   "straight_losses": straight, "resumed_losses": first + rest,
+                   "losses_bitwise_equal": first + rest == straight,
+                   "final_state_unequal": unequal,
+                   "batchnorm_statistics": sum(k.endswith((".mean", ".var"))
+                                               for k in straight_state),
+                   "momentum_traces": sum("momentum_buffer" in k for k in straight_state),
+                   "bytes": rsaved.get("bytes"), "staged_bytes": rsaved["staged_bytes"],
+                   "save_ms": rsave_ms, "restore_ms": rrestore_ms, "launches": head,
+                   "nvidia_smi": smi}
+            _emit(row)
+            _require(row["losses_bitwise_equal"] and not unequal,
+                     f"checkpoint: the resumed ResNet-50 run differs at {unequal[:5]}")
+            _require(_variants(head, "fused_dense") == {F32_SPLITK: 2},
+                     f"checkpoint: the resumed ResNet-50 head launched {head}")
+
+            # Capture, restore, replay: the graph captured on a state before
+            # a restore replays on the restored values (in place), equal to
+            # eager steps from the restored state.
+            pool = list(ds.batches(2 * 2))
+            stacks = [device_put_batch(s, torch.device("cuda"))
+                      for s in stack_batches(iter(pool), 2)]
+            t = make()
+            state = t.init(seed=3)
+            kfn = t.multi_step_fn(2)
+            state, _ = kfn(state, *stacks[0])  # the capture, on the seed-3 state
+            Checkpointer(root / "resnet").restore_latest(state)
+            restored_ok = not _unequal(_state_copy(state), at_2)
+            state, replayed = kfn(state, *stacks[1])
+            replayed = replayed.tolist()
+            replay_state = _state_copy(state)
+            del state
+            state = t.init(seed=4)
+            Checkpointer(root / "resnet").restore_latest(state)
+            eager = []
+            for i in range(2):
+                state, m = t.train_step(state, stacks[1][0][i], stacks[1][1][i])
+                eager.append(m["loss"].item())
+            unequal = _unequal(replay_state, _state_copy(state))
+            row = {"phase": "checkpoint_captured", "k": 2, "captures": kfn.captures,
+                   "restored_in_place_equal": restored_ok, "replayed_losses": replayed,
+                   "eager_losses": eager, "losses_bitwise_equal": replayed == eager,
+                   "final_state_unequal": unequal, "nvidia_smi": smi}
+            _emit(row)
+            _require(kfn.captures == 1 and restored_ok, f"checkpoint captured: {row}")
+            _require(replayed == eager and not unequal,
+                     f"checkpoint: the replay after a restore differs from eager steps from the "
+                     f"restored state at {unequal[:5]}: {replayed} against {eager}")
+            del state, t, kfn, stacks, pool, straight_state, at_2
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root / "resnet")
+        torch.cuda.empty_cache()
+
+        # (d) The examples, as a user runs them twice with --checkpoint_dir.
+        for name, main, argv in (
+                ("llama_train", llama_train.main, SLICE_ARGS[:SLICE_ARGS.index("--steps")]
+                 + ["--steps", str(CKPT_EXAMPLE_STEPS), "--log_every", "1", "--device", "cuda"]),
+                ("resnet_imagenet", resnet_imagenet.main,
+                 ["--depth", "50", "--global_batch_size", str(RESNET_BATCH), "--image_size",
+                  str(RESNET_IMAGE), "--steps", str(CKPT_EXAMPLE_STEPS), "--log_every", "1",
+                  "--use_pallas_head", "--device", "cuda"])):
+            d = root / name
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                result = main(argv + ["--checkpoint_dir", str(d)])
+                torch.cuda.synchronize()
+                runs.append({"start_step": result["start_step"], "end_step": result["end_step"],
+                             "losses": [h["loss"] for h in result["history"]],
+                             "wall_s": time.perf_counter() - t0})
+                torch.cuda.empty_cache()
+            row = {"phase": "checkpoint_example", "example": name, "args": argv,
+                   "runs": runs, "committed_steps": Checkpointer(d).all_steps()}
+            _emit(row)
+            n = CKPT_EXAMPLE_STEPS
+            _require([r["start_step"] for r in runs] == [0, n]
+                     and [r["end_step"] for r in runs] == [n, 2 * n]
+                     and row["committed_steps"] == [n, 2 * n]
+                     and all(math.isfinite(v) for r in runs for v in r["losses"]),
+                     f"checkpoint example {name}: {row}")
+            shutil.rmtree(d)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1684,6 +2068,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet_launches = _resnet_phase(torch, _kernels, smi, peak_flops)
 
+    # 10. checkpoint: save and resume on the Llama and ResNet-50 paths
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ckpt_launches = _checkpoint_phase(torch, _kernels, smi)
+    flash_by_path["checkpoint"] = ckpt_launches["flash_attention_fwd"]
+
     def kernel_entry(name, source, replaces, launches, max_abs_err, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_abs_err, "ms": row["kernel_ms"],
@@ -1695,7 +2085,7 @@ def main() -> int:
     csrc = "deeplearning_cfn_tpu_torch/ops/csrc/"
     # The fused dense by operand dtype: bf16 on the BERT path; f32 on the
     # ResNet-50 path (its kernel head's eager run).
-    dense_launches = {"bf16": 0, "f32": 0}
+    dense_launches = {"bf16": 0, "f32": ckpt_launches["fused_dense_f32"]}
     for counts in (llama_launches, bert_launches, resnet_launches):
         for v, n in _variants(counts, "fused_dense").items():
             dense_launches["f32" if v in (F32_SPLITK, F32_COOP, "simt") else "bf16"] += n

@@ -18,8 +18,10 @@ import math
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
+    close_checkpointer,
     first_step_clock,
     metrics_sink,
+    open_checkpointer,
 )
 from deeplearning_cfn_tpu_torch.models import bert
 from deeplearning_cfn_tpu_torch.train.data import SyntheticMLMDataset
@@ -43,8 +45,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     if args.data_dir:
         raise NotImplementedError(f"--data_dir (record data) is ported in {_LATER}")
-    if args.checkpoint_dir:
-        raise NotImplementedError(f"--checkpoint_dir (checkpointing) is ported in {_LATER}")
     device = resolve_device(args.device)
     if args.tiny:
         cfg = bert.BertConfig.tiny(seq_len=args.seq_len, vocab_size=args.vocab_size or 256)
@@ -70,19 +70,26 @@ def main(argv: list[str] | None = None) -> dict:
         ),
         device=device,
     )
+    ckpt, start_step = open_checkpointer(args)
     ds = SyntheticMLMDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
     sample = next(iter(ds.batches(1)))
     state = trainer.init(seed=0)
+    if ckpt is not None:
+        ckpt.restore_latest(state)
     logger = trainer.throughput_logger(
         sample.x, examples_per_step=batch, name="bert", sink=metrics_sink(args, "bert"),
         log_every=args.log_every,
     )
-    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger)
+    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger,
+                                checkpointer=ckpt)
+    close_checkpointer(ckpt, state)
     if logger.sink is not None:
         logger.sink.close()
     result = {
         "final_loss": losses[-1],
         "steps": len(losses),
+        "start_step": start_step,
+        "end_step": state.step,
         "device": str(device),
         "params": bert.param_count(cfg),
         "first_step_s": first_step_clock(trainer, t_main),

@@ -133,6 +133,39 @@ def make_lr_schedule(args, base_lr: float, total_steps: int | None = None):
     )
 
 
+def resume_start_step(ckpt) -> int:
+    """The data-stream resume position for a (possibly None) Checkpointer:
+    the restored run must consume the batches the lost run never saw, not
+    replay the head of the shuffle order.  One batch per step, so the
+    loader position IS the checkpoint step."""
+    if ckpt is None:
+        return 0
+    return int(ckpt.latest_step() or 0)
+
+
+def open_checkpointer(args):
+    """(checkpointer_or_None, start_step) for --checkpoint_dir — the ONE
+    resume-wiring helper every example uses.  The ordering it encodes is
+    load-bearing: the checkpoint's latest step must be read BEFORE the
+    data loader is built (it is the loader's start_batch), and the state
+    itself is restored later, after trainer.init provides the template
+    (``Checkpointer.restore_latest(state)`` loads into it in place)."""
+    if not getattr(args, "checkpoint_dir", None):
+        return None, 0
+    from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(args.checkpoint_dir)
+    return ckpt, resume_start_step(ckpt)
+
+
+def close_checkpointer(ckpt, state) -> None:
+    """The end-of-run save (a no-op when the policy already saved this
+    step), then wait for the writes to land."""
+    if ckpt is not None:
+        ckpt.save(state.step, state)
+        ckpt.close()
+
+
 def first_step_clock(trainer=None, t0: float | None = None):
     """Call with no args at entry for the start stamp; call with
     (trainer, stamp) after fit() for the seconds from entry to the first

@@ -24,10 +24,12 @@ import torch.distributed as dist
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
+    close_checkpointer,
     first_step_clock,
     make_lr_schedule,
     maybe_init_distributed,
     metrics_sink,
+    open_checkpointer,
 )
 from deeplearning_cfn_tpu_torch.models import llama
 from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B, MeshSpec, build_mesh
@@ -44,7 +46,6 @@ def _reject_out_of_slice(args) -> None:
         (args.pp > 1, "--pp (pipeline stages)", SLICE_5B),
         (args.ring_attention, "--ring_attention", SLICE_5B),
         (bool(args.data_dir), "--data_dir (record data)", _LATER),
-        (bool(args.checkpoint_dir), "--checkpoint_dir (checkpointing)", _LATER),
     )
     for on, what, where in checks:
         if on:
@@ -119,9 +120,12 @@ def main(argv: list[str] | None = None) -> dict:
         device=device,
         mesh=mesh,
     )
+    ckpt, start_step = open_checkpointer(args)
     ds = SyntheticTokenDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
     sample = next(iter(ds.batches(1)))
     state = trainer.init(seed=0)
+    if ckpt is not None:
+        ckpt.restore_latest(state)
     logger = trainer.throughput_logger(
         sample.x,
         examples_per_step=batch * args.seq_len,  # tokens/sec
@@ -129,12 +133,16 @@ def main(argv: list[str] | None = None) -> dict:
         sink=metrics_sink(args, "llama"),
         log_every=args.log_every,
     )
-    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger)
+    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger,
+                                checkpointer=ckpt)
+    close_checkpointer(ckpt, state)
     if logger.sink is not None:
         logger.sink.close()
     result = {
         "final_loss": losses[-1],
         "steps": len(losses),
+        "start_step": start_step,
+        "end_step": state.step,
         "device": str(trainer.device),
         "mesh": spec.axis_sizes(),
         "params": llama.param_count(cfg),

@@ -5,9 +5,11 @@ The same flags and the same result dict, plus ``--device`` (default ``cuda``;
 the run raises when CUDA is missing unless ``--device cpu`` was given) and
 ``--use_pallas_head``, which sets the model's ``use_pallas_head``: the f32
 classifier then runs through the CUDA fused-dense kernel.  Images are the
-port's synthetic ImageNet-shaped stream (``--data_dir`` records and
-``--checkpoint_dir`` are later slices'); the held-out eval stream shares the
-training task (``template_seed=0``) with other samples (``seed=10000``).
+port's synthetic ImageNet-shaped stream (``--data_dir`` records are a later
+slice's); the held-out eval stream shares the training task
+(``template_seed=0``) with other samples (``seed=10000``).  With
+``--checkpoint_dir`` the run restores the newest checkpoint there, saves on
+the policy (every 60 s) and at the end.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.resnet_imagenet --depth 50 --steps 50 --global_batch_size 128 --use_pallas_head``
 """
@@ -21,17 +23,18 @@ import torch
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
+    close_checkpointer,
     device_image_pipeline,
     first_step_clock,
     make_lr_schedule,
     metrics_sink,
+    open_checkpointer,
 )
 from deeplearning_cfn_tpu_torch.models import resnet
 from deeplearning_cfn_tpu_torch.train.data import SyntheticDataset
 from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
-_LATER = "a later slice of the PyTorch port"
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -57,8 +60,6 @@ def main(argv: list[str] | None = None) -> dict:
                    help="run the f32 classifier through the fused-dense kernel")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.checkpoint_dir:
-        raise NotImplementedError(f"--checkpoint_dir (checkpointing) is ported in {_LATER}")
     device = resolve_device(args.device)
     batch = args.global_batch_size or 32
     lr = args.learning_rate or 0.1
@@ -67,6 +68,7 @@ def main(argv: list[str] | None = None) -> dict:
                 dtype=torch.bfloat16 if args.bf16 else torch.float32,
                 norm=args.norm, use_pallas_head=args.use_pallas_head)
     ds = SyntheticDataset.imagenet_like(batch_size=batch, image_size=args.image_size)
+    ckpt, start_step = open_checkpointer(args)
     batches, input_stats, augment = device_image_pipeline(args, shape, ds)
     trainer = Trainer(
         lambda gen: resnet.ResNet(**arch, generator=gen),
@@ -87,6 +89,8 @@ def main(argv: list[str] | None = None) -> dict:
     )
     sample = next(iter(batches(1)))
     state = trainer.init(seed=0)
+    if ckpt is not None:
+        ckpt.restore_latest(state)
     logger = trainer.throughput_logger(
         sample.x, examples_per_step=batch, name=f"resnet{args.depth}",
         sink=metrics_sink(args, f"resnet{args.depth}"), log_every=args.log_every,
@@ -108,6 +112,7 @@ def main(argv: list[str] | None = None) -> dict:
         while done < args.steps and not reached:
             chunk = min(eval_every, args.steps - done)
             state, chunk_losses = trainer.fit(state, train_iter, steps=chunk, logger=logger,
+                                              checkpointer=ckpt,
                                               prefetch_workers=args.prefetch_workers)
             losses.extend(chunk_losses)
             done += chunk
@@ -117,16 +122,19 @@ def main(argv: list[str] | None = None) -> dict:
         result.update(eval_history=evals, target_reached=reached, eval=evals[-1])
     else:
         state, losses = trainer.fit(state, batches(args.steps), steps=args.steps, logger=logger,
-                                    prefetch_workers=args.prefetch_workers)
+                                    checkpointer=ckpt, prefetch_workers=args.prefetch_workers)
         if args.eval_steps:
             result["eval"] = {"split": "heldout-synthetic",
                               **trainer.evaluate(state, eval_batches(args.eval_steps),
                                                  steps=args.eval_steps)}
+    close_checkpointer(ckpt, state)
     if logger.sink is not None:
         logger.sink.close()
     result.update({
         "final_loss": losses[-1],
         "steps": len(losses),
+        "start_step": start_step,
+        "end_step": state.step,
         "device": str(device),
         "params": sum(p.numel() for p in state.model.parameters()),
         "history": logger.history,

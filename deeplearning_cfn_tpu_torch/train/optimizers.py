@@ -118,6 +118,20 @@ class _LeafOptimizer(torch.optim.Optimizer):
                 local[i] = vec[j]
         return local
 
+    def _init_param(self, p) -> None:
+        if not self.state[p]:
+            lp = local_part(p)
+            self.state[p]["step"] = torch.zeros((), dtype=torch.float32, device=lp.device)
+            self.state[p].update(self._init(p, lp))
+
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Every parameter's state as its first step makes it (zeros): what a
+        checkpoint restores into."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._init_param(p)
+
     def _live_groups(self):
         """Per parameter group with a gradient: (group, params, local params,
         local grads, step counts); a parameter's state (``step`` and
@@ -128,10 +142,8 @@ class _LeafOptimizer(torch.optim.Optimizer):
             if not params:
                 continue
             local = [local_part(p) for p in params]
-            for p, lp in zip(params, local):
-                if not self.state[p]:
-                    self.state[p]["step"] = torch.zeros((), dtype=torch.float32, device=lp.device)
-                    self.state[p].update(self._init(p, lp))
+            for p in params:
+                self._init_param(p)
             steps = [self.state[p]["step"] for p in params]
             out.append((group, params, local, [local_part(p.grad) for p in params], steps))
         return out

@@ -40,9 +40,14 @@ JAX package's jitted step, in eager PyTorch:
   CUDA graph and replayed (every optimizer); on the CPU, ``k`` eager steps.
 - ``fit`` feeds the steps through ``train.data.DevicePrefetcher``.
 
+- ``TrainState.state_dict`` / ``load_state_dict``: the whole state by
+  parameter name, loaded in place; ``fit(checkpointer=, datastream=)``
+  saves on the checkpointer's policy (``train/checkpoint.py``), the data
+  stream's position with it.
+
 Without a mesh the trainer runs on one device and ``strategy`` is the
-identity.  Comms overlap, checkpointing and live reshard are ported in
-later slices and raise ``NotImplementedError``.
+identity.  Comms overlap and live reshard are ported in later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import contextlib
 import itertools
 import re
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
@@ -116,6 +121,155 @@ class TrainState:
     # What a step calls: the DDP wrapper under strategy "dp" over a mesh,
     # else the model itself.
     runner: nn.Module | None = None
+    # Parameters split over ranks outside their DTensor layout (experts over
+    # ``ep``): name -> the 1-D mesh their dim 0 is split over.
+    split: dict[str, Any] = field(default_factory=dict)
+
+    def state_dict(self) -> dict:
+        """``{"model": ..., "optimizer": {"state": ...}, "step": ...}`` keyed
+        by parameter names (``torch.distributed.checkpoint.state_dict``),
+        holding the live tensors, so a load into it writes the state in
+        place.  The optimizer's state is created first where a first step
+        would create it (:func:`init_optimizer_state`); its hyperparameters
+        are the config's and are not saved.  Whatever a rank holds of a
+        larger tensor is a ``DTensor`` with its global shape: FSDP2's shards,
+        and the optimizer state and experts this rank keeps a part of, so
+        a checkpoint restores onto another mesh."""
+        from torch.distributed.checkpoint.state_dict import (
+            get_model_state_dict,
+            get_optimizer_state_dict,
+        )
+
+        init_optimizer_state(self.optimizer)
+        sd = {"model": get_model_state_dict(self.model),
+              "step": torch.tensor(self.step, dtype=torch.int64)}
+        if self.optimizer.state:
+            osd = get_optimizer_state_dict(self.model, self.optimizer)
+            sd["optimizer"] = {"state": osd["state"]}
+        _global_views(self, sd)
+        return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy ``sd`` (what :meth:`state_dict` gives, or on one device the
+        whole host tensors ``Checkpointer.restore_raw`` returns) into the
+        live tensors.  Every tensor keeps its address, so a CUDA graph
+        captured on this state (``CapturedSteps``) replays on the loaded
+        one; ``torch.optim.Optimizer.load_state_dict`` would replace them."""
+        live = self.state_dict()
+        _copy_into(live["model"], sd["model"], "model")
+        if "optimizer" in live:
+            _copy_into(live["optimizer"], sd["optimizer"], "optimizer")
+        self.step = int(sd["step"])
+
+
+@torch.no_grad()
+def init_optimizer_state(opt: torch.optim.Optimizer) -> None:
+    """Create every parameter's optimizer state where its first step would,
+    at the zeros it starts from (nothing for a stateless optimizer).  DCP's
+    ``state_dict`` helpers would otherwise make it by a zero-gradient step
+    at learning rate 0, which moves the weights of an optimizer whose decay
+    is not scaled by the learning rate (Adafactor's)."""
+    if isinstance(opt, torch.optim.Adam | torch.optim.AdamW):
+        scalar = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+        for group in opt.param_groups:
+            on_device = group["capturable"] or group["fused"]
+            for p in group["params"]:
+                st = opt.state[p]
+                if st:
+                    continue
+                st["step"] = (torch.zeros((), dtype=torch.float32 if group["fused"] else scalar,
+                                          device=p.device) if on_device
+                              else torch.tensor(0.0, dtype=scalar))
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if group["amsgrad"]:
+                    st["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    elif hasattr(opt, "init_state"):
+        opt.init_state()
+    else:
+        raise TypeError(f"no state initialiser for {type(opt).__name__}")
+
+
+def _placements_without(placements, dim: int) -> list:
+    """A tensor's placements after ``dim`` is reduced away: a shard on it
+    becomes a replica (the reduction all-reduced it), later dims move down."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [(Replicate() if pl.dim == dim else Shard(pl.dim - (pl.dim > dim)))
+            if pl.is_shard() else pl for pl in placements]
+
+
+def _as_global(local: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _global_views(state: "TrainState", sd: dict) -> None:
+    """Give every tensor of ``sd`` that holds a part of a larger one its
+    global view (sharing storage): the LAMB and Adafactor state of an FSDP2
+    parameter (local tensors: elementwise state takes the parameter's
+    placements, a factored second moment those of the dims it keeps), and
+    experts split over ``ep`` with their optimizer state (dim 0 sharded
+    over the ep mesh)."""
+    from torch.distributed.tensor import Shard
+
+    params = dict(state.model.named_parameters())
+    opt_state = sd.get("optimizer", {}).get("state", {})
+    dims = getattr(state.optimizer, "_dims", None)
+    for name, p in params.items():
+        st = opt_state.get(name, {})
+        if name in state.split:
+            if hasattr(p, "device_mesh") and p.device_mesh.size() > 1:
+                raise NotImplementedError(
+                    f"checkpointing {name}, split over ep and sharded by FSDP2 at once, is "
+                    f"ported in {_LATER}")
+            mesh = state.split[name]
+            local = local_part(p.detach())
+            shape = (local.shape[0] * mesh.size(), *local.shape[1:])
+            sd["model"][name] = _as_global(local, mesh, [Shard(0)], shape)
+            for k, v in st.items():
+                if v.ndim:
+                    st[k] = _as_global(local_part(v), mesh, [Shard(0)], (v.shape[0] * mesh.size(),
+                                                                         *v.shape[1:]))
+            continue
+        if not hasattr(p, "device_mesh"):
+            continue
+        for k, v in st.items():
+            if not v.ndim or hasattr(v, "device_mesh"):
+                continue
+            if v.shape == p.to_local().shape:
+                st[k] = _as_global(v, p.device_mesh, p.placements, p.shape)
+            elif k in ("v_row", "v_col") and dims is not None:
+                d1, d0 = dims(p)
+                gone = d0 if k == "v_row" else d1
+                shape = [s for i, s in enumerate(p.shape) if i != gone]
+                st[k] = _as_global(v, p.device_mesh, _placements_without(p.placements, gone), shape)
+            else:
+                raise NotImplementedError(f"no global view of the optimizer state {name}.{k}")
+
+
+def _copy_into(dst: Any, src: Any, path: str) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (same structure and
+    layout), skipping those that already share storage (DCP loaded them in
+    place)."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            if k not in src:
+                raise KeyError(f"{path}.{k} is missing from the state to load")
+            _copy_into(v, src[k], f"{path}.{k}")
+        return
+    if not isinstance(dst, torch.Tensor):
+        return
+    d, s = local_part(dst), local_part(src)
+    if d.data_ptr() == s.data_ptr() and d.device == s.device:
+        return
+    if tuple(d.shape) != tuple(s.shape):
+        raise ValueError(f"{path}: shape {tuple(s.shape)} does not fit {tuple(d.shape)}")
+    d.copy_(s)
 
 
 _EXCLUDED = ("norm", "bias", "scale")
@@ -358,7 +512,9 @@ class Trainer:
         gen = torch.Generator().manual_seed(seed)
         model = self.model_fn(gen).to(self.device)
         runner = self._distribute(model) if self.mesh is not None else None
-        return TrainState(step=0, model=model, runner=runner,
+        split = {n: self.mesh["ep"] for n, p in model.named_parameters()
+                 if id(p) in self._split_groups}
+        return TrainState(step=0, model=model, runner=runner, split=split,
                           optimizer=_make_optimizer(model, self.config, self._leaves(model)))
 
     # --- the layout over the mesh -------------------------------------------
@@ -625,11 +781,15 @@ class Trainer:
         threads, ``prefetch`` batches ahead (0: inline copies); the counters
         land on ``self.last_pipeline_stats``.  ``steps_per_call`` = k > 1
         stacks k batches a call and runs them through ``multi_step_fn(k)``;
-        the ``steps % k`` remainder runs one step a call, in the same loop."""
-        for name, on in (("checkpointer", checkpointer is not None),
-                         ("reshard", reshard is not None),
-                         ("profiler", profiler is not None),
-                         ("datastream", datastream is not None)):
+        the ``steps % k`` remainder runs one step a call, in the same loop.
+
+        After each call, ``checkpointer.should_save(state.step)`` decides a
+        save at the state's true step (a restored run continues the count);
+        with ``datastream`` (a ``train.datastream.HostShardStream``) the
+        stream's position rides the save when the checkpointer
+        ``accepts_stream_state``.  ``reshard`` (live reshard, slice 7) and
+        ``profiler`` are later slices'."""
+        for name, on in (("reshard", reshard is not None), ("profiler", profiler is not None)):
             if on:
                 raise NotImplementedError(f"fit({name}) is ported in {_LATER}")
         if steps_per_call < 1:
@@ -663,6 +823,8 @@ class Trainer:
                     self.first_step_at = time.perf_counter()
                 if logger:
                     logger.step(state.step, loss[-1])
+                if checkpointer is not None and checkpointer.should_save(state.step):
+                    self._save_checkpoint(checkpointer, state.step, state, datastream)
                 if state.step // sync_every > before // sync_every:
                     losses.extend(torch.cat(pending).tolist())
                     pending.clear()
@@ -672,6 +834,21 @@ class Trainer:
         if pending:
             losses.extend(torch.cat(pending).tolist())
         return state, losses
+
+    def _save_checkpoint(self, checkpointer: Any, step: int, state: TrainState,
+                         datastream: Any) -> None:
+        """One checkpoint save, with the data plane's position attached
+        when both sides support it.  With ``prefetch > 0`` the stream's
+        host-side cursor can run up to ``prefetch + 1`` batches ahead of
+        the trained step (the buffer was filled ahead); runs that need
+        bit-exact stream resume use ``prefetch=0``."""
+        if datastream is not None and getattr(checkpointer, "accepts_stream_state", False):
+            stream_state = datastream.stream_state()
+            if hasattr(stream_state, "to_json"):
+                stream_state = stream_state.to_json()
+            checkpointer.save(step, state, stream_state=stream_state)
+        else:
+            checkpointer.save(step, state)
 
     def _pipeline(self, batches, prefetch: int, workers: int, name: str = "fit"):
         """``batches`` behind a DevicePrefetcher when ``prefetch`` > 0."""

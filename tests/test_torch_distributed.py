@@ -28,6 +28,16 @@ more than lr a step).
 
 Each spawn has a free port, ``torch.set_num_threads(1)`` in every rank, and
 a join timeout that fails the test; several cases share one spawn.
+
+Restores across a topology change (``tests/test_topology_restore.py``'s
+slow path, on the DCP ``Checkpointer``): three steps on one mesh, a save,
+a restore onto another layout into a state from another seed, two more
+steps; the five losses and the final parameters held as above to the
+port's uninterrupted single-rank run from the same weights.  Saved at
+fsdp=2 (AdamW, LAMB, Adafactor at the factoring widths: their local state
+saved with its global shape) and at ep=2 (MoE), restored at one rank;
+saved at dp=2 (DDP), restored at fsdp=2.  ``mesh_topology`` of each mesh
+equals the JAX package's of the same ``MeshSpec``.
 """
 
 import dataclasses
@@ -50,10 +60,14 @@ torch = pytest.importorskip("torch")
 from deeplearning_cfn_tpu.models import llama as jax_llama  # noqa: E402
 from deeplearning_cfn_tpu.parallel.mesh import MeshSpec, build_mesh  # noqa: E402
 from deeplearning_cfn_tpu.train import data as jax_data  # noqa: E402
+from deeplearning_cfn_tpu.train.reshard import mesh_topology as jax_mesh_topology  # noqa: E402
 from deeplearning_cfn_tpu.train.trainer import TrainerConfig as JaxTrainerConfig  # noqa: E402
 from deeplearning_cfn_tpu.utils.compat import set_mesh  # noqa: E402
 from deeplearning_cfn_tpu_torch.models import llama  # noqa: E402
 from deeplearning_cfn_tpu_torch.parallel import sharding  # noqa: E402
+from deeplearning_cfn_tpu_torch.train import data as torch_data  # noqa: E402
+from deeplearning_cfn_tpu_torch.train import trainer as trainer_lib  # noqa: E402
+from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -241,3 +255,107 @@ def test_multiprocess_smoke_lenet_from_the_env_contract():
     assert results[0]["losses"] == results[1]["losses"]
     losses = results[0]["losses"]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+# --- restores across a topology change ---------------------------------------
+
+SAVED_STEPS, CKPT_STEPS = 3, 5
+CKPT_CASES = {  # name: (config, trainer overrides, saved on, restored on: None = one rank)
+    "fsdp_to_one": (dict(vocab_size=64), dict(strategy="fsdp"), dict(fsdp=2), None),
+    "lamb_fsdp_to_one": (dict(vocab_size=64), dict(strategy="fsdp", optimizer="lamb"),
+                         dict(fsdp=2), None),
+    "adafactor_fsdp_to_one": (WIDE, dict(strategy="fsdp", optimizer="adafactor",
+                                         learning_rate=1e-2), dict(fsdp=2), None),
+    "moe_ep_to_one": (dict(vocab_size=64, n_experts=4), dict(strategy="fsdp"), dict(ep=2), None),
+    "dp_to_fsdp": (dict(vocab_size=64), dict(strategy="dp"), dict(dp=2), dict(fsdp=2)),
+}
+
+
+def _ckpt_case(name, root, mode):
+    cfg_kw, train_kw, saved_on, restored_on = CKPT_CASES[name]
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(seq_len=SEQ, dtype=torch.float32), **cfg_kw)
+    init = {k: v.numpy() for k, v in llama.Llama(cfg, torch.Generator().manual_seed(0))
+            .state_dict().items()}
+    ds = torch_data.SyntheticTokenDataset(seq_len=SEQ, vocab_size=cfg.vocab_size, batch_size=4)
+    trainer_kw = {**TRAIN, **train_kw}
+    if mode == "restore":
+        trainer_kw["strategy"] = "fsdp"
+    return {"mesh": saved_on if mode == "save" else restored_on, "mode": mode, "torch_init": True,
+            "cfg": {"max_seq_len": SEQ, **cfg_kw}, "trainer": trainer_kw, "init": init,
+            "batches": [(b.x, b.y) for b in ds.batches(CKPT_STEPS)], "steps": SAVED_STEPS,
+            "dir": str(root / name)}
+
+
+def _spawn_cases(tmp_path_factory, cases: dict) -> list[dict]:
+    path = tmp_path_factory.mktemp("ckpt-ranks") / "cases.pkl"
+    path.write_bytes(pickle.dumps(cases))
+    _spawn(2, [str(REPO / "tests" / "torch_dist_ranks.py"), str(path)])
+    return [pickle.loads(Path(f"{path}.rank{i}").read_bytes()) for i in range(2)]
+
+
+@pytest.fixture(scope="module")
+def topology_restores(tmp_path_factory):
+    """Every case saved on its mesh (one spawn), then restored: on two ranks
+    (a second spawn) or here on one."""
+    root = tmp_path_factory.mktemp("ckpts")
+    saved = _spawn_cases(tmp_path_factory, {n: _ckpt_case(n, root, "save") for n in CKPT_CASES})
+    on_two = [n for n, c in CKPT_CASES.items() if c[3] is not None]
+    restored = _spawn_cases(tmp_path_factory,
+                            {n: _ckpt_case(n, root, "restore") for n in on_two})
+    out = {}
+    for name, (cfg_kw, train_kw, saved_on, restored_on) in CKPT_CASES.items():
+        case = _ckpt_case(name, root, "restore")
+        cfg = dataclasses.replace(llama.LlamaConfig.tiny(dtype=torch.float32), **cfg_kw)
+        weights = {k: torch.from_numpy(v) for k, v in case["init"].items()}
+
+        def make(seed, weights=weights, cfg=cfg, case=case):
+            def model_fn(generator):
+                model = llama.Llama(cfg, generator)
+                if weights is not None:
+                    model.load_state_dict(weights)
+                return model
+
+            t = trainer_lib.Trainer(model_fn, trainer_lib.TrainerConfig(**case["trainer"]),
+                                    loss_fn=llama.causal_lm_loss, device="cpu")
+            return t, t.init(seed=seed)
+
+        t, state = make(0)  # the uninterrupted single-rank run
+        straight = []
+        for x, y in case["batches"]:
+            state, metrics = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
+            straight.append(float(metrics["loss"]))
+        ref = {n: p.detach().numpy() for n, p in state.model.named_parameters()}
+        if restored_on is None:
+            t, state = make(1, weights=None)
+            _, step = Checkpointer(case["dir"]).restore_latest(state)
+            assert step == SAVED_STEPS
+            after = []
+            for x, y in case["batches"][SAVED_STEPS:]:
+                state, metrics = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
+                after.append(float(metrics["loss"]))
+            ends = [{"losses": after, "params": {n: p.detach().numpy()
+                                                 for n, p in state.model.named_parameters()}}]
+        else:
+            ends = [r[name] for r in restored]
+        out[name] = {"saved": [r[name] for r in saved], "ends": ends, "straight": straight,
+                     "ref": ref, "lr": case["trainer"]["learning_rate"]}
+    return out
+
+
+@pytest.mark.parametrize("name", list(CKPT_CASES))
+def test_restore_across_a_topology_change_continues_the_single_rank_run(topology_restores, name):
+    got = topology_restores[name]
+    saved_on, restored_on = CKPT_CASES[name][2:]
+    for r in got["saved"]:
+        assert r["topology"] == jax_mesh_topology(build_mesh(MeshSpec(**saved_on),
+                                                             jax.devices()[:2]))
+    for end in got["ends"]:
+        np.testing.assert_allclose(got["saved"][0]["losses"] + end["losses"], got["straight"],
+                                   rtol=1e-5)
+        lr = got["lr"]
+        for pname, want in got["ref"].items():
+            diff = np.abs(end["params"][pname] - want)
+            assert diff.max() <= lr * CKPT_STEPS, (pname, diff.max())
+            assert np.mean(diff > 2e-6) <= 1e-3, (pname, diff.max())
+    if restored_on is not None:
+        assert got["ends"][0]["topology"] == {"devices": 2, "axes": {"fsdp": 2}}

@@ -43,7 +43,7 @@ def test_main_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize(
     "flags",
     [["--tp", "2"], ["--sp", "2"], ["--pp", "2"], ["--ring_attention"],
-     ["--data_dir", "/nonexistent"], ["--checkpoint_dir", "/nonexistent"]],
+     ["--data_dir", "/nonexistent"]],
 )
 def test_out_of_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="later slice"):

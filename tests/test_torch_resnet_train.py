@@ -193,8 +193,7 @@ def test_resnet_imagenet_target_accuracy_mode_on_cpu():
     assert result["target_reached"] is False and result["steps"] == 2
 
 
-@pytest.mark.parametrize("flags", [["--data_dir", "/nonexistent"],
-                                   ["--checkpoint_dir", "/nonexistent"]])
+@pytest.mark.parametrize("flags", [["--data_dir", "/nonexistent"]])
 def test_resnet_imagenet_out_of_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="later slice"):
         resnet_imagenet.main(["--device", "cpu", "--steps", "1", *flags])

@@ -165,8 +165,7 @@ def test_throughput_logger_and_sink(tmp_path):
     assert len(lines) == 2
 
 
-@pytest.mark.parametrize("kw", [{"checkpointer": object()}, {"reshard": object()},
-                                {"datastream": object()}])
+@pytest.mark.parametrize("kw", [{"profiler": object()}, {"reshard": object()}])
 def test_out_of_slice_fit_options_raise(kw):
     ttrainer = llama.make_trainer(llama.LlamaConfig.tiny(dtype=torch.float32),
                                   trainer.TrainerConfig(), device="cpu")

@@ -6,7 +6,8 @@ through ``examples.common.maybe_init_distributed``, then for each case of the
 pickled input file builds the case's mesh, loads the JAX package's initial
 weights (numpy, computed by the test), takes the global norm of the first
 batch's gradients, runs the case's trainer steps, and writes what it saw to
-``<input>.rank<id>``.  It imports no JAX.
+``<input>.rank<id>``.  A checkpoint case (``mode``) saves after its first
+steps, or restores and takes the rest.  It imports no JAX.
 
     python tests/torch_dist_ranks.py <input.pkl>
 """
@@ -29,26 +30,64 @@ from deeplearning_cfn_tpu_torch.examples.common import maybe_init_distributed  #
 from deeplearning_cfn_tpu_torch.models import llama  # noqa: E402
 from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, axis_rank, build_mesh  # noqa: E402
 from deeplearning_cfn_tpu_torch.train import trainer as trainer_lib  # noqa: E402
+from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer  # noqa: E402
+from deeplearning_cfn_tpu_torch.train.reshard import mesh_topology  # noqa: E402
 
 
 def _full(p: torch.Tensor) -> torch.Tensor:
     return p.full_tensor() if hasattr(p, "full_tensor") else p
 
 
-def run_case(case: dict) -> dict:
-    mesh = build_mesh(MeshSpec(**case["mesh"]))
+def _trainer(case: dict, mesh, seed: int = 0):
+    """The case's trainer over ``mesh`` and its state, from the case's
+    initial weights (numpy, the JAX tree's or the port's own) when it has
+    them, else from ``seed``."""
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(dtype=torch.float32), **case["cfg"])
-    weights = interop.llama_params_from_jax(cfg, case["init"])
+    init = case.get("init")
+    weights = None
+    if init is not None:
+        weights = (interop.llama_params_from_jax(cfg, init) if not case.get("torch_init")
+                   else {k: torch.from_numpy(v) for k, v in init.items()})
 
     def model_fn(generator):
         model = llama.Llama(cfg, generator)
-        model.load_state_dict(weights)
+        if weights is not None:
+            model.load_state_dict(weights)
         return model
 
     t = trainer_lib.Trainer(model_fn, trainer_lib.TrainerConfig(**case["trainer"]),
                             loss_fn=llama.causal_lm_loss, device="cpu", mesh=mesh,
                             param_specs=llama.param_specs(cfg))
-    state = t.init(seed=0)
+    return t, t.init(seed=seed)
+
+
+def run_checkpoint_case(case: dict) -> dict:
+    """Save after ``case["steps"]`` steps, or restore into a state from
+    another seed and take the remaining batches (``case["mode"]``)."""
+    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    save = case["mode"] == "save"
+    t, state = _trainer(case if save else {**case, "init": None}, mesh, seed=0 if save else 1)
+    ck = Checkpointer(case["dir"], interval_s=None, async_save=False)
+    n = case["steps"]
+    if not save:
+        assert ck.restore_latest(state)[1] == n and state.step == n
+    losses = []
+    for x, y in case["batches"][:n] if save else case["batches"][n:]:
+        state, metrics = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
+        losses.append(float(metrics["loss"]))
+    if save:
+        ck.save(state.step, state)
+    ck.close()
+    params = {n: _full(p).detach().numpy().copy() for n, p in state.model.named_parameters()}
+    return {"losses": losses, "topology": mesh_topology(mesh), "params": params,
+            "ep_rank": axis_rank(mesh, "ep")}
+
+
+def run_case(case: dict) -> dict:
+    if "mode" in case:
+        return run_checkpoint_case(case)
+    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    t, state = _trainer(case, mesh)
     x0, y0 = (torch.from_numpy(a) for a in case["batches"][0])
     loss, _ = llama.causal_lm_loss(state.runner or state.model, t._local_batch(x0),
                                    t._local_batch(y0))
