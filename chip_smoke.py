@@ -143,6 +143,31 @@ Phases, one JSON line each:
            ``examples.resnet_imagenet.main`` (ResNet-50, kernel head), each
            run twice with ``--checkpoint_dir``: the second resumes at the
            first's last step.
+11. detection  RetinaNet-R50-FPN with the prototype-mask head at the JAX
+           configuration's widths (ResNet-50, FPN 256, 80 classes, 9 anchors
+           a cell, 16 prototypes), 256 px (12,276 anchors), max_boxes 10, on
+           the synthetic detection stream.  ``detection_parity``: the f32
+           forward on the card against the same weights on the CPU at batch
+           2 (every BatchNorm's variables drawn at random), the largest and
+           mean error of the class logits, box deltas, coefficients and
+           prototypes gated; then ``predict`` on the card against ``predict``
+           on the CPU on the same head outputs (classes and valid slots
+           equal, scores within 1e-6, boxes within a few f32 ulps).  ``detection``:
+           bf16, batch 32, momentum lr 0.01, clip 10, 2 + 8 steps through
+           ``fit`` (a readback each step): step time, images/s, MFU
+           (``FlopCounterMode`` FLOPs over the card's bf16 peak), peak memory,
+           the four loss terms finite with ``num_pos`` and ``mask_slots`` over
+           0; a ``profile`` line.  ``detection_learn``: 20 steps on one
+           repeated batch, the loss below 0.7 of its start.
+           ``detection_eval``: ``predict`` and ``DetectionAccumulator`` over 2
+           held-out batches (mAP and mask mAP gate nothing).
+           ``detection_example``: a ResNet-50 classifier saved by one
+           ``resnet_imagenet`` step, then ``examples.detection_train.main
+           --masks --backbone_ckpt`` (3 steps, one eval batch, batch 8): every
+           backbone tensor transferred, the losses finite.
+12. cifar10  ``examples.cifar10_train.main`` (VGG-11, batch 64, 20 steps, 2
+           eval batches) and ``examples.lenet_mnist.main`` (20 steps): step
+           time and images/s, the losses finite.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -155,7 +180,9 @@ The flash row of the kernels line counts the launches of every Llama path
 resumed m435 run of ``checkpoint``; by path in ``launches_by_path``), each
 counted from zero just before its run; the f32 fused dense's counts the
 ``resnet`` phase's eager kernel-head run and the resumed ResNet-50 run of
-``checkpoint``.
+``checkpoint``.  The ``detection`` and ``cifar10`` phases launch no kernel of
+the port (the JAX models they port are plain XLA): each kernel's
+``launches_by_path`` reports them as 0, and a launch there fails the run.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line; with no CUDA card, or
@@ -311,6 +338,33 @@ NO_UPDATE_MARGIN = 4
 # m435 checkpoints of ~2.6 GB at once, one of them in flight).
 CKPT_STEPS, CKPT_EXAMPLE_STEPS = 8, 2
 CKPT_DISK_BYTES = 10 * 10**9
+# Detection (phase 11): the JAX RetinaNet configuration at full width --
+# ResNet-50, FPN 256, 80 classes, 9 anchors a cell, 16 prototypes, masks,
+# bf16 -- at the JAX example's 256 px (12,276 anchors), max_boxes 10, batch
+# 32, momentum lr 0.01, clip 10.  Parity: the f32 forward on the card against
+# the same weights on the CPU at batch 2, eval mode, every BatchNorm's
+# variables drawn at random.  cuDNN and the CPU sum the convolutions in
+# other orders (TF32 off), so each output is held at DET_PARITY_RTOL of its
+# largest entry (at most) and DET_PARITY_MEAN_RTOL of it (on the mean).
+# predict on the card against predict on the CPU on the CPU's head outputs:
+# classes and valid slots equal, scores within 1e-6, boxes within DET_BOX_RTOL
+# of their coordinate and DET_BOX_ATOL px (decoded through exp, which the
+# card and the CPU may round differently in the last place; decoded boxes
+# reach past the image, to ~2,000 px, where an f32 ulp is 1.2e-4).
+DET_ARCH = dict(num_classes=80, backbone_stages=(3, 4, 6, 3), fpn_channels=256,
+                with_masks=True, num_prototypes=16)
+DET_BATCH, DET_IMAGE, DET_MAX_BOXES = 32, 256, 10
+DET_WARMUP, DET_STEPS, DET_LEARN_STEPS, DET_EVAL_BATCHES = 2, 8, 20, 2
+DET_PARITY_RTOL, DET_PARITY_MEAN_RTOL = 1e-3, 1e-5
+DET_SCORE_ATOL, DET_BOX_RTOL, DET_BOX_ATOL = 1e-6, 2e-6, 1e-4
+DET_LEARN_RATIO = 0.7
+DET_EXAMPLE_ARGS = ["--masks", "--steps", "3", "--eval_steps", "1", "--global_batch_size", "8",
+                    "--log_every", "1", "--device", "cuda"]
+# CIFAR (phase 12): cifar10_train at VGG-11, batch 64, 20 steps, 2 eval
+# batches; lenet_mnist for 20 steps.
+CIFAR_ARGS = ["--model", "vgg11", "--global_batch_size", "64", "--steps", "20",
+              "--eval_steps", "2", "--log_every", "1", "--device", "cuda"]
+LENET_ARGS = ["--steps", "20", "--log_every", "1", "--device", "cuda"]
 
 
 def _emit(obj: dict) -> None:
@@ -1538,6 +1592,269 @@ def _checkpoint_phase(torch, kernels_mod, smi: str) -> dict:
     return launches
 
 
+
+def _kernel_free(counts: dict, what: str) -> None:
+    """No kernel of the port launched (these paths run none)."""
+    _require(not any(counts.values()), f"{what}: kernels launched {counts}")
+
+
+def _random_norms(torch, model, seed: int) -> None:
+    """Every BatchNorm's scale, bias, mean and variance drawn from a seeded
+    generator (the initial zero ``bn3`` scales would hide each block's
+    residual branch)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            scope, _, leaf = name.rpartition(".")
+            if not scope.rpartition(".")[2].startswith("bn"):
+                continue
+            if leaf in ("weight", "var"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            else:
+                t.copy_(0.2 * torch.randn(t.shape, generator=gen))
+
+
+def _detection_phase(torch, kernels_mod, smi: str, peak_flops: float) -> dict:
+    """Phase 11: RetinaNet-R50-FPN with the mask head (see the module
+    docstring).  Emits ``detection_parity``, ``detection``, ``profile``,
+    ``detection_learn``, ``detection_eval`` and ``detection_example``;
+    returns the launches of the port's kernels over the phase (none)."""
+    import argparse
+    import copy
+    import shutil
+    import tempfile
+
+    from deeplearning_cfn_tpu_torch.examples import detection_train, resnet_imagenet
+    from deeplearning_cfn_tpu_torch.models import retinanet
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticDetectionDataset, device_put_batch
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cuda = torch.device("cuda")
+    launches: dict = {}
+
+    def count(what: str) -> None:
+        got = dict(kernels_mod.launch_counts)
+        _kernel_free(got, what)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def stream(batch: int, **kw):
+        return SyntheticDetectionDataset(image_size=DET_IMAGE, num_classes=80,
+                                         max_boxes=DET_MAX_BOXES, batch_size=batch,
+                                         with_masks=True, **kw)
+
+    anchors_cpu = torch.from_numpy(retinanet.generate_anchors(DET_IMAGE))
+    anchors = anchors_cpu.to(cuda)
+
+    # 1. Parity in f32 (TF32 off since phase 1): the card's forward against
+    # the CPU's on the same weights, then predict on the same head outputs.
+    kernels_mod.reset_launch_counts()
+    cpu_model = retinanet.RetinaNet(**DET_ARCH, generator=torch.Generator().manual_seed(0))
+    _random_norms(torch, cpu_model, 1)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    x = torch.from_numpy(next(iter(stream(2, seed=3).batches(1))).x)
+    with torch.no_grad():
+        ref = cpu_model(x, train=False)
+        got = [t.cpu() for t in card_model(x.to(cuda), train=False)]
+    parity = {"phase": "detection_parity", "dtype": "float32", "B": 2, "image": DET_IMAGE,
+              "anchors": int(anchors.shape[0]), "rtol_of_max": DET_PARITY_RTOL,
+              "mean_rtol_of_max": DET_PARITY_MEAN_RTOL, "outputs": {}}
+    for name, r, g in zip(("cls_logits", "box_deltas", "coeffs", "protos"), ref, got):
+        err, scale = (g - r).abs(), max(1.0, r.abs().max().item())
+        parity["outputs"][name] = {
+            "shape": list(r.shape), "max_abs": r.abs().max().item(),
+            "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+            "within": err.max().item() <= DET_PARITY_RTOL * scale
+            and err.mean().item() <= DET_PARITY_MEAN_RTOL * scale}
+    # The class logits moved up by 3 so that many anchors pass the 0.05
+    # score threshold (at the prior's bias almost none would).
+    head = [ref[0] + 3.0, ref[1], ref[2], ref[3]]
+    want = retinanet.predict(head[0], head[1], anchors_cpu, coeffs=head[2], protos=head[3])
+    card_head = [t.to(cuda) for t in head]
+
+    def card_predict():
+        return retinanet.predict(card_head[0], card_head[1], anchors, coeffs=card_head[2],
+                                 protos=card_head[3])
+
+    have = {k: v.cpu() for k, v in card_predict().items()}
+    parity["predict"] = {
+        "max_detections": 100, "valid_slots": int(want["valid"].sum()),
+        "classes_equal": torch.equal(have["classes"], want["classes"]),
+        "valid_equal": torch.equal(have["valid"], want["valid"]),
+        "score_max_abs_err": (have["scores"] - want["scores"]).abs().max().item(),
+        "box_max_abs_err": (have["boxes"] - want["boxes"]).abs().max().item(),
+        "box_max_abs": want["boxes"].abs().max().item(),
+        "boxes_within": torch.allclose(have["boxes"], want["boxes"], rtol=DET_BOX_RTOL,
+                                       atol=DET_BOX_ATOL),
+        "mask_pixels_differing": int((have["masks"] != want["masks"]).sum()),
+        "score_atol": DET_SCORE_ATOL, "box_rtol": DET_BOX_RTOL, "box_atol": DET_BOX_ATOL,
+        "card_ms": _time_ms(torch, card_predict, iters=3)}
+    _emit(parity)
+    count("detection parity")
+    pp = parity["predict"]
+    _require(all(o["within"] for o in parity["outputs"].values()),
+             f"detection: the card's forward off the CPU's: {parity['outputs']}")
+    _require(pp["classes_equal"] and pp["valid_equal"] and pp["valid_slots"] > 0
+             and pp["score_max_abs_err"] <= DET_SCORE_ATOL and pp["boxes_within"],
+             f"detection: predict on the card off the CPU's: {pp}")
+    del cpu_model, card_model, ref, got, head, card_head, want, have
+    torch.cuda.empty_cache()
+
+    # 2. Training at full width, bf16, through fit (two producers), a
+    # readback each step.
+    arch = dict(DET_ARCH, dtype=torch.bfloat16)
+
+    def loss_fn(model, x, y):
+        return retinanet.detection_loss_with_masks(*model(x, train=True), anchors, y["boxes"],
+                                                   y["classes"], y["masks"], 80)
+
+    trainer = Trainer(lambda g: retinanet.RetinaNet(**arch, generator=g),
+                      TrainerConfig(learning_rate=0.01, has_train_arg=True, grad_clip_norm=10.0,
+                                    log_every=1),
+                      loss_fn=loss_fn, device="cuda",
+                      analytic_flops_fn=lambda x: retinanet.train_flops(arch, x.shape))
+    state = trainer.init(seed=0)
+    first = next(iter(stream(DET_BATCH).batches(1)))
+    logger = trainer.throughput_logger(first.x, DET_BATCH, name="detection", log_every=1)
+    steps = DET_WARMUP + DET_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses = trainer.fit(state, stream(DET_BATCH).batches(steps), steps=steps,
+                                logger=logger, prefetch_workers=2)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    count("detection")
+    terms = {k: float(v) for k, v in trainer.last_metrics.items()}
+    step_ms = [DET_BATCH / h["examples_per_sec"] * 1e3 for h in logger.history]
+    steady_ms = statistics.median(step_ms[DET_WARMUP:])
+    run = {"phase": "detection", "model": "retinanet_r50_fpn_masks", "dtype": "bfloat16",
+           "batch": DET_BATCH, "image": DET_IMAGE, "anchors": int(anchors.shape[0]),
+           "steps": steps, "losses": losses, "step_ms": step_ms, "steady_step_ms": steady_ms,
+           "images_per_s": DET_BATCH / steady_ms * 1e3,
+           "flops_per_step": logger.flops_per_step, "peak_flops": peak_flops,
+           "mfu": logger.flops_per_step / (steady_ms / 1e3) / peak_flops,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "last_step_terms": terms, "first_step_s": trainer.first_step_seconds,
+           "wall_s": wall_s, "pipeline": trainer.last_pipeline_stats.snapshot(),
+           "params": sum(p.numel() for p in state.model.parameters()), "nvidia_smi": smi}
+    _emit(run)
+    _require(len(losses) == steps and all(math.isfinite(v) for v in losses)
+             and all(math.isfinite(v) for v in terms.values())
+             and terms["num_pos"] > 0 and terms["mask_slots"] > 0,
+             f"detection: losses {losses}, terms {terms}")
+    x, y = device_put_batch(first, cuda)
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, x, y)
+
+    kernels_mod.reset_launch_counts()
+    _emit({"phase": "profile", "path": "detection", **_profile(torch, step, 2)})
+    count("detection profile")
+
+    # 3. Learning: DET_LEARN_STEPS steps from a fresh state on one repeated batch.
+    del state
+    torch.cuda.empty_cache()
+    state = trainer.init(seed=0)
+    kernels_mod.reset_launch_counts()
+    learn = []
+    for _ in range(DET_LEARN_STEPS):
+        state, m = trainer.train_step(state, x, y)
+        learn.append(m["loss"])
+    learn = torch.stack(learn).tolist()
+    count("detection learn")
+    _emit({"phase": "detection_learn", "steps": DET_LEARN_STEPS, "losses": learn,
+           "ratio": learn[-1] / learn[0], "limit": DET_LEARN_RATIO})
+    _require(all(math.isfinite(v) for v in learn) and learn[-1] < DET_LEARN_RATIO * learn[0],
+             f"detection: the loss on one repeated batch did not fall below "
+             f"{DET_LEARN_RATIO} of its start: {learn}")
+
+    # 4. Eval: predict and DetectionAccumulator over held-out batches.
+    args = argparse.Namespace(masks=True, image_size=DET_IMAGE, num_classes=80,
+                              max_boxes=DET_MAX_BOXES)
+    kernels_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = detection_train.evaluate_map(trainer, state, anchors, args, DET_BATCH,
+                                      steps=DET_EVAL_BATCHES)
+    eval_s = time.perf_counter() - t0
+    count("detection eval")
+    _emit({"phase": "detection_eval", "batches": DET_EVAL_BATCHES, "batch": DET_BATCH,
+           "ms_per_batch": eval_s * 1e3 / DET_EVAL_BATCHES, "images": ev["images"],
+           "mAP": ev["mAP"], "mask_mAP": ev["mask_mAP"],
+           "mask_mAP_stride": ev["mask_mAP_stride"]})
+    _require(ev["images"] == DET_EVAL_BATCHES * DET_BATCH
+             and all(0.0 <= ev[k] <= 1.0 for k in ("mAP", "mask_mAP", "mask_mAP_stride")),
+             f"detection eval: {ev}")
+    del trainer, state, x, y
+    torch.cuda.empty_cache()
+
+    # 5. The example a user runs, from a ResNet-50 classifier's checkpoint.
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_det-"))
+    try:
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        resnet_imagenet.main(["--depth", "50", "--global_batch_size", "8", "--image_size", "64",
+                              "--steps", "1", "--checkpoint_dir", str(root / "cls"),
+                              "--device", "cuda"])
+        result = detection_train.main(DET_EXAMPLE_ARGS + ["--backbone_ckpt", str(root / "cls")])
+        torch.cuda.synchronize()
+        count("detection example")
+        with torch.device("meta"):  # the example's default backbone, ResNet-50
+            backbone_tensors = len(retinanet.RetinaNet(
+                backbone_stages=detection_train.BACKBONES["resnet50"]).backbone.state_dict())
+        row = {"phase": "detection_example", "args": DET_EXAMPLE_ARGS + ["--backbone_ckpt"],
+               "steps": result["steps"], "losses": [h["loss"] for h in result["history"]],
+               "backbone_tensors_transferred": result["backbone_tensors_transferred"],
+               "backbone_tensors": backbone_tensors,
+               "eval": {k: result["eval"][k] for k in ("mAP", "mask_mAP", "mask_mAP_stride")},
+               "first_step_s": result["first_step_s"], "wall_s": time.perf_counter() - t0}
+        _emit(row)
+        _require(result["steps"] == 3 and all(math.isfinite(v) for v in row["losses"])
+                 and row["backbone_tensors_transferred"] == backbone_tensors,
+                 f"detection example: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _cifar_phase(torch, kernels_mod, smi: str) -> dict:
+    """Phase 12: ``cifar10_train`` (VGG-11) and ``lenet_mnist`` as a user
+    runs them.  Emits one ``cifar10`` line an example; returns the launches
+    of the port's kernels over the phase (none)."""
+    from deeplearning_cfn_tpu_torch.examples import cifar10_train, lenet_mnist
+
+    launches: dict = {}
+    for name, main, argv in (("cifar10_train", cifar10_train.main, CIFAR_ARGS),
+                             ("lenet_mnist", lenet_mnist.main, LENET_ARGS)):
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        got = dict(kernels_mod.launch_counts)
+        _kernel_free(got, name)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        batch = 64
+        rate = statistics.median(h["examples_per_sec"] for h in result["history"][1:])
+        row = {"phase": "cifar10", "example": name, "args": argv, "steps": result["steps"],
+               "losses": [h["loss"] for h in result["history"]],
+               "step_ms": [batch / h["examples_per_sec"] * 1e3 for h in result["history"]],
+               "steady_step_ms": batch / rate * 1e3, "images_per_s": rate,
+               "first_step_s": result["first_step_s"], "wall_s": time.perf_counter() - t0,
+               "eval": result.get("eval"), "nvidia_smi": smi}
+        _emit(row)
+        _require(result["steps"] == 20 and all(math.isfinite(v) for v in row["losses"]),
+                 f"{name}: {row}")
+        if name == "cifar10_train":
+            _require(math.isfinite(result["eval"]["loss"]) and result["eval"]["examples"] == 128,
+                     f"{name} eval: {result['eval']}")
+        torch.cuda.empty_cache()
+    return launches
+
 def main() -> int:
     import torch
 
@@ -2074,6 +2391,21 @@ def main() -> int:
     ckpt_launches = _checkpoint_phase(torch, _kernels, smi)
     flash_by_path["checkpoint"] = ckpt_launches["flash_attention_fwd"]
 
+    # 11. detection: RetinaNet-R50-FPN with the mask head (no kernel of the port)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    new_paths = {"detection": _detection_phase(torch, _kernels, smi, peak_flops)}
+
+    # 12. cifar10: cifar10_train (VGG-11) and lenet_mnist (no kernel of the port)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    new_paths["cifar10"] = _cifar_phase(torch, _kernels, smi)
+    for path, counts in new_paths.items():
+        flash_by_path[path] = counts.get("flash_attention_fwd", 0)
+
+    def on_new_paths(key: str) -> dict:
+        return {path: counts.get(key, 0) for path, counts in new_paths.items()}
+
     def kernel_entry(name, source, replaces, launches, max_abs_err, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max_abs_err, "ms": row["kernel_ms"],
@@ -2098,17 +2430,20 @@ def main() -> int:
                         max(r["out_max_abs_err"] for r in kernel_rows.values()),
                         kernel_rows["slice"]),
          "launches_by_path": flash_by_path},
-        kernel_entry("fused_dense", csrc + "fused_dense.cu",
-                     "deeplearning_cfn_tpu/ops/pallas_fused.py:135",
-                     dense_launches["bf16"],
-                     max(r["max_abs_err"] for r in bf16_rows), dense_rows["mlp_in"]),
-        kernel_entry("fused_dense_f32", csrc + "fused_dense.cu",
-                     "deeplearning_cfn_tpu/ops/pallas_fused.py:135", dense_launches["f32"],
-                     max(r["max_abs_err"] for r in f32_rows), dense_rows["resnet_head"]),
-        kernel_entry("fused_dense_quantized", csrc + "fused_dense.cu",
-                     "deeplearning_cfn_tpu/ops/pallas_fused.py:292",
-                     bert_launches["fused_dense_quantized"],
-                     max(r["max_abs_err"] for r in quant_rows.values()), quant_rows["mlp_in"]),
+        {**kernel_entry("fused_dense", csrc + "fused_dense.cu",
+                        "deeplearning_cfn_tpu/ops/pallas_fused.py:135",
+                        dense_launches["bf16"],
+                        max(r["max_abs_err"] for r in bf16_rows), dense_rows["mlp_in"]),
+         "launches_by_path": on_new_paths("fused_dense")},
+        {**kernel_entry("fused_dense_f32", csrc + "fused_dense.cu",
+                        "deeplearning_cfn_tpu/ops/pallas_fused.py:135", dense_launches["f32"],
+                        max(r["max_abs_err"] for r in f32_rows), dense_rows["resnet_head"]),
+         "launches_by_path": on_new_paths("fused_dense")},
+        {**kernel_entry("fused_dense_quantized", csrc + "fused_dense.cu",
+                        "deeplearning_cfn_tpu/ops/pallas_fused.py:292",
+                        bert_launches["fused_dense_quantized"],
+                        max(r["max_abs_err"] for r in quant_rows.values()), quant_rows["mlp_in"]),
+         "launches_by_path": on_new_paths("fused_dense_quantized")},
     ]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,7 +16,13 @@ is transposed):
 - ``resnet_params_from_jax``: the Flax ``ResNet`` tree and its
   ``batch_stats``.  Convolutions are the one exception to the orientation
   rule: PyTorch's are ``[out, in, kh, kw]``, so Flax's ``[kh, kw, in, out]``
-  kernels are transposed.
+  kernels are transposed;
+- ``vgg_params_from_jax``: the Flax ``VGG`` tree and its ``batch_stats``, by
+  the ResNet rules;
+- ``retinanet_params_from_jax``: the Flax ``RetinaNet`` tree and its
+  ``batch_stats``: the backbone by the ResNet rules under ``backbone.``, the
+  FPN, head and protonet convolutions (``kernel`` and ``bias``) as
+  ``weight`` (transposed) and ``bias``.
 """
 
 from __future__ import annotations
@@ -113,4 +119,30 @@ def resnet_params_from_jax(params_np: dict, batch_stats_np: dict | None = None) 
 
     visit([], params_np)
     visit([], batch_stats_np or {})
+    return sd
+
+
+def vgg_params_from_jax(params_np: dict, batch_stats_np: dict | None = None) -> dict[str, torch.Tensor]:
+    """Flax ``VGG`` params and ``batch_stats`` -> the port's ``VGG`` state
+    dict: ``conv{i}`` kernels transposed, ``bn{i}`` ``scale`` as ``weight``,
+    the f32 ``head`` as it is (the names follow the ResNet rules)."""
+    return resnet_params_from_jax(params_np, batch_stats_np)
+
+
+def retinanet_params_from_jax(params_np: dict,
+                              batch_stats_np: dict | None = None) -> dict[str, torch.Tensor]:
+    """Flax ``RetinaNet`` params and ``batch_stats`` -> the port's
+    ``RetinaNet`` state dict."""
+    stats = (batch_stats_np or {}).get("backbone")
+    sd = {f"backbone.{k}": v
+          for k, v in resnet_params_from_jax(params_np["backbone"], stats).items()}
+    for top, scopes in params_np.items():
+        if top == "backbone":
+            continue
+        for scope, leaves in scopes.items():
+            for leaf, arr in leaves.items():
+                arr = np.asarray(arr)
+                if leaf == "kernel":
+                    leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+                sd[f"{top}.{scope}.{leaf}"] = _tensor(arr)
     return sd

@@ -41,6 +41,7 @@ from torch import nn
 from deeplearning_cfn_tpu_torch.models.fused_layers import FusedDense, lecun_normal, zeros
 from deeplearning_cfn_tpu_torch.ops.attention import dot_product_attention
 from deeplearning_cfn_tpu_torch.ops.fused_dense import gelu_tanh
+from deeplearning_cfn_tpu_torch.parallel.data_ranks import global_count
 
 LN_EPS = 1e-6  # Flax LayerNorm's default (torch's is 1e-5)
 
@@ -220,13 +221,15 @@ def transfer_trunk_params(pretrained: dict, target: dict) -> dict:
 
 def mlm_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Mean NLL over the masked positions (``y >= 0``; ``y < 0`` are
-    unmasked and excluded), and the masked-token accuracy."""
+    unmasked and excluded), and the masked-token accuracy.  Over several
+    data ranks both divide by the whole batch's masked count
+    (``parallel/data_ranks.global_count``), as JAX's global mean does."""
     logits = model(x)
     logp = torch.log_softmax(logits, dim=-1)
     safe = y.long().clamp_min(0)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     mask = (y >= 0).to(torch.float32)
-    denom = mask.sum().clamp_min(1.0)
+    _, denom = global_count(mask.sum())
     loss = (nll * mask).sum() / denom
     acc = ((logits.argmax(-1) == safe).to(torch.float32) * mask).sum() / denom
     return loss, {"masked_accuracy": acc}

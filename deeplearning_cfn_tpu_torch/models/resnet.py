@@ -17,7 +17,9 @@ What changes the numbers, and how the port keeps Flax's:
   zero.  The batch statistics come from PyTorch's batch-norm kernel in one
   pass over the activation, not from Flax's ``E[x²] − E[x]²``: the two
   agree to f32 rounding unless a channel's mean is large against its
-  standard deviation, where the one pass is the more exact.
+  standard deviation, where the one pass is the more exact.  Over several
+  data ranks (a trainer over a mesh) the statistics are the global batch's,
+  as under JAX's GSPMD: one differentiable all-reduce of the f32 sums.
 - The head: ``mean`` over H, W in f32, rounded once to the compute dtype
   (``jnp.mean`` of bf16), then cast to f32.  With ``use_pallas_head`` it is
   ``FusedDense(2048, 1000, dtype=float32)``: on the card the f32 fused-dense
@@ -48,6 +50,7 @@ from deeplearning_cfn_tpu_torch.models.fused_layers import (
     FusedDense,
     zeros,
 )
+from deeplearning_cfn_tpu_torch.parallel.data_ranks import data_rank_count, global_sum
 
 EPS = 1e-5
 MOMENTUM = 0.9
@@ -84,7 +87,13 @@ class Conv(nn.Module):
         pads = [same_pads(n, self.k, self.stride) if self.padding == "SAME" else self.padding
                 for n in x.shape[2:]]
         x = x.to(self.dtype)
-        if all(lo == hi for lo, hi in pads):
+        # PyTorch's CPU bf16 convolution gives a non-finite weight gradient,
+        # at random, for a one-pixel input at stride 2 with the padding inside
+        # the convolution (RetinaNet's p7 at 64 px); the same padding applied
+        # first is exact.
+        cpu_fault = (x.device.type == "cpu" and self.dtype == torch.bfloat16 and self.stride > 1
+                     and min(x.shape[2:]) == 1)
+        if all(lo == hi for lo, hi in pads) and not cpu_fault:
             pad = (pads[0][0], pads[1][0])
         else:
             x = F.pad(x, (*pads[1], *pads[0]))
@@ -103,7 +112,9 @@ class BatchNorm(nn.Module):
     batch's mean and inverse standard deviation in f32 from the
     compute-dtype input in one pass (the gradient flows through them); the
     running statistics (buffers ``mean``, ``var``) are updated in place from
-    those two, the biased variance as ``invstd⁻² − ε`` clipped at 0.  Eval
+    those two, the biased variance as ``invstd⁻² − ε`` clipped at 0.  Inside
+    a trainer step over several data ranks (``parallel/data_ranks.py``) the
+    statistics are the global batch's instead (:meth:`_global_batch`).  Eval
     mode: the running statistics.  The normalisation is
     ``(x − mean)·rsqrt(var + ε)·weight + bias`` in f32, out in ``dtype``."""
 
@@ -119,13 +130,38 @@ class BatchNorm(nn.Module):
         x = x.to(self.dtype)
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0, EPS)
+        if data_rank_count() > 1:
+            return self._global_batch(x)
         out, mean, invstd = torch.ops.aten.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, EPS)
         with torch.no_grad():
             var = torch.clamp_min(invstd.reciprocal().square() - EPS, 0.0)
-            self.mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
-            self.var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
+            self._update_running(mean, var)
         return out
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
+        self.var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over several data ranks: the statistics of the global
+        batch, as JAX's GSPMD step computes them.  The f32 sum, sum of
+        squares and count go through one differentiable all-reduce; then
+        Flax's ``E[x²] − E[x]²`` (clipped at 0) and its order of
+        operations.  Every rank updates the same running statistics."""
+        c = x.shape[1]
+        dims = [d for d in range(x.ndim) if d != 1]
+        x32 = x.to(torch.float32)
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+        sums = global_sum(torch.cat([x32.sum(dims), x32.square().sum(dims), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean.square(), 0.0)
+        with torch.no_grad():
+            self._update_running(mean, var)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + EPS) * self.weight
+        y = (x32 - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(self.dtype)
 
 
 class GroupNorm32(nn.Module):

@@ -1,10 +1,11 @@
 """Input data — the port's own copy of the parts of
-``deeplearning_cfn_tpu/train/data.py`` that the Llama, BERT and ResNet slices
-use.
+``deeplearning_cfn_tpu/train/data.py`` that the Llama, BERT, ResNet, VGG and
+detection slices use.
 
-``SyntheticDataset``, ``SyntheticTokenDataset``, ``SyntheticMLMDataset`` and
-``SyntheticSeqClassificationDataset`` draw the same numpy streams as the JAX
-package's for the same seeds, so both frameworks see byte-identical batches.
+``SyntheticDataset``, ``SyntheticTokenDataset``, ``SyntheticMLMDataset``,
+``SyntheticSeqClassificationDataset`` and ``SyntheticDetectionDataset`` draw
+the same numpy streams as the JAX package's for the same seeds, so both
+frameworks see byte-identical batches.
 Batches reach the card through pinned host memory with a non-blocking copy;
 :class:`DevicePrefetcher` does that on producer threads, ahead of the step,
 and :func:`stack_batches` folds ``k`` batches into one ``[k, B, ...]`` stack
@@ -99,6 +100,10 @@ class SyntheticDataset:
             yield Batch(x=x[i % k], y=y[i % k])
 
     @classmethod
+    def mnist_like(cls, batch_size: int, seed: int = 0) -> "SyntheticDataset":
+        return cls(shape=(28, 28, 1), num_classes=10, batch_size=batch_size, seed=seed)
+
+    @classmethod
     def imagenet_like(
         cls,
         batch_size: int,
@@ -188,6 +193,60 @@ class SyntheticSeqClassificationDataset:
             ).astype(np.int32)
             yield Batch(x=x, y=y)
 
+
+
+@dataclass
+class SyntheticDetectionDataset:
+    """Synthetic detection batches: coloured rectangles on noise, one colour
+    template per class, with padded ground truth: ``y = {"boxes": [B, M, 4]
+    (y1, x1, y2, x2 pixels), "classes": [B, M]}`` padded with zeros / -1.
+    ``template_seed`` seeds the colours (the task) apart from the samples.
+    ``with_masks`` adds ``y["masks"]`` ``[B, M, S/stride, S/stride]`` uint8,
+    the rectangles' fills at ``mask_stride``."""
+
+    image_size: int = 128
+    num_classes: int = 8
+    max_boxes: int = 5
+    batch_size: int = 8
+    seed: int = 0
+    template_seed: int | None = None
+    with_masks: bool = False
+    mask_stride: int = 8
+
+    def batches(self, steps: int) -> Iterator[Batch]:
+        rng = np.random.default_rng(self.seed)
+        template_rng = (
+            np.random.default_rng(self.template_seed) if self.template_seed is not None else rng
+        )
+        colors = template_rng.uniform(0.5, 1.5, size=(self.num_classes, 3)).astype(np.float32)
+        s = self.image_size
+        ms = s // self.mask_stride
+        for _ in range(steps):
+            x = rng.normal(0.0, 0.05, size=(self.batch_size, s, s, 3)).astype(np.float32)
+            boxes = np.zeros((self.batch_size, self.max_boxes, 4), np.float32)
+            classes = np.full((self.batch_size, self.max_boxes), -1, np.int32)
+            masks = (np.zeros((self.batch_size, self.max_boxes, ms, ms), np.uint8)
+                     if self.with_masks else None)
+            for b in range(self.batch_size):
+                n = int(rng.integers(1, self.max_boxes + 1))
+                for i in range(n):
+                    h = int(rng.integers(s // 8, s // 2))
+                    w = int(rng.integers(s // 8, s // 2))
+                    y0 = int(rng.integers(0, s - h))
+                    x0 = int(rng.integers(0, s - w))
+                    c = int(rng.integers(0, self.num_classes))
+                    x[b, y0:y0 + h, x0:x0 + w] += colors[c]
+                    boxes[b, i] = (y0, x0, y0 + h, x0 + w)
+                    classes[b, i] = c
+                    if masks is not None:
+                        st = self.mask_stride
+                        masks[b, i,
+                              y0 // st:max(y0 // st + 1, (y0 + h) // st),
+                              x0 // st:max(x0 // st + 1, (x0 + w) // st)] = 1
+            y = {"boxes": boxes, "classes": classes}
+            if masks is not None:
+                y["masks"] = masks
+            yield Batch(x=x, y=y)
 
 def tree_map(fn, *trees):
     """``fn`` over the leaves of equally shaped trees of dicts, lists and tuples."""

@@ -24,7 +24,10 @@ JAX package's jitted step, in eager PyTorch:
   specs (Llama's ``param_specs``) decide each parameter's fsdp dim, and
   shard whenever fsdp > 1, whatever the strategy, as in the JAX trainer.
   MoE experts split over ``ep``.  The loss and every gradient are the
-  global batch's; so are the logged metrics.
+  global batch's; so are the logged metrics.  Inside a step the batch's
+  reductions span the data ranks (``parallel/data_ranks.py``): BatchNorm's
+  statistics and the counts that losses divide by are the global batch's,
+  as in JAX's GSPMD step.
 - The input stage in front of every loss, as the JAX step composes it:
   ``augment`` (train steps only, keyed by the step), then uint8
   ``input_stats`` normalisation (``train.pipeline.dequantize_normalize``).
@@ -67,6 +70,7 @@ from torch import nn
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.parallel import mesh as mesh_lib
 from deeplearning_cfn_tpu_torch.parallel import sharding
+from deeplearning_cfn_tpu_torch.parallel.data_ranks import data_ranks
 from deeplearning_cfn_tpu_torch.train.optimizers import (
     Adafactor,
     Lamb,
@@ -616,9 +620,19 @@ class Trainer:
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
 
+    def _data_ranks(self):
+        """The block's batch reductions span the data ranks
+        (``parallel/data_ranks.py``): BatchNorm's statistics and the counts
+        that losses divide by are the global batch's, as in JAX's step."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return data_ranks(self._data_group, self._data_count)
+
     def _global_metrics(self, loss: torch.Tensor, aux: dict) -> tuple[torch.Tensor, dict]:
         """The metrics' means over the data ranks (one all-reduce; the ranks
-        hold equal shares of the batch)."""
+        hold equal shares of the batch, and a count-normalised metric is
+        divided by the global count over the ranks, so its mean is the
+        global quotient)."""
         if self.mesh is None or self._data_count == 1:
             return loss, aux
         keys = list(aux)
@@ -698,7 +712,8 @@ class Trainer:
         x, y = self._local_batch(x), self._local_batch(y)
         x = self._prepare(state.step, x, train=True, decisions=decisions)
         with matmul_precision(self.config.matmul_precision):
-            loss, aux = self._grads(state.runner or model, x, y)
+            with self._data_ranks():
+                loss, aux = self._grads(state.runner or model, x, y)
             self._sync_replicated_grads()
             if self.config.grad_clip_norm:
                 clip_by_global_norm(model.parameters(), self.config.grad_clip_norm,
@@ -729,7 +744,7 @@ class Trainer:
         model.eval()
         x, y = self._local_batch(x), self._local_batch(y)
         try:
-            with matmul_precision(self.config.matmul_precision):
+            with matmul_precision(self.config.matmul_precision), self._data_ranks():
                 loss, aux = self._loss(state.runner or model, self._normalize_input(x), y,
                                        train=False)
         finally:
@@ -767,6 +782,7 @@ class Trainer:
         steps: int,
         logger: ThroughputLogger | None = None,
         checkpointer: Any = None,
+        stop_fn: Callable[[dict], bool] | None = None,
         prefetch: int = 2,
         prefetch_workers: int = 1,
         reshard: Any = None,
@@ -776,7 +792,11 @@ class Trainer:
     ) -> tuple[TrainState, list[float]]:
         """Train on at most ``steps`` batches.  Losses are read back to the
         host each time the step count passes a multiple of
-        ``config.log_every`` (and at the end), not per step.  ``prefetch`` > 0
+        ``config.log_every`` (and at the end), not per step.  There, and after
+        the last call, ``stop_fn(metrics)`` (the last call's metrics; a
+        stacked call's are its last loss) ends the run when it returns True:
+        the time-to-accuracy mode, stopping at ``log_every`` granularity.
+        ``prefetch`` > 0
         copies batches to the device on ``prefetch_workers`` producer
         threads, ``prefetch`` batches ahead (0: inline copies); the counters
         land on ``self.last_pipeline_stats``.  ``steps_per_call`` = k > 1
@@ -801,6 +821,7 @@ class Trainer:
             kfn = self.multi_step_fn(k)
             batches = itertools.chain(stack_batches(itertools.islice(batches, stacked * k), k),
                                       batches)
+        last_call = stacked + steps - stacked * k - 1
         losses: list[float] = []
         pending: list[torch.Tensor] = []
         sync_every = max(1, int(self.config.log_every))
@@ -812,6 +833,7 @@ class Trainer:
                 before = state.step
                 if i < stacked:
                     state, loss = kfn(state, x, y)
+                    metrics = {"loss": loss[-1]}
                 else:
                     state, metrics = self.train_step(state, x, y)
                     self.last_metrics = metrics
@@ -825,9 +847,11 @@ class Trainer:
                     logger.step(state.step, loss[-1])
                 if checkpointer is not None and checkpointer.should_save(state.step):
                     self._save_checkpoint(checkpointer, state.step, state, datastream)
-                if state.step // sync_every > before // sync_every:
+                if state.step // sync_every > before // sync_every or i == last_call:
                     losses.extend(torch.cat(pending).tolist())
                     pending.clear()
+                    if stop_fn is not None and stop_fn(metrics):
+                        break
         finally:
             if prefetcher is not None:
                 prefetcher.close()

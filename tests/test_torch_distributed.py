@@ -29,6 +29,12 @@ more than lr a step).
 Each spawn has a free port, ``torch.set_num_threads(1)`` in every rank, and
 a join timeout that fails the test; several cases share one spawn.
 
+The batch's reductions over the data ranks, at dp=2 against the JAX trainer
+at ``MeshSpec(dp=2)`` (one spawn, three cases): ResNet's BatchNorm
+statistics, BERT's masked count (another on each rank), and RetinaNet with
+masks (BatchNorm, positive anchors, mask slots); each step's metrics to 1e-5
+relative, the final parameters and running statistics to 1e-5 absolute.
+
 Restores across a topology change (``tests/test_topology_restore.py``'s
 slow path, on the DCP ``Checkpointer``): three steps on one mesh, a save,
 a restore onto another layout into a state from another seed, two more
@@ -359,3 +365,144 @@ def test_restore_across_a_topology_change_continues_the_single_rank_run(topology
             assert np.mean(diff > 2e-6) <= 1e-3, (pname, diff.max())
     if restored_on is not None:
         assert got["ends"][0]["topology"] == {"devices": 2, "axes": {"fsdp": 2}}
+
+
+# --- the batch's reductions over the data ranks ------------------------------
+#
+# JAX's dp step is one GSPMD program over the global batch: BatchNorm's
+# statistics and the counts that losses divide by are the whole batch's.  The
+# port runs each rank's shard and averages gradients and metrics, so it
+# reduces those over the data ranks (``parallel/data_ranks.py``).  Each case
+# runs three steps at dp=2 from the JAX weights on batches whose halves
+# differ (other statistics, other counts a rank) and holds every step's
+# metrics to 1e-5 relative and the final parameters and running statistics to
+# 1e-5 absolute (the single-rank trainer tests' tolerance), on both ranks.
+
+MODEL_STEPS = 3
+RESNET = dict(stage_sizes=(1, 1), num_filters=8, num_classes=10)
+DET = dict(num_classes=4, backbone_stages=(1, 1, 1, 1), fpn_channels=32, with_masks=True)
+
+
+def _put(jtrainer, tree):
+    return jax.tree_util.tree_map(
+        lambda a: jax.device_put(jnp.asarray(a), jtrainer.batch_sharding), tree)
+
+
+def _jax_model_reference(name: str) -> dict:
+    """The JAX trainer at ``MeshSpec(dp=2)``: the rank case (the port's state
+    dict from the JAX initial weights, the batches), every step's metrics,
+    and the final state as the port's state dict (numpy)."""
+    from deeplearning_cfn_tpu.models import bert as jax_bert
+    from deeplearning_cfn_tpu.models import resnet as jax_resnet
+    from deeplearning_cfn_tpu.models import retinanet as jax_retinanet
+    from deeplearning_cfn_tpu.train.trainer import Trainer as JaxTrainer
+    from deeplearning_cfn_tpu_torch import interop
+    from deeplearning_cfn_tpu_torch.models import bert
+
+    mesh = build_mesh(MeshSpec(dp=2), jax.devices()[:2])
+    case = {"model": name, "mesh": {"dp": 2}}
+    kw = dict(loss_fn=None, stateful_loss_fn=None)
+    if name == "resnet":
+        ds = jax_data.SyntheticDataset(shape=(32, 32, 3), num_classes=10, batch_size=8,
+                                       dtype="uint8")
+        cfg = dict(strategy="dp", learning_rate=0.1, has_train_arg=True, label_smoothing=0.1,
+                   weight_decay=1e-4, input_stats=ds.input_stats, log_every=1)
+        model, case["arch"] = jax_resnet.ResNet(**RESNET), RESNET
+
+        def convert(v):
+            return interop.resnet_params_from_jax(v["params"], v["batch_stats"])
+    elif name == "bert":
+        arch = dict(vocab_size=64, seq_len=SEQ)
+        ds = jax_data.SyntheticMLMDataset(seq_len=SEQ, vocab_size=64, batch_size=4)
+        cfg = dict(strategy="dp", optimizer="momentum", learning_rate=0.1, log_every=1)
+        model, case["arch"] = jax_bert.BertEncoder(jax_bert.BertConfig.tiny(**arch)), arch
+        kw["loss_fn"] = jax_bert.mlm_loss(model)
+
+        def convert(v):
+            return interop.bert_params_from_jax(bert.BertConfig.tiny(**arch), v["params"])
+    else:
+        size = case["image_size"] = 64
+        ds = jax_data.SyntheticDetectionDataset(image_size=size, num_classes=4, max_boxes=3,
+                                                batch_size=4, with_masks=True)
+        cfg = dict(strategy="dp", learning_rate=0.01, has_train_arg=True, grad_clip_norm=10.0,
+                   log_every=1)
+        model, case["arch"] = jax_retinanet.RetinaNet(**DET), DET
+        anchors = jnp.asarray(jax_retinanet.generate_anchors(size))
+
+        def loss(params, model_state, x, y):
+            outputs, new_state = model.apply({"params": params, **model_state}, x, train=True,
+                                             mutable=list(model_state))
+            out = jax_retinanet.detection_loss_with_masks(
+                *outputs, anchors, y["boxes"], y["classes"], y["masks"], DET["num_classes"])
+            return out[0], (out[1], new_state)
+
+        kw["stateful_loss_fn"] = loss
+
+        def convert(v):
+            return interop.retinanet_params_from_jax(v["params"], v["batch_stats"])
+    jt = JaxTrainer(model, mesh, JaxTrainerConfig(**cfg),
+                    **{k: v for k, v in kw.items() if v is not None})
+    batches = [(b.x, b.y) for b in ds.batches(MODEL_STEPS)]
+    state = jt.init(jax.random.key(0), jnp.asarray(batches[0][0]))
+
+    def as_state_dict(state):
+        v = jax.device_get({"params": state.params, **state.model_state})
+        return {k: t.numpy() for k, t in convert(v).items()}
+
+    case.update(trainer=cfg, init=as_state_dict(state), batches=batches)
+    metrics = []
+    for x, y in batches:
+        state, m = jt.train_step(state, _put(jt, x), _put(jt, y))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"rank_case": case, "metrics": metrics, "final": as_state_dict(state)}
+
+
+@pytest.fixture(scope="module")
+def model_ranks(tmp_path_factory):
+    refs = {name: _jax_model_reference(name) for name in ("resnet", "bert", "retinanet")}
+    path = tmp_path_factory.mktemp("model-ranks") / "cases.pkl"
+    path.write_bytes(pickle.dumps({k: r["rank_case"] for k, r in refs.items()}))
+    _spawn(2, [str(REPO / "tests" / "torch_dist_ranks.py"), str(path)])
+    ranks = [pickle.loads(Path(f"{path}.rank{i}").read_bytes()) for i in range(2)]
+    return {name: (refs[name], [r[name] for r in ranks]) for name in refs}
+
+
+def _check_model_case(ref, ranks):
+    for r in ranks:
+        assert r["ddp"]
+        assert len(r["metrics"]) == MODEL_STEPS
+        for got, want in zip(r["metrics"], ref["metrics"]):
+            assert set(got) == set(want)
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+        assert set(r["state"]) == set(ref["final"])
+        for k, want in ref["final"].items():
+            np.testing.assert_allclose(r["state"][k], want, rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_batchnorm_statistics_are_the_global_batchs_over_dp_ranks(model_ranks):
+    """ResNet at dp=2: the normalisation and the running statistics of every
+    BatchNorm are the global batch's, equal on both ranks (not rank 0's)."""
+    ref, ranks = model_ranks["resnet"]
+    _check_model_case(ref, ranks)
+    stats = [k for k in ref["final"] if k.endswith((".mean", ".var"))]
+    assert stats and all(np.array_equal(ranks[0]["state"][k], ranks[1]["state"][k])
+                         for k in stats)
+
+
+def test_mlm_loss_divides_by_the_global_masked_count_over_dp_ranks(model_ranks):
+    """BERT at dp=2 with another masked count on each rank: the loss, the
+    masked accuracy and the gradient are the global batch's quotients."""
+    ref, ranks = model_ranks["bert"]
+    counts = [[int((y[:2] >= 0).sum()), int((y[2:] >= 0).sum())]
+              for _, y in ref["rank_case"]["batches"]]
+    assert any(a != b for a, b in counts), counts
+    _check_model_case(ref, ranks)
+
+
+def test_retinanet_with_masks_over_dp_ranks_matches_jax(model_ranks):
+    """Tiny RetinaNet with masks at dp=2: the backbone's BatchNorm and the
+    positive-anchor and mask-slot counts over both ranks, as JAX's."""
+    ref, ranks = model_ranks["retinanet"]
+    _check_model_case(ref, ranks)
+    assert all(m["num_pos"] > 1 and m["mask_slots"] > 1 for m in ref["metrics"])

@@ -7,7 +7,10 @@ pickled input file builds the case's mesh, loads the JAX package's initial
 weights (numpy, computed by the test), takes the global norm of the first
 batch's gradients, runs the case's trainer steps, and writes what it saw to
 ``<input>.rank<id>``.  A checkpoint case (``mode``) saves after its first
-steps, or restores and takes the rest.  It imports no JAX.
+steps, or restores and takes the rest.  A case with a ``model`` (ResNet,
+BERT, RetinaNet) loads the port's state dict the test converted from the JAX
+weights and reports every step's metrics and the final state.  It imports
+no JAX.
 
     python tests/torch_dist_ranks.py <input.pkl>
 """
@@ -83,9 +86,50 @@ def run_checkpoint_case(case: dict) -> dict:
             "ep_rank": axis_rank(mesh, "ep")}
 
 
+def _model_case_parts(case: dict):
+    """``(model_fn, loss_fn)`` of a ``model`` case."""
+    from deeplearning_cfn_tpu_torch.models import bert, resnet, retinanet
+
+    kind, arch = case["model"], case["arch"]
+    if kind == "resnet":
+        return (lambda g: resnet.ResNet(**arch, generator=g)), None
+    if kind == "bert":
+        cfg = bert.BertConfig.tiny(**arch)
+        return (lambda g: bert.BertEncoder(cfg, g)), bert.mlm_loss
+    anchors = torch.from_numpy(retinanet.generate_anchors(case["image_size"]))
+
+    def loss_fn(model, x, y):
+        return retinanet.detection_loss_with_masks(
+            *model(x, train=True), anchors, y["boxes"], y["classes"], y["masks"],
+            arch["num_classes"])
+
+    return (lambda g: retinanet.RetinaNet(**arch, generator=g)), loss_fn
+
+
+def run_model_case(case: dict) -> dict:
+    """The case's trainer steps from the given state dict; every step's
+    metrics, the final parameters and buffers."""
+    from deeplearning_cfn_tpu_torch.train.data import tree_map
+
+    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    model_fn, loss_fn = _model_case_parts(case)
+    t = trainer_lib.Trainer(model_fn, trainer_lib.TrainerConfig(**case["trainer"]),
+                            loss_fn=loss_fn, device="cpu", mesh=mesh)
+    state = t.init(seed=0)
+    state.model.load_state_dict({k: torch.from_numpy(v) for k, v in case["init"].items()})
+    metrics = []
+    for x, y in case["batches"]:
+        state, m = t.train_step(state, torch.from_numpy(x), tree_map(torch.from_numpy, y))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "ddp": state.runner is not None,
+            "state": {k: v.detach().numpy().copy() for k, v in state.model.state_dict().items()}}
+
+
 def run_case(case: dict) -> dict:
     if "mode" in case:
         return run_checkpoint_case(case)
+    if "model" in case:
+        return run_model_case(case)
     mesh = build_mesh(MeshSpec(**case["mesh"]))
     t, state = _trainer(case, mesh)
     x0, y0 = (torch.from_numpy(a) for a in case["batches"][0])
