@@ -168,6 +168,33 @@ Phases, one JSON line each:
 12. cifar10  ``examples.cifar10_train.main`` (VGG-11, batch 64, 20 steps, 2
            eval batches) and ``examples.lenet_mnist.main`` (20 steps): step
            time and images/s, the losses finite.
+13. records  the record-backed input plane, sources written from seeds under
+           a temporary directory (removed at the end) and converted by the
+           port's ``cli convert``; every run's loaders must be the native
+           loader (``train/native_loader.py``, built by ``g++`` from
+           ``native/dataloader``), its launch counters zeroed just before and
+           read just after.  ``records_resnet``: 1,024 JPEGs of 16 classes
+           converted with ``--format imagefolder --margin 32`` (stored at 256
+           px) and 256 at 224 px as ``val``; ``examples.resnet_imagenet.main``
+           at ResNet-50, bf16, batch 128, ``--use_pallas_head``,
+           ``--augment_crop --augment_flip`` (the 224-px window and the flip
+           on the card), two prefetch producers, 10 steps under
+           ``--profile``, then ``--full_eval`` over the whole val split: step
+           time, images/s, MFU, the ``data_wait`` and ``h2d`` shares of the
+           step (over the run, from the profile; and steady, the medians of
+           the journaled per-step breakdowns over steps 2..10), the
+           prefetcher's counters, 256 held-out records scored, the f32 dense
+           once a step and once an eval batch (split-K).
+           ``records_llama``: the tree's own ``deeplearning_cfn_tpu/**/*.py``
+           (sorted, one text) converted byte-level at seq 2048, m435, batch
+           8, 8 steps: the mean of the last two losses below the first, flash
+           2 a block and step (wgmma).  ``records_bert``: the same text at
+           seq 128, BERT-base ``--use_pallas_mlp``, batch 32, 20 steps at lr
+           1e-4: 24 fused-dense launches a step (wgmma), mask id 257.
+           ``records_small``: VGG-11 on converted CIFAR-10 pickles with
+           ``--eval_data_dir --full_eval`` (256 held out), and
+           ``detection_train --masks`` on 64 ``instance_spec(256, 10)``
+           records for 4 steps: finite losses, no kernel launched.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -176,13 +203,15 @@ variants must be within twice ``addmm``'s error.
 The variants are read from the launch counters, which count each launch
 under the variant its C launcher reports.
 The flash row of the kernels line counts the launches of every Llama path
-(``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, and the
-resumed m435 run of ``checkpoint``; by path in ``launches_by_path``), each
-counted from zero just before its run; the f32 fused dense's counts the
-``resnet`` phase's eager kernel-head run and the resumed ResNet-50 run of
-``checkpoint``.  The ``detection`` and ``cifar10`` phases launch no kernel of
-the port (the JAX models they port are plain XLA): each kernel's
-``launches_by_path`` reports them as 0, and a launch there fails the run.
+(``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, the resumed
+m435 run of ``checkpoint`` and the m435 run of ``records``; by path in
+``launches_by_path``), each counted from zero just before its run; the bf16
+fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
+dense's those of the ``resnet`` phase's eager kernel-head run, the resumed
+ResNet-50 run of ``checkpoint`` and the ResNet-50 run of ``records``.  The
+``detection`` and ``cifar10`` phases launch no kernel of the port (the JAX
+models they port are plain XLA): each kernel's ``launches_by_path`` reports
+them as 0, and a launch there fails the run.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line; with no CUDA card, or
@@ -195,6 +224,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import pickle
 import statistics
 import subprocess
 import sys
@@ -365,6 +395,29 @@ DET_EXAMPLE_ARGS = ["--masks", "--steps", "3", "--eval_steps", "1", "--global_ba
 CIFAR_ARGS = ["--model", "vgg11", "--global_batch_size", "64", "--steps", "20",
               "--eval_steps", "2", "--log_every", "1", "--device", "cuda"]
 LENET_ARGS = ["--steps", "20", "--log_every", "1", "--device", "cuda"]
+# Records (phase 13): sources written from seeds under a temporary directory,
+# converted by the port's converters, trained through the examples.
+# a. ImageNet-layout JPEGs of REC_CLASSES classes (class-dependent blocks plus
+# noise), REC_SRC_PX square: 1,024 for training, stored at 224 + 32 px; 256
+# held out at 224 px.  ResNet-50 as the resnet phase's, from the records.
+REC_CLASSES, REC_TRAIN_PER_CLASS, REC_VAL_PER_CLASS, REC_SRC_PX = 16, 64, 16, 288
+REC_MARGIN, REC_RESNET_STEPS = 32, 10
+REC_RESNET_ARGS = ["--depth", "50", "--global_batch_size", str(RESNET_BATCH), "--image_size",
+                   str(RESNET_IMAGE), "--steps", str(REC_RESNET_STEPS), "--log_every", "1",
+                   "--augment_crop", "--augment_flip", "--use_pallas_head", "--eval_steps", "1",
+                   "--full_eval", "--prefetch_workers", "2", "--profile", "--device", "cuda"]
+# b. The tree's own deeplearning_cfn_tpu/**/*.py, sorted by path, one text,
+# byte-level at seq 2048: m435, batch 8, 8 adamw steps.  c. The same text at
+# seq 128: BERT-base with the kernel MLP, batch 32, 20 steps at lr 1e-4.
+REC_LLAMA_STEPS, REC_BERT_STEPS = 8, 20
+REC_LLAMA_ARGS = ["--size", "435m", "--seq_len", "2048", "--global_batch_size", "8", "--steps",
+                  str(REC_LLAMA_STEPS), "--log_every", "1", "--device", "cuda"]
+REC_BERT_ARGS = ["--use_pallas_mlp", "--seq_len", str(BERT_SEQ), "--global_batch_size",
+                 str(BERT_BATCH), "--steps", str(REC_BERT_STEPS), "--learning_rate", "1e-4",
+                 "--log_every", "1", "--device", "cuda"]
+# d. CIFAR-10 pickles in the public layout (two data batches of 640, a test
+# batch of 256) for VGG-11; 64 detection records of instance_spec(256, 10).
+REC_CIFAR_PER_BATCH, REC_CIFAR_TEST, REC_DET_RECORDS, REC_DET_STEPS = 640, 256, 64, 4
 
 
 def _emit(obj: dict) -> None:
@@ -1855,6 +1908,271 @@ def _cifar_phase(torch, kernels_mod, smi: str) -> dict:
         torch.cuda.empty_cache()
     return launches
 
+@contextlib.contextmanager
+def _opened_loaders():
+    """The record loaders opened in the block, by class name."""
+    from deeplearning_cfn_tpu_torch.train import native_loader
+
+    opened: list[str] = []
+    saved = {cls: cls.__post_init__ for cls in (native_loader.NativeRecordLoader,
+                                                native_loader.PythonRecordLoader)}
+
+    def recording(init):
+        def post_init(self):
+            opened.append(type(self).__name__)
+            init(self)
+        return post_init
+
+    for cls, init in saved.items():
+        cls.__post_init__ = recording(init)
+    try:
+        yield opened
+    finally:
+        for cls, init in saved.items():
+            cls.__post_init__ = init
+
+
+def _convert(argv: list) -> dict:
+    """``cli convert`` as a user runs it; its JSON summary, parsed."""
+    import io
+
+    from deeplearning_cfn_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["convert", *argv])
+    _require(rc == 0, f"cli convert {argv}: exit {rc}")
+    return json.loads(out.getvalue())
+
+
+def _records_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> dict:
+    """Phase 13: the record-backed input plane (see the module docstring).
+    Emits ``records_convert``, ``records_resnet``, ``records_llama``,
+    ``records_bert`` and ``records_small``; returns the launches of the
+    port's kernels over the phase."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from deeplearning_cfn_tpu_torch.examples import (
+        bert_pretrain,
+        cifar10_train,
+        detection_train,
+        llama_train,
+        resnet_imagenet,
+    )
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.obs.profiler import PHASES
+    from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticDetectionDataset
+    from deeplearning_cfn_tpu_torch.train.datasets import instance_spec
+    from deeplearning_cfn_tpu_torch.train.records import write_records
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def run(main, argv):
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _opened_loaders() as opened:
+            result = main(argv)
+        torch.cuda.synchronize()
+        got = dict(kernels_mod.launch_counts)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        return result, got, opened, time.perf_counter() - t0
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_records_"))
+    try:
+        # a. ImageNet-layout sources -> cli convert (margin records + a val split).
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        blocks = rng.integers(0, 256, (REC_CLASSES, 8, 8, 3)).astype(np.int16)
+        cell = REC_SRC_PX // 8
+        for split, per_class in (("train", REC_TRAIN_PER_CLASS), ("val", REC_VAL_PER_CLASS)):
+            for c in range(REC_CLASSES):
+                d = tmp / "imagenet" / split / f"n{c:08d}"
+                d.mkdir(parents=True)
+                base = np.kron(blocks[c], np.ones((cell, cell, 1), np.int16))
+                for i in range(per_class):
+                    noise = rng.integers(-40, 41, base.shape, dtype=np.int16)
+                    img = np.clip(base + noise, 0, 255).astype(np.uint8)
+                    Image.fromarray(img).save(d / f"{split}_{c}_{i}.JPEG", quality=90)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        image_dir = tmp / "imagenet" / "records"
+        train_out = _convert(["--format", "imagefolder", "--src", str(tmp / "imagenet" / "train"),
+                              "--out", str(image_dir), "--size", str(RESNET_IMAGE),
+                              "--margin", str(REC_MARGIN)])
+        val_out = _convert(["--format", "imagefolder", "--src", str(tmp / "imagenet" / "val"),
+                            "--out", str(image_dir), "--size", str(RESNET_IMAGE),
+                            "--split", "val"])
+        convert_s = time.perf_counter() - t0
+        stored = RESNET_IMAGE + REC_MARGIN
+        _emit({"phase": "records_convert", "route": "cli convert --format imagefolder",
+               "train": train_out, "val": val_out, "write_sources_s": write_s,
+               "convert_s": convert_s,
+               "train_bytes": (image_dir / "train.dlc").stat().st_size,
+               "val_bytes": (image_dir / "val.dlc").stat().st_size})
+        _require(train_out["records"] == {"train": REC_CLASSES * REC_TRAIN_PER_CLASS}
+                 and train_out["stored_px"] == stored
+                 and val_out["records"] == {"val": REC_CLASSES * REC_VAL_PER_CLASS},
+                 f"records: conversions {train_out} {val_out}")
+
+        # ResNet-50 from the records, through the native loader and the
+        # prefetcher, the steps profiled; then the whole val split.
+        argv = REC_RESNET_ARGS + ["--data_dir", str(image_dir)]
+        result, got, opened, wall_s = run(resnet_imagenet.main, argv)
+        steady = result["history"][1:]
+        rate = statistics.median(h["examples_per_sec"] for h in steady)
+        prof = result["profile"]
+        step_mean = prof["step_ms"]["mean"]
+        # The journaled step_time events hold each step's critical phases
+        # only (the producers' overlapped copies are in the profile's h2d):
+        # their medians over steps 2.. are the steady step's breakdown.
+        per_step = [e for e in get_recorder().tail(4096)
+                    if e["kind"] == "step_time" and e.get("profiler") == prof["name"]]
+        per_step = per_step[-REC_RESNET_STEPS:][1:]
+        breakdown = {f"{p}_ms": statistics.median(e.get(f"{p}_ms", 0.0) for e in per_step)
+                     for p in (*PHASES, "total")}
+        n_eval = -(-REC_CLASSES * REC_VAL_PER_CLASS // RESNET_BATCH)
+        row = {"phase": "records_resnet", "args": argv, "steps": result["steps"],
+               "losses": [h["loss"] for h in result["history"]],
+               "step_ms": [RESNET_BATCH / h["examples_per_sec"] * 1e3 for h in result["history"]],
+               "steady_step_ms": RESNET_BATCH / rate * 1e3, "images_per_s": rate,
+               "mfu": statistics.median(h["mfu"] for h in steady),
+               "profile": prof, "steady_breakdown": breakdown,
+               "steady_data_wait_share": breakdown["data_wait_ms"] / breakdown["total_ms"],
+               "steady_h2d_share": breakdown["h2d_ms"] / breakdown["total_ms"],
+               "data_wait_share": prof["data_wait_ms"] / step_mean,
+               "h2d_share": prof["h2d_ms"] / step_mean,
+               "pipeline": result["pipeline"], "eval": result["eval"], "loaders": opened,
+               "launches": got, "first_step_s": result["first_step_s"], "wall_s": wall_s,
+               "nvidia_smi": smi}
+        _emit(row)
+        _require(result["steps"] == REC_RESNET_STEPS
+                 and all(math.isfinite(v) for v in row["losses"]), f"records_resnet: {row}")
+        _require(opened and set(opened) == {"NativeRecordLoader"},
+                 f"records_resnet: loaders {opened}, expected the native loader only")
+        _require(result["eval"]["split"] == "heldout-full"
+                 and result["eval"]["examples"] == REC_CLASSES * REC_VAL_PER_CLASS
+                 and math.isfinite(result["eval"]["loss"]), f"records_resnet eval: {result['eval']}")
+        _require(_variants(got, "fused_dense") == {F32_SPLITK: REC_RESNET_STEPS + n_eval},
+                 f"records_resnet: the kernel head launched {got}, expected one {F32_SPLITK} "
+                 f"a step and one an eval batch")
+        del result
+        torch.cuda.empty_cache()
+
+        # b. The tree's own Python sources, one text file -> byte-level token
+        # records at seq 2048 and 128.
+        corpus = tmp / "corpus"
+        corpus.mkdir()
+        root = Path(__file__).resolve().parent
+        sources = sorted((root / "deeplearning_cfn_tpu").rglob("*.py"))
+        with open(corpus / "corpus.txt", "wb") as f:
+            for src in sources:
+                f.write(src.read_bytes())
+        text = {}
+        for seq in (2048, BERT_SEQ):
+            text[seq] = _convert(["--format", "text", "--src", str(corpus), "--out",
+                                  str(tmp / f"tokens{seq}"), "--seq-len", str(seq)])
+        _emit({"phase": "records_text", "files": len(sources),
+               "bytes": (corpus / "corpus.txt").stat().st_size, "converted": text})
+
+        argv = REC_LLAMA_ARGS + ["--data_dir", str(tmp / "tokens2048")]
+        result, got, opened, wall_s = run(llama_train.main, argv)
+        cfg = llama.LlamaConfig.m435(seq_len=2048)
+        losses = [h["loss"] for h in result["history"]]
+        row = {"phase": "records_llama", "args": argv, **_run_summary(result, 8 * 2048, 8 * 2048),
+               "loaders": opened, "launches": got, "wall_s": wall_s,
+               **_flash_check(got, REC_LLAMA_STEPS, flash_per_block * cfg.n_layers,
+                              "records_llama")}
+        _emit(row)
+        _require(len(losses) == REC_LLAMA_STEPS and all(math.isfinite(v) for v in losses),
+                 f"records_llama: {losses}")
+        _require(statistics.mean(losses[-2:]) < losses[0],
+                 f"records_llama: the loss on text records did not fall: {losses}")
+        _require(set(opened) == {"NativeRecordLoader"}, f"records_llama: loaders {opened}")
+        del result
+        torch.cuda.empty_cache()
+
+        # c. BERT-base with the kernel MLP on the seq-128 records.
+        argv = REC_BERT_ARGS + ["--data_dir", str(tmp / f"tokens{BERT_SEQ}")]
+        result, got, opened, wall_s = run(bert_pretrain.main, argv)
+        losses = [h["loss"] for h in result["history"]]
+        variants = _variants(got, "fused_dense")
+        row = {"phase": "records_bert", "args": argv,
+               **_run_summary(result, BERT_BATCH, BERT_BATCH * BERT_SEQ),
+               "mask_token": result.get("mask_token"), "loaders": opened, "launches": got,
+               "fused_dense_launches_per_step": got["fused_dense"] / REC_BERT_STEPS,
+               "wall_s": wall_s}
+        _emit(row)
+        _require(len(losses) == REC_BERT_STEPS and all(math.isfinite(v) for v in losses),
+                 f"records_bert: {losses}")
+        _require(result.get("mask_token") == 257, f"records_bert: mask id {row['mask_token']}")
+        _require(got["fused_dense"] == 24 * REC_BERT_STEPS
+                 and sum(n for v, n in variants.items() if v.startswith("wgmma_tma"))
+                 == got["fused_dense"], f"records_bert: fused-dense launches {variants}, "
+                 f"expected 24 a step in the wgmma variants")
+        _require(set(opened) == {"NativeRecordLoader"}, f"records_bert: loaders {opened}")
+        del result
+        torch.cuda.empty_cache()
+
+        # d. VGG-11 from converted CIFAR-10 pickles, with the held-out split
+        # scored whole; RetinaNet with masks from instance records.
+        cifar = tmp / "cifar" / "cifar-10-batches-py"
+        cifar.mkdir(parents=True)
+        crng = np.random.default_rng(1)
+        templates = crng.integers(0, 256, (10, 3072)).astype(np.int16)
+        for name, n in (("data_batch_1", REC_CIFAR_PER_BATCH),
+                        ("data_batch_2", REC_CIFAR_PER_BATCH), ("test_batch", REC_CIFAR_TEST)):
+            labels = crng.integers(0, 10, n)
+            data = np.clip(templates[labels] + crng.integers(-60, 61, (n, 3072)), 0, 255)
+            with open(cifar / name, "wb") as f:
+                pickle.dump({b"data": data.astype(np.uint8), b"labels": labels.tolist()}, f)
+        cifar_out = _convert(["--format", "cifar10", "--src", str(tmp / "cifar"), "--out",
+                              str(tmp / "cifar_records")])
+        det_dir = tmp / "detection"
+        spec = instance_spec(DET_IMAGE, DET_MAX_BOXES)
+        det = SyntheticDetectionDataset(image_size=DET_IMAGE, num_classes=80,
+                                        max_boxes=DET_MAX_BOXES, batch_size=8, seed=5,
+                                        with_masks=True)
+        recs = []
+        for b in det.batches(REC_DET_RECORDS // 8):
+            x = np.clip(np.rint(b.x * 80.0), 0, 255).astype(np.uint8)
+            recs += [spec.encode(x=x[i], boxes=b.y["boxes"][i], classes=b.y["classes"][i],
+                                 masks=b.y["masks"][i]) for i in range(len(x))]
+        write_records(det_dir / "train.dlc", spec, recs)
+        small = {}
+        for name, main, argv in (
+                ("cifar10_train", cifar10_train.main,
+                 CIFAR_ARGS + ["--full_eval", "--data_dir", str(tmp / "cifar_records"),
+                               "--eval_data_dir", str(tmp / "cifar_records")]),
+                ("detection_train", detection_train.main,
+                 ["--masks", "--steps", str(REC_DET_STEPS), "--global_batch_size", "8",
+                  "--log_every", "1", "--data_dir", str(det_dir), "--device", "cuda"])):
+            result, got, opened, wall_s = run(main, argv)
+            losses = [h["loss"] for h in result["history"]]
+            small[name] = {"args": argv, "losses": losses, "eval": result.get("eval"),
+                           "loaders": opened, "launches": got, "wall_s": wall_s}
+            _kernel_free(got, f"records {name}")
+            _require(losses and all(math.isfinite(v) for v in losses),
+                     f"records {name}: {losses}")
+            _require(set(opened) == {"NativeRecordLoader"}, f"records {name}: loaders {opened}")
+            torch.cuda.empty_cache()
+        ev = small["cifar10_train"]["eval"]
+        _require(ev["split"] == "heldout-full" and ev["examples"] == REC_CIFAR_TEST
+                 and math.isfinite(ev["loss"]), f"records cifar10_train eval: {ev}")
+        _emit({"phase": "records_small", "cifar_converted": cifar_out, **small})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _emit({"phase": "records_done", "wall_s": time.perf_counter() - t_phase,
+           "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2400,11 +2718,22 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     new_paths["cifar10"] = _cifar_phase(torch, _kernels, smi)
+
+    # 13. records: ResNet-50, m435 and BERT-base (and VGG, detection) trained
+    # from converted records through the native loader
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    new_paths["records"] = _records_phase(torch, _kernels, smi, flash_per_block)
     for path, counts in new_paths.items():
         flash_by_path[path] = counts.get("flash_attention_fwd", 0)
 
-    def on_new_paths(key: str) -> dict:
-        return {path: counts.get(key, 0) for path, counts in new_paths.items()}
+    def on_new_paths(key: str, variants=None) -> dict:
+        """Launches of ``key`` on the phases after ``checkpoint``; with
+        ``variants``, only those variants' launches."""
+        if variants is None:
+            return {path: counts.get(key, 0) for path, counts in new_paths.items()}
+        return {path: sum(n for v, n in _variants(counts, key).items() if v in variants)
+                for path, counts in new_paths.items()}
 
     def kernel_entry(name, source, replaces, launches, max_abs_err, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2415,12 +2744,14 @@ def main() -> int:
                 "library_ms": row["library_ms"], "variant": row["variant"], "shape": row["shape"]}
 
     csrc = "deeplearning_cfn_tpu_torch/ops/csrc/"
-    # The fused dense by operand dtype: bf16 on the BERT path; f32 on the
-    # ResNet-50 path (its kernel head's eager run).
+    # The fused dense by operand dtype: bf16 on the BERT paths; f32 on the
+    # ResNet-50 paths (their kernel heads' eager runs).
+    f32_variants = (F32_SPLITK, F32_COOP, "simt")
+    bf16_variants = set(_kernels._VARIANTS["fused_dense"].values()) - set(f32_variants)
     dense_launches = {"bf16": 0, "f32": ckpt_launches["fused_dense_f32"]}
-    for counts in (llama_launches, bert_launches, resnet_launches):
+    for counts in (llama_launches, bert_launches, resnet_launches, new_paths["records"]):
         for v, n in _variants(counts, "fused_dense").items():
-            dense_launches["f32" if v in (F32_SPLITK, F32_COOP, "simt") else "bf16"] += n
+            dense_launches["f32" if v in f32_variants else "bf16"] += n
     bf16_rows = [r for r in dense_rows.values() if r["dtype"] == "bfloat16"]
     f32_rows = [r for r in dense_rows.values() if r["dtype"] == "float32"]
     _emit({"kernels": [
@@ -2434,11 +2765,11 @@ def main() -> int:
                         "deeplearning_cfn_tpu/ops/pallas_fused.py:135",
                         dense_launches["bf16"],
                         max(r["max_abs_err"] for r in bf16_rows), dense_rows["mlp_in"]),
-         "launches_by_path": on_new_paths("fused_dense")},
+         "launches_by_path": on_new_paths("fused_dense", bf16_variants)},
         {**kernel_entry("fused_dense_f32", csrc + "fused_dense.cu",
                         "deeplearning_cfn_tpu/ops/pallas_fused.py:135", dense_launches["f32"],
                         max(r["max_abs_err"] for r in f32_rows), dense_rows["resnet_head"]),
-         "launches_by_path": on_new_paths("fused_dense")},
+         "launches_by_path": on_new_paths("fused_dense", f32_variants)},
         {**kernel_entry("fused_dense_quantized", csrc + "fused_dense.cu",
                         "deeplearning_cfn_tpu/ops/pallas_fused.py:292",
                         bert_launches["fused_dense_quantized"],

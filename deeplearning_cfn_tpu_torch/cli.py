@@ -1,8 +1,9 @@
 """Command line of the port — counterpart of ``deeplearning_cfn_tpu/cli.py``.
 
 Run as ``python -m deeplearning_cfn_tpu_torch.cli <command>``.  Ported so
-far: ``serve``, the counterpart of ``dlcfn serve``.  The JAX package's other
-commands come with the later slices that port what they drive.
+far: ``serve`` and ``convert``, the counterparts of ``dlcfn serve`` and
+``dlcfn convert``.  The JAX package's other commands come with the later
+slices that port what they drive.
 """
 
 from __future__ import annotations
@@ -74,6 +75,35 @@ def cmd_serve(args) -> int:
     return 0 if report.completed == traffic.requests else 1
 
 
+def cmd_convert(args) -> int:
+    """Convert a public dataset in its standard on-disk layout into DLC1
+    record files (``train/datasets.py``) and print the converter's summary as
+    JSON.  The output directory is what the examples' ``--data_dir`` reads.
+    A source in the wrong format prints ``CONVERT FAILED`` and returns 1."""
+    from deeplearning_cfn_tpu_torch.train import datasets
+
+    try:
+        if args.format == "text":
+            out = datasets.convert_text(args.src, args.out, seq_len=args.seq_len,
+                                        tokenizer_dir=args.tokenizer, split=args.split)
+        elif args.format == "imagefolder":
+            out = datasets.convert_imagefolder(args.src, args.out, size=args.size,
+                                               split=args.split, margin=args.margin)
+        elif args.format == "coco":
+            if not args.annotations:
+                raise SystemExit("--format coco requires --annotations")
+            out = datasets.convert_coco(args.src, args.annotations, args.out, size=args.size,
+                                        max_boxes=args.max_boxes, split=args.split,
+                                        masks=args.masks_coco, mask_stride=args.mask_stride)
+        else:
+            out = datasets.CONVERTERS[args.format](args.src, args.out)
+    except datasets.DatasetFormatError as e:
+        print(f"CONVERT FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
@@ -99,6 +129,32 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu, which runs only when asked for")
     pv.set_defaults(fn=cmd_serve)
+    pc = sub.add_parser("convert", help="dataset -> DLC1 records")
+    pc.add_argument("--format", required=True,
+                    choices=["cifar10", "mnist", "imagefolder", "coco", "text"])
+    pc.add_argument("--src", required=True, help="dataset source dir")
+    pc.add_argument("--out", required=True, help="output dir for .dlc files")
+    pc.add_argument("--size", type=int, default=224,
+                    help="image size for imagefolder/coco records")
+    pc.add_argument("--margin", type=int, default=0,
+                    help="imagefolder: extra pixels stored per side so training can "
+                         "random-crop --size windows (train splits e.g. --margin 32; eval 0)")
+    pc.add_argument("--split", default="train",
+                    help="output split name for imagefolder/coco/text")
+    pc.add_argument("--annotations", default=None, help="COCO instances_*.json path")
+    pc.add_argument("--max-boxes", type=int, default=50, dest="max_boxes")
+    pc.add_argument("--mask-stride", type=int, default=8, dest="mask_stride",
+                    help="instance-mask raster stride for --format coco --masks: 8 (the "
+                         "prototype training resolution) for train splits, 1 or 2 for val "
+                         "splits scored at image resolution")
+    pc.add_argument("--masks", action="store_true", dest="masks_coco",
+                    help="coco: also rasterize instance-mask bitmaps into the records (for "
+                         "detection_train --masks)")
+    pc.add_argument("--seq-len", type=int, default=2048, dest="seq_len",
+                    help="token window length for --format text")
+    pc.add_argument("--tokenizer", default=None,
+                    help="local HF tokenizer dir for --format text (default: byte-level)")
+    pc.set_defaults(fn=cmd_convert)
     return parser
 
 

@@ -5,7 +5,10 @@ The same flags and the same result dict, plus ``--device`` (default ``cuda``;
 the run raises when CUDA is missing unless ``--device cpu`` was given) and
 ``--use_pallas_mlp``, which sets ``BertConfig.use_pallas_mlp``: the MLP then
 runs through the CUDA fused-dense kernel.  Throughput is in sequences a
-second.
+second.  ``--data_dir`` trains on token records (``cli convert --format
+text``), masked on the fly with the first id past the data vocabulary
+(``mask_token`` in the result); ``--eval_steps`` then scores the held-out
+split with masks from a fixed seed.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.bert_pretrain --use_pallas_mlp --seq_len 128 --global_batch_size 32``
 """
@@ -20,14 +23,41 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
     close_checkpointer,
     first_step_clock,
+    has_heldout_split,
+    log,
     metrics_sink,
     open_checkpointer,
+    token_record_loader,
 )
 from deeplearning_cfn_tpu_torch.models import bert
 from deeplearning_cfn_tpu_torch.train.data import SyntheticMLMDataset
 from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
 
-_LATER = "a later slice of the PyTorch port"
+
+def mlm_record_batches(args, cfg, batch: int, eval_mode: bool = False, start_step: int = 0):
+    """``(batches_fn, mask_token)`` of token records masked on the fly for
+    MLM when ``--data_dir`` is set; None = synthetic.  The mask id is one
+    reserved past the data vocabulary (byte 0 and tokenizer id 0 are real
+    tokens).  Eval reads the held-out split with masks from a fixed seed
+    apart from training's, so every eval of a checkpoint masks the same
+    positions."""
+    from deeplearning_cfn_tpu_torch.train.datasets import mlm_batches
+
+    loaded = token_record_loader(args, batch, cfg.vocab_size, eval_mode=eval_mode,
+                                 reserve_ids=1, start_step=start_step)
+    if loaded is None:
+        return None
+    loader, spec, data_vocab = loaded
+    if data_vocab:
+        mask_token = data_vocab  # the first id past the data vocabulary
+    else:
+        mask_token = 0
+        log.warning("no tokenizer sidecar under --data_dir: using mask id 0, which may "
+                    "collide with a real token; reconvert with `cli convert --format text` "
+                    "to pin the vocabulary")
+    seed = 10_000 if eval_mode else 0
+    return (lambda steps: mlm_batches(loader, spec, steps, mask_token=mask_token, seed=seed),
+            mask_token)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -36,15 +66,16 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--tiny", action="store_true", help="tiny config for smokes")
     p.add_argument("--vocab_size", type=int, default=None,
-                   help="override the tiny config's vocabulary")
+                   help="override the tiny config's vocabulary (byte-level token records "
+                        "need >= 258: 257 data ids and the reserved mask id)")
     p.add_argument("--eval_steps", type=int, default=0,
-                   help="held-out synthetic batches scored after training (0 = skip)")
+                   help="held-out batches for masked-LM loss, accuracy and perplexity after "
+                        "training (0 = skip; reads the val/test split of --data_dir when "
+                        "there is one, with fixed eval masks)")
     p.add_argument("--use_pallas_mlp", action="store_true",
                    help="run the MLP through the fused-dense kernel")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.data_dir:
-        raise NotImplementedError(f"--data_dir (record data) is ported in {_LATER}")
     device = resolve_device(args.device)
     if args.tiny:
         cfg = bert.BertConfig.tiny(seq_len=args.seq_len, vocab_size=args.vocab_size or 256)
@@ -72,7 +103,10 @@ def main(argv: list[str] | None = None) -> dict:
     )
     ckpt, start_step = open_checkpointer(args)
     ds = SyntheticMLMDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
-    sample = next(iter(ds.batches(1)))
+    records = mlm_record_batches(args, cfg, batch, start_step=start_step)
+    batches, mask_token = records if records is not None else (ds.batches, None)
+    # As in the JAX example, the sample is the stream's first batch.
+    sample = next(iter(batches(1)))
     state = trainer.init(seed=0)
     if ckpt is not None:
         ckpt.restore_latest(state)
@@ -80,7 +114,7 @@ def main(argv: list[str] | None = None) -> dict:
         sample.x, examples_per_step=batch, name="bert", sink=metrics_sink(args, "bert"),
         log_every=args.log_every,
     )
-    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger,
+    state, losses = trainer.fit(state, batches(args.steps), steps=args.steps, logger=logger,
                                 checkpointer=ckpt)
     close_checkpointer(ckpt, state)
     if logger.sink is not None:
@@ -95,14 +129,22 @@ def main(argv: list[str] | None = None) -> dict:
         "first_step_s": first_step_clock(trainer, t_main),
         "history": logger.history,
     }
+    if mask_token is not None:
+        result["mask_token"] = mask_token
     if args.eval_steps:
-        eval_ds = SyntheticMLMDataset(
-            seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch, seed=10_000
-        )
-        ev = trainer.evaluate(state, eval_ds.batches(args.eval_steps), steps=args.eval_steps)
+        records = mlm_record_batches(args, cfg, batch, eval_mode=True)
+        if records is None:
+            eval_ds = SyntheticMLMDataset(
+                seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch, seed=10_000
+            )
+            eval_batches, split = eval_ds.batches, "heldout-synthetic"
+        else:
+            eval_batches = records[0]
+            split = "heldout" if has_heldout_split(args.data_dir) else "train"
+        ev = trainer.evaluate(state, eval_batches(args.eval_steps), steps=args.eval_steps)
         # Masked-token perplexity: exp of the mean NLL over masked positions.
         ev["perplexity"] = math.exp(min(ev["loss"], 700.0)) if "loss" in ev else None
-        result["eval"] = {"split": "heldout-synthetic", **ev}
+        result["eval"] = {"split": split, **ev}
     return result
 
 

@@ -2,15 +2,19 @@
 ``deeplearning_cfn_tpu/examples/cifar10_train.py``.
 
 The same flags and result dict, plus ``--device`` (default ``cuda``; the run
-raises when CUDA is missing unless ``--device cpu`` was given).  Images are
-the synthetic CIFAR-shaped stream (32 × 32 × 3, ten classes); ``--data_dir``
-and ``--eval_data_dir`` (record splits) are a later slice's and raise, so
-``--full_eval``, which scores a whole record split, has nothing to act on
-yet.  ``--target_accuracy`` stops training once the train accuracy reaches
-it, checked every ``--log_every`` steps (``Trainer.fit(stop_fn=)``); the
-held-out eval shares the training task (``template_seed=0``) with other
-samples (``seed=10000``).  Several processes of the cluster contract's env
-train over ``default_mesh``, BatchNorm on the whole batch's statistics.
+raises when CUDA is missing unless ``--device cpu`` was given).
+``--data_dir`` trains on image records (``cli convert --format cifar10``)
+through the native loader, uint8 normalised in the step; the eval reads
+``--eval_data_dir`` (a held-out record directory) or the test/val split of
+``--data_dir`` (else an unshuffled pass over the training records, reported
+as ``split="train"``), the whole held-out split with ``--full_eval``.
+Without records the images are the synthetic CIFAR-shaped stream (32 × 32 ×
+3, ten classes), and the held-out eval shares the training task
+(``template_seed=0``) with other samples (``seed=10000``).
+``--target_accuracy`` stops training once the train accuracy reaches it,
+checked every ``--log_every`` steps (``Trainer.fit(stop_fn=)``).  Several
+processes of the cluster contract's env train over ``default_mesh``,
+BatchNorm on the whole batch's statistics.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.cifar10_train --model vgg11``
 """
@@ -18,6 +22,7 @@ Run: ``python -m deeplearning_cfn_tpu_torch.examples.cifar10_train --model vgg11
 from __future__ import annotations
 
 import argparse
+import copy
 
 import torch
 import torch.distributed as dist
@@ -29,6 +34,10 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     default_mesh,
     device_image_pipeline,
     first_step_clock,
+    has_heldout_split,
+    image_batches,
+    image_pipeline,
+    log,
     make_lr_schedule,
     maybe_init_distributed,
     metrics_sink,
@@ -52,15 +61,14 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--eval_steps", type=int, default=0,
                    help="held-out eval batches after training (0 = skip)")
     p.add_argument("--full_eval", action=argparse.BooleanOptionalAction, default=True,
-                   help="score the final eval on a whole held-out record split (record "
-                        "data only)")
+                   help="when the eval split is held out, score the final eval on the whole "
+                        "split (--eval_steps then only decides that eval runs)")
     p.add_argument("--eval_data_dir", default=None,
-                   help="record dir(s) for a held-out eval split")
+                   help="record dir(s) for a held-out eval split; unset with --data_dir = "
+                        "the test/val split there, else an unshuffled pass over the "
+                        "training records (split='train')")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.eval_data_dir:
-        raise NotImplementedError("--eval_data_dir (image records) is ported in a later slice "
-                                  "of the PyTorch port")
     device = resolve_device(args.device)
     maybe_init_distributed(args.device)
     n = dist.get_world_size() if dist.is_initialized() else 1
@@ -70,7 +78,8 @@ def main(argv: list[str] | None = None) -> dict:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     ds = SyntheticDataset(shape=SHAPE, num_classes=10, batch_size=batch, noise_scale=1.0)
     ckpt, start_step = open_checkpointer(args)
-    batches, input_stats, augment = device_image_pipeline(args, SHAPE, ds)
+    batches, input_stats, augment = device_image_pipeline(args, SHAPE, ds,
+                                                          start_step=start_step)
     trainer = Trainer(
         lambda g: VGG(config=CONFIGS[args.model], num_classes=10, dtype=dtype, generator=g),
         TrainerConfig(
@@ -89,6 +98,9 @@ def main(argv: list[str] | None = None) -> dict:
         device=device,
         mesh=mesh,
     )
+    # As in the JAX example, the stream's first batch is the model's sample:
+    # record runs train from the next one.
+    next(iter(batches(1)))
     state = trainer.init(seed=0)
     if ckpt is not None:
         ckpt.restore_latest(state)
@@ -116,11 +128,38 @@ def main(argv: list[str] | None = None) -> dict:
         "first_step_s": first_step_clock(trainer, t_main),
     }
     if args.eval_steps:
-        eval_ds = SyntheticDataset(shape=SHAPE, num_classes=10, batch_size=batch, seed=10_000,
-                                   template_seed=0)
-        result["eval"] = {"split": "heldout",
-                          **trainer.evaluate(state, eval_ds.batches(args.eval_steps),
-                                             steps=args.eval_steps)}
+        def eval_pipeline(eargs):
+            # Raw uint8 normalised in the step when the eval records pin the
+            # training's statistics; else normalised on the host with their
+            # own (held-out data is never normalised with other statistics).
+            if input_stats is not None:
+                batches_fn, eval_stats = image_pipeline(eargs, SHAPE, ds, eval_mode=True)
+                if eval_stats == input_stats:
+                    return batches_fn
+                log.warning("eval records pin other normalization stats than training (%s vs "
+                            "%s); using the eval dir's own stats host-side",
+                            eval_stats, input_stats)
+            return image_batches(eargs, SHAPE, ds, eval_mode=True)
+
+        record_heldout = False  # only a record split has a whole to score
+        if args.eval_data_dir:
+            eval_args = copy.copy(args)
+            eval_args.data_dir = args.eval_data_dir
+            eval_batches, split, record_heldout = eval_pipeline(eval_args), "heldout", True
+        elif args.data_dir:
+            split = "heldout" if has_heldout_split(args.data_dir) else "train"
+            eval_batches, record_heldout = eval_pipeline(args), split == "heldout"
+        else:
+            eval_ds = SyntheticDataset(shape=SHAPE, num_classes=10, batch_size=batch,
+                                       seed=10_000, template_seed=0)
+            eval_batches, split = eval_ds.batches, "heldout"
+        if args.full_eval and record_heldout:
+            result["eval"] = {"split": "heldout-full",
+                              **trainer.evaluate(state, eval_batches(None))}
+        else:
+            result["eval"] = {"split": split,
+                              **trainer.evaluate(state, eval_batches(args.eval_steps),
+                                                 steps=args.eval_steps)}
         if sink is not None:
             sink.write({"event": "eval", "run": args.model, **result["eval"]})
     if sink is not None:

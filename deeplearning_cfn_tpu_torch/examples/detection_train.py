@@ -3,17 +3,19 @@ of ``deeplearning_cfn_tpu/examples/detection_train.py``.
 
 The same flags and the same result dict, plus ``--device`` (default
 ``cuda``; the run raises when CUDA is missing unless ``--device cpu`` was
-given).  Images are the synthetic detection stream
-(``train.data.SyntheticDetectionDataset``): coloured rectangles, one colour
-a class, with padded boxes (and masks with ``--masks``).  ``--data_dir``
-(COCO-converted DLC1 detection records through the native loader) is a later
-slice's and raises.  Over several processes (the cluster contract's env) the
-trainer runs over ``default_mesh(--strategy)``: BatchNorm's statistics and
-the losses' positive-anchor and mask-slot counts are the whole batch's.
+given).  ``--data_dir`` trains on COCO-converted detection records
+(``cli convert --format coco``, with ``--masks`` for ``--masks``) through
+the native loader, uint8 images normalised in the step; the eval reads their
+val/test split.  Without records the images are the synthetic detection
+stream (``train.data.SyntheticDetectionDataset``): coloured rectangles, one
+colour a class, with padded boxes (and masks with ``--masks``).  Over
+several processes (the cluster contract's env) the trainer runs over
+``default_mesh(--strategy)``: BatchNorm's statistics and the losses'
+positive-anchor and mask-slot counts are the whole batch's.
 ``--backbone_ckpt`` starts the backbone from a ``resnet_imagenet``
 checkpoint (its depths must match ``--backbone``).  ``--eval_steps``
-scores mAP@0.5 (and mask mAP with ``--masks``) on held-out synthetic
-batches after training.
+scores mAP@0.5 (and mask mAP with ``--masks``) on held-out batches after
+training.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.detection_train --steps 50 --masks``
 """
@@ -36,6 +38,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
 )
 from deeplearning_cfn_tpu_torch.models import retinanet
 from deeplearning_cfn_tpu_torch.train.data import SyntheticDetectionDataset, to_device
+from deeplearning_cfn_tpu_torch.train.datasets import IMAGENET_MEAN, IMAGENET_STD
 from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig, matmul_precision
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 
@@ -44,6 +47,78 @@ BACKBONES = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
 }
+
+
+def record_batches(args, batch: int, eval_mode: bool = False):
+    """COCO-converted detection records (``cli convert --format coco``) when
+    ``--data_dir`` is set; None = synthetic (also for ``args`` built by a
+    caller without the flag).  Eval reads the val/test split, unshuffled,
+    one pass."""
+    if not getattr(args, "data_dir", None):
+        return None
+    from deeplearning_cfn_tpu_torch.examples.common import record_paths
+    from deeplearning_cfn_tpu_torch.train.datasets import (
+        detection_batches,
+        detection_spec,
+        instance_spec,
+    )
+    from deeplearning_cfn_tpu_torch.train.native_loader import NativeRecordLoader
+    from deeplearning_cfn_tpu_torch.train.records import read_header
+
+    _, paths = record_paths(args.data_dir, eval_mode)
+    record_size, _ = read_header(paths[0])
+    if getattr(args, "masks", False):
+        spec = instance_spec(args.image_size, args.max_boxes)
+        # Val splits may hold finer mask rasters (convert --mask-stride 1 or
+        # 2) for image-resolution mask mAP: the stride follows from the
+        # record size.  Training needs the prototype stride, 8.
+        if record_size != spec.record_size:
+            for stride in (1, 2, 4, 16):
+                candidate = instance_spec(args.image_size, args.max_boxes, mask_stride=stride)
+                if candidate.record_size == record_size:
+                    if not eval_mode:
+                        raise SystemExit(
+                            f"train records carry mask stride {stride}, but "
+                            "the prototype-mask loss trains at stride 8; "
+                            "reconvert the train split with --mask-stride 8 "
+                            "(finer strides are for val splits)"
+                        )
+                    spec = candidate
+                    break
+    else:
+        spec = detection_spec(args.image_size, args.max_boxes)
+    # The likeliest cause of a size mismatch: records converted with the
+    # other --masks setting (the bitmaps change the record layout).
+    if record_size != spec.record_size:
+        other = (
+            detection_spec(args.image_size, args.max_boxes)
+            if getattr(args, "masks", False)
+            else instance_spec(args.image_size, args.max_boxes)
+        )
+        hint = ""
+        if record_size == other.record_size:
+            hint = (
+                " — the records were converted with the opposite --masks "
+                "setting; re-run `cli convert --format coco"
+                + (" --masks`" if getattr(args, "masks", False) else "` without --masks")
+            )
+        raise SystemExit(
+            f"{paths[0]}: record_size {record_size} != expected "
+            f"{spec.record_size} for --image_size {args.image_size} "
+            f"--max_boxes {args.max_boxes}{hint}"
+        )
+    several = dist.is_initialized() and dist.get_world_size() > 1
+    loader = NativeRecordLoader(
+        paths,
+        spec,
+        batch_size=batch,
+        shuffle=not eval_mode,
+        loop=not eval_mode,
+        n_threads=1 if (eval_mode or several) else 4,
+    )
+    # normalize=False: uint8 crosses to the card; the step normalises it
+    # (TrainerConfig.input_stats).
+    return lambda steps: detection_batches(loader, spec, steps, normalize=False)
 
 
 def _backbone_checkpoint(path: str) -> tuple[dict, int]:
@@ -82,9 +157,6 @@ def main(argv: list[str] | None = None) -> dict:
                    help="held-out batches for mAP@0.5 after training (0 = skip)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.data_dir:
-        raise NotImplementedError("--data_dir (COCO-converted detection records) is ported in "
-                                  "a later slice of the PyTorch port")
     if args.image_size % 32:
         raise SystemExit("--image_size must be a multiple of 32 (C5 stride)")
     device = resolve_device(args.device)
@@ -129,6 +201,9 @@ def main(argv: list[str] | None = None) -> dict:
             grad_clip_norm=10.0,
             grad_accum_steps=args.grad_accum,
             log_every=args.log_every,
+            # uint8 record images are normalised in the step; the float
+            # synthetic stream passes as it is.
+            input_stats=(tuple(IMAGENET_MEAN.tolist()), tuple(IMAGENET_STD.tolist())),
         ),
         loss_fn=loss_fn,
         device=device,
@@ -138,7 +213,9 @@ def main(argv: list[str] | None = None) -> dict:
     ds = SyntheticDetectionDataset(image_size=args.image_size, num_classes=args.num_classes,
                                    max_boxes=args.max_boxes, batch_size=batch,
                                    with_masks=args.masks)
-    sample = next(iter(ds.batches(1)))
+    batches = record_batches(args, batch) or ds.batches
+    # As in the JAX example, the sample is the stream's first batch.
+    sample = next(iter(batches(1)))
     state = trainer.init(seed=0)
     if raw is not None:
         get_logger("dlcfn.examples").info(
@@ -147,7 +224,7 @@ def main(argv: list[str] | None = None) -> dict:
     logger = trainer.throughput_logger(sample.x, examples_per_step=batch, name="detection",
                                        sink=metrics_sink(args, "detection"),
                                        log_every=args.log_every)
-    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger,
+    state, losses = trainer.fit(state, batches(args.steps), steps=args.steps, logger=logger,
                                 prefetch_workers=args.prefetch_workers)
     if logger.sink is not None:
         logger.sink.close()
@@ -166,13 +243,13 @@ def main(argv: list[str] | None = None) -> dict:
 
 
 def evaluate_map(trainer, state, anchors, args, batch, steps: int) -> dict:
-    """mAP@0.5 on a held-out synthetic stream (the training task's colour
-    templates, other samples): the eval forward and the fixed-shape
-    ``predict`` on the device, greedy matching and AP on the host.  With
-    ``--masks`` also mask mAP at image resolution (``mask_mAP``, predicted
-    and ground-truth bitmaps upsampled) and at prototype stride
-    (``mask_mAP_stride``).  Single-process only: several processes skip it
-    with a warning."""
+    """mAP@0.5 on the held-out record split (``--data_dir``), else a held-out
+    synthetic stream (the training task's colour templates, other samples):
+    the eval forward and the fixed-shape ``predict`` on the device, greedy
+    matching and AP on the host.  With ``--masks`` also mask mAP at image
+    resolution (``mask_mAP``, predicted and ground-truth bitmaps upsampled)
+    and at prototype stride (``mask_mAP_stride``).  Single-process only:
+    several processes skip it with a warning."""
     from deeplearning_cfn_tpu_torch.train.detection_eval import (
         DetectionAccumulator,
         upsample_masks,
@@ -195,9 +272,11 @@ def evaluate_map(trainer, state, anchors, args, batch, steps: int) -> dict:
         cls_out, box_out = outputs
         return retinanet.predict(cls_out, box_out, anchors, max_detections=50)
 
-    held_out = SyntheticDetectionDataset(
-        image_size=args.image_size, num_classes=args.num_classes, max_boxes=args.max_boxes,
-        batch_size=batch, seed=7_000, template_seed=0, with_masks=with_masks)
+    eval_batches = record_batches(args, batch, eval_mode=True)
+    if eval_batches is None:
+        eval_batches = SyntheticDetectionDataset(
+            image_size=args.image_size, num_classes=args.num_classes, max_boxes=args.max_boxes,
+            batch_size=batch, seed=7_000, template_seed=0, with_masks=with_masks).batches
     acc = DetectionAccumulator(num_classes=args.num_classes)
     mask_acc = DetectionAccumulator(num_classes=args.num_classes, iou_kind="mask") \
         if with_masks else None
@@ -206,7 +285,7 @@ def evaluate_map(trainer, state, anchors, args, batch, steps: int) -> dict:
     full_hw = (args.image_size, args.image_size)
     model.eval()
     try:
-        for batch_data in held_out.batches(steps):
+        for batch_data in eval_batches(steps):
             x = to_device(batch_data.x, trainer.device)
             with matmul_precision(trainer.config.matmul_precision):
                 dets = {k: v.cpu().numpy() for k, v in infer(x).items()}

@@ -9,7 +9,10 @@ remains), the experts of ``--experts`` split over ``ep``.  ``--device``
 (default ``cuda``) picks the device, and the run raises when CUDA is missing
 unless ``--device cpu`` was given.  At ``--seq_len`` 2048 and up, the
 flash-attention presets (435m, 1b, 3b) run attention through the CUDA flash
-kernel.
+kernel.  ``--data_dir`` trains on token records (``cli convert --format
+text``) through the native loader, from the resumed step with
+``--checkpoint_dir``; ``--eval_steps`` then scores the held-out split (the
+val/test records when there are any).
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.llama_train --size 435m --seq_len 2048``
 """
@@ -26,30 +29,41 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
     close_checkpointer,
     first_step_clock,
+    has_heldout_split,
     make_lr_schedule,
     maybe_init_distributed,
     metrics_sink,
     open_checkpointer,
+    token_record_loader,
 )
 from deeplearning_cfn_tpu_torch.models import llama
 from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B, MeshSpec, build_mesh
 from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset
 from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
 
-_LATER = "a later slice of the PyTorch port"
-
 
 def _reject_out_of_slice(args) -> None:
     checks = (
-        (args.tp > 1, "--tp (tensor parallelism)", SLICE_5B),
-        (args.sp > 1, "--sp (sequence parallelism)", SLICE_5B),
-        (args.pp > 1, "--pp (pipeline stages)", SLICE_5B),
-        (args.ring_attention, "--ring_attention", SLICE_5B),
-        (bool(args.data_dir), "--data_dir (record data)", _LATER),
+        (args.tp > 1, "--tp (tensor parallelism)"),
+        (args.sp > 1, "--sp (sequence parallelism)"),
+        (args.pp > 1, "--pp (pipeline stages)"),
+        (args.ring_attention, "--ring_attention"),
     )
-    for on, what, where in checks:
+    for on, what in checks:
         if on:
-            raise NotImplementedError(f"{what} is ported in {where}")
+            raise NotImplementedError(f"{what} is ported in {SLICE_5B}")
+
+
+def token_record_batches(args, cfg, batch: int, eval_mode: bool = False, start_step: int = 0):
+    """Token records (``cli convert --format text``) as causal-LM batches
+    when ``--data_dir`` is set; None = synthetic."""
+    from deeplearning_cfn_tpu_torch.train.datasets import token_batches
+
+    loaded = token_record_loader(args, batch, cfg.vocab_size, eval_mode, start_step=start_step)
+    if loaded is None:
+        return None
+    loader, spec, _ = loaded
+    return lambda steps: token_batches(loader, spec, steps)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -72,7 +86,8 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense)")
     p.add_argument("--ep", type=int, default=1, help="expert-parallel axis size")
     p.add_argument("--eval_steps", type=int, default=0,
-                   help="held-out synthetic batches scored after training (0 = skip)")
+                   help="held-out batches for corpus perplexity after training (0 = skip; "
+                        "reads the val/test split of --data_dir when there is one)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     _reject_out_of_slice(args)
@@ -122,7 +137,11 @@ def main(argv: list[str] | None = None) -> dict:
     )
     ckpt, start_step = open_checkpointer(args)
     ds = SyntheticTokenDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
-    sample = next(iter(ds.batches(1)))
+    batches = token_record_batches(args, cfg, batch, start_step=start_step) or ds.batches
+    # As in the JAX example, the sample is the stream's first batch: record
+    # runs train from the next one (a resumed run too, so its stream lines
+    # up with the straight run's).
+    sample = next(iter(batches(1)))
     state = trainer.init(seed=0)
     if ckpt is not None:
         ckpt.restore_latest(state)
@@ -133,7 +152,7 @@ def main(argv: list[str] | None = None) -> dict:
         sink=metrics_sink(args, "llama"),
         log_every=args.log_every,
     )
-    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger,
+    state, losses = trainer.fit(state, batches(args.steps), steps=args.steps, logger=logger,
                                 checkpointer=ckpt)
     close_checkpointer(ckpt, state)
     if logger.sink is not None:
@@ -153,12 +172,18 @@ def main(argv: list[str] | None = None) -> dict:
     if cfg.moe is not None:
         result["moe_aux_loss"] = float(trainer.last_metrics["moe_aux_loss"])
     if args.eval_steps:
-        eval_ds = SyntheticTokenDataset(
-            seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch, seed=10_000
-        )
-        ev = trainer.evaluate(state, eval_ds.batches(args.eval_steps), steps=args.eval_steps)
+        eval_batches = token_record_batches(args, cfg, batch, eval_mode=True)
+        if eval_batches is None:
+            eval_ds = SyntheticTokenDataset(
+                seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch, seed=10_000
+            )
+            eval_batches, split = eval_ds.batches, "heldout-synthetic"
+        else:
+            split = "heldout" if has_heldout_split(args.data_dir) else "train"
+        ev = trainer.evaluate(state, eval_batches(args.eval_steps), steps=args.eval_steps)
+        # exp of the mean NLL, capped so a diverged run still reports.
         ev["perplexity"] = math.exp(min(ev["loss"], 700.0)) if "loss" in ev else None
-        result["eval"] = {"split": "heldout-synthetic", **ev}
+        result["eval"] = {"split": split, **ev}
     return result
 
 

@@ -5,7 +5,8 @@ detection slices use.
 ``SyntheticDataset``, ``SyntheticTokenDataset``, ``SyntheticMLMDataset``,
 ``SyntheticSeqClassificationDataset`` and ``SyntheticDetectionDataset`` draw
 the same numpy streams as the JAX package's for the same seeds, so both
-frameworks see byte-identical batches.
+frameworks see byte-identical batches.  ``probe_data_source`` picks the
+first existing directory of ``--data_dir``'s candidates.
 Batches reach the card through pinned host memory with a non-blocking copy;
 :class:`DevicePrefetcher` does that on producer threads, ahead of the step,
 and :func:`stack_batches` folds ``k`` batches into one ``[k, B, ...]`` stack
@@ -17,10 +18,21 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+
+def probe_data_source(candidates: list[str | Path], marker: str = "") -> Path | None:
+    """The first candidate directory that exists (and holds ``marker`` if
+    given): the speed-ordered probe of storage tiers, fastest first."""
+    for cand in candidates:
+        p = Path(cand)
+        if p.is_dir() and (not marker or (p / marker).exists()):
+            return p
+    return None
 
 
 @dataclass
@@ -311,16 +323,20 @@ class DevicePrefetcher:
     occurred.  ``close()`` (or exhausting the iterator) stops every
     producer.  ``stats`` (a ``train.pipeline.PipelineStats``) counts
     transfer bytes, host-input seconds, producer stalls and consumer waits;
-    ``close()`` journals it once."""
+    ``close()`` journals it once.  With ``profiler`` (an
+    ``obs.profiler.StepProfiler``) each producer's copy folds into its
+    ``h2d`` phase with ``critical=False``: it overlaps the step, so it shows
+    in the phase's stats and is not taken from the host residual."""
 
     _DONE = object()
 
     def __init__(self, batches: Iterator[Batch], device, size: int = 2, workers: int = 1,
-                 stats=None):
+                 stats=None, profiler=None):
         self._src = iter(batches)
         self._device = torch.device(device)
         self._size = max(1, size)
         self._stats = stats
+        self._profiler = profiler
         self._stop = threading.Event()
         # _src_lock serialises source pulls (sequence numbers); _cond guards
         # the reorder buffer and the consumer's cursor.
@@ -382,7 +398,10 @@ class DevicePrefetcher:
                     from deeplearning_cfn_tpu_torch.train.pipeline import nbytes_of
 
                     self._stats.add_transfer(nbytes_of((item.x, item.y)))
+                t_put = time.perf_counter()
                 item = self._copy(item, stream)
+                if self._profiler is not None:
+                    self._profiler.fold("h2d", time.perf_counter() - t_put, critical=False)
             t0 = time.perf_counter()
             with self._cond:
                 # At most ``size`` batches ahead of the consumer (the

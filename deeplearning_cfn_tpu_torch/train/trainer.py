@@ -41,7 +41,8 @@ JAX package's jitted step, in eager PyTorch:
   cross-entropy with ``label_smoothing`` and accuracy.
 - ``multi_step_fn(k)``: on the card, ``k`` train steps captured once as one
   CUDA graph and replayed (every optimizer); on the CPU, ``k`` eager steps.
-- ``fit`` feeds the steps through ``train.data.DevicePrefetcher``.
+- ``fit`` feeds the steps through ``train.data.DevicePrefetcher``;
+  ``fit(profiler=)`` splits each call into the ``obs.profiler`` phases.
 
 - ``TrainState.state_dict`` / ``load_state_dict``: the whole state by
   parameter name, loaded in place; ``fit(checkpointer=, datastream=)``
@@ -807,11 +808,18 @@ class Trainer:
         save at the state's true step (a restored run continues the count);
         with ``datastream`` (a ``train.datastream.HostShardStream``) the
         stream's position rides the save when the checkpointer
-        ``accepts_stream_state``.  ``reshard`` (live reshard, slice 7) and
-        ``profiler`` are later slices'."""
-        for name, on in (("reshard", reshard is not None), ("profiler", profiler is not None)):
-            if on:
-                raise NotImplementedError(f"fit({name}) is ported in {_LATER}")
+        ``accepts_stream_state``.  ``profiler`` (an ``obs.profiler.StepProfiler``)
+        splits each call into ``data_wait`` (the pull from the prefetcher or
+        the source), ``h2d`` (the copy, or the prefetcher's hand-off of a
+        batch already on the card; its producers' copies fold as overlapped),
+        ``dispatch`` (the step call), ``compute`` (the wait at the loss
+        readback, spread over the steps it drains) and ``host`` (the rest),
+        one ``step_done`` a call.  ``reshard`` (live reshard, slice 7) is a
+        later slice's."""
+        from deeplearning_cfn_tpu_torch.obs.profiler import NULL_PROFILER
+
+        if reshard is not None:
+            raise NotImplementedError(f"fit(reshard) is ported in {_LATER}")
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
         k = steps_per_call
@@ -825,22 +833,31 @@ class Trainer:
         losses: list[float] = []
         pending: list[torch.Tensor] = []
         sync_every = max(1, int(self.config.log_every))
+        prof = profiler if profiler is not None else NULL_PROFILER
         t_fit = time.perf_counter()
-        batches, prefetcher = self._pipeline(batches, prefetch, prefetch_workers)
+        batches, prefetcher = self._pipeline(batches, prefetch, prefetch_workers,
+                                             profiler=profiler)
+        # data_wait: the pull from the prefetcher (a full buffer reads as
+        # no wait) or from the source itself.
+        batches = prof.wrap_source(batches)
+        prof.start()
         try:
             for i, batch in enumerate(batches):
-                x, y = device_put_batch(batch, self.device)
+                with prof.phase("h2d"):
+                    x, y = device_put_batch(batch, self.device)
                 before = state.step
-                if i < stacked:
-                    state, loss = kfn(state, x, y)
-                    metrics = {"loss": loss[-1]}
-                else:
-                    state, metrics = self.train_step(state, x, y)
-                    self.last_metrics = metrics
-                    loss = metrics["loss"][None]
+                with prof.phase("dispatch"):
+                    if i < stacked:
+                        state, loss = kfn(state, x, y)
+                        metrics = {"loss": loss[-1]}
+                    else:
+                        state, metrics = self.train_step(state, x, y)
+                        self.last_metrics = metrics
+                        loss = metrics["loss"][None]
                 pending.append(loss)
                 if i == 0:
-                    float(loss[-1])  # waits for the first call
+                    with prof.sync_boundary():
+                        float(loss[-1])  # waits for the first call
                     self.first_step_seconds = time.perf_counter() - t_fit
                     self.first_step_at = time.perf_counter()
                 if logger:
@@ -848,10 +865,14 @@ class Trainer:
                 if checkpointer is not None and checkpointer.should_save(state.step):
                     self._save_checkpoint(checkpointer, state.step, state, datastream)
                 if state.step // sync_every > before // sync_every or i == last_call:
-                    losses.extend(torch.cat(pending).tolist())
+                    # The readback is where the device's time shows: the
+                    # wait is spread over the steps it drains.
+                    with prof.sync_boundary(sum(len(p) for p in pending)):
+                        losses.extend(torch.cat(pending).tolist())
                     pending.clear()
                     if stop_fn is not None and stop_fn(metrics):
                         break
+                prof.step_done(step=state.step, steps=state.step - before)
         finally:
             if prefetcher is not None:
                 prefetcher.close()
@@ -874,12 +895,14 @@ class Trainer:
         else:
             checkpointer.save(step, state)
 
-    def _pipeline(self, batches, prefetch: int, workers: int, name: str = "fit"):
+    def _pipeline(self, batches, prefetch: int, workers: int, name: str = "fit",
+                  profiler=None):
         """``batches`` behind a DevicePrefetcher when ``prefetch`` > 0."""
         self.last_pipeline_stats = stats = PipelineStats(name=name)
         if prefetch <= 0:
             return batches, None
-        prefetcher = DevicePrefetcher(batches, self.device, prefetch, workers=workers, stats=stats)
+        prefetcher = DevicePrefetcher(batches, self.device, prefetch, workers=workers, stats=stats,
+                                      profiler=profiler)
         return prefetcher, prefetcher
 
     def evaluate(self, state: TrainState, batches, steps: int | None = None) -> dict:

@@ -499,10 +499,16 @@ def test_fit_saves_on_the_policy_at_the_true_step(tmp_path):
 
 
 def test_fit_still_refuses_reshard_and_profiler():
+    """The reshard is still a later slice's; the profiler is ported
+    (``tests/test_torch_profiler.py``) and profiles a checkpointed fit."""
+    from deeplearning_cfn_tpu_torch.obs.profiler import StepProfiler
+
     t = _llama_trainer()
-    for kw in ({"reshard": object()}, {"profiler": object()}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t.fit(t.init(seed=0), iter(_batches(1)), steps=1, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        t.fit(t.init(seed=0), iter(_batches(1)), steps=1, reshard=object())
+    prof = StepProfiler(name="fit")
+    t.fit(t.init(seed=0), iter(_batches(1)), steps=1, profiler=prof)
+    assert prof.snapshot()["steps"] == 1
 
 
 # --- the examples' --checkpoint_dir ----------------------------------------

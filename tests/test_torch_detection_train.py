@@ -156,7 +156,8 @@ def test_detection_train_main_with_masks_backbone_ckpt_and_eval(tmp_path):
 
 
 def test_detection_train_boundaries(tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # --data_dir is ported: a directory without records is the user's error.
+    with pytest.raises(SystemExit, match="no .dlc record files"):
         detection_train.main(COMMON + ["--steps", "1", "--data_dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="does not exist"):
         detection_train.main(COMMON + ["--steps", "1", "--backbone_ckpt",

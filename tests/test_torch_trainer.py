@@ -169,6 +169,11 @@ def test_throughput_logger_and_sink(tmp_path):
 def test_out_of_slice_fit_options_raise(kw):
     ttrainer = llama.make_trainer(llama.LlamaConfig.tiny(dtype=torch.float32),
                                   trainer.TrainerConfig(), device="cpu")
+    if "profiler" in kw:  # ported (tests/test_torch_profiler.py): a step profiler is taken
+        from deeplearning_cfn_tpu_torch.obs.profiler import StepProfiler
+
+        assert ttrainer.fit(None, iter(()), steps=1, profiler=StepProfiler()) == (None, [])
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         ttrainer.fit(None, iter(()), steps=1, **kw)
 
