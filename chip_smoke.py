@@ -13,7 +13,9 @@ Phases, one JSON line each:
 3. kernel  each kernel against its plain PyTorch version on the card, at the
            shapes the main paths give it and at edge shapes (flash: GQA,
            ragged non-causal at head dim 64, causal ragged, q/k/v as strided
-           views of one packed tensor, f32; fused dense: ragged with 16-byte
+           views of one packed tensor, f32, and Llama-3-8B's B 1, S 8192,
+           32/8 heads; each bf16 row of out within ``BF16_ROW_ULPS`` ulps of
+           its largest value as well; fused dense: ragged with 16-byte
            rows, ragged with odd rows; in f32 the ResNet head, split across a
            thread-block cluster, BERT's mlp_in without a split, both on the
            bf16 tensor cores with x and w in three parts each (bound by six
@@ -64,7 +66,8 @@ Phases, one JSON line each:
            the optimizer state's bytes (reckoned) beside AdamW's.
 6d. mesh   a one-rank NCCL process group; the m435 step with
            ``strategy="fsdp"`` over ``build_mesh(MeshSpec(fsdp=1))`` (FSDP2:
-           every parameter the specs shard a DTensor) for four steps on one
+           every parameter the specs shard a DTensor; the model's tp and sp
+           collectives built from the mesh at size 1) for four steps on one
            repeated batch (a loss that falls), against the same steps without
            a mesh: losses and final parameters, beside the numbers a planted
            run that never updates would give, which the limits must catch.
@@ -195,6 +198,26 @@ Phases, one JSON line each:
            ``--eval_data_dir --full_eval`` (256 held out), and
            ``detection_train --masks`` on 64 ``instance_spec(256, 10)``
            records for 4 steps: finite losses, no kernel launched.
+14. llama8b  Llama-3-8B (``LlamaConfig.llama3_8b``: untied, 32 q and 8 kv
+           heads, full remat a layer) on one card; the flash kernel's row at
+           its shape is phase 3's.  ``llama_memory.validate_on_device`` (batch 1, seq 8192, two
+           adafactor steps): the peak at or below ``memory_report``'s
+           prediction.  The main path: ``examples.llama_train.main --size 8b
+           --optimizer adafactor --seq_len 8192 --global_batch_size 2
+           --grad_accum 2 --steps 3`` (JAX's memory-lean program, batch 8
+           with accumulation 8, cut to 2 and 2: the same microbatch), the
+           counters zeroed just before: the losses finite, the peak at or
+           below the prediction and the error printed, flash launched
+           2 x 32 x 2 x 3 = 384 times in its wgmma variant; step time,
+           tokens/s, MFU; one more step profiled by kernel.  An HF-layout
+           state dict at
+           ``expected_hf_shapes(llama3_8b)`` drawn in bf16 on the card from
+           seeds through ``llama_import.from_hf_state_dict``: every tensor
+           its source transposed, the source dict emptied, the peak within
+           1.1 x (one model + its largest tensor).  ``TrainerConfig.remat``
+           off, on (nested over the preset's "dots" remat a block) and on
+           without the block remat, one m435 step each: the gradients
+           agree, and the peak with remat on is at most the peak without.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -204,8 +227,9 @@ The variants are read from the launch counters, which count each launch
 under the variant its C launcher reports.
 The flash row of the kernels line counts the launches of every Llama path
 (``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, the resumed
-m435 run of ``checkpoint`` and the m435 run of ``records``; by path in
-``launches_by_path``), each counted from zero just before its run; the bf16
+m435 run of ``checkpoint``, the m435 run of ``records`` and the 8B run of
+``llama8b``; by path in ``launches_by_path``), each counted from zero just
+before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
 dense's those of the ``resnet`` phase's eager kernel-head run, the resumed
 ResNet-50 run of ``checkpoint`` and the ResNet-50 run of ``records``.  The
@@ -243,6 +267,11 @@ SLICE_ARGS = [
 # kernel's running max moves every 64 keys, the reference's every 512), and
 # round out to bf16, so they may differ by two bf16 ulps of |out| <= 1.
 BF16_OUT_ATOL = 2e-2
+# ... and, since |out| shrinks as the keys grow (about sqrt(e/n) over n keys
+# of random scores: 0.018 at n = 8192, near BF16_OUT_ATOL itself), each bf16
+# row (its D values) within BF16_ROW_ULPS ulps of its own largest |value|:
+# the two sides' p roundings give under one, their out roundings one more.
+BF16_ROW_ULPS = 4
 # lse and f32 out: f32 sums of up to 2048 terms in another order, and
 # another exp/log.
 LSE_ATOL = 1e-3
@@ -419,6 +448,20 @@ REC_BERT_ARGS = ["--use_pallas_mlp", "--seq_len", str(BERT_SEQ), "--global_batch
 # batch of 256) for VGG-11; 64 detection records of instance_spec(256, 10).
 REC_CIFAR_PER_BATCH, REC_CIFAR_TEST, REC_DET_RECORDS, REC_DET_STEPS = 640, 256, 64, 4
 
+# Llama-3-8B (phase 14): JAX's memory-lean single-chip program (adafactor,
+# seq 8192, full remat a layer) with batch 2 and accumulation 2 in place of 8
+# and 8: the same microbatch, so the same peak.
+L8B_SEQ, L8B_BATCH, L8B_ACCUM, L8B_STEPS, L8B_VALIDATE_STEPS = 8192, 2, 2, 3, 2
+L8B_ARGS = ["--size", "8b", "--optimizer", "adafactor", "--seq_len", str(L8B_SEQ),
+            "--global_batch_size", str(L8B_BATCH), "--grad_accum", str(L8B_ACCUM), "--steps",
+            str(L8B_STEPS), "--log_every", "1", "--device", "cuda"]
+# The import's peak: one model plus its largest tensor, with this margin.
+IMPORT_PEAK_MARGIN = 1.1
+# remat on against off, one m435 step (bf16; the recomputation repeats the
+# same kernels on the same inputs): the gradients' largest difference over
+# the tensor's largest value.
+REMAT_GRAD_RTOL = 1e-2
+
 
 def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -427,6 +470,15 @@ def _emit(obj: dict) -> None:
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _row_ulps(torch, out, ref) -> float:
+    """The largest error of ``out`` against ``ref`` in each row (the last
+    dim), in bf16 ulps of that row's largest ``|ref|``; the worst row's."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    top = ref.abs().amax(-1).clamp_min(2.0**-126)
+    return (err / torch.exp2(torch.floor(torch.log2(top)) - 7)).max().item()
 
 
 def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -447,17 +499,20 @@ def _device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     """Device time of one call of ``fn``: the summed time of the kernels and
     copies it ran on the card (``torch.profiler``), over ``iters`` calls.
     The host's time between launches (Python, the wrapper, ctypes) is not in
-    it; :func:`_time_ms` has it."""
+    it; :func:`_time_ms` has it.  A trace without device time fails the run
+    (the kernel rows are taken in phase 3, before the long phases)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False))
+    _require(total_us > 0, "the profiler saw no device time")
     return total_us / 1e3 / iters
 
 
@@ -734,8 +789,8 @@ def _slice5a_phases(torch, kernels_mod, smi: str, flash_per_block: float,
     # kernel's output against the plain flash forward on the same q, k, v.
     kernel_flash, errs = llama.flash_attention, []
 
-    def checked_flash(q, k, v, causal):
-        out = kernel_flash(q, k, v, causal=causal)
+    def checked_flash(q, k, v, causal, **kw):
+        out = kernel_flash(q, k, v, causal=causal, **kw)
         ref = llama.flash_attention_reference(q, k, v, causal=causal)[0]
         errs.append(torch.stack([(out.float() - ref.float()).abs().max(),
                                  ref.float().abs().max()]))
@@ -808,9 +863,11 @@ def _slice5a_phases(torch, kernels_mod, smi: str, flash_per_block: float,
                 losses.append(metrics["loss"].item())
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             launches = dict(kernels_mod.launch_counts)
+            mp = llama.model_parallel(state.model)
             runs[path] = {"losses": losses, "step_ms": step_ms,
                           "steady_step_ms": statistics.median(step_ms[1:]),
                           "dtensor_params": dtensors, "launches": launches,
+                          "model_tp_sp": [mp.tp, mp.sp],
                           **_flash_check(launches, MESH_STEPS, flash_per_step, f"mesh ({path})")}
             if m is not None:
                 launches_by_path["mesh"] = launches["flash_attention_fwd"]
@@ -831,6 +888,7 @@ def _slice5a_phases(torch, kernels_mod, smi: str, flash_per_block: float,
     _require(runs["mesh"]["dtensor_params"] == n_sharded and runs["no_mesh"]["dtensor_params"] == 0,
              f"mesh: {runs['mesh']['dtensor_params']} parameters sharded, expected {n_sharded}")
     _require(all(math.isfinite(v) for v in runs["mesh"]["losses"]), "mesh: non-finite loss")
+    _require(runs["mesh"]["model_tp_sp"] == [1, 1], f"mesh: tp, sp {runs['mesh']['model_tp_sp']}")
     _check_held("mesh", row)
     del batches, batch, finals
 
@@ -2173,6 +2231,167 @@ def _records_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> dict
     return launches
 
 
+def _llama8b_phase(torch, kernels_mod, smi: str) -> dict:
+    """Phase 14: Llama-3-8B on one card (see the module docstring).  Returns
+    the example's launches (the flash kernel's row at the 8B shape is phase
+    3's)."""
+    from deeplearning_cfn_tpu_torch.examples import llama_train
+    from deeplearning_cfn_tpu_torch.models import llama, llama_import, llama_memory
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset, device_put_batch
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    gib = 1024**3
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), use_flash_attention=True)
+    _emit({"phase": "llama8b_start", "memory_allocated_bytes": torch.cuda.memory_allocated(),
+           "params": llama.param_count(cfg)})
+
+    # b. llama_memory.validate_on_device: two steps at batch 1.
+    val = llama_memory.validate_on_device(cfg, batch_global=1, seq_len=L8B_SEQ,
+                                          steps=L8B_VALIDATE_STEPS, cfg_name="llama3_8b",
+                                          optimizer="adafactor")
+    _emit({"phase": "llama8b_validate", **val, "nvidia_smi": smi})
+    _require(all(math.isfinite(v) for v in val["losses"]), f"llama8b_validate: {val['losses']}")
+    _require(val["measured_peak_gib"] <= val["predicted_gib"],
+             f"llama8b_validate: peak {val['measured_peak_gib']} GiB over the prediction "
+             f"{val['predicted_gib']}")
+    torch.cuda.empty_cache()
+
+    # c. The example a user runs: the main path, counters zeroed just before.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = llama_train.main(L8B_ARGS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels_mod.launch_counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    predicted = llama_memory.memory_report(cfg, {"fsdp": 1}, L8B_BATCH, L8B_SEQ,
+                                           optimizer="adafactor", cfg_name="llama3_8b",
+                                           grad_accum=L8B_ACCUM)
+    tokens = L8B_BATCH * L8B_SEQ
+    run = {"phase": "llama8b", "args": L8B_ARGS, **_run_summary(result, tokens, tokens),
+           "flops_per_step": llama.train_flops_per_token(cfg, L8B_SEQ) * tokens,
+           "wall_s": wall_s, "measured_peak_gib": peak / gib,
+           "predicted_gib": predicted.total_gib, "predicted": vars(predicted),
+           "prediction_error_pct": 100.0 * (predicted.total_gib - peak / gib) / (peak / gib),
+           "launches": launches,
+           **_flash_check(launches, L8B_STEPS, 2 * cfg.n_layers * L8B_ACCUM, "llama8b"),
+           "nvidia_smi": smi}
+    _emit(run)
+    _require(len(run["losses"]) == L8B_STEPS and all(math.isfinite(v) for v in run["losses"]),
+             f"llama8b: losses {run['losses']}")
+    _require(peak / gib <= predicted.total_gib,
+             f"llama8b: peak {peak / gib} GiB over the prediction {predicted.total_gib}")
+    del result
+    torch.cuda.empty_cache()
+    # One more step of the same program, profiled by kernel.
+    trainer = llama.make_trainer(cfg, TrainerConfig(
+        optimizer="adafactor", learning_rate=1e-2, weight_decay=0.1, grad_clip_norm=1.0,
+        grad_accum_steps=L8B_ACCUM), device="cuda")
+    state = trainer.init(seed=0, draw_on_device=True)
+    x, y = device_put_batch(next(SyntheticTokenDataset(
+        seq_len=L8B_SEQ, vocab_size=cfg.vocab_size, batch_size=L8B_BATCH).batches(1)),
+        torch.device("cuda"))
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, x, y)
+
+    step()
+    _emit({"phase": "profile", "path": "llama8b", **_profile(torch, step, 1)})
+    del trainer, state, x, y
+    torch.cuda.empty_cache()
+
+    # d. An HF-layout state dict at Llama-3-8B's shapes, drawn in bf16 on the
+    # card (tensor i from seed i), through the importer.
+    shapes = llama_import.expected_hf_shapes(cfg)
+
+    def source(i, shape):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sd = {key: source(i, shape) for i, (key, shape) in enumerate(shapes.items())}
+    model_bytes = sum(t.nbytes for t in sd.values())
+    largest = max(t.nbytes for t in sd.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    imported = llama_import.from_hf_state_dict(cfg, sd)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    import_peak = torch.cuda.max_memory_allocated() - base
+    hf_to_port = {"model.embed_tokens.weight": "embed", "model.norm.weight": "final_norm",
+                  "lm_head.weight": "output"}
+    for i in range(cfg.n_layers):
+        for hf, ours, _ in llama_import.HF_LAYER_KEYS:
+            hf_to_port[f"model.layers.{i}.{hf}"] = f"layers.{i}.{ours}"
+    mismatched = []
+    for i, (key, shape) in enumerate(shapes.items()):
+        want = source(i, shape)
+        if len(shape) == 2 and key != "model.embed_tokens.weight":
+            want = want.T
+        got = imported[hf_to_port[key]]
+        if got.shape != want.shape or not torch.equal(got.float(), want.float()):
+            mismatched.append(key)
+    row = {"phase": "llama8b_import", "tensors": len(shapes), "model_bytes": model_bytes,
+           "largest_tensor_bytes": largest, "import_s": import_s, "peak_bytes": import_peak,
+           "peak_bound_bytes": IMPORT_PEAK_MARGIN * (model_bytes + largest),
+           "source_left": len(sd), "mismatched": mismatched, "nvidia_smi": smi}
+    _emit(row)
+    _require(not mismatched and not sd, f"llama8b_import: {len(mismatched)} tensors differ, "
+             f"{len(sd)} left in the source")
+    _require(import_peak <= row["peak_bound_bytes"],
+             f"llama8b_import: peak {import_peak} B over {row['peak_bound_bytes']}")
+    del imported, sd
+    torch.cuda.empty_cache()
+
+    # e. TrainerConfig.remat on one m435 step, against the same step without.
+    mcfg = llama.LlamaConfig.m435(seq_len=2048)
+    x, y = device_put_batch(next(SyntheticTokenDataset(
+        seq_len=2048, vocab_size=mcfg.vocab_size, batch_size=8).batches(1)), torch.device("cuda"))
+    grads, remat_runs = {}, {}
+    # remat off; on, nested over the preset's "dots" remat a block; on alone.
+    for remat in ("off", "on", "on_without_block_remat"):
+        trainer = llama.make_trainer(
+            mcfg if remat != "on_without_block_remat" else dataclasses.replace(mcfg, remat=False),
+            TrainerConfig(optimizer="sgd", learning_rate=1e-3, remat=remat != "off"),
+            device="cuda")
+        state = trainer.init(seed=0, draw_on_device=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, x, y)
+        loss = metrics["loss"].item()
+        remat_runs[remat] = {"loss": loss, "step_s": time.perf_counter() - t0,
+                             "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                             "flash_launches": kernels_mod.launch_counts["flash_attention_fwd"]}
+        grads[remat] = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        del trainer, state
+        torch.cuda.empty_cache()
+    worst = max((grads[r][n].float() - g.float()).abs().max().item()
+                / max(g.float().abs().max().item(), 1e-30)
+                for r in ("on", "on_without_block_remat") for n, g in grads["off"].items())
+    row = {"phase": "llama8b_remat", "model": "m435", "B": 8, "S": 2048, **remat_runs,
+           "grad_max_rel_diff": worst, "grad_rtol": REMAT_GRAD_RTOL,
+           "bitwise_equal": all(torch.equal(grads[r][n], g) for r in ("on", "on_without_block_remat")
+                                for n, g in grads["off"].items()),
+           "nvidia_smi": smi}
+    _emit(row)
+    _require(worst <= REMAT_GRAD_RTOL, f"llama8b_remat: gradients {worst} apart")
+    _require(remat_runs["on"]["peak_bytes"] <= remat_runs["off"]["peak_bytes"],
+             f"llama8b_remat: the peak with remat on, {remat_runs['on']['peak_bytes']} B, over "
+             f"the peak without it, {remat_runs['off']['peak_bytes']} B")
+    del grads, x, y
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2248,6 +2467,8 @@ def main() -> int:
         # q, k and v as views of one [B, S, 3, H, D] tensor: the tensor maps' strides.
         "strided": (2, 2048, 8, 8, 128, True, torch.bfloat16, True),
         "f32": (1, 300, 4, 2, 64, True, torch.float32, False),
+        # Llama-3-8B's attention at seq 8192 (phase 14's main path).
+        "llama8b": (1, L8B_SEQ, 32, 8, 128, True, torch.bfloat16, False),
     }
     kernel_rows = {}
     for label, (B, S, Hq, Hkv, D, causal, dtype, packed) in shapes.items():
@@ -2271,6 +2492,9 @@ def main() -> int:
                "out_max_abs_err": out_err, "out_atol": out_tol,
                "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
                "finite": bool(torch.isfinite(out).all())}
+        if dtype == torch.bfloat16:
+            row["out_row_ulps"] = _row_ulps(torch, out, ref_out)
+            row["out_row_ulps_limit"] = BF16_ROW_ULPS
         if dtype == torch.bfloat16:
             flops, nbytes = _attention_work(B, S, S, Hq, Hkv, D, causal, q.element_size())
             t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
@@ -2296,6 +2520,8 @@ def main() -> int:
         _require(row["finite"], f"{label}: non-finite kernel output")
         _require(out_err <= out_tol, f"{label}: out error {out_err} > {out_tol}")
         _require(lse_err <= LSE_ATOL, f"{label}: lse error {lse_err} > {LSE_ATOL}")
+        _require(row.get("out_row_ulps", 0) <= BF16_ROW_ULPS,
+                 f"{label}: out error {row.get('out_row_ulps')} ulps of its row > {BF16_ROW_ULPS}")
         _require(row["variant"] == ("wgmma_tma" if dtype == torch.bfloat16 else "simt"),
                  f"{label}: flash variant {row['variant']}")
         kernel_rows[label] = row
@@ -2727,6 +2953,13 @@ def main() -> int:
     for path, counts in new_paths.items():
         flash_by_path[path] = counts.get("flash_attention_fwd", 0)
 
+    # 14. llama8b: Llama-3-8B training on one card, its memory prediction,
+    # the HF import, and TrainerConfig.remat
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    l8b = _llama8b_phase(torch, _kernels, smi)
+    flash_by_path["llama8b"] = l8b["launches"].get("flash_attention_fwd", 0)
+
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with
         ``variants``, only those variants' launches."""
@@ -2760,7 +2993,10 @@ def main() -> int:
                         sum(flash_by_path.values()),
                         max(r["out_max_abs_err"] for r in kernel_rows.values()),
                         kernel_rows["slice"]),
-         "launches_by_path": flash_by_path},
+         "launches_by_path": flash_by_path,
+         "llama8b_shape": {k: kernel_rows["llama8b"][k] for k in (
+             "B", "S", "Hq", "Hkv", "D", "variant", "out_max_abs_err", "kernel_ms", "device_ms",
+             "host_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
         {**kernel_entry("fused_dense", csrc + "fused_dense.cu",
                         "deeplearning_cfn_tpu/ops/pallas_fused.py:135",
                         dense_launches["bf16"],

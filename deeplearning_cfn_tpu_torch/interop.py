@@ -8,7 +8,8 @@ is transposed):
 
 - ``llama_params_from_jax``: the stacked ``[L, ...]`` leaves split per layer
   (MoE's ``layers/moe`` leaves as ``layers.{i}.moe.*``, and with
-  ``ep_size`` > 1 only ``ep_rank``'s experts);
+  ``ep_size`` > 1 only ``ep_rank``'s experts; with ``tp_size`` > 1 each
+  tensor cut to ``tp_rank``'s contiguous share of its spec's ``tp`` dim);
 - ``bert_params_from_jax``: the Flax tree of ``BertEncoder`` or
   ``BertClassifier``, ``layer{i}`` as ``layers.{i}``, the ``DenseGeneral``
   ``qkv`` kernel ``[dim, 3, H, hd]`` and bias ``[3, H, hd]`` flattened in that
@@ -40,11 +41,14 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0,
-                          ep_size: int = 1) -> dict[str, torch.Tensor]:
+def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0, ep_size: int = 1,
+                          tp_rank: int = 0, tp_size: int = 1) -> dict[str, torch.Tensor]:
     """JAX ``init_params`` tree (numpy leaves) -> ``Llama`` state dict; with
     ``ep_size`` > 1, the expert leaves cut to ``ep_rank``'s experts (the
-    state dict of a model after ``MoE.shard_experts``)."""
+    state dict of a model after ``MoE.shard_experts``); with ``tp_size`` > 1,
+    every tensor whose spec (``models.llama.param_specs``) has a ``tp`` dim
+    cut to ``tp_rank``'s contiguous share of it: what that rank's ``DTensor``
+    holds locally (``parallel/tensor_parallel.distribute_tp``)."""
     if cfg.pp_stages > 1:
         raise NotImplementedError(
             "pipeline-stacked parameters are converted in a later slice (slice 5b)"
@@ -65,6 +69,14 @@ def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0,
             raise ValueError(f"layers/{name} has {arr.shape[0]} layers, config has {cfg.n_layers}")
         for i in range(cfg.n_layers):
             sd[f"layers.{i}.{name}"] = _tensor(arr[i])
+    if tp_size > 1:
+        from deeplearning_cfn_tpu_torch.models.llama import param_specs
+        from deeplearning_cfn_tpu_torch.parallel.sharding import tp_dim
+
+        for name, spec in param_specs(cfg).items():
+            d = tp_dim(spec)
+            if d is not None:
+                sd[name] = sd[name].chunk(tp_size, dim=d)[tp_rank].contiguous()
     return sd
 
 

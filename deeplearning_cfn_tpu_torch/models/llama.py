@@ -12,19 +12,37 @@ tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
 - Remat per layer: ``"full"`` recomputes the whole block in the backward;
   ``"dots"`` saves the outputs of ``aten.mm`` (the products without batch
   dims, as ``dots_with_no_batch_dims_saveable`` does) and recomputes the
-  rest, the flash-attention forward included.
-- Attention dispatch (:func:`attention_kind`): the CUDA flash kernel at and
+  rest, the flash-attention forward included.  Under the trainer's remat
+  of the whole loss (``train/remat.py``) "dots" blocks are checkpointed
+  whole, so that the outer remat only lowers the peak, as in JAX.
+- Attention dispatch (:func:`attention_kind`): ring attention when
+  ``use_ring_attention`` is set and ``sp > 1``, the CUDA flash kernel at and
   above ``FLASH_CROSSOVER_SEQ`` on CUDA, materialised-score attention
   otherwise.
 - Mixture of experts (``n_experts > 0``): each block's MLP is an
   ``ops.moe.MoE`` named ``moe`` (JAX's ``layers/moe`` leaves, ``[E, d, m]``);
   the blocks' aux losses are summed into the objective.
 - :func:`param_specs`: each parameter's spec over the mesh axes, the JAX
-  package's, less the stacked layer axis; the trainer reads the ``fsdp`` and
-  ``ep`` dims from it.
+  package's, less the stacked layer axis; the trainer reads the ``fsdp``,
+  ``tp`` and ``ep`` dims from it.
+- Over a mesh (``Llama(cfg, mesh=...)``), what GSPMD derives from the specs
+  in JAX is explicit (``parallel/tensor_parallel.py``): under ``tp`` the
+  blocks run their rank's heads and MLP columns (a sum over ``tp`` after
+  ``wo`` and ``w_down``), the lookup and the loss are vocab-parallel (the
+  logits are gathered over ``tp`` only for a caller that reads them); the
+  fused ``wqkv``/``w_gate_up`` outputs are gathered and each rank takes its
+  q, k, v (gate, up) columns, as GSPMD reshards at the split (whole outputs
+  on every rank, their gradients summed whole: a known cost until each
+  rank's columns are laid out together).  Under ``sp`` each rank holds a block of the
+  sequence: RoPE positions start at ``sp_rank × S/sp``; without ring
+  attention k and v are gathered over ``sp`` and attended with the causal
+  offset (what GSPMD gives the JAX "xla" path); the loss leaves out only the
+  global last position and divides by the global token count.  ``tp`` must
+  divide the heads, the kv heads, ``mlp_dim`` and the vocabulary; MoE does
+  not compose with ``tp`` or ``sp`` yet.
 
-Not in this slice: pipeline stages, ring attention, and the tp and sp axes;
-they raise ``NotImplementedError`` naming slice 5b.
+Not in this slice: pipeline stages; they raise ``NotImplementedError``
+naming slice 5b.
 """
 
 from __future__ import annotations
@@ -57,6 +75,13 @@ from deeplearning_cfn_tpu_torch.ops.flash_attention import (
 )
 from deeplearning_cfn_tpu_torch.ops.moe import MoE, MoEConfig, moe_param_specs
 from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B
+from deeplearning_cfn_tpu_torch.parallel.ring_attention import ring_attention
+from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import (
+    ModelParallel,
+    local,
+    model_parallel,
+)
+from deeplearning_cfn_tpu_torch.train.remat import under_outer_remat
 
 
 @dataclass(frozen=True)
@@ -84,8 +109,10 @@ class LlamaConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
-    # Slice 5b's; a model built with either set raises.
+    # Ring attention over sp (parallel/ring_attention.py) in place of
+    # k/v gathered over sp; used only when the mesh's sp > 1.
     use_ring_attention: bool = False
+    # Slice 5b's pipeline stages; a model built with pp_stages > 1 raises.
     pp_stages: int = 1
 
     def __post_init__(self):
@@ -183,8 +210,15 @@ class LlamaConfig:
 def _check_in_slice(cfg: LlamaConfig) -> None:
     if cfg.pp_stages > 1:
         raise NotImplementedError(f"pipeline stages (pp_stages > 1) are ported in {SLICE_5B}")
-    if cfg.use_ring_attention:
-        raise NotImplementedError(f"ring attention is ported in {SLICE_5B}")
+
+
+def _check_parallel(cfg: LlamaConfig, mp: ModelParallel) -> None:
+    if cfg.moe is not None and (mp.tp > 1 or mp.sp > 1):
+        raise NotImplementedError(f"MoE with tp > 1 or sp > 1 is ported in {SLICE_5B}")
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("mlp_dim", cfg.mlp_dim), ("vocab_size", cfg.vocab_size)):
+        if n % mp.tp:
+            raise ValueError(f"tp={mp.tp} must divide {what} ({n})")
 
 
 # --- parameters ---------------------------------------------------------
@@ -218,10 +252,13 @@ def layer_param_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
 
 
 def _dense(shape, dtype, generator) -> nn.Parameter:
-    """Normal / sqrt(fan_in), drawn in f32 on the CPU (so a seed gives the
-    same weights on any device), stored in ``dtype``."""
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) / shape[0] ** 0.5
-    return nn.Parameter(w.to(dtype))
+    """Normal / sqrt(fan_in), drawn in f32 on the generator's device (the
+    CPU's unless the caller asks for another: a seed gives the same weights
+    on any device), stored in ``dtype``.  With no generator, on the default
+    device (``torch.device("meta")`` builds shapes only)."""
+    device = generator.device if generator is not None else None
+    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return nn.Parameter((w / shape[0] ** 0.5).to(dtype))
 
 
 def _ones(n: int) -> nn.Parameter:
@@ -250,10 +287,15 @@ def force_attention_kind(kind: str) -> Iterator[None]:
         _FORCED_KIND.reset(token)
 
 
-def attention_kind(cfg: LlamaConfig, seq_len: int, device: torch.device | str) -> str:
-    """``"flash"`` (the CUDA kernel) on CUDA when ``use_flash_attention`` is
-    set and ``seq_len >= FLASH_CROSSOVER_SEQ``; ``"xla"`` (materialised-score
-    attention) otherwise, the CPU included, as the JAX package does off-TPU."""
+def attention_kind(cfg: LlamaConfig, seq_len: int, device: torch.device | str,
+                   sp: int = 1) -> str:
+    """``"ring"`` when ``use_ring_attention`` is set and ``sp > 1``;
+    ``"flash"`` (the CUDA kernel) on CUDA when ``use_flash_attention`` is set
+    and ``seq_len`` (the whole sequence) ``>= FLASH_CROSSOVER_SEQ``;
+    ``"xla"`` (materialised-score attention) otherwise, the CPU included, as
+    the JAX package does off-TPU."""
+    if cfg.use_ring_attention and sp > 1:
+        return "ring"
     forced = _FORCED_KIND.get()
     if forced is not None:
         return forced
@@ -270,11 +312,14 @@ def attention_kind(cfg: LlamaConfig, seq_len: int, device: torch.device | str) -
 
 
 class LlamaBlock(nn.Module):
-    """One decoder block (the JAX package's ``_block``)."""
+    """One decoder block (the JAX package's ``_block``); under ``tp`` it
+    runs its rank's heads and MLP columns."""
 
-    def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None,
+                 mp: ModelParallel | None = None):
         super().__init__()
         self.cfg = cfg
+        self.mp = mp or ModelParallel()
         for name, shape in layer_param_shapes(cfg).items():
             if name.startswith("moe."):
                 continue
@@ -285,42 +330,67 @@ class LlamaBlock(nn.Module):
         if cfg.moe is not None:
             self.moe = MoE(cfg.moe, cfg.dim, cfg.mlp_dim, cfg.dtype, generator)
 
+    def _attend(self, q, k, v) -> torch.Tensor:
+        cfg, mp = self.cfg, self.mp
+        kind = attention_kind(cfg, q.shape[1] * mp.sp, q.device, mp.sp)
+        if kind == "ring":
+            return ring_attention(q, k, v, mp.sp_group, causal=True)
+        if kind == "flash":
+            return flash_attention(q, k, v, causal=True, sp=mp.sp)
+        if mp.sp > 1:
+            if kind != "xla":
+                raise ValueError(f"attention kind {kind!r} does not split the sequence over sp")
+            # K and V gathered over sp, attended with this block's causal offset.
+            s = q.shape[1]
+            q_pos = torch.arange(s, device=q.device) + mp.sp_rank * s
+            mask = torch.arange(s * mp.sp, device=q.device)[None, :] <= q_pos[:, None]
+            return dot_product_attention(q, mp.gather_sp(k), mp.gather_sp(v), causal=False,
+                                         mask=mask[None, None])
+        if kind == "flash_reference":
+            return flash_attention_reference(q, k, v, causal=True)[0]
+        return dot_product_attention(q, k, v, causal=True)
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """The block's output; with MoE, ``(output, aux_loss)``."""
-        cfg = self.cfg
+        cfg, mp = self.cfg, self.mp
         B, S, _ = x.shape
-        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        h = rms_norm(x, self.attn_norm, cfg.norm_eps)
+        hd = cfg.head_dim
+        nh, nkv = cfg.n_heads // mp.tp, cfg.n_kv_heads // mp.tp  # this rank's heads
+        h = mp.copy_to_tp(rms_norm(x, self.attn_norm, cfg.norm_eps))
         if cfg.fused_qkv:
-            nq, nk = nh * hd, nkv * hd
-            qkv = h @ self.wqkv
-            q = qkv[..., :nq].reshape(B, S, nh, hd)
-            k = qkv[..., nq : nq + nk].reshape(B, S, nkv, hd)
-            v = qkv[..., nq + nk :].reshape(B, S, nkv, hd)
+            qkv = h @ local(self.wqkv)
+            if mp.tp > 1:
+                q, k, v = mp.own_columns(mp.gather_tp(qkv, sum_grads=True),
+                                         [cfg.n_heads * hd, cfg.n_kv_heads * hd,
+                                          cfg.n_kv_heads * hd])
+            else:
+                nq, nk = nh * hd, nkv * hd
+                q, k, v = qkv[..., :nq], qkv[..., nq : nq + nk], qkv[..., nq + nk :]
+            q, k, v = q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
         else:
-            q = (h @ self.wq).reshape(B, S, nh, hd)
-            k = (h @ self.wk).reshape(B, S, nkv, hd)
-            v = (h @ self.wv).reshape(B, S, nkv, hd)
+            q = (h @ local(self.wq)).reshape(B, S, nh, hd)
+            k = (h @ local(self.wk)).reshape(B, S, nkv, hd)
+            v = (h @ local(self.wv)).reshape(B, S, nkv, hd)
         q = rotary_embedding(q, positions, cfg.rope_theta)
         k = rotary_embedding(k, positions, cfg.rope_theta)
-        kind = attention_kind(cfg, S, x.device)
-        if kind == "flash":
-            attn = flash_attention(q, k, v, causal=True)
-        elif kind == "flash_reference":
-            attn = flash_attention_reference(q, k, v, causal=True)[0]
-        else:
-            attn = dot_product_attention(q, k, v, causal=True)
-        x = x + attn.reshape(B, S, nh * hd) @ self.wo
+        attn = self._attend(q, k, v)
+        x = x + mp.sum_over_tp(attn.reshape(B, S, nh * hd) @ local(self.wo))
         h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
         if cfg.moe is not None:
             y, aux = self.moe(h)
             return x + y, aux
+        h = mp.copy_to_tp(h)
+        m = cfg.mlp_dim // mp.tp
         if cfg.fused_qkv:
-            gu = h @ self.w_gate_up
-            gate = F.silu(gu[..., : cfg.mlp_dim].to(torch.float32)).to(h.dtype)
-            return x + (gate * gu[..., cfg.mlp_dim :]) @ self.w_down
-        gate = F.silu((h @ self.w_gate).to(torch.float32)).to(h.dtype)
-        return x + (gate * (h @ self.w_up)) @ self.w_down
+            gu = h @ local(self.w_gate_up)
+            if mp.tp > 1:
+                g, up = mp.own_columns(mp.gather_tp(gu, sum_grads=True), [cfg.mlp_dim] * 2)
+            else:
+                g, up = gu[..., :m], gu[..., m:]
+            gate = F.silu(g.to(torch.float32)).to(h.dtype)
+            return x + mp.sum_over_tp((gate * up) @ local(self.w_down))
+        gate = F.silu((h @ local(self.w_gate)).to(torch.float32)).to(h.dtype)
+        return x + mp.sum_over_tp((gate * (h @ local(self.w_up))) @ local(self.w_down))
 
 
 def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -331,34 +401,45 @@ def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 class Llama(nn.Module):
     """tokens ``[B, S]`` -> logits ``[B, S, V]`` in the compute dtype (the
-    loss converts inside its reductions, as the JAX package's does)."""
+    loss converts inside its reductions, as the JAX package's does).  With
+    a ``mesh`` whose ``sp`` > 1, tokens and logits are this rank's block of
+    the sequence; the parameters are built whole, and the trainer lays them
+    out over the mesh."""
 
     # The JAX model stacks each layer weight into one [L, ...] leaf; the
     # per-leaf optimizers (lamb, adafactor) read layers.{i}.<name> as one.
     stacked_layers = True
 
-    def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None, mesh=None):
         super().__init__()
         _check_in_slice(cfg)
         self.cfg = cfg
+        self.mp = ModelParallel.from_mesh(mesh)
+        _check_parallel(cfg, self.mp)
         self.embed = _dense((cfg.vocab_size, cfg.dim), cfg.dtype, generator)
-        self.layers = nn.ModuleList(LlamaBlock(cfg, generator) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(LlamaBlock(cfg, generator, self.mp)
+                                    for _ in range(cfg.n_layers))
         self.final_norm = _ones(cfg.dim)
         if not cfg.tied_embeddings:
             self.output = _dense((cfg.dim, cfg.vocab_size), cfg.dtype, generator)
 
-    def forward(self, tokens: torch.Tensor, return_aux: bool = False):
+    def forward(self, tokens: torch.Tensor, return_aux: bool = False,
+                gather_logits: bool = True):
         """Logits; with ``return_aux``, ``(logits, aux)``: the blocks' MoE
-        balancing losses summed (0 for a dense model)."""
-        cfg = self.cfg
+        balancing losses summed (0 for a dense model).  Under tp the logits
+        are gathered over the vocabulary unless ``gather_logits`` is off
+        (the loss's case: it is vocab-parallel)."""
+        cfg, mp = self.cfg, self.mp
         S = tokens.shape[1]
-        table = self.embed.to(cfg.dtype)
-        x = F.embedding(tokens, table)
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        table = local(self.embed).to(cfg.dtype)
+        x = mp.embed(tokens, table)
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device) + mp.sp_rank * S
         remat_kw = None
         if cfg.remat and torch.is_grad_enabled():
             remat_kw = {"use_reentrant": False}
-            if cfg.remat_policy == "dots":
+            # Under the trainer's remat of the whole loss the blocks are
+            # checkpointed whole: "dots" caches would be held twice.
+            if cfg.remat_policy == "dots" and not under_outer_remat():
                 remat_kw["context_fn"] = partial(
                     create_selective_checkpoint_contexts, _save_matmuls
                 )
@@ -371,8 +452,10 @@ class Llama(nn.Module):
             if cfg.moe is not None:
                 x, layer_aux = x
                 aux = aux + layer_aux
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = x @ table.T if cfg.tied_embeddings else x @ self.output
+        x = mp.copy_to_tp(rms_norm(x, self.final_norm, cfg.norm_eps))
+        logits = x @ table.T if cfg.tied_embeddings else x @ local(self.output)
+        if gather_logits:
+            logits = mp.gather_tp(logits, sum_grads=False)
         return (logits, aux) if return_aux else logits
 
 
@@ -462,16 +545,25 @@ def causal_lm_loss(
 ) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy, last position excluded (its rolled
     target wraps to the sequence start).  ``lse(logits) - gold`` with the
-    logsumexp in f32, reading the compute-dtype logits.  MoE models add the
+    logsumexp in f32, reading the compute-dtype logits; under tp
+    vocab-parallel (``ModelParallel.nll``).  MoE models add the
     aux loss to the objective (not to perplexity) and report it as
-    ``moe_aux_loss``."""
-    logits, aux = forward_with_aux(model, tokens)
-    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = lse - gold.to(torch.float32)
+    ``moe_aux_loss``.  Under ``sp`` each rank holds a block of the sequence:
+    only the global last position is left out, each rank divides its sum by
+    the global count, and the value is the sum over ``sp`` (the gradient
+    each rank's own part, which the trainer sums over ``sp``)."""
+    logits, aux = model(tokens, return_aux=True, gather_logits=False)
+    mp = model_parallel(model)
+    nll = mp.nll(logits, targets)
     mask = torch.ones_like(nll)
-    mask[:, -1] = 0.0
-    loss = (nll * mask).sum() / mask.sum()
+    if mp.sp == 1:
+        mask[:, -1] = 0.0
+        loss = (nll * mask).sum() / mask.sum()
+    else:
+        if mp.sp_rank == mp.sp - 1:
+            mask[:, -1] = 0.0
+        count = nll.shape[0] * (nll.shape[1] * mp.sp - 1)
+        loss = mp.sum_over_sp_value((nll * mask).sum() / count)
     metrics = {"perplexity": torch.exp(loss.detach())}
     if getattr(model, "module", model).cfg.moe is not None:  # DDP holds the Llama as .module
         metrics["moe_aux_loss"] = aux.detach()
@@ -480,14 +572,14 @@ def causal_lm_loss(
 
 def make_trainer(cfg: LlamaConfig, trainer_config, device: torch.device | str | None = None,
                  mesh=None):
-    """Wire a Llama config into the Trainer: causal-LM loss, the explicit
-    parameter specs (:func:`param_specs`) over ``mesh`` when given, and the
-    analytic FLOPs numerator (the flash kernel's work is counted
-    analytically)."""
+    """Wire a Llama config into the Trainer: causal-LM loss, the model and
+    the explicit parameter specs (:func:`param_specs`) over ``mesh`` when
+    given, and the analytic FLOPs numerator (the flash kernel's work is
+    counted analytically)."""
     from deeplearning_cfn_tpu_torch.train.trainer import Trainer
 
     return Trainer(
-        partial(Llama, cfg),
+        partial(Llama, cfg, mesh=mesh),
         trainer_config,
         loss_fn=causal_lm_loss,
         device=device,

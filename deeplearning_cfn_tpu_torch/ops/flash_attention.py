@@ -190,12 +190,13 @@ def _blockwise_backward(
 
 def _forward(q, k, v, causal: bool, sm_scale: float):
     """Device dispatch of the forward: the CUDA kernel for CUDA tensors, the
-    plain reference for CPU tensors, nothing else."""
+    plain reference for CPU tensors (and for ``meta`` ones, whose trace
+    computes nothing), nothing else."""
     if q.device.type == "cuda":
         from deeplearning_cfn_tpu_torch.ops import _kernels
 
         return _kernels.flash_attn_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
 
@@ -229,9 +230,18 @@ def flash_attention(
     v: torch.Tensor,
     causal: bool = True,
     sm_scale: float | None = None,
+    sp: int = 1,
 ) -> torch.Tensor:
-    """Flash attention, ``[B, S, H, D]`` in and out; ``Hkv`` must divide ``Hq``."""
+    """Flash attention, ``[B, S, H, D]`` in and out; ``Hkv`` must divide ``Hq``.
+
+    The JAX package's mesh rules: the sequence must be whole (``sp`` > 1
+    raises: ring attention splits it); under ``tp`` the caller passes one tp
+    rank's heads, which keeps each q head's kv head on its rank only when
+    ``tp`` divides the model's kv heads (``models/llama.py`` checks it)."""
     Hq, Hkv = q.shape[2], k.shape[2]
+    if sp > 1:
+        raise ValueError("flash_attention does not split the sequence; use ring "
+                         "attention for sp > 1")
     if Hkv == 0 or Hq % Hkv != 0:
         raise ValueError(f"q heads ({Hq}) must be a multiple of kv heads ({Hkv})")
     if sm_scale is None:

@@ -50,6 +50,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import CopyToGroup as _CopyToGroup
+from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import SumOverGroup as _SumOverGroup
+
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -75,37 +78,6 @@ def moe_param_specs() -> dict[str, tuple]:
         "w_up": ("ep", "fsdp", "tp"),
         "w_down": ("ep", "tp", "fsdp"),
     }
-
-
-class _SumOverGroup(torch.autograd.Function):
-    """Forward: the sum over ``group``; backward: the identity (every rank
-    of the group holds the same gradient of the sum)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _CopyToGroup(torch.autograd.Function):
-    """Forward: the identity; backward: the sum over ``group`` of the
-    gradient (each rank's share of it comes through its own experts)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
 
 
 @dataclass

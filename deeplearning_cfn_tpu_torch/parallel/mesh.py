@@ -7,8 +7,10 @@ optimizer state), ``pp``, ``sp``, ``tp`` and ``ep`` (experts).  A mesh is a
 group, one rank a device; axes of size 1 are kept, as the JAX mesh keeps
 them, so every sharding rule reads the same six names whatever the layout.
 
-The multi-slice (hybrid ICI x DCN) meshes come with the second half of the
-parallelism slice and raise ``NotImplementedError``.
+``tp`` and ``sp`` may be larger than 1 (``parallel/tensor_parallel.py``,
+``parallel/ring_attention.py``); ``pp`` and the multi-slice (hybrid ICI x
+DCN) meshes come with a later part of the parallelism slice and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXIS_ORDER = ("dp", "fsdp", "pp", "sp", "tp", "ep")
 
-SLICE_5B = ("a later slice of the PyTorch port (slice 5b: tp, sp, ring attention, "
-            "pipeline stages and hybrid meshes)")
+SLICE_5B = ("a later slice of the PyTorch port (slice 5b: pipeline stages, comms overlap "
+            "and hybrid meshes)")
 
 
 class MeshError(ValueError):
@@ -72,14 +74,13 @@ def build_mesh(spec: MeshSpec, device_type: str | None = None) -> DeviceMesh:
     ``AXIS_ORDER``, row-major, so ``ep`` (then ``tp``, ``sp``) varies
     fastest, as the JAX mesh lays its innermost axes on nearest neighbours.
     ``device_type`` defaults to ``cuda`` when the group's backend is NCCL
-    and ``cpu`` otherwise.  The axes of slice 5b must be 1."""
+    and ``cpu`` otherwise.  ``pp`` must be 1."""
     if not dist.is_initialized():
         raise MeshError("build_mesh needs torch.distributed initialised "
                         "(examples.common.maybe_init_distributed, or init_process_group)")
     spec.validate(dist.get_world_size())
-    for axis in ("pp", "sp", "tp"):
-        if getattr(spec, axis) > 1:
-            raise NotImplementedError(f"mesh axis {axis} > 1 is ported in {SLICE_5B}")
+    if spec.pp > 1:
+        raise NotImplementedError(f"mesh axis pp > 1 is ported in {SLICE_5B}")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(spec.axis_sizes()[a] for a in AXIS_ORDER),

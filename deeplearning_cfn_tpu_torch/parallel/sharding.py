@@ -9,15 +9,21 @@ port reads two things from a parameter's spec:
   dim of ``wq``/``wk``/``wv``/``w_gate``/``w_up`` and the output dim of
   ``wo``/``w_down``/``embed``;
 - its ``ep`` dimension, the expert axis split over the ``ep`` ranks
-  (``ops/moe.py``).
+  (``ops/moe.py``);
+- its ``tp`` dimension, split over the ``tp`` ranks
+  (``parallel/tensor_parallel.py``): heads and MLP columns on dim 1 of
+  ``wq wk wv w_gate w_up output``, on dim 0 of ``wo w_down``, the
+  vocabulary on dim 0 of ``embed``.  The JAX specs always put ``fsdp`` and
+  ``tp`` on different dims.
 
 A parameter whose spec names no ``fsdp`` dim (norms, the MoE router, arrays
 the rule leaves whole) is replicated, as in JAX: the trainer keeps it out of
 FSDP2 (``ignored_params``) and averages its gradient over the data ranks
 itself.
 
-The batch is split over ``("dp", "fsdp")``: each rank takes its contiguous
-slice of the global batch (:func:`local_batch`), as ``BATCH_SPEC`` and
+The batch is split over ``("dp", "fsdp")`` and the sequence over ``sp``:
+each rank takes its contiguous block of the global batch
+(:func:`local_batch`), as ``BATCH_SPEC = P(("dp", "fsdp"), "sp")`` and
 ``make_array_from_process_local_data`` split it in the JAX package.
 """
 
@@ -84,6 +90,10 @@ def fsdp_dim(spec: Sequence) -> int | None:
     return axis_dim(spec, "fsdp")
 
 
+def tp_dim(spec: Sequence) -> int | None:
+    return axis_dim(spec, "tp")
+
+
 def placement_fn(specs: dict[int, tuple]):
     """``shard_placement_fn`` for ``fully_shard``: each parameter (by
     ``id``) on its spec's ``fsdp`` dim."""
@@ -98,10 +108,19 @@ def placement_fn(specs: dict[int, tuple]):
     return fn
 
 
-def local_batch(x: torch.Tensor, index: int, count: int) -> torch.Tensor:
-    """This data shard's contiguous slice of the global batch ``x``."""
+def local_batch(x: torch.Tensor, index: int, count: int, sp_index: int = 0,
+                sp_count: int = 1) -> torch.Tensor:
+    """This data shard's contiguous slice of the global batch ``x``, and of
+    its sequence (dim 1) this ``sp`` rank's contiguous block."""
     n = x.shape[0]
     if n % count:
         raise ValueError(f"global batch {n} does not split over {count} data shards")
     per = n // count
-    return x[index * per:(index + 1) * per]
+    x = x[index * per:(index + 1) * per]
+    if sp_count == 1:
+        return x
+    s = x.shape[1]
+    if s % sp_count:
+        raise ValueError(f"sequence {s} does not split over sp={sp_count}")
+    per = s // sp_count
+    return x[:, sp_index * per:(sp_index + 1) * per]

@@ -304,6 +304,35 @@ def stack_batches(batches: Iterator[Batch], k: int) -> Iterator[Batch]:
             group = []
 
 
+def donate_buffers(tree) -> int:
+    """Free the storage of a consumed batch's tensors and return the bytes
+    released (JAX's ``donate_buffers``, which deletes the device buffers a
+    loop placed itself once the step that reads them is dispatched).
+
+    Safe while the step still runs: the caching allocator hands a freed
+    block out again only in its stream's order, and for a tensor that
+    another stream reads it waits for that stream's work too.  So a tensor
+    copied on a prefetch producer's side stream must have been marked with
+    ``record_stream`` on the compute stream before this runs, as
+    :class:`DevicePrefetcher` marks every batch it hands over.  Leaves that
+    are not tensors, and tensors whose storage the caller cannot resize (a
+    numpy array's), are skipped; a second call finds nothing to free.  Only
+    call it on tensors the caller placed, never on ones handed in from
+    outside the loop."""
+    freed = 0
+
+    def free(leaf) -> None:
+        nonlocal freed
+        if isinstance(leaf, torch.Tensor):
+            storage = leaf.untyped_storage()
+            if storage.nbytes() and storage.resizable():
+                freed += storage.nbytes()
+                storage.resize_(0)
+
+    tree_map(free, tree)
+    return freed
+
+
 class DevicePrefetcher:
     """Background host-to-device pipeline: producer threads pull batches from
     the host iterator and copy them to ``device``, up to ``size`` batches

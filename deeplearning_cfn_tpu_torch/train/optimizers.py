@@ -240,16 +240,24 @@ class Adafactor(_LeafOptimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
+        """Two passes over the parameters, so that no more than one
+        parameter's f32 update is alive at a time (at Llama-3-8B the whole
+        tree's would be 30 GiB): the first updates the second moments and
+        sums each leaf's squared update, the second forms each update again
+        from the updated moments (the same arithmetic on the same values)
+        and applies it."""
         live = self._live_groups()
-        updates = {}
+        factors, u_parts = {}, {}
         for _, params, _, grads, steps in live:
             powers = torch._foreach_pow(torch._foreach_add(steps, 1.0), -DECAY_RATE)  # (t+1)^-0.8
             torch._foreach_add_(steps, 1.0)
             for p, g, power in zip(params, grads, powers):
-                updates[id(p)] = self._scaled_grad(p, g.float(), 1.0 - power)
+                g32 = g.float()
+                factors[id(p)] = self._update_moments(p, g32, 1.0 - power)
+                u_parts[id(p)] = self._scaled(p, g32, factors[id(p)]).square().sum()
         # Per leaf: clip the update's rms at the threshold, then scale by the
         # learning rate and by the parameter's rms.
-        u_sq = self._leaf_sums({k: u.square().sum() for k, u in updates.items()})
+        u_sq = self._leaf_sums(u_parts)
         p_sq = self._leaf_sums({id(p): lp.float().square().sum()
                                 for _, params, local, *_ in live for p, lp in zip(params, local)})
         scales = {}
@@ -258,23 +266,24 @@ class Adafactor(_LeafOptimizer):
                 clip = torch.clamp((u_s / leaf.numel).sqrt() / CLIPPING_THRESHOLD, min=1.0)
                 param_scale = torch.clamp((p_s / leaf.numel).sqrt(), min=MIN_PARAM_SCALE)
                 scales.update({id(p): (clip, param_scale) for p in leaf.params})
-        for group, params, local, _, _ in live:
-            for p, lp in zip(params, local):
+        for group, params, local, grads, _ in live:
+            for p, lp, g in zip(params, local, grads):
                 clip, param_scale = scales[id(p)]
-                u = updates[id(p)].div_(clip).mul_(group["lr"]).mul_(param_scale)  # optax's order
+                u = self._scaled(p, g.float(), factors[id(p)])
+                u = u.div_(clip).mul_(group["lr"]).mul_(param_scale)  # optax's order
                 if group["weight_decay"]:
                     u.add_(lp.float(), alpha=group["weight_decay"])
                 lp.sub_(u.to(lp.dtype))
 
-    def _scaled_grad(self, p, g32: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
-        """optax ``scale_by_factored_rms``: update the second-moment state,
-        return ``g`` over its root."""
+    def _update_moments(self, p, g32: torch.Tensor, decay: torch.Tensor):
+        """optax ``scale_by_factored_rms``'s state update; returns the row
+        and column factors of a factored leaf (O(rows + cols)), else None."""
         st = self.state[p]
         g2 = g32.square() + ADAFACTOR_EPS
         dims = self._dims(p)
         if dims is None:
             st["v"].copy_(decay * st["v"].float() + (1.0 - decay) * g2)
-            return g32 * st["v"].float().rsqrt()
+            return None
         d1, d0 = dims
         shards = dict(shard_groups(p))
         shape = p.shape  # global (a DTensor reports its global shape)
@@ -284,6 +293,12 @@ class Adafactor(_LeafOptimizer):
         r1 = d1 - 1 if d1 > d0 else d1  # d1 in v_row's coordinates
         row_shards = {(k - 1 if k > d0 else k): grp for k, grp in shards.items() if k != d0}
         row_col_mean = _mean(v_row, r1, shape[d1], row_shards, keepdim=True)
-        row_factor = (v_row / row_col_mean).rsqrt()
-        col_factor = v_col.rsqrt()
+        return (v_row / row_col_mean).rsqrt(), v_col.rsqrt()
+
+    def _scaled(self, p, g32: torch.Tensor, factors) -> torch.Tensor:
+        """``g`` over the root of its second moment."""
+        if factors is None:
+            return g32 * self.state[p]["v"].float().rsqrt()
+        d1, d0 = self._dims(p)
+        row_factor, col_factor = factors
         return g32 * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)

@@ -23,16 +23,32 @@ JAX package's jitted step, in eager PyTorch:
   dp > 1), one unit per block and one at the root.  A model's explicit
   specs (Llama's ``param_specs``) decide each parameter's fsdp dim, and
   shard whenever fsdp > 1, whatever the strategy, as in the JAX trainer.
-  MoE experts split over ``ep``.  The loss and every gradient are the
-  global batch's; so are the logged metrics.  Inside a step the batch's
-  reductions span the data ranks (``parallel/data_ranks.py``): BatchNorm's
-  statistics and the counts that losses divide by are the global batch's,
-  as in JAX's GSPMD step.
+  MoE experts split over ``ep``.  Under ``tp`` (``parallel/tensor_parallel.py``)
+  every parameter whose spec has a ``tp`` dim becomes a ``DTensor`` split
+  over the ``tp`` axis, and FSDP2 shards it over ``fsdp`` on its other
+  dim (``shard_placement_fn``): the JAX specs' 2-D layout; what the specs
+  replicate over ``tp`` (the norms) gets no tp reduction: every tp rank
+  computes the same gradient.  Under ``sp`` each rank takes its block of
+  the sequence, and since every parameter is replicated over ``sp`` its
+  gradient is summed over the ``sp`` ranks as well as averaged over the
+  data ranks.  The loss and every gradient are the global batch's; so are
+  the logged metrics.  Inside a step the batch's reductions span the data
+  ranks (``parallel/data_ranks.py``): BatchNorm's statistics and the counts
+  that losses divide by are the global batch's, as in JAX's GSPMD step.
 - The input stage in front of every loss, as the JAX step composes it:
   ``augment`` (train steps only, keyed by the step), then uint8
   ``input_stats`` normalisation (``train.pipeline.dequantize_normalize``).
 - Gradient accumulation over strided microbatches ``x[a::k]``: part
-  gradients summed, then divided by ``k``.
+  gradients summed into ``.grad`` in place (``AccumulateGrad``: no second
+  gradient-sized buffer, where JAX's scan carries one), then divided by
+  ``k``.
+- ``remat``: ``jax.checkpoint`` on the whole loss becomes
+  ``torch.utils.checkpoint`` (non-reentrant) around it, in the eager and
+  the captured step alike; it nests under the model's own per-block remat
+  (``train/remat.py``: inside it a model checkpoints its blocks whole, so
+  that no selective cache is held twice and the peak only falls).
+  Buffers a forward updates (BatchNorm's statistics) keep the forward's
+  update, not the recomputation's second one.
 - The state is updated in place (PyTorch parameters, buffers and optimizer
   state are mutable); ``train_step`` returns the same ``TrainState`` object.
   A model with ``has_train_arg`` is called with ``train=``; its BatchNorm
@@ -50,8 +66,12 @@ JAX package's jitted step, in eager PyTorch:
   stream's position with it.
 
 Without a mesh the trainer runs on one device and ``strategy`` is the
-identity.  Comms overlap and live reshard are ported in later slices and
-raise ``NotImplementedError``.
+identity.  On the ``meta`` device (``models/llama_memory.trace_check``) a
+step traces shapes only, and FSDP2 and DDP, which cannot run on ``meta``,
+are left out (the one guard for it, in ``_distribute``): each rank's
+parameters keep their fsdp-gathered size.  Comms overlap
+and live reshard are ported in later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,11 +87,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.parallel import mesh as mesh_lib
 from deeplearning_cfn_tpu_torch.parallel import sharding
 from deeplearning_cfn_tpu_torch.parallel.data_ranks import data_ranks
+from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import distribute_tp
 from deeplearning_cfn_tpu_torch.train.optimizers import (
     Adafactor,
     Lamb,
@@ -83,12 +105,14 @@ from deeplearning_cfn_tpu_torch.train.optimizers import (
 from deeplearning_cfn_tpu_torch.train.data import (
     Batch,
     DevicePrefetcher,
+    donate_buffers,
     tree_map,
     device_put_batch,
     stack_batches,
 )
 from deeplearning_cfn_tpu_torch.train.metrics import ThroughputLogger, peak_flops_per_chip
 from deeplearning_cfn_tpu_torch.train.pipeline import PipelineStats, dequantize_normalize
+from deeplearning_cfn_tpu_torch.train.remat import outer_remat_contexts
 
 _LATER = "a later slice of the PyTorch port"
 
@@ -436,7 +460,6 @@ def _check_in_slice(cfg: TrainerConfig) -> None:
     unsupported = {
         "comms_overlap": cfg.comms_overlap,
         "overlap_compress": cfg.overlap_compress,
-        "remat": cfg.remat,
     }
     for name, on in unsupported.items():
         if on:
@@ -496,11 +519,15 @@ class Trainer:
         self.param_specs = param_specs
         self._split_groups: dict[int, tuple] = {}
         self._replicated: list[nn.Parameter] = []  # outside FSDP2, synced by the step
+        self._sp_index, self._sp_count, self._sp_group = 0, 1, None
         if mesh is not None:
             sizes = mesh_lib.mesh_spec(mesh)
             self._data_index, self._data_count = mesh_lib.data_rank(mesh)
             self._data_group = mesh_lib.data_group(mesh)
             self._sizes = sizes
+            if sizes.sp > 1:
+                self._sp_index, self._sp_count = mesh_lib.axis_rank(mesh, "sp"), sizes.sp
+                self._sp_group = mesh.get_group("sp")
         # Set by fit(): seconds from fit entry to the first completed step,
         # the perf_counter stamp of that completion, and the input
         # pipeline's counters.
@@ -511,11 +538,19 @@ class Trainer:
         self.last_metrics: dict | None = None
         self._input_stats: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def init(self, seed: int = 0) -> TrainState:
+    def init(self, seed: int = 0, draw_on_device: bool = False) -> TrainState:
         """Build the model from ``seed`` on the trainer's device, lay it out
-        over the mesh (when there is one), and build its optimizer."""
-        gen = torch.Generator().manual_seed(seed)
-        model = self.model_fn(gen).to(self.device)
+        over the mesh (when there is one), and build its optimizer.  The
+        weights are drawn on the CPU (one seed, the same weights on any
+        device), or with ``draw_on_device`` on the trainer's device: at
+        Llama-3-8B the CPU's draw of 8 B normals takes minutes."""
+        gen = torch.Generator(self.device if draw_on_device else "cpu").manual_seed(seed)
+        return self.init_from(self.model_fn(gen).to(self.device))
+
+    def init_from(self, model: nn.Module) -> TrainState:
+        """Lay a model built on the trainer's device out over the mesh (when
+        there is one) and build its optimizer: :meth:`init` from a model
+        made elsewhere (shapes on ``meta``: ``models/llama_memory.trace_check``)."""
         runner = self._distribute(model) if self.mesh is not None else None
         split = {n: self.mesh["ep"] for n, p in model.named_parameters()
                  if id(p) in self._split_groups}
@@ -538,8 +573,9 @@ class Trainer:
         return specs
 
     def _distribute(self, model: nn.Module) -> nn.Module | None:
-        """Split the experts over ``ep``, then shard (FSDP2) or replicate
-        (DDP) over the data ranks.  Returns the DDP wrapper, or None."""
+        """Split the experts over ``ep`` and the tp dims over ``tp``, then
+        shard (FSDP2) or replicate (DDP) over the data ranks.  Returns the DDP
+        wrapper, or None."""
         sizes = self._sizes
         if sizes.ep > 1:
             ep_rank, ep_group = mesh_lib.axis_rank(self.mesh, "ep"), self.mesh.get_group("ep")
@@ -550,8 +586,12 @@ class Trainer:
         for name, p in model.named_parameters():
             if sharding.axis_dim(specs[name], "ep") is not None and sizes.ep > 1:
                 self._split_groups[id(p)] = (self.mesh.get_group("ep"),)
+        if sizes.tp > 1:
+            distribute_tp(model, specs, self.mesh["tp"])
+        if self.device.type == "meta":
+            return None  # a shapes-only trace: FSDP2 and DDP need real tensors
         sharded = any(sharding.fsdp_dim(s) is not None for s in specs.values())
-        if self.config.strategy == "fsdp" or (sharded and sizes.fsdp > 1):
+        if self.config.strategy == "fsdp" or (sharded and sizes.fsdp > 1) or sizes.tp > 1:
             from torch.distributed.fsdp import fully_shard
 
             dmesh = self.mesh["dp", "fsdp"] if sizes.dp > 1 else self.mesh["fsdp"]
@@ -600,10 +640,12 @@ class Trainer:
         return leaves
 
     def _local_batch(self, t):
-        """This rank's contiguous slice of a global batch (no mesh: all)."""
+        """This rank's contiguous slice of a global batch, and under ``sp``
+        its block of the sequence (no mesh: all)."""
         if self.mesh is None:
             return t
-        return tree_map(lambda a: sharding.local_batch(a, self._data_index, self._data_count), t)
+        return tree_map(lambda a: sharding.local_batch(a, self._data_index, self._data_count,
+                                                       self._sp_index, self._sp_count), t)
 
     def _sync_replicated_grads(self) -> None:
         """Average the gradients of the parameters FSDP2 does not hold over
@@ -618,6 +660,22 @@ class Trainer:
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat, group=self._data_group)
             flat /= self._data_count
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+
+    def _sum_grads_over_sp(self, model: nn.Module) -> None:
+        """Sum every gradient over the ``sp`` ranks (each rank's holds the
+        part of its block of the sequence): one all-reduce a dtype."""
+        if self._sp_group is None:
+            return
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for p in model.parameters():
+            if p.grad is not None:
+                g = local_part(p.grad)
+                by_dtype.setdefault(g.dtype, []).append(g)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self._sp_group)
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
 
@@ -681,11 +739,27 @@ class Trainer:
             return self.loss_fn(model, x, y)
         return self._default_objective(model, x, y, train)
 
+    def _backward(self, model: nn.Module, x, y) -> tuple[torch.Tensor, dict]:
+        """The loss and its backward; with ``remat`` the loss's activations
+        are recomputed in the backward (``jax.checkpoint`` on the loss), and
+        the buffers keep what the forward made of them."""
+        if not self.config.remat:
+            loss, aux = self._loss(model, x, y)
+            loss.backward()
+            return loss, aux
+        loss, aux = checkpoint(self._loss, model, x, y, use_reentrant=False,
+                               context_fn=outer_remat_contexts)
+        after_forward = [b.detach().clone() for b in model.buffers()]
+        loss.backward()
+        with torch.no_grad():
+            for b, kept in zip(model.buffers(), after_forward):
+                b.copy_(kept)
+        return loss, aux
+
     def _grads(self, model: nn.Module, x, y) -> tuple[torch.Tensor, dict]:
         accum = self.config.grad_accum_steps
         if accum == 1:
-            loss, aux = self._loss(model, x, y)
-            loss.backward()
+            loss, aux = self._backward(model, x, y)
             return loss.detach(), {k: v.detach() for k, v in aux.items()}
         n = x.shape[0]
         if n % accum:
@@ -693,8 +767,8 @@ class Trainer:
         losses, auxes = [], []
         for a in range(accum):
             part = lambda t: t[a::accum]  # noqa: E731
-            loss, aux = self._loss(model, tree_map(part, x), tree_map(part, y))
-            loss.backward()  # .grad sums the part gradients
+            # .grad sums the part gradients in place.
+            loss, aux = self._backward(model, tree_map(part, x), tree_map(part, y))
             losses.append(loss.detach())
             auxes.append({k: v.detach() for k, v in aux.items()})
         for p in model.parameters():
@@ -716,6 +790,7 @@ class Trainer:
             with self._data_ranks():
                 loss, aux = self._grads(state.runner or model, x, y)
             self._sync_replicated_grads()
+            self._sum_grads_over_sp(model)
             if self.config.grad_clip_norm:
                 clip_by_global_norm(model.parameters(), self.config.grad_clip_norm,
                                     self._split_groups)
@@ -803,6 +878,8 @@ class Trainer:
         land on ``self.last_pipeline_stats``.  ``steps_per_call`` = k > 1
         stacks k batches a call and runs them through ``multi_step_fn(k)``;
         the ``steps % k`` remainder runs one step a call, in the same loop.
+        A stacked call's batch is freed once the call is dispatched
+        (``train.data.donate_buffers``).
 
         After each call, ``checkpointer.should_save(state.step)`` decides a
         save at the state's true step (a restored run continues the count);
@@ -850,6 +927,9 @@ class Trainer:
                     if i < stacked:
                         state, loss = kfn(state, x, y)
                         metrics = {"loss": loss[-1]}
+                        # The stack was made by stack_batches and placed
+                        # here or by the prefetcher: ours to free.
+                        donate_buffers((x, y))
                     else:
                         state, metrics = self.train_step(state, x, y)
                         self.last_metrics = metrics

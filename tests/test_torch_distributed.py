@@ -12,13 +12,23 @@ virtual CPU devices.  Cases:
   factors, so its row and column statistics span the shards;
 - ``moe_dp``: MoE at dp=2, two routing groups (JAX's G = 2);
 - ``moe_ep``: MoE at ep=2, the experts split over the two ranks;
-- ``hsdp``: dp=2 × fsdp=2 on four ranks (HSDP).
+- ``hsdp``: dp=2 × fsdp=2 on four ranks (HSDP);
+- ``tp2``: tp=2, heads, MLP columns and the vocabulary split over the two
+  ranks (``parallel/tensor_parallel.py``); ``tp2_fused``: the same with the
+  fused ``wqkv`` and ``w_gate_up``, whose contiguous split over tp mixes q,
+  k and v (gate and up) across the ranks, held to JAX's fused run;
+- ``sp2``: sp=2, k and v gathered over the sequence's two blocks;
+  ``sp2_ring`` (4 q heads, 4 kv heads) and ``sp2_ring_gqa`` (4 and 2) with
+  ring attention;
+- ``fsdp2_tp2``: fsdp=2 × tp=2 on four ranks, FSDP2 over tp ``DTensor`` s.
 
 Each case checks the losses (equal on every rank: the global batch's), the
 global norm of the first batch's gradients (across shards and expert
-ranks), and the final parameters.  Then ``multiprocess_smoke`` (LeNet) runs
-as two processes from the env contract: its losses agree across the
-processes and fall.
+ranks), and the final parameters.  ``parallel.ring_attention`` and its
+gradients are held to JAX's ``ring_attention`` at sp=2 and sp=4 (in the two
+spawns).  Then ``multiprocess_smoke`` runs from the env contract: LeNet as
+two processes, and the tiny Llama over fsdp=2 × tp=2 (``llama-fsdp``) as
+four; the losses agree across the processes and fall.
 
 Tolerances: f32; the ranks sum each gradient over the data ranks in another
 order than XLA, so losses and the norm agree to 1e-5 relative, and the
@@ -90,7 +100,17 @@ CASES = {  # name: (ranks, mesh, config overrides, trainer overrides, global bat
     "moe_dp": (2, dict(dp=2), dict(vocab_size=64, n_experts=4), dict(strategy="dp"), 4),
     "moe_ep": (2, dict(ep=2), dict(vocab_size=64, n_experts=4), dict(strategy="fsdp"), 4),
     "hsdp": (4, dict(dp=2, fsdp=2), dict(vocab_size=64), dict(strategy="fsdp"), 8),
+    "tp2": (2, dict(tp=2), dict(vocab_size=64), dict(strategy="fsdp"), 4),
+    "tp2_fused": (2, dict(tp=2), dict(vocab_size=64, fused_qkv=True), dict(strategy="fsdp"), 4),
+    "sp2": (2, dict(sp=2), dict(vocab_size=64), dict(strategy="dp"), 4),
+    "sp2_ring": (2, dict(sp=2), dict(vocab_size=64, n_kv_heads=4, use_ring_attention=True),
+                 dict(strategy="dp"), 4),
+    "sp2_ring_gqa": (2, dict(sp=2), dict(vocab_size=64, use_ring_attention=True),
+                     dict(strategy="dp"), 4),
+    "fsdp2_tp2": (4, dict(fsdp=2, tp=2), dict(vocab_size=64), dict(strategy="fsdp"), 8),
 }
+RING = {"ring_sp2": 2, "ring_sp4": 4}  # name: sp (= ranks)
+RING_SHAPE = dict(B=2, S=32, Hq=4, Hkv=2, D=16)
 
 
 def _free_port() -> int:
@@ -99,19 +119,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _contract_env(n: int, pid: int, port: int) -> dict:
-    env = dict(os.environ)
+def _contract_env(n: int, pid: int, port: int, **extra) -> dict:
+    env = dict(os.environ, **extra)
     env.update(DEEPLEARNING_WORKERS_COUNT=str(n), DLCFN_PROCESS_ID=str(pid),
                DEEPLEARNING_COORDINATOR=f"127.0.0.1:{port}", OMP_NUM_THREADS="1",
                PYTHONPATH=str(REPO))
     return env
 
 
-def _spawn(n: int, argv: list[str]) -> list[str]:
-    """Run ``argv`` as ``n`` processes of one group; their stdouts.  A rank
-    that fails, or a group that outlives the join timeout, fails the test."""
+def _spawn(n: int, argv: list[str], **env) -> list[str]:
+    """Run ``argv`` as ``n`` processes of one group (``env`` added to their
+    environment); their stdouts.  A rank that fails, or a group that
+    outlives the join timeout, fails the test."""
     port = _free_port()
-    procs = [subprocess.Popen([sys.executable, *argv], env=_contract_env(n, i, port), cwd=REPO,
+    procs = [subprocess.Popen([sys.executable, *argv], env=_contract_env(n, i, port, **env),
+                              cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for i in range(n)]
     outs = []
@@ -160,9 +182,49 @@ def _jax_reference(name: str) -> dict:
             "final": jax.device_get(state.params), "lr": cfg.learning_rate}
 
 
+def _jax_ring_reference(name: str) -> dict:
+    """JAX's ``ring_attention`` over ``MeshSpec(sp=n)`` on seeded f32
+    inputs: the output and the gradients of q, k, v for a seeded cotangent."""
+    from deeplearning_cfn_tpu.parallel.ring_attention import ring_attention
+
+    sp = RING[name]
+    B, S, Hq, Hkv, D = RING_SHAPE.values()
+    rng = np.random.default_rng(sp)
+    q = rng.standard_normal((B, S, Hq, D), dtype=np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D), dtype=np.float32) for _ in range(2))
+    g = rng.standard_normal((B, S, Hq, D), dtype=np.float32)
+    mesh = build_mesh(MeshSpec(sp=sp), jax.devices()[:sp])
+    with set_mesh(mesh):
+        out, vjp = jax.vjp(lambda *a: ring_attention(*a, mesh, causal=True), q, k, v)
+        dq, dk, dv = vjp(jnp.asarray(g))
+    want = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+    return {"rank_case": {"ring": True, "mesh": {"sp": sp}, "q": q, "k": k, "v": v, "g": g},
+            "want": {n: np.asarray(a) for n, a in want.items()}}
+
+
+EXAMPLE_ARGV = ["--size", "tiny", "--device", "cpu", "--seq_len", "32", "--global_batch_size",
+                "4", "--steps", "3", "--log_every", "1"]
+EXAMPLES = {"example_tp2": ["--tp", "2"], "example_sp2_ring": ["--sp", "2", "--ring_attention"]}
+
+
+def _example_reference(name: str) -> dict:
+    """The example's flags for the ranks, and its single-process run here."""
+    from deeplearning_cfn_tpu_torch.examples import llama_train
+
+    out = llama_train.main(EXAMPLE_ARGV)
+    return {"rank_case": {"argv": EXAMPLE_ARGV + EXAMPLES[name]},
+            "losses": [h["loss"] for h in out["history"]]}
+
+
+def _reference(name: str) -> dict:
+    if name in CASES:
+        return _jax_reference(name)
+    return _jax_ring_reference(name) if name in RING else _example_reference(name)
+
+
 def _run_ranks(tmp_path_factory, names: list[str]) -> dict:
     n = CASES[names[0]][0]
-    refs = {name: _jax_reference(name) for name in names}
+    refs = {name: _reference(name) for name in names}
     path = tmp_path_factory.mktemp("ranks") / "cases.pkl"
     path.write_bytes(pickle.dumps({k: r["rank_case"] for k, r in refs.items()}))
     _spawn(n, [str(REPO / "tests" / "torch_dist_ranks.py"), str(path)])
@@ -172,12 +234,13 @@ def _run_ranks(tmp_path_factory, names: list[str]) -> dict:
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    return _run_ranks(tmp_path_factory, [k for k, v in CASES.items() if v[0] == 2])
+    return _run_ranks(tmp_path_factory,
+                      [k for k, v in CASES.items() if v[0] == 2] + ["ring_sp2", *EXAMPLES])
 
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    return _run_ranks(tmp_path_factory, ["hsdp"])
+    return _run_ranks(tmp_path_factory, ["hsdp", "fsdp2_tp2", "ring_sp4"])
 
 
 def _check(name, ref, ranks):
@@ -250,6 +313,104 @@ def test_hsdp_on_four_ranks_matches_jax(four_ranks):
     ref, ranks = four_ranks["hsdp"]
     tcfg = _check("hsdp", ref, ranks)
     _check_sharding(tcfg, ranks[0])
+
+
+def _check_tp_sharding(tcfg, ranks):
+    """Every parameter whose spec has a tp dim is a DTensor sharded on its
+    fsdp dim and on its tp dim (FSDP2 over the tp DTensor); the norms are
+    whole; the two tp ranks are both there.  The loss reads each rank's
+    half of the vocabulary's logits, and its vocab-parallel nll is the whole
+    vocabulary's."""
+    specs = llama.param_specs(tcfg)
+    want = {n: [sharding.fsdp_dim(s), sharding.tp_dim(s)] for n, s in specs.items()
+            if sharding.tp_dim(s) is not None}
+    for r in ranks:
+        assert r["sharded"] == want
+        assert r["loss_logits_width"] == tcfg.vocab_size // 2
+        assert r["nll_gap"] <= 1e-5
+    assert sorted({r["tp_rank"] for r in ranks}) == [0, 1]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_interop_cuts_each_tensor_to_a_tp_ranks_share(tp):
+    """``llama_params_from_jax(tp_rank=r, tp_size=tp)``: every tensor whose
+    spec has a tp dim cut to rank r's contiguous share of it (the ranks'
+    shares concatenate to the whole), the others whole."""
+    from deeplearning_cfn_tpu_torch import interop
+
+    cfg_kw = dict(vocab_size=64, n_heads=4, n_kv_heads=4)
+    jcfg = dataclasses.replace(jax_llama.LlamaConfig.tiny(seq_len=SEQ, dtype=jnp.float32), **cfg_kw)
+    tcfg = dataclasses.replace(llama.LlamaConfig.tiny(dtype=torch.float32), **cfg_kw)
+    init = jax.device_get(jax_llama.init_params(jcfg, jax.random.key(0)))
+    whole = interop.llama_params_from_jax(tcfg, init)
+    parts = [interop.llama_params_from_jax(tcfg, init, tp_rank=r, tp_size=tp) for r in range(tp)]
+    for name, spec in llama.param_specs(tcfg).items():
+        d = sharding.tp_dim(spec)
+        if d is None:
+            assert all(torch.equal(p[name], whole[name]) for p in parts), name
+            continue
+        assert parts[0][name].shape[d] * tp == whole[name].shape[d], name
+        assert torch.equal(torch.cat([p[name] for p in parts], dim=d), whole[name]), name
+
+
+@pytest.mark.parametrize("name", ["tp2", "tp2_fused"])
+def test_tensor_parallel_matches_jax(two_ranks, name):
+    ref, ranks = two_ranks[name]
+    tcfg = _check(name, ref, ranks)
+    _check_tp_sharding(tcfg, ranks)
+
+
+@pytest.mark.parametrize("name", ["sp2", "sp2_ring", "sp2_ring_gqa"])
+def test_sequence_parallel_matches_jax(two_ranks, name):
+    """The sequence split over two ranks: k/v gathered over sp, or ring
+    attention (compact GQA k/v in ``sp2_ring_gqa``); the loss's count and
+    every gradient the whole sequence's."""
+    ref, ranks = two_ranks[name]
+    _check(name, ref, ranks)
+    assert all(r["ddp"] and not r["sharded"] for r in ranks)
+
+
+def test_fsdp2_tp2_on_four_ranks_matches_jax(four_ranks):
+    ref, ranks = four_ranks["fsdp2_tp2"]
+    tcfg = _check("fsdp2_tp2", ref, ranks)
+    _check_tp_sharding(tcfg, ranks)
+
+
+@pytest.mark.parametrize("name", list(RING))
+def test_ring_attention_and_its_gradients_match_jax(two_ranks, four_ranks, name):
+    ref, ranks = (two_ranks if RING[name] == 2 else four_ranks)[name]
+    by_rank = sorted(ranks, key=lambda r: r["sp_rank"])
+    assert [r["sp_rank"] for r in by_rank] == list(range(RING[name]))
+    for key, want in ref["want"].items():
+        got = np.concatenate([r[key] for r in by_rank], axis=1)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_llama_train_flags_over_two_ranks(two_ranks, name):
+    """``llama_train --tp 2`` and ``--sp 2 --ring_attention`` as two ranks
+    train as the example does in one process, from the same seed and stream
+    (the tiny preset is bf16: the ranks sum in another order, so the losses
+    agree to 2e-2; the layouts' f32 parity with JAX is held above)."""
+    ref, ranks = two_ranks[name]
+    axis = EXAMPLES[name][0].removeprefix("--")
+    for r in ranks:
+        assert r["losses"] == ranks[0]["losses"] and r["mesh"][axis] == 2
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=2e-2)
+
+
+def test_multiprocess_smoke_llama_fsdp_over_fsdp_and_tp():
+    """``DLCFN_SMOKE_MODEL=llama-fsdp`` as four processes: fsdp=2 × tp=2,
+    FSDP2's gathers and the tp collectives across the processes."""
+    outs = _spawn(4, ["-m", "deeplearning_cfn_tpu_torch.examples.multiprocess_smoke",
+                      "--device", "cpu"], DLCFN_SMOKE_MODEL="llama-fsdp", DLCFN_SMOKE_STEPS="6")
+    results = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert [r["process_id"] for r in results] == [0, 1, 2, 3]
+    for r in results:
+        assert r["model"] == "llama-fsdp" and r["mesh"]["fsdp"] == 2 and r["mesh"]["tp"] == 2
+        assert r["losses"] == results[0]["losses"]
+    losses = results[0]["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0], losses
 
 
 def test_multiprocess_smoke_lenet_from_the_env_contract():

@@ -162,6 +162,17 @@ def test_attention_kind_dispatch():
     "kw", [{"pp_stages": 2}, {"use_ring_attention": True}]
 )
 def test_out_of_slice_configs_raise(kw):
+    """Pipeline stages still raise.  Ring attention is ported
+    (``parallel/ring_attention.py``): as in JAX it takes effect only over a
+    mesh with sp > 1, so without one the model is the dense one."""
     _, tcfg = _configs()
+    if "use_ring_attention" in kw:
+        ring = llama.Llama(dataclasses.replace(tcfg, **kw), torch.Generator().manual_seed(0))
+        dense = llama.Llama(tcfg, torch.Generator().manual_seed(0))
+        assert llama.attention_kind(ring.cfg, SEQ, "cpu", sp=2) == "ring"
+        assert llama.attention_kind(ring.cfg, SEQ, "cpu") == "xla"
+        tokens = torch.arange(2 * SEQ).reshape(2, SEQ) % VOCAB
+        torch.testing.assert_close(ring(tokens), dense(tokens), rtol=0, atol=0)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         llama.Llama(dataclasses.replace(tcfg, **kw))

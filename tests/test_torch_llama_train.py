@@ -9,11 +9,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from deeplearning_cfn_tpu_torch.examples import llama_train  # noqa: E402
+from deeplearning_cfn_tpu_torch.parallel.mesh import MeshError  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -46,11 +48,20 @@ def test_main_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
      ["--data_dir", "/nonexistent"]],
 )
 def test_out_of_slice_flags_raise(flags):
-    # --data_dir is ported: a directory that does not exist is the user's error.
-    exc, match = ((SystemExit, "none of") if flags[0] == "--data_dir"
-                  else (NotImplementedError, "later slice"))
+    """--pp is still a later slice's.  --data_dir is ported: a directory that
+    does not exist is the user's error.  --tp and --sp are ported
+    (``tests/test_torch_distributed.py`` runs them over ranks): on one
+    process their mesh does not fit, as the JAX example's would not.
+    --ring_attention is ported: on one process there is no sp to ring over,
+    and the run is the dense one."""
+    argv = ["--size", "tiny", "--steps", "1", "--device", "cpu", *flags]
+    if flags == ["--ring_attention"]:
+        assert np.isfinite(llama_train.main(argv)["final_loss"])
+        return
+    exc, match = {"--data_dir": (SystemExit, "none of"), "--pp": (NotImplementedError, "later slice"),
+                  "--tp": (MeshError, "devices"), "--sp": (MeshError, "devices")}[flags[0]]
     with pytest.raises(exc, match=match):
-        llama_train.main(["--size", "tiny", "--steps", "1", "--device", "cpu", *flags])
+        llama_train.main(argv)
 
 
 def _imported_modules(path: Path):

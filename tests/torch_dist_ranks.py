@@ -9,8 +9,10 @@ batch's gradients, runs the case's trainer steps, and writes what it saw to
 ``<input>.rank<id>``.  A checkpoint case (``mode``) saves after its first
 steps, or restores and takes the rest.  A case with a ``model`` (ResNet,
 BERT, RetinaNet) loads the port's state dict the test converted from the JAX
-weights and reports every step's metrics and the final state.  It imports
-no JAX.
+weights and reports every step's metrics and the final state.  A ``ring``
+case runs ``parallel.ring_attention`` on this rank's block of the sequence
+and reports its output and gradients; an ``argv`` case runs
+``examples.llama_train.main`` with its flags.  It imports no JAX.
 
     python tests/torch_dist_ranks.py <input.pkl>
 """
@@ -32,6 +34,7 @@ from deeplearning_cfn_tpu_torch import interop  # noqa: E402
 from deeplearning_cfn_tpu_torch.examples.common import maybe_init_distributed  # noqa: E402
 from deeplearning_cfn_tpu_torch.models import llama  # noqa: E402
 from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, axis_rank, build_mesh  # noqa: E402
+from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import ModelParallel  # noqa: E402
 from deeplearning_cfn_tpu_torch.train import trainer as trainer_lib  # noqa: E402
 from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer  # noqa: E402
 from deeplearning_cfn_tpu_torch.train.reshard import mesh_topology  # noqa: E402
@@ -53,7 +56,7 @@ def _trainer(case: dict, mesh, seed: int = 0):
                    else {k: torch.from_numpy(v) for k, v in init.items()})
 
     def model_fn(generator):
-        model = llama.Llama(cfg, generator)
+        model = llama.Llama(cfg, generator, mesh=mesh)
         if weights is not None:
             model.load_state_dict(weights)
         return model
@@ -125,11 +128,42 @@ def run_model_case(case: dict) -> dict:
             "state": {k: v.detach().numpy().copy() for k, v in state.model.state_dict().items()}}
 
 
+def run_ring_case(case: dict) -> dict:
+    """Ring attention on this rank's block of the sequence: its output and
+    the gradients of its blocks of q, k and v for the cotangent ``g``."""
+    from deeplearning_cfn_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    sp, rank = mesh.size(mesh.mesh_dim_names.index("sp")), axis_rank(mesh, "sp")
+
+    def block(a):
+        n = a.shape[1] // sp
+        return torch.from_numpy(a[:, rank * n:(rank + 1) * n].copy())
+
+    q, k, v = (block(case[n]).requires_grad_() for n in "qkv")
+    out = ring_attention(q, k, v, mesh.get_group("sp"), causal=True)
+    out.backward(block(case["g"]))
+    return {"sp_rank": rank, "out": out.detach().numpy(),
+            **{f"d{n}": t.grad.numpy() for n, t in zip("qkv", (q, k, v))}}
+
+
+def run_example_case(case: dict) -> dict:
+    """``examples.llama_train.main`` with the case's flags over the ranks."""
+    from deeplearning_cfn_tpu_torch.examples import llama_train
+
+    out = llama_train.main(case["argv"])
+    return {"losses": [h["loss"] for h in out["history"]], "mesh": out["mesh"]}
+
+
 def run_case(case: dict) -> dict:
+    if "argv" in case:
+        return run_example_case(case)
     if "mode" in case:
         return run_checkpoint_case(case)
     if "model" in case:
         return run_model_case(case)
+    if "ring" in case:
+        return run_ring_case(case)
     mesh = build_mesh(MeshSpec(**case["mesh"]))
     t, state = _trainer(case, mesh)
     x0, y0 = (torch.from_numpy(a) for a in case["batches"][0])
@@ -137,6 +171,7 @@ def run_case(case: dict) -> dict:
                                    t._local_batch(y0))
     loss.backward()
     t._sync_replicated_grads()  # as the step does before its clip
+    t._sum_grads_over_sp(state.model)
     norm = trainer_lib.clip_by_global_norm(state.model.parameters(), float("inf"),
                                            t._split_groups)
     state.optimizer.zero_grad(set_to_none=True)
@@ -149,9 +184,18 @@ def run_case(case: dict) -> dict:
     sharded = {n: [pl.dim for pl in p.placements if pl.is_shard()]
                for n, p in state.model.named_parameters() if hasattr(p, "placements")}
     params = {n: _full(p).detach().numpy().copy() for n, p in state.model.named_parameters()}
-    return {"losses": losses, "aux": aux, "norm": float(norm), "params": params,
-            "ep_rank": axis_rank(mesh, "ep"), "sharded": sharded,
-            "ddp": state.runner is not None}
+    out = {"losses": losses, "aux": aux, "norm": float(norm), "params": params,
+           "ep_rank": axis_rank(mesh, "ep"), "sharded": sharded,
+           "tp_rank": axis_rank(mesh, "tp"), "ddp": state.runner is not None}
+    mp = llama.model_parallel(state.model)
+    if mp.tp > 1:  # the loss's logits: this rank's vocabulary, its nll the whole one's
+        with torch.no_grad():
+            xl, yl = t._local_batch(x0), t._local_batch(y0)
+            part = state.model(xl, gather_logits=False)
+            whole = state.model(xl)
+            out["loss_logits_width"] = part.shape[-1]
+            out["nll_gap"] = float((mp.nll(part, yl) - ModelParallel().nll(whole, yl)).abs().max())
+    return out
 
 
 def main() -> None:
