@@ -219,6 +219,36 @@ Phases, one JSON line each:
            without the block remat, one m435 step each: the gradients
            agree, and the peak with remat on is at most the peak without.
 
+15. pp_layout  JAX's stage-stacked m435 (``pp_stages`` 2, ``pp_microbatches``
+           4): weights drawn on the card from a seed, laid out as the JAX
+           tree (``[pp, L/pp, ...]`` by ``parallel.pipeline.stack_stages``) and
+           carried into the model through ``interop``.  One rank has no pp
+           axis, so the stage-stacked model runs its 24 layers in sequence
+           (JAX's fallback; the whole batch is the one microbatch): its
+           logits and 4 AdamW steps on one repeated batch bitwise those of
+           the unstaged model on the same weights, flash 2 a block and step.
+           GPipe across ranks needs send/recv, which gloo refuses for CUDA
+           tensors (``tools/gloo_cuda_probe.py``): it runs on CPU gloo ranks
+           (``tests/test_torch_pipeline.py``).
+16. two_ranks  two processes of this script on the one card, a gloo group
+           over CUDA tensors (host-staged), ``DEEPLEARNING_SLICES_COUNT=2``:
+           the mesh is ``hybrid_mesh_for_slices(2)``, dp 2 over the "DCN"
+           axis.  m435, seq 2048, batch 8 a rank, 4 AdamW steps on the same
+           batches each: hookless DDP; ``comms_overlap`` (f32 buckets),
+           bitwise the hookless run (losses and parameters); a planted
+           control (the bucketed run with its first bucket left unsynced),
+           which the bitwise check must fail; ``overlap_compress`` (int8 with
+           error feedback), its losses within ``INT8_RTOL``/``INT8_ATOL`` of
+           the f32 run's.  Step ms (gloo, host-staged: not NVLink times),
+           bytes a rank sends a step, each process's peak memory, flash 2 a
+           block and step in every run.
+17. mesh_captured  ``multi_step_fn(4)`` of the m435 step with ``strategy
+           "fsdp"`` over ``build_mesh(MeshSpec(fsdp=1))`` on a one-rank NCCL
+           group (the ``mesh`` phase's mesh; FSDP2's collectives in the
+           graph): its losses and parameters bitwise four eager steps over
+           that mesh, with the planted no-update control, then replays
+           timed.  (DDP does not capture: ``tools/gloo_cuda_probe.py``.)
+
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
 dequantised weight) against the float64 product, and the tensor-core
@@ -227,8 +257,9 @@ The variants are read from the launch counters, which count each launch
 under the variant its C launcher reports.
 The flash row of the kernels line counts the launches of every Llama path
 (``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, the resumed
-m435 run of ``checkpoint``, the m435 run of ``records`` and the 8B run of
-``llama8b``; by path in ``launches_by_path``), each counted from zero just
+m435 run of ``checkpoint``, the m435 run of ``records``, the 8B run of
+``llama8b``, ``pp_layout``, both processes' runs of ``two_ranks`` and
+``mesh_captured``; by path in ``launches_by_path``), each counted from zero just
 before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
 dense's those of the ``resnet`` phase's eager kernel-head run, the resumed
@@ -250,6 +281,7 @@ import json
 import math
 import pickle
 import statistics
+import os
 import subprocess
 import sys
 import time
@@ -461,6 +493,16 @@ IMPORT_PEAK_MARGIN = 1.1
 # same kernels on the same inputs): the gradients' largest difference over
 # the tensor's largest value.
 REMAT_GRAD_RTOL = 1e-2
+
+# The rest of the parallelism slice (phases 15-17), m435 at seq 2048.
+# pp_layout: JAX's stage-stacked m435 at 2 stages and 4 microbatches.
+PP_STAGES, PP_MICROBATCHES, PP_STEPS, PP_BATCH = 2, 4, 4, 8
+# two_ranks: two processes on the one card, a gloo group, per-rank batch 8.
+TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_TIMEOUT = 8, 4, 600
+# JAX's test_int8_error_feedback_tracks_the_f32_curve.
+INT8_RTOL, INT8_ATOL = 5e-3, 1e-3
+# mesh_captured: multi_step_fn(MESH_K) over the mesh phase's one-rank mesh.
+MESH_K, MESH_REPLAYS = 4, 2
 
 
 def _emit(obj: dict) -> None:
@@ -2392,6 +2434,336 @@ def _llama8b_phase(torch, kernels_mod, smi: str) -> dict:
     return {"launches": launches}
 
 
+def _pp_layout_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int:
+    """Phase 15 (see the module docstring).  Returns its flash launches."""
+    import numpy as np
+
+    from deeplearning_cfn_tpu_torch import interop
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel import pipeline
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset, device_put_batch
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    pcfg = dataclasses.replace(cfg, pp_stages=PP_STAGES, pp_microbatches=PP_MICROBATCHES)
+    # The JAX tree of weights drawn on the card: [L, ...] layers stacked into
+    # [pp, L/pp, ...] stages, on the host in f32 (bf16 values, exactly).
+    t0 = time.perf_counter()
+    drawn = _llama_on_card(torch, llama, cfg, seed=0).state_dict()
+    host = {k: v.float().cpu().numpy() for k, v in drawn.items()}
+    del drawn
+    names = llama.layer_param_shapes(cfg)
+    tree = {"embed": host["embed"], "final_norm": host["final_norm"],
+            "layers": pipeline.stack_stages(
+                {n: np.stack([host[f"layers.{i}.{n}"] for i in range(cfg.n_layers)])
+                 for n in names}, PP_STAGES)}
+    del host
+    weights = {"stage_stacked": interop.llama_params_from_jax(pcfg, tree),
+               "unstacked": interop.llama_params_from_jax(
+                   cfg, {**tree, "layers": pipeline.unstack_stages(tree["layers"])})}
+    layout_s = time.perf_counter() - t0
+    stacked_shape = list(tree["layers"]["wq"].shape)
+    del tree
+    x, y = device_put_batch(next(SyntheticTokenDataset(
+        seq_len=2048, vocab_size=cfg.vocab_size, batch_size=PP_BATCH).batches(1)),
+        torch.device("cuda"))
+    tcfg = TrainerConfig(optimizer="adamw", learning_rate=3e-4, weight_decay=0.1,
+                         grad_clip_norm=1.0, log_every=1)
+    runs, logits, finals = {}, {}, {}
+    for path, c in (("stage_stacked", pcfg), ("unstacked", cfg)):
+        with torch.device("meta"):
+            model = llama.Llama(c)
+        model = model.to_empty(device="cuda")
+        model.load_state_dict(weights[path])
+        trainer = llama.make_trainer(c, tcfg, device="cuda")
+        state = trainer.init_from(model)
+        with torch.no_grad():
+            logits[path] = llama.forward(state.model, x[:2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels_mod.reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(PP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, x, y)
+            losses.append(metrics["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels_mod.launch_counts)
+        runs[path] = {"losses": losses, "step_ms": step_ms,
+                      "steady_step_ms": statistics.median(step_ms[1:]),
+                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "blocks": len(state.model.blocks()), "pipelined": state.model.pipelined,
+                      "launches": launches,
+                      **_flash_check(launches, PP_STEPS, flash_per_block * c.n_layers,
+                                     f"pp_layout ({path})")}
+        finals[path] = _param_copy(state.model)
+        del trainer, state, model
+        torch.cuda.empty_cache()
+    del weights
+    logits_equal = torch.equal(logits["stage_stacked"], logits["unstacked"])
+    params_equal = all(torch.equal(finals["stage_stacked"][n], p)
+                       for n, p in finals["unstacked"].items())
+    row = {"phase": "pp_layout", "model": "m435", "pp_stages": PP_STAGES,
+           "pp_microbatches": PP_MICROBATCHES, "B": PP_BATCH, "S": 2048,
+           "jax_layers_wq_shape": stacked_shape, "layout_s": layout_s,
+           "runs_at_pp": 1, "microbatches_run": 1,
+           "gpipe_across_ranks": "CPU gloo ranks (tests/test_torch_pipeline.py): gloo's "
+                                 "send/recv refuses CUDA tensors (tools/gloo_cuda_probe.py)",
+           **{f"{k}_{p}": v for p, r in runs.items() for k, v in r.items()},
+           "logits_bitwise_equal": logits_equal,
+           "losses_bitwise_equal": runs["stage_stacked"]["losses"] == runs["unstacked"]["losses"],
+           "params_bitwise_equal": params_equal, "nvidia_smi": smi}
+    _emit(row)
+    _require(all(math.isfinite(v) for v in runs["stage_stacked"]["losses"]),
+             "pp_layout: non-finite loss")
+    _require(runs["stage_stacked"]["blocks"] == cfg.n_layers
+             and not runs["stage_stacked"]["pipelined"], "pp_layout: the layout at pp 1")
+    _require(logits_equal and row["losses_bitwise_equal"] and params_equal,
+             "pp_layout: the stage-stacked model is not the unstaged one")
+    del logits, finals, x, y
+    torch.cuda.empty_cache()
+    return runs["stage_stacked"]["flash_launches"]
+
+
+def _two_ranks_worker(rank: int, port: int, out: str) -> int:
+    """One of ``two_ranks``' processes (``chip_smoke.py --two-ranks-worker
+    RANK PORT OUT``): the runs of phase 16 on this rank's half of the
+    batches, its results as JSON in ``OUT.rank<RANK>``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.ops import _kernels
+    from deeplearning_cfn_tpu_torch.parallel import overlap
+    from deeplearning_cfn_tpu_torch.parallel.mesh import hybrid_mesh_for_slices, mesh_spec
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset, device_put_batch
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    class Unsynced(overlap.BucketedGradSync):
+        """The planted control: the first bucket keeps each rank's own
+        gradient (never all-reduced)."""
+
+        def _issue(self, b):
+            if b:
+                return super()._issue(b)
+            self.issued.append(b)
+            self._runs.append(overlap._Run(b, self._flat(b) * self.nd))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    mesh = hybrid_mesh_for_slices(int(os.environ["DEEPLEARNING_SLICES_COUNT"]))
+    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    batches = [device_put_batch(b, torch.device("cuda")) for b in SyntheticTokenDataset(
+        seq_len=2048, vocab_size=cfg.vocab_size,
+        batch_size=2 * TWO_RANK_BATCH).batches(TWO_RANK_STEPS)]
+    runs, finals = {}, {}
+    for name, kw in (("hookless", {}), ("overlap", {"comms_overlap": True}),
+                     ("control", {"comms_overlap": True}),
+                     ("int8", {"comms_overlap": True, "overlap_compress": True})):
+        trainer = llama.make_trainer(cfg, TrainerConfig(
+            strategy="dp", optimizer="adamw", learning_rate=3e-4, weight_decay=0.1,
+            grad_clip_norm=1.0, log_every=1, **kw), device="cuda", mesh=mesh)
+        state = trainer.init(seed=0, draw_on_device=True)
+        if name == "control":
+            old = state.grad_sync
+            old.remove()
+            state.grad_sync = Unsynced(old.members, old.group, old.nd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        losses, step_ms = [], []
+        for x, y in batches:
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, x, y)
+            losses.append(metrics["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_kernels.launch_counts)
+        sync = state.grad_sync
+        if sync is None:  # DDP's ring all-reduce of every gradient
+            sent = sum(2 * (2 - 1) / 2 * p.numel() * p.element_size()
+                       for p in state.model.parameters())
+        else:
+            sent = sync.wire_bytes
+        runs[name] = {"losses": losses, "step_ms": step_ms,
+                      "steady_step_ms": statistics.median(step_ms[1:]),
+                      "bytes_sent_per_step": sent,
+                      "buckets": None if sync is None else len(sync.members),
+                      "issued_last_step": None if sync is None else list(sync.issued),
+                      "ddp": state.runner is not None,
+                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "flash_launches": launches.get("flash_attention_fwd", 0),
+                      "flash_variants": _variants(launches, "flash_attention_fwd")}
+        finals[name] = [p.detach().clone() for p in state.model.parameters()]
+        del trainer, state, sync
+        torch.cuda.empty_cache()
+    base = finals["hookless"]
+    result = {"rank": rank, "mesh": mesh_spec(mesh).axis_sizes(), "mesh_grid": mesh.mesh.tolist(),
+              "runs": runs,
+              **{f"{n}_bitwise_hookless": runs[n]["losses"] == runs["hookless"]["losses"]
+                 and all(torch.equal(p, q) for p, q in zip(finals[n], base))
+                 for n in ("overlap", "control", "int8")}}
+    dist.destroy_process_group()
+    Path(f"{out}.rank{rank}").write_text(json.dumps(result))
+    return 0
+
+
+def _two_ranks_phase(torch, smi: str, flash_per_block: float) -> int:
+    """Phase 16 (see the module docstring): two processes of this script on
+    the card.  Returns the flash launches of both processes' runs."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    n_layers = 24
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "two_ranks")
+        env = dict(os.environ, DEEPLEARNING_SLICES_COUNT="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--two-ranks-worker", str(r), str(port), out],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(2)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=TWO_RANK_TIMEOUT)
+                errs.append(err)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for p, err in zip(procs, errs):
+            _require(p.returncode == 0, f"two_ranks: a process failed:\n{err[-3000:]}")
+        ranks = [json.loads(Path(f"{out}.rank{r}").read_text()) for r in range(2)]
+    runs = {name: {"losses": ranks[0]["runs"][name]["losses"],
+                   "losses_rank1": ranks[1]["runs"][name]["losses"],
+                   **{k: [r["runs"][name][k] for r in ranks] for k in (
+                       "steady_step_ms", "step_ms", "bytes_sent_per_step", "buckets",
+                       "max_memory_allocated_bytes", "flash_launches", "flash_variants")},
+                   "issued_last_step": ranks[0]["runs"][name]["issued_last_step"]}
+            for name in ranks[0]["runs"]}
+    f32, int8 = runs["overlap"]["losses"], runs["int8"]["losses"]
+    int8_gap = max(abs(a - b) - INT8_RTOL * abs(b) for a, b in zip(int8, f32))
+    row = {"phase": "two_ranks", "processes": 2, "device": "cuda:0 for both",
+           "backend": "gloo over CUDA tensors (host-staged)", "slices": 2,
+           "mesh": ranks[0]["mesh"], "model": "m435", "S": 2048, "batch_per_rank": TWO_RANK_BATCH,
+           "steps": TWO_RANK_STEPS, "times": "gloo, host-staged: not NVLink times",
+           "wall_s": wall_s, "runs": runs,
+           "overlap_bitwise_hookless": [r["overlap_bitwise_hookless"] for r in ranks],
+           "control_bitwise_hookless": [r["control_bitwise_hookless"] for r in ranks],
+           "int8_vs_f32_max_excess": int8_gap, "int8_rtol": INT8_RTOL, "int8_atol": INT8_ATOL,
+           "nvidia_smi": smi}
+    _emit(row)
+    for name, run in runs.items():
+        _require(all(math.isfinite(v) for v in run["losses"] + run["losses_rank1"]),
+                 f"two_ranks ({name}): non-finite loss")
+        per_step = flash_per_block * n_layers
+        _require(all(n == per_step * TWO_RANK_STEPS for n in run["flash_launches"])
+                 and all(v == {"wgmma_tma": per_step * TWO_RANK_STEPS}
+                         for v in run["flash_variants"]),
+                 f"two_ranks ({name}): flash launched {run['flash_variants']}")
+    _require(ranks[0]["mesh"]["dp"] == 2, f"two_ranks: mesh {ranks[0]['mesh']}")
+    _require(runs["hookless"]["losses"] == runs["hookless"]["losses_rank1"],
+             "two_ranks: the ranks disagree on the hookless losses")
+    _require(all(row["overlap_bitwise_hookless"]),
+             "two_ranks: the bucketed f32 sync is not bitwise the hookless DDP step")
+    _require(not any(row["control_bitwise_hookless"]),
+             "two_ranks: the check passed the planted control (a bucket left unsynced)")
+    _require(int8_gap <= INT8_ATOL, f"two_ranks: int8 losses {int8} off the f32 curve {f32}")
+    return sum(sum(run["flash_launches"]) for run in runs.values())
+
+
+def _mesh_captured_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int:
+    """Phase 17 (see the module docstring).  Returns the flash launches of
+    the warm-up and the capture."""
+    import socket
+
+    import torch.distributed as dist
+
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning_cfn_tpu_torch.train.data import (
+        SyntheticTokenDataset,
+        device_put_batch,
+        stack_batches,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        cfg = llama.LlamaConfig.m435(seq_len=2048)
+        trainer = llama.make_trainer(cfg, TrainerConfig(
+            strategy="fsdp", optimizer="adamw", learning_rate=3e-4, weight_decay=0.1,
+            grad_clip_norm=1.0, log_every=1), device="cuda", mesh=build_mesh(MeshSpec(fsdp=1)))
+        one = next(SyntheticTokenDataset(seq_len=2048, vocab_size=cfg.vocab_size,
+                                         batch_size=8).batches(1))
+        xs, ys = device_put_batch(next(stack_batches(iter([one] * MESH_K), MESH_K)),
+                                  torch.device("cuda"))
+        eager_state = trainer.init(seed=0, draw_on_device=True)
+        p0 = _param_copy(eager_state.model)
+        eager, eager_ms = [], []
+        for i in range(MESH_K):
+            t0 = time.perf_counter()
+            eager_state, m = trainer.train_step(eager_state, xs[i], ys[i])
+            eager.append(m["loss"].item())
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager_final = _param_copy(eager_state.model)
+        del eager_state, m
+        torch.cuda.empty_cache()
+        state = trainer.init(seed=0, draw_on_device=True)
+        kfn = trainer.multi_step_fn(MESH_K)
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, captured = kfn(state, xs, ys)
+        captured = captured.tolist()
+        capture_s = time.perf_counter() - t0
+        launches = dict(kernels_mod.launch_counts)
+        final = _param_copy(state.model)
+        held = _held_runs(captured, eager, _param_gap(final, eager_final, p0),
+                          _param_gap(p0, eager_final, p0), LLAMA_CAPTURE_RTOL)
+        params_equal = all(torch.equal(final[n], p) for n, p in eager_final.items())
+        dtensors = sum(hasattr(p, "placements") for p in state.model.parameters())
+        del p0, eager_final, final
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_REPLAYS):
+            state, losses = kfn(state, xs, ys)
+            losses.tolist()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (MESH_REPLAYS * MESH_K)
+        row = {"phase": "mesh_captured", "mesh": "MeshSpec(fsdp=1), one NCCL rank",
+               "strategy": "fsdp (FSDP2)", "k": MESH_K, "replays": MESH_REPLAYS,
+               "dtensor_params": dtensors, "eager_losses": eager, "captured_losses": captured,
+               **held, "losses_bitwise_equal": captured == eager,
+               "params_bitwise_equal": params_equal, "first_call_s": capture_s,
+               "captures": kfn.captures, "step_ms": step_ms, "eager_step_ms": eager_ms,
+               "eager_steady_step_ms": statistics.median(eager_ms[1:]),
+               "launches_in_warmup_and_capture": launches, "nvidia_smi": smi}
+        _emit(row)
+        _require(kfn.captures == 1 and dtensors > 0, f"mesh_captured: {kfn.captures} captures, "
+                 f"{dtensors} DTensor parameters")
+        _check_held("mesh_captured", row)
+        _require(row["losses_bitwise_equal"] and params_equal,
+                 "mesh_captured: the captured steps are not bitwise the eager ones")
+        _flash_check(launches, 1 + MESH_K, flash_per_block * cfg.n_layers,
+                     "mesh_captured (warm-up + capture)")
+        del trainer, state, kfn, xs, ys
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches.get("flash_attention_fwd", 0)
+
+
 def main() -> int:
     import torch
 
@@ -2960,6 +3332,14 @@ def main() -> int:
     l8b = _llama8b_phase(torch, _kernels, smi)
     flash_by_path["llama8b"] = l8b["launches"].get("flash_attention_fwd", 0)
 
+    # 15-17. The rest of the parallelism slice: the stage-stacked layout, two
+    # ranks on the one card, a captured step over a mesh.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_by_path["pp_layout"] = _pp_layout_phase(torch, _kernels, smi, flash_per_block)
+    flash_by_path["two_ranks"] = _two_ranks_phase(torch, smi, flash_per_block)
+    flash_by_path["mesh_captured"] = _mesh_captured_phase(torch, _kernels, smi, flash_per_block)
+
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with
         ``variants``, only those variants' launches."""
@@ -3019,4 +3399,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
+        sys.exit(_two_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -45,9 +45,10 @@ def maybe_init_distributed(device: str = "cuda") -> int:
 
 
 def default_mesh(strategy: str = "dp"):
-    """The flat mesh over every rank: all fsdp, or all dp.  A multi-slice
-    cluster (``DEEPLEARNING_SLICES_COUNT`` > 1) needs the hybrid mesh, which
-    raises."""
+    """The flat mesh over every rank: all fsdp, or all dp.  On a multi-slice
+    cluster (``DEEPLEARNING_SLICES_COUNT`` > 1) the hybrid mesh: the strategy's
+    axis over each node's ranks, dp across the nodes (gradient reduction the
+    only traffic between them)."""
     import torch.distributed as dist
 
     from deeplearning_cfn_tpu_torch.parallel.mesh import (
@@ -59,7 +60,10 @@ def default_mesh(strategy: str = "dp"):
     n = dist.get_world_size()
     n_slices = int(os.environ.get("DEEPLEARNING_SLICES_COUNT", "1") or "1")
     if n_slices > 1:
-        return hybrid_mesh_for_slices(n_slices)
+        per_slice = n // n_slices
+        ici = (MeshSpec.fsdp_parallel(per_slice) if strategy == "fsdp"
+               else MeshSpec.data_parallel(per_slice))
+        return hybrid_mesh_for_slices(n_slices, ici_spec=ici, dcn_axis="dp")
     return build_mesh(MeshSpec.fsdp_parallel(n) if strategy == "fsdp" else MeshSpec.data_parallel(n))
 
 

@@ -7,7 +7,8 @@ env (``examples.common.maybe_init_distributed``) train over a mesh of
 ``--fsdp`` (default: every rank left after the other axes), ``--tp``,
 ``--sp``, ``--ep`` and dp (what remains), the experts of ``--experts``
 split over ``ep``; ``--ring_attention`` runs attention as a ring over
-``sp``.  ``--pp`` raises (slice 5b).  ``--device``
+``sp``; ``--pp`` splits the layers into that many GPipe stages
+(``--pp_microbatches`` a step, default ``--pp``).  ``--device``
 (default ``cuda``) picks the device, and the run raises when CUDA is missing
 unless ``--device cpu`` was given.  At ``--seq_len`` 2048 and up, the
 flash-attention presets (435m, 1b, 3b) run attention through the CUDA flash
@@ -40,14 +41,9 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     token_record_loader,
 )
 from deeplearning_cfn_tpu_torch.models import llama
-from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B, MeshSpec, build_mesh
+from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset
 from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
-
-
-def _reject_out_of_slice(args) -> None:
-    if args.pp > 1:
-        raise NotImplementedError(f"--pp (pipeline stages) is ported in {SLICE_5B}")
 
 
 def token_record_batches(args, cfg, batch: int, eval_mode: bool = False, start_step: int = 0):
@@ -86,7 +82,6 @@ def main(argv: list[str] | None = None) -> dict:
                         "reads the val/test split of --data_dir when there is one)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    _reject_out_of_slice(args)
     device = resolve_device(args.device)
     maybe_init_distributed(args.device)
 
@@ -116,8 +111,13 @@ def main(argv: list[str] | None = None) -> dict:
         cfg = dataclasses.replace(cfg, fused_qkv=True)
     if args.experts:
         cfg = dataclasses.replace(cfg, n_experts=args.experts)
+    if pp > 1:
+        cfg = dataclasses.replace(cfg, pp_stages=pp, pp_microbatches=args.pp_microbatches)
 
-    batch = args.global_batch_size or max(1, dp * fsdp)
+    # Default batch: divisible by the data shards and by the pipeline's
+    # microbatch count, as the JAX example's.
+    microbatches = (args.pp_microbatches or pp) if pp > 1 else 1
+    batch = args.global_batch_size or max(1, dp * fsdp) * microbatches
     # Per-optimizer default: adafactor's clipped, parameter-scaled updates
     # want a much larger step than the adam family (the JAX example's sweep).
     lr = args.learning_rate or (1e-2 if args.optimizer == "adafactor" else 3e-4)

@@ -9,7 +9,9 @@ is transposed):
 - ``llama_params_from_jax``: the stacked ``[L, ...]`` leaves split per layer
   (MoE's ``layers/moe`` leaves as ``layers.{i}.moe.*``, and with
   ``ep_size`` > 1 only ``ep_rank``'s experts; with ``tp_size`` > 1 each
-  tensor cut to ``tp_rank``'s contiguous share of its spec's ``tp`` dim);
+  tensor cut to ``tp_rank``'s contiguous share of its spec's ``tp`` dim; a
+  stage-stacked tree's ``[pp, L/pp, ...]`` leaves unstacked, the whole model
+  or, with ``pp_size`` > 1, only ``pp_rank``'s stage);
 - ``bert_params_from_jax``: the Flax tree of ``BertEncoder`` or
   ``BertClassifier``, ``layer{i}`` as ``layers.{i}``, the ``DenseGeneral``
   ``qkv`` kernel ``[dim, 3, H, hd]`` and bias ``[3, H, hd]`` flattened in that
@@ -42,17 +44,27 @@ def _tensor(a) -> torch.Tensor:
 
 
 def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0, ep_size: int = 1,
-                          tp_rank: int = 0, tp_size: int = 1) -> dict[str, torch.Tensor]:
+                          tp_rank: int = 0, tp_size: int = 1, pp_rank: int = 0,
+                          pp_size: int = 1) -> dict[str, torch.Tensor]:
     """JAX ``init_params`` tree (numpy leaves) -> ``Llama`` state dict; with
     ``ep_size`` > 1, the expert leaves cut to ``ep_rank``'s experts (the
     state dict of a model after ``MoE.shard_experts``); with ``tp_size`` > 1,
     every tensor whose spec (``models.llama.param_specs``) has a ``tp`` dim
     cut to ``tp_rank``'s contiguous share of it: what that rank's ``DTensor``
-    holds locally (``parallel/tensor_parallel.distribute_tp``)."""
+    holds locally (``parallel/tensor_parallel.distribute_tp``).  With
+    ``cfg.pp_stages`` > 1 the layer leaves are JAX's stage-stacked
+    ``[pp, L/pp, ...]``: unstacked to ``layers.{i}``, all of them, or with
+    ``pp_size`` > 1 those of ``pp_rank``'s stage (``pipeline.stage_layers``),
+    what that rank's ``Llama`` over a pp mesh holds."""
+    from deeplearning_cfn_tpu_torch.parallel import pipeline
+
+    params_np = dict(params_np)
     if cfg.pp_stages > 1:
-        raise NotImplementedError(
-            "pipeline-stacked parameters are converted in a later slice (slice 5b)"
-        )
+        params_np["layers"] = pipeline.unstack_stages(
+            {k: ({n: np.asarray(a) for n, a in v.items()} if isinstance(v, dict)
+                 else np.asarray(v)) for k, v in params_np["layers"].items()})
+    own = (pipeline.stage_layers(cfg.n_layers, pp_size, pp_rank) if pp_size > 1
+           else range(cfg.n_layers))
     sd = {"embed": _tensor(params_np["embed"]), "final_norm": _tensor(params_np["final_norm"])}
     if not cfg.tied_embeddings:
         sd["output"] = _tensor(params_np["output"])
@@ -67,7 +79,7 @@ def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0, ep_size: int =
         arr = np.asarray(stacked)
         if arr.shape[0] != cfg.n_layers:
             raise ValueError(f"layers/{name} has {arr.shape[0]} layers, config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
+        for i in own:
             sd[f"layers.{i}.{name}"] = _tensor(arr[i])
     if tp_size > 1:
         from deeplearning_cfn_tpu_torch.models.llama import param_specs
@@ -75,7 +87,7 @@ def llama_params_from_jax(cfg, params_np: dict, ep_rank: int = 0, ep_size: int =
 
         for name, spec in param_specs(cfg).items():
             d = tp_dim(spec)
-            if d is not None:
+            if d is not None and name in sd:
                 sd[name] = sd[name].chunk(tp_size, dim=d)[tp_rank].contiguous()
     return sd
 

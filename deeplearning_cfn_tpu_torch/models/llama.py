@@ -41,8 +41,23 @@ tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
   divide the heads, the kv heads, ``mlp_dim`` and the vocabulary; MoE does
   not compose with ``tp`` or ``sp`` yet.
 
-Not in this slice: pipeline stages; they raise ``NotImplementedError``
-naming slice 5b.
+- Pipeline stages (``pp_stages > 1``, ``parallel/pipeline.py``): over a mesh
+  whose ``pp`` is ``pp_stages``, each ``pp`` rank holds its stage's blocks
+  (``layers.{i}`` by their global index, so the ranks' names together are
+  the whole model's: JAX's stage-stacked ``[pp, L/pp, ...]`` tree is the
+  same weights, ``pipeline.stack_stages`` of them) and a copy of the
+  embedding, final norm and output, which JAX keeps replicated over ``pp``.
+  The model's forward is also its stage's: stage 0 looks the tokens up, the
+  last stage adds the final norm and the logits (tied to the embedding on
+  m435), and GPipe runs ``pp_microbatches`` (default ``pp_stages``)
+  microbatches through them; the MoE aux rides along as a ``[1]`` tensor a
+  microbatch.  :func:`causal_lm_loss` runs the schedule with the backward:
+  each microbatch's loss is its nll sum over the whole local batch's count,
+  plus its aux over M, so that their sum is JAX's objective.  The
+  trainer sums the gradients of the replicated parameters over ``pp``
+  (the tied embedding's two parts among them).  Without a ``pp`` axis the
+  stage-stacked model runs its layers in sequence, as JAX's does.
+  Sequence parallelism does not compose with pipeline stages yet.
 """
 
 from __future__ import annotations
@@ -74,7 +89,8 @@ from deeplearning_cfn_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from deeplearning_cfn_tpu_torch.ops.moe import MoE, MoEConfig, moe_param_specs
-from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B
+from deeplearning_cfn_tpu_torch.parallel import pipeline
+from deeplearning_cfn_tpu_torch.parallel.mesh import LATER_PARALLELISM
 from deeplearning_cfn_tpu_torch.parallel.ring_attention import ring_attention
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import (
     ModelParallel,
@@ -112,8 +128,11 @@ class LlamaConfig:
     # Ring attention over sp (parallel/ring_attention.py) in place of
     # k/v gathered over sp; used only when the mesh's sp > 1.
     use_ring_attention: bool = False
-    # Slice 5b's pipeline stages; a model built with pp_stages > 1 raises.
+    # Pipeline stages (parallel/pipeline.py): over a mesh whose pp is
+    # pp_stages, each pp rank holds n_layers / pp_stages blocks and GPipe runs
+    # pp_microbatches microbatches (0 = pp_stages) through them.
     pp_stages: int = 1
+    pp_microbatches: int = 0
 
     def __post_init__(self):
         if self.remat_policy not in ("full", "dots"):
@@ -121,6 +140,14 @@ class LlamaConfig:
         if self.n_experts > 0 and not (1 <= self.moe_top_k <= self.n_experts):
             raise ValueError(
                 f"moe_top_k={self.moe_top_k} must be in [1, n_experts={self.n_experts}]")
+        if self.pp_stages > 1:
+            if self.n_layers % self.pp_stages:
+                raise ValueError(f"n_layers={self.n_layers} not divisible by "
+                                 f"pp_stages={self.pp_stages}")
+            if self.use_ring_attention:
+                raise ValueError(
+                    "ring attention (manual sp collectives) cannot nest inside the pipeline "
+                    "stages; use dense or flash attention with pp_stages > 1")
 
     @property
     def moe(self) -> MoEConfig | None:
@@ -207,14 +234,16 @@ class LlamaConfig:
         return cls.tiny(n_experts=n_experts, **kw)
 
 
-def _check_in_slice(cfg: LlamaConfig) -> None:
-    if cfg.pp_stages > 1:
-        raise NotImplementedError(f"pipeline stages (pp_stages > 1) are ported in {SLICE_5B}")
-
-
-def _check_parallel(cfg: LlamaConfig, mp: ModelParallel) -> None:
+def _check_parallel(cfg: LlamaConfig, mp: ModelParallel, pp: int) -> None:
     if cfg.moe is not None and (mp.tp > 1 or mp.sp > 1):
-        raise NotImplementedError(f"MoE with tp > 1 or sp > 1 is ported in {SLICE_5B}")
+        raise NotImplementedError(f"MoE with tp > 1 or sp > 1 is ported in {LATER_PARALLELISM}")
+    if pp > 1:
+        if cfg.pp_stages != pp:
+            raise pipeline.PipelineError(
+                f"the layers are stacked into {cfg.pp_stages} stages but mesh axis 'pp' is {pp}")
+        if mp.sp > 1:
+            raise NotImplementedError(
+                f"sequence parallelism with pipeline stages is ported in {LATER_PARALLELISM}")
     for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                     ("mlp_dim", cfg.mlp_dim), ("vocab_size", cfg.vocab_size)):
         if n % mp.tp:
@@ -226,7 +255,6 @@ def _check_parallel(cfg: LlamaConfig, mp: ModelParallel) -> None:
 
 def layer_param_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
     """Per-layer parameter shapes, in creation order."""
-    _check_in_slice(cfg)
     d, hd = cfg.dim, cfg.head_dim
     shapes: dict[str, tuple[int, ...]] = {"attn_norm": (d,)}
     if cfg.fused_qkv:
@@ -404,7 +432,9 @@ class Llama(nn.Module):
     loss converts inside its reductions, as the JAX package's does).  With
     a ``mesh`` whose ``sp`` > 1, tokens and logits are this rank's block of
     the sequence; the parameters are built whole, and the trainer lays them
-    out over the mesh."""
+    out over the mesh.  With a ``pp`` > 1 (``cfg.pp_stages``) the model holds
+    this rank's stage of the blocks (every layer is drawn from the
+    generator, so a seed gives the unstaged model's weights)."""
 
     # The JAX model stacks each layer weight into one [L, ...] leaf; the
     # per-leaf optimizers (lamb, adafactor) read layers.{i}.<name> as one.
@@ -412,50 +442,120 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, generator: torch.Generator | None = None, mesh=None):
         super().__init__()
-        _check_in_slice(cfg)
         self.cfg = cfg
         self.mp = ModelParallel.from_mesh(mesh)
-        _check_parallel(cfg, self.mp)
+        self.mesh = mesh
+        pp = mesh.size(mesh.mesh_dim_names.index("pp")) if mesh is not None else 1
+        _check_parallel(cfg, self.mp, pp)
+        self.n_stages = pp
+        self.stage_index = mesh.get_local_rank("pp") if pp > 1 else 0
         self.embed = _dense((cfg.vocab_size, cfg.dim), cfg.dtype, generator)
-        self.layers = nn.ModuleList(LlamaBlock(cfg, generator, self.mp)
-                                    for _ in range(cfg.n_layers))
+        blocks = [LlamaBlock(cfg, generator, self.mp) for _ in range(cfg.n_layers)]
+        if pp > 1:
+            own = pipeline.stage_layers(cfg.n_layers, pp, self.stage_index)
+            self.layers = nn.ModuleDict({str(i): blocks[i] for i in own})
+        else:
+            self.layers = nn.ModuleList(blocks)
+        del blocks
         self.final_norm = _ones(cfg.dim)
         if not cfg.tied_embeddings:
             self.output = _dense((cfg.dim, cfg.vocab_size), cfg.dtype, generator)
 
-    def forward(self, tokens: torch.Tensor, return_aux: bool = False,
-                gather_logits: bool = True):
-        """Logits; with ``return_aux``, ``(logits, aux)``: the blocks' MoE
-        balancing losses summed (0 for a dense model).  Under tp the logits
-        are gathered over the vocabulary unless ``gather_logits`` is off
-        (the loss's case: it is vocab-parallel)."""
-        cfg, mp = self.cfg, self.mp
-        S = tokens.shape[1]
-        table = local(self.embed).to(cfg.dtype)
-        x = mp.embed(tokens, table)
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device) + mp.sp_rank * S
-        remat_kw = None
-        if cfg.remat and torch.is_grad_enabled():
-            remat_kw = {"use_reentrant": False}
-            # Under the trainer's remat of the whole loss the blocks are
-            # checkpointed whole: "dots" caches would be held twice.
-            if cfg.remat_policy == "dots" and not under_outer_remat():
-                remat_kw["context_fn"] = partial(
-                    create_selective_checkpoint_contexts, _save_matmuls
-                )
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for layer in self.layers:
+    @property
+    def pipelined(self) -> bool:
+        """Whether the blocks are split over ``pp`` ranks (GPipe)."""
+        return self.n_stages > 1
+
+    @property
+    def runs_own_backward(self) -> bool:
+        """A pipelined model's loss runs the backward inside its schedule
+        (``causal_lm_loss``); the trainer then calls no ``backward``."""
+        return self.pipelined and torch.is_grad_enabled()
+
+    @property
+    def n_microbatches(self) -> int:
+        return self.cfg.pp_microbatches or self.cfg.pp_stages
+
+    def blocks(self) -> list[LlamaBlock]:
+        """This rank's blocks, in layer order."""
+        return list(self.layers.values() if isinstance(self.layers, nn.ModuleDict)
+                    else self.layers)
+
+    def replicated_over_pp(self, name: str) -> bool:
+        """Whether parameter ``name`` is held by every pp rank (everything
+        but the blocks), its gradient summed over them."""
+        return not name.startswith("layers.")
+
+    def _remat_kw(self) -> dict | None:
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return None
+        kw = {"use_reentrant": False}
+        # Under the trainer's remat of the whole loss the blocks are
+        # checkpointed whole: "dots" caches would be held twice.
+        if self.cfg.remat_policy == "dots" and not under_outer_remat():
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts, _save_matmuls)
+        return kw
+
+    def _run_blocks(self, x: torch.Tensor, aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device) + self.mp.sp_rank * S
+        remat_kw = self._remat_kw()
+        for layer in self.blocks():
             if remat_kw is None:
                 x = layer(x, positions)
             else:
                 x = checkpoint(layer, x, positions, **remat_kw)
-            if cfg.moe is not None:
+            if self.cfg.moe is not None:
                 x, layer_aux = x
                 aux = aux + layer_aux
+        return x, aux
+
+    def _logits(self, x: torch.Tensor, gather_logits: bool) -> torch.Tensor:
+        cfg, mp = self.cfg, self.mp
         x = mp.copy_to_tp(rms_norm(x, self.final_norm, cfg.norm_eps))
-        logits = x @ table.T if cfg.tied_embeddings else x @ local(self.output)
+        if cfg.tied_embeddings:
+            logits = x @ local(self.embed).to(cfg.dtype).T
+        else:
+            logits = x @ local(self.output)
         if gather_logits:
             logits = mp.gather_tp(logits, sum_grads=False)
+        return logits
+
+    def _stage_forward(self, x: torch.Tensor, aux: torch.Tensor | None):
+        """This rank's stage on one microbatch: stage 0 takes tokens, the
+        last returns vocab-parallel logits; with MoE ``(act, aux [1])``."""
+        if self.stage_index == 0:
+            x = self.mp.embed(x, local(self.embed).to(self.cfg.dtype))
+        x, aux = self._run_blocks(x, aux)
+        if self.stage_index == self.n_stages - 1:
+            x = self._logits(x, gather_logits=False)
+        return x if self.cfg.moe is None else (x, aux)
+
+    def _pipelined_forward(self, tokens: torch.Tensor, gather_logits: bool):
+        """The whole model through GPipe, forward only: the logits and the
+        aux (summed over stages, averaged over microbatches) on every rank."""
+        logits, aux = pipeline.pipeline_apply(self, tokens, self.mesh, self.n_microbatches,
+                                              self.n_stages, aux=self.cfg.moe is not None)
+        if gather_logits:
+            logits = self.mp.gather_tp(logits, sum_grads=False)
+        return logits, aux
+
+    def forward(self, tokens: torch.Tensor, aux: torch.Tensor | None = None, *,
+                return_aux: bool = False, gather_logits: bool = True):
+        """Logits; with ``return_aux``, ``(logits, aux)``: the blocks' MoE
+        balancing losses summed (0 for a dense model).  Under tp the logits
+        are gathered over the vocabulary unless ``gather_logits`` is off
+        (the loss's case: it is vocab-parallel).  A pipelined model called
+        by its schedule runs its stage (``aux``: the carried MoE aux);
+        called otherwise, it runs the whole pipeline, forward only."""
+        if self.pipelined:
+            if pipeline.in_stage():
+                return self._stage_forward(tokens, aux)
+            logits, aux = self._pipelined_forward(tokens, gather_logits)
+            return (logits, aux) if return_aux else logits
+        x = self.mp.embed(tokens, local(self.embed).to(self.cfg.dtype))
+        x, aux = self._run_blocks(x, torch.zeros((), dtype=torch.float32, device=tokens.device))
+        logits = self._logits(x, gather_logits)
         return (logits, aux) if return_aux else logits
 
 
@@ -498,8 +598,8 @@ def param_specs(cfg: LlamaConfig) -> dict[str, tuple]:
     name): the JAX package's ``param_specs`` less the stacked layer axis.
     FSDP shards the input dim of ``wq``/``wk``/``wv``/``w_gate``/``w_up``,
     the output dim of ``wo``/``w_down``, the model dim of ``embed``; experts
-    split over ``ep``; norms and the router are replicated."""
-    _check_in_slice(cfg)
+    split over ``ep``; norms and the router are replicated.  Under pipeline
+    stages a block's spec is the same (its ``pp`` is the stage it lives on)."""
     layer = {"attn_norm": (None,), "wo": ("tp", "fsdp"), "mlp_norm": (None,)}
     if cfg.fused_qkv:
         layer["wqkv"] = ("fsdp", "tp")
@@ -552,6 +652,8 @@ def causal_lm_loss(
     only the global last position is left out, each rank divides its sum by
     the global count, and the value is the sum over ``sp`` (the gradient
     each rank's own part, which the trainer sums over ``sp``)."""
+    if getattr(model, "pipelined", False):
+        return _pipelined_lm_loss(model, tokens, targets)
     logits, aux = model(tokens, return_aux=True, gather_logits=False)
     mp = model_parallel(model)
     nll = mp.nll(logits, targets)
@@ -567,6 +669,55 @@ def causal_lm_loss(
     metrics = {"perplexity": torch.exp(loss.detach())}
     if getattr(model, "module", model).cfg.moe is not None:  # DDP holds the Llama as .module
         metrics["moe_aux_loss"] = aux.detach()
+    return loss + aux, metrics
+
+
+def _pipelined_lm_loss(model: Llama, tokens: torch.Tensor,
+                       targets: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """:func:`causal_lm_loss` of a pipelined model: GPipe over the pp ranks,
+    the backward inside the schedule when gradients are enabled.  Microbatch
+    m's loss is its nll sum over the local batch's count of scored positions
+    plus its aux over M: their sum, and its gradient, are the unpipelined
+    loss's.  The returned loss (the value on every pp rank) carries no
+    graph."""
+    cfg, mp = model.cfg, model.mp
+    M = model.n_microbatches
+    count = tokens.shape[0] * (tokens.shape[1] - 1)
+    moe = cfg.moe is not None
+    parts: list[torch.Tensor] = []
+
+    def loss_fn(out, target):
+        logits, aux = out if moe else (out, None)
+        nll = mp.nll(logits, target)
+        mask = torch.ones_like(nll)
+        mask[:, -1] = 0.0
+        nll_part = (nll * mask).sum() / count
+        aux_part = aux.sum() / M if moe else torch.zeros_like(nll_part)
+        parts.append(torch.stack([nll_part.detach(), aux_part.detach()]))
+        return nll_part + aux_part
+
+    inputs = (tokens,)
+    if moe:
+        inputs += (torch.zeros(M, dtype=torch.float32, device=tokens.device),)
+    if torch.is_grad_enabled():
+        pipeline.run_schedule(model, inputs, model.mesh, M, model.n_stages,
+                              loss_fn=loss_fn, target=targets)
+    else:
+        out = pipeline.run_schedule(model, inputs, model.mesh, M, model.n_stages)
+        if out is not None:  # the last stage: the loss of each microbatch
+            logits, aux = out if moe else (out, None)
+            for m, (lg, tg) in enumerate(zip(pipeline.microbatch(logits, M),
+                                             pipeline.microbatch(targets, M))):
+                loss_fn(lg if not moe else (lg, aux[m:m + 1]), tg)
+    last = model.stage_index == model.n_stages - 1
+    # The schedule's first step also calls loss_fn once to learn its shapes:
+    # the step's own calls are the last M.
+    (total,) = pipeline.from_last_stage([torch.stack(parts[-M:]).sum(0)] if last else None,
+                                        model.mesh)
+    loss, aux = total[0], total[1]
+    metrics = {"perplexity": torch.exp(loss)}
+    if moe:
+        metrics["moe_aux_loss"] = aux
     return loss + aux, metrics
 
 

@@ -22,8 +22,9 @@ The same inference path in PyTorch idiom:
 The decode path reads the unfused ``wq``/``wk``/``wv`` and
 ``w_gate``/``w_up``, as the JAX package's does, so a model built with
 ``fused_qkv`` is refused.  An MoE model routes each step's tokens through
-its experts as one group, as the JAX decode step does.  Pipeline-stacked
-models come with slice 5b and raise ``NotImplementedError``.
+its experts as one group, as the JAX decode step does.  A stage-stacked
+config (``pp_stages`` > 1) decodes as the flat stack, as JAX's unstacks it;
+a model split over pp ranks is refused.
 """
 
 from __future__ import annotations
@@ -40,9 +41,6 @@ from deeplearning_cfn_tpu_torch.ops.attention import (
     rms_norm,
     rotary_embedding,
 )
-
-_LATER_SLICE = "slice 5b of the PyTorch port (pipeline stages)"
-
 
 @dataclass(frozen=True)
 class KVCache:
@@ -64,9 +62,9 @@ def init_cache(
 
 
 def check_decodable(cfg: LlamaConfig) -> None:
-    """Refuse the configs the decode path cannot read."""
-    if cfg.pp_stages > 1:
-        raise NotImplementedError(f"decoding pipeline stages is ported in {_LATER_SLICE}")
+    """Refuse the configs the decode path cannot read.  A stage-stacked
+    config (``pp_stages`` > 1) decodes as the flat stack, as JAX's does: a
+    model built without a pp mesh holds every block in layer order."""
     if cfg.fused_qkv:
         raise ValueError(
             "decoding reads the unfused wq/wk/wv and w_gate/w_up, as the JAX "
@@ -172,6 +170,9 @@ def _forward_cached(
     writing ``cache`` in place.  Returns (f32 logits ``[B, S, V]``, cache)."""
     cfg = model.cfg
     check_decodable(cfg)
+    if model.pipelined:
+        raise ValueError("decoding reads every block: build the model without a pp mesh "
+                         "(its stages' blocks in one stack)")
     S = tokens.shape[1]
     x = embed(model, tokens)
     positions = offset + torch.arange(S, dtype=torch.int32, device=tokens.device)

@@ -27,7 +27,6 @@ from typing import Any, MutableMapping
 import torch
 
 from deeplearning_cfn_tpu_torch.models.llama import LlamaConfig
-from deeplearning_cfn_tpu_torch.parallel.mesh import SLICE_5B
 
 
 class ImportError_(ValueError):
@@ -104,9 +103,10 @@ def from_hf_state_dict(cfg: LlamaConfig, state_dict: MutableMapping[str, Any]) -
     linears transposed to ``[in, out]`` in ``cfg.dtype``, norms in f32, on
     the source tensors' device.  Takes ``model.``-prefixed (ForCausalLM) and
     bare (LlamaModel) keys.  Removes each tensor it converts from
-    ``state_dict`` (a tied model's ``lm_head.weight`` stays)."""
-    if cfg.pp_stages > 1:
-        raise NotImplementedError(f"importing pipeline-stacked parameters is ported in {SLICE_5B}")
+    ``state_dict`` (a tied model's ``lm_head.weight`` stays).  A config with
+    ``pp_stages`` > 1 takes the same dict: its blocks keep their global
+    index, and ``pipeline.stack_stages`` of the per-layer tensors is the JAX
+    importer's stage-stacked tree."""
     names = {k.removeprefix("model."): k for k in state_dict}
 
     def take(key: str) -> torch.Tensor:

@@ -21,6 +21,11 @@ the rule leaves whole) is replicated, as in JAX: the trainer keeps it out of
 FSDP2 (``ignored_params``) and averages its gradient over the data ranks
 itself.
 
+Under pipeline stages the JAX tree stacks each layer weight into
+``[pp, L/pp, ...]`` with the ``"stage"`` rule's ``pp`` on its leading dim
+(:func:`stage_specs`); the port's blocks hold one layer each, and each ``pp``
+rank holds its stage's blocks (``parallel/pipeline.py``).
+
 The batch is split over ``("dp", "fsdp")`` and the sequence over ``sp``:
 each rank takes its contiguous block of the global batch
 (:func:`local_batch`), as ``BATCH_SPEC = P(("dp", "fsdp"), "sp")`` and
@@ -55,6 +60,13 @@ MIN_SHARD_ELEMS = 2**14
 def spec_for(logical_axes: Sequence[str | None], rules: dict[str, Any] | None = None) -> tuple:
     rules = {**DEFAULT_RULES, **(rules or {})}
     return tuple(rules.get(a) if a is not None else None for a in logical_axes)
+
+
+def stage_specs(layer_specs: dict[str, tuple]) -> dict[str, tuple]:
+    """Prepend the ``pp`` axis to each per-layer spec: the specs of the
+    stage-stacked ``[pp, L/pp, ...]`` leaves (JAX ``pipeline.stage_specs``
+    over specs that already carry the layer axis)."""
+    return {name: ("pp", *spec) for name, spec in layer_specs.items()}
 
 
 def fsdp_spec_for_shape(shape: Sequence[int], fsdp: int,

@@ -65,13 +65,30 @@ JAX package's jitted step, in eager PyTorch:
   saves on the checkpointer's policy (``train/checkpoint.py``), the data
   stream's position with it.
 
+- Pipeline stages (a mesh with ``pp`` > 1 and a model built over it with
+  as many stages, ``models/llama.py``): each pp rank holds its stage, the
+  model's loss runs GPipe with the backward inside it, and the step then
+  sums the gradients of what every stage holds (the embedding, final norm
+  and output) over ``pp``.  Over the data ranks of each stage the gradients
+  are averaged by the step (no DDP: the schedule calls the stage, not a
+  wrapper), or FSDP2 shards the stage's blocks as above.  The global norm
+  of the clip and the per-leaf statistics of LAMB and Adafactor span the
+  stages.
+- ``comms_overlap`` (``parallel/overlap.py``): the data ranks' gradient sync
+  runs the buckets of ``plan_buckets`` (``overlap_bucket_bytes``) from
+  hooks, each issued as soon as its last gradient exists, in place of DDP's
+  (bitwise DDP's step on two ranks); the fsdp-sharded leaves stay FSDP2's.
+  ``overlap_compress`` sends each bucket as int8 with an error-feedback
+  residual a rank (``TrainState.error_feedback``, saved with the optimizer
+  state).  JAX's gates refuse a single data rank, a non-data axis larger
+  than 1, a sequence split over sp and a model with buffers.
+
 Without a mesh the trainer runs on one device and ``strategy`` is the
 identity.  On the ``meta`` device (``models/llama_memory.trace_check``) a
 step traces shapes only, and FSDP2 and DDP, which cannot run on ``meta``,
 are left out (the one guard for it, in ``_distribute``): each rank's
-parameters keep their fsdp-gathered size.  Comms overlap
-and live reshard are ported in later slices and raise
-``NotImplementedError``.
+parameters keep their fsdp-gathered size.  Live reshard is ported in a
+later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -91,6 +108,7 @@ from torch.utils.checkpoint import checkpoint
 
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.parallel import mesh as mesh_lib
+from deeplearning_cfn_tpu_torch.parallel import overlap as overlap_lib
 from deeplearning_cfn_tpu_torch.parallel import sharding
 from deeplearning_cfn_tpu_torch.parallel.data_ranks import data_ranks
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import distribute_tp
@@ -153,6 +171,12 @@ class TrainState:
     # Parameters split over ranks outside their DTensor layout (experts over
     # ``ep``): name -> the 1-D mesh their dim 0 is split over.
     split: dict[str, Any] = field(default_factory=dict)
+    # comms_overlap: the bucketed sync's hooks on this model's parameters,
+    # and with overlap_compress the error-feedback residuals it updates.
+    grad_sync: overlap_lib.BucketedGradSync | None = None
+    error_feedback: overlap_lib.ErrorFeedbackState | None = None
+    # The trainer's mesh (the global views of what is split over it).
+    mesh: Any = None
 
     def state_dict(self) -> dict:
         """``{"model": ..., "optimizer": {"state": ...}, "step": ...}`` keyed
@@ -176,6 +200,13 @@ class TrainState:
             osd = get_optimizer_state_dict(self.model, self.optimizer)
             sd["optimizer"] = {"state": osd["state"]}
         _global_views(self, sd)
+        if self.error_feedback is not None:
+            from torch.distributed.tensor import Shard
+
+            data = mesh_lib.data_mesh(self.mesh)  # a residual's rows are split over it
+            sd.setdefault("optimizer", {})["error_feedback"] = {
+                str(i): _as_global(r, data, [Shard(0)], (data.size(), r.shape[1]))
+                for i, r in enumerate(self.error_feedback.residual)}
         return sd
 
     @torch.no_grad()
@@ -250,20 +281,20 @@ def _global_views(state: "TrainState", sd: dict) -> None:
     opt_state = sd.get("optimizer", {}).get("state", {})
     dims = getattr(state.optimizer, "_dims", None)
     for name, p in params.items():
-        st = opt_state.get(name, {})
+        # A copy: the optimizer's own per-parameter dict must keep its tensors.
+        st = opt_state[name] = dict(opt_state[name]) if name in opt_state else {}
         if name in state.split:
-            if hasattr(p, "device_mesh") and p.device_mesh.size() > 1:
-                raise NotImplementedError(
-                    f"checkpointing {name}, split over ep and sharded by FSDP2 at once, is "
-                    f"ported in {_LATER}")
-            mesh = state.split[name]
-            local = local_part(p.detach())
-            shape = (local.shape[0] * mesh.size(), *local.shape[1:])
-            sd["model"][name] = _as_global(local, mesh, [Shard(0)], shape)
+            ep_mesh = state.split[name]
+            sd["model"][name] = _split_global(p.detach(), state, ep_mesh)
             for k, v in st.items():
-                if v.ndim:
-                    st[k] = _as_global(local_part(v), mesh, [Shard(0)], (v.shape[0] * mesh.size(),
-                                                                         *v.shape[1:]))
+                if not v.ndim:
+                    continue
+                if hasattr(p, "device_mesh") and not hasattr(v, "device_mesh"):
+                    if v.shape != p.to_local().shape:
+                        raise NotImplementedError(
+                            f"no global view of the optimizer state {name}.{k}")
+                    v = _as_global(v, p.device_mesh, p.placements, p.shape)
+                st[k] = _split_global(v, state, ep_mesh)
             continue
         if not hasattr(p, "device_mesh"):
             continue
@@ -279,6 +310,23 @@ def _global_views(state: "TrainState", sd: dict) -> None:
                 st[k] = _as_global(v, p.device_mesh, _placements_without(p.placements, gone), shape)
             else:
                 raise NotImplementedError(f"no global view of the optimizer state {name}.{k}")
+
+
+def _split_global(t: torch.Tensor, state: "TrainState", ep_mesh) -> torch.Tensor:
+    """The global view of a tensor split on dim 0 over ``ep_mesh`` (the
+    experts): a plain local tensor as Shard(0) over the ep mesh; one that
+    FSDP2 also shards over the data ranks (a ``DTensor`` over their mesh) as
+    a ``DTensor`` over those axes and ``ep``, Shard(0) on ``ep`` and its own
+    placements on the others."""
+    from torch.distributed.tensor import Shard
+
+    if not hasattr(t, "device_mesh"):
+        return _as_global(t, ep_mesh, [Shard(0)], (t.shape[0] * ep_mesh.size(), *t.shape[1:]))
+    names = t.device_mesh.mesh_dim_names
+    order = sorted((*names, "ep"), key=mesh_lib.AXIS_ORDER.index)
+    placements = [Shard(0) if n == "ep" else t.placements[names.index(n)] for n in order]
+    shape = (t.shape[0] * ep_mesh.size(), *t.shape[1:])
+    return _as_global(t.to_local(), state.mesh[tuple(order)], placements, shape)
 
 
 def _copy_into(dst: Any, src: Any, path: str) -> None:
@@ -456,14 +504,7 @@ def matmul_precision(name: str | None):
         torch.backends.cudnn.allow_tf32 = before[1]
 
 
-def _check_in_slice(cfg: TrainerConfig) -> None:
-    unsupported = {
-        "comms_overlap": cfg.comms_overlap,
-        "overlap_compress": cfg.overlap_compress,
-    }
-    for name, on in unsupported.items():
-        if on:
-            raise NotImplementedError(f"TrainerConfig.{name} is ported in {_LATER}")
+def _check_config(cfg: TrainerConfig) -> None:
     if cfg.strategy not in ("dp", "fsdp"):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.grad_accum_steps < 1:
@@ -507,7 +548,7 @@ class Trainer:
         mesh=None,
         param_specs: dict[str, tuple] | None = None,
     ):
-        _check_in_slice(config)
+        _check_config(config)
         self.model_fn = model_fn
         self.config = config
         self.loss_fn = loss_fn
@@ -520,6 +561,13 @@ class Trainer:
         self._split_groups: dict[int, tuple] = {}
         self._replicated: list[nn.Parameter] = []  # outside FSDP2, synced by the step
         self._sp_index, self._sp_count, self._sp_group = 0, 1, None
+        self._pp_group = None
+        self._stage_params: set[int] = set()  # a pp rank's own blocks
+        self._pp_replicated: list[nn.Parameter] = []  # held by every pp rank
+        self._sync_axes: tuple[str, ...] = ()
+        if config.comms_overlap and mesh is None:
+            overlap_lib.check_sync(overlap_lib.BucketPlan((), 0, 1), overlap_lib.SYNC_AXES, 1,
+                                   config.grad_accum_steps)
         if mesh is not None:
             sizes = mesh_lib.mesh_spec(mesh)
             self._data_index, self._data_count = mesh_lib.data_rank(mesh)
@@ -528,6 +576,11 @@ class Trainer:
             if sizes.sp > 1:
                 self._sp_index, self._sp_count = mesh_lib.axis_rank(mesh, "sp"), sizes.sp
                 self._sp_group = mesh.get_group("sp")
+            if sizes.pp > 1:
+                self._pp_group = mesh.get_group("pp")
+            if config.comms_overlap:
+                batch_spec = (("dp", "fsdp"),) + (("sp",) if sizes.sp > 1 else ())
+                self._sync_axes = overlap_lib._resolve_sync_axes(batch_spec, sizes.axis_sizes())
         # Set by fit(): seconds from fit entry to the first completed step,
         # the perf_counter stamp of that completion, and the input
         # pipeline's counters.
@@ -551,11 +604,73 @@ class Trainer:
         """Lay a model built on the trainer's device out over the mesh (when
         there is one) and build its optimizer: :meth:`init` from a model
         made elsewhere (shapes on ``meta``: ``models/llama_memory.trace_check``)."""
+        if self._pp_group is not None:
+            if not getattr(model, "pipelined", False):
+                raise ValueError("a mesh with pp > 1 needs a model built over it with as many "
+                                 "pipeline stages (LlamaConfig.pp_stages)")
+            if self.config.remat:
+                raise NotImplementedError(
+                    f"TrainerConfig.remat over pipeline stages is ported in {_LATER}")
         runner = self._distribute(model) if self.mesh is not None else None
         split = {n: self.mesh["ep"] for n, p in model.named_parameters()
                  if id(p) in self._split_groups}
-        return TrainState(step=0, model=model, runner=runner, split=split,
-                          optimizer=_make_optimizer(model, self.config, self._leaves(model)))
+        opt = _make_optimizer(model, self.config, self._leaves(model))
+        state = TrainState(step=0, model=model, runner=runner, split=split, optimizer=opt,
+                           mesh=self.mesh)
+        if self.config.comms_overlap:
+            self._attach_overlap(state)
+        return state
+
+    def _attach_overlap(self, state: TrainState) -> None:
+        """The bucketed sync over the data ranks: the plan over the JAX
+        tree of the model's leaves (a leaf is sharded where FSDP2 holds its
+        parameters), the hooks on the fused buckets' parameters (first set
+        to the first data rank's values, as DDP sets them), and with
+        ``overlap_compress`` a zero residual row a fused bucket."""
+        model = state.model
+        overlap_lib.check_stateless([n for n, _ in model.named_buffers()])
+        plan, members = self._bucket_plan(model)
+        overlap_lib.check_sync(plan, self._sync_axes, self._data_count,
+                               self.config.grad_accum_steps)
+        # As DDP does at construction: what the buckets sync starts as the
+        # first data rank's, whatever each rank drew.
+        src = dist.get_global_rank(self._data_group, 0)
+        with torch.no_grad():
+            for p in self._replicated:
+                dist.broadcast(p.data, src=src, group=self._data_group)
+        if self.config.overlap_compress:
+            state.error_feedback = overlap_lib.init_error_feedback(
+                plan, self._data_count, state.optimizer, rows=1,
+                device=next(model.parameters()).device)
+        state.grad_sync = overlap_lib.BucketedGradSync(members, self._data_group,
+                                                      self._data_count, state.error_feedback)
+        self.bucket_plan = plan
+
+    def _bucket_plan(self, model: nn.Module):
+        """``(plan, members)``: :func:`overlap.plan_buckets` over the model's
+        JAX leaves (``layers.wq`` as the tree's ``['layers']['wq']``), a
+        leaf's spec naming ``fsdp`` on its dim that FSDP2 shards here;
+        ``members[i]`` the parameters of fused bucket ``i`` in its flat
+        order."""
+        replicated = {id(p) for p in self._replicated}
+        tree, specs, by_path = {}, {}, {}
+        for key, leaf in self._leaf_items(model):
+            p = leaf.params[0]
+            *scopes, last = key.split(".")
+            node, snode = tree, specs
+            for k in scopes:
+                node, snode = node.setdefault(k, {}), snode.setdefault(k, {})
+            spec = [None] * len(leaf.shape)
+            if hasattr(p, "placements") and id(p) not in replicated:
+                d = next(pl.dim for pl in p.placements if pl.is_shard())
+                spec[d + leaf.stacked] = "fsdp"
+            node[last] = torch.empty(leaf.shape, dtype=p.dtype, device="meta")
+            snode[last] = tuple(spec)
+            by_path["".join(f"[{k!r}]" for k in key.split("."))] = leaf
+        plan = overlap_lib.plan_buckets(tree, specs, self.config.overlap_bucket_bytes)
+        flat = [by_path[path] for path, _ in overlap_lib.flatten_with_path(tree)]
+        members = [[p for i in b.indices for p in flat[i].params] for b in plan.fused]
+        return plan, members
 
     # --- the layout over the mesh -------------------------------------------
     def _specs(self, model: nn.Module) -> dict[str, tuple]:
@@ -575,7 +690,16 @@ class Trainer:
     def _distribute(self, model: nn.Module) -> nn.Module | None:
         """Split the experts over ``ep`` and the tp dims over ``tp``, then
         shard (FSDP2) or replicate (DDP) over the data ranks.  Returns the DDP
-        wrapper, or None."""
+        wrapper, or None: under pipeline stages or comms_overlap there is no
+        DDP, and the step syncs what FSDP2 does not hold."""
+        runner = self._layout(model)
+        if self._pp_group is not None:
+            stage = {n for n, _ in model.named_parameters() if not model.replicated_over_pp(n)}
+            self._stage_params = {id(p) for n, p in model.named_parameters() if n in stage}
+            self._pp_replicated = [p for n, p in model.named_parameters() if n not in stage]
+        return runner
+
+    def _layout(self, model: nn.Module) -> nn.Module | None:
         sizes = self._sizes
         if sizes.ep > 1:
             ep_rank, ep_group = mesh_lib.axis_rank(self.mesh, "ep"), self.mesh.get_group("ep")
@@ -605,12 +729,18 @@ class Trainer:
                                 if sharding.fsdp_dim(specs[n]) is None]
             fn = sharding.placement_fn(by_id)
             ignored = set(self._replicated)
-            for unit in getattr(model, "layers", []):
+            units = model.blocks() if hasattr(model, "blocks") else getattr(model, "layers", [])
+            for unit in units:
                 fully_shard(unit, mesh=dmesh, shard_placement_fn=fn, ignored_params=ignored)
             fully_shard(model, mesh=dmesh, shard_placement_fn=fn, ignored_params=ignored)
             # FSDP2 made new (DTensor) parameters: key the split groups anew.
             old = {n: self._split_groups.get(i) for n, i in zip(specs, by_id)}
             self._split_groups = {id(p): old[n] for n, p in model.named_parameters() if old[n]}
+            return None
+        if self._pp_group is not None or self.config.comms_overlap:
+            # The schedule calls the stage itself, and the bucketed sync
+            # runs its own hooks: no wrapper; the step syncs every gradient.
+            self._replicated = list(model.parameters())
             return None
         from torch.nn.parallel import DistributedDataParallel as DDP
 
@@ -618,16 +748,21 @@ class Trainer:
                    device_ids=[self.device.index] if self.device.type == "cuda" else None)
 
     def _leaves(self, model: nn.Module) -> list[Leaf]:
-        """The JAX parameter tree's leaves over the model's parameters: a
-        model whose ``stacked_layers`` is set (Llama) stacks
-        ``layers.{i}.<name>`` into one ``[L, ...]`` leaf, as the JAX model
-        does; experts split over ``ep`` count at their global size."""
+        return [leaf for _, leaf in self._leaf_items(model)]
+
+    def _leaf_items(self, model: nn.Module) -> list[tuple[str, Leaf]]:
+        """The JAX parameter tree's leaves over the model's parameters, by
+        key: a model whose ``stacked_layers`` is set (Llama) stacks
+        ``layers.{i}.<name>`` into one ``[L, ...]`` leaf ``layers.<name>``,
+        as the JAX model does; experts split over ``ep`` count at their
+        global size, and a pp rank's blocks as a part of the leaf that spans
+        the stages (split over the pp group)."""
         stacked = getattr(model, "stacked_layers", False)
         groups: dict[str, list] = {}
         for name, p in model.named_parameters():
             key = re.sub(r"(^|\.)layers\.\d+\.", r"\1layers.", name) if stacked else name
             groups.setdefault(key, []).append(p)
-        leaves = []
+        items = []
         for key, params in groups.items():
             p = params[0]
             split = self._split_groups.get(id(p), ())
@@ -635,9 +770,13 @@ class Trainer:
             for g in split:
                 shape[0] *= dist.get_world_size(g)  # the expert axis
             is_stacked = stacked and key.startswith("layers.")
-            leaf_shape = (len(params), *shape) if is_stacked else tuple(shape)
-            leaves.append(Leaf(params, tuple(leaf_shape), is_stacked, split))
-        return leaves
+            n_layers = len(params)
+            if id(p) in self._stage_params:
+                n_layers *= dist.get_world_size(self._pp_group)
+                split = (*split, self._pp_group)
+            leaf_shape = (n_layers, *shape) if is_stacked else tuple(shape)
+            items.append((key, Leaf(params, tuple(leaf_shape), is_stacked, split)))
+        return items
 
     def _local_batch(self, t):
         """This rank's contiguous slice of a global batch, and under ``sp``
@@ -678,6 +817,37 @@ class Trainer:
             dist.all_reduce(flat, group=self._sp_group)
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
+
+    def _sum_grads_over_pp(self) -> None:
+        """Sum the gradients of what every pp rank holds (the embedding, the
+        final norm, the output) over the pp ranks: the tied embedding's
+        lookup part from stage 0 and its logits part from the last stage,
+        as GSPMD sums them in JAX.  A rank whose stage left one without a
+        gradient contributes zeros.  One all-reduce a dtype."""
+        if self._pp_group is None:
+            return
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for p in self._pp_replicated:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            g = local_part(p.grad)
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self._pp_group)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+
+    def _clip_groups(self) -> dict[int, tuple]:
+        """The groups each parameter's gradient is split over besides its
+        DTensor sharding, for the global norm: the experts' ep, and a pp
+        rank's blocks' pp."""
+        if self._pp_group is None:
+            return self._split_groups
+        groups = dict(self._split_groups)
+        for i in self._stage_params:
+            groups[i] = (*groups.get(i, ()), self._pp_group)
+        return groups
 
     def _data_ranks(self):
         """The block's batch reductions span the data ranks
@@ -739,27 +909,37 @@ class Trainer:
             return self.loss_fn(model, x, y)
         return self._default_objective(model, x, y, train)
 
-    def _backward(self, model: nn.Module, x, y) -> tuple[torch.Tensor, dict]:
+    def _backward(self, model: nn.Module, x, y, sync=None) -> tuple[torch.Tensor, dict]:
         """The loss and its backward; with ``remat`` the loss's activations
         are recomputed in the backward (``jax.checkpoint`` on the loss), and
-        the buffers keep what the forward made of them."""
+        the buffers keep what the forward made of them.  A pipelined model's
+        loss runs the backward in its schedule.  ``sync`` (the bucketed
+        sync) issues its buckets from the backward and is drained after it,
+        as DDP drains its own."""
+        if sync is not None:
+            sync.begin()
         if not self.config.remat:
             loss, aux = self._loss(model, x, y)
-            loss.backward()
+            if not getattr(model, "runs_own_backward", False):
+                loss.backward()
+            if sync is not None:
+                sync.finish()
             return loss, aux
         loss, aux = checkpoint(self._loss, model, x, y, use_reentrant=False,
                                context_fn=outer_remat_contexts)
         after_forward = [b.detach().clone() for b in model.buffers()]
         loss.backward()
+        if sync is not None:
+            sync.finish()
         with torch.no_grad():
             for b, kept in zip(model.buffers(), after_forward):
                 b.copy_(kept)
         return loss, aux
 
-    def _grads(self, model: nn.Module, x, y) -> tuple[torch.Tensor, dict]:
+    def _grads(self, model: nn.Module, x, y, sync=None) -> tuple[torch.Tensor, dict]:
         accum = self.config.grad_accum_steps
         if accum == 1:
-            loss, aux = self._backward(model, x, y)
+            loss, aux = self._backward(model, x, y, sync)
             return loss.detach(), {k: v.detach() for k, v in aux.items()}
         n = x.shape[0]
         if n % accum:
@@ -768,7 +948,7 @@ class Trainer:
         for a in range(accum):
             part = lambda t: t[a::accum]  # noqa: E731
             # .grad sums the part gradients in place.
-            loss, aux = self._backward(model, tree_map(part, x), tree_map(part, y))
+            loss, aux = self._backward(model, tree_map(part, x), tree_map(part, y), sync)
             losses.append(loss.detach())
             auxes.append({k: v.detach() for k, v in aux.items()})
         for p in model.parameters():
@@ -788,12 +968,14 @@ class Trainer:
         x = self._prepare(state.step, x, train=True, decisions=decisions)
         with matmul_precision(self.config.matmul_precision):
             with self._data_ranks():
-                loss, aux = self._grads(state.runner or model, x, y)
-            self._sync_replicated_grads()
+                loss, aux = self._grads(state.runner or model, x, y, state.grad_sync)
+            if state.grad_sync is None:
+                self._sync_replicated_grads()
+            self._sum_grads_over_pp()
             self._sum_grads_over_sp(model)
             if self.config.grad_clip_norm:
                 clip_by_global_norm(model.parameters(), self.config.grad_clip_norm,
-                                    self._split_groups)
+                                    self._clip_groups())
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
@@ -1057,7 +1239,8 @@ class CapturedSteps:
     Takes every optimizer of :func:`_make_optimizer`: their learning rate
     and step count are device tensors.  Optimizer state that the warm-up
     creates is zeroed after it, which is where every one of them starts.
-    One device only (no mesh)."""
+    Over a mesh the graph holds FSDP2's all-gathers and reduce-scatters (and
+    the step's other collectives) on NCCL; a DDP step does not capture."""
 
     def __init__(self, trainer: Trainer, k: int):
         self.trainer, self.k = trainer, k
@@ -1102,8 +1285,15 @@ class CapturedSteps:
         if t.device.type != "cuda":
             raise RuntimeError("a CUDA graph captures steps on the card only; "
                                "multi_step_fn runs them eagerly on the CPU")
-        if t.mesh is not None:
-            raise NotImplementedError("capturing a step over a mesh is not ported")
+        if t.mesh is not None and (state.runner is not None or state.grad_sync is not None
+                                   or t._pp_group is not None):
+            # DDP's forward runs an operation a stream capture forbids
+            # (cudaErrorStreamCaptureUnsupported, torch 2.11); the bucketed
+            # sync counts its buckets on the host; GPipe's send/recv run on
+            # CPU ranks.  FSDP2 and the collectives of tp/sp/ep capture.
+            raise NotImplementedError(
+                "capturing a step over a mesh takes FSDP2 (strategy 'fsdp'), not DDP, "
+                "comms_overlap or pipeline stages")
         self.xs = tree_map(torch.empty_like, xs)
         self.ys = tree_map(torch.empty_like, ys)
         self.lrs = torch.zeros(self.k, dtype=torch.float32, device=t.device)

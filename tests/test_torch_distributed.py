@@ -108,7 +108,10 @@ CASES = {  # name: (ranks, mesh, config overrides, trainer overrides, global bat
     "sp2_ring_gqa": (2, dict(sp=2), dict(vocab_size=64, use_ring_attention=True),
                      dict(strategy="dp"), 4),
     "fsdp2_tp2": (4, dict(fsdp=2, tp=2), dict(vocab_size=64), dict(strategy="fsdp"), 8),
+    "hybrid_fsdp2_dp2": (4, dict(dp=2, fsdp=2), dict(vocab_size=64), dict(strategy="fsdp"), 8),
 }
+# Cases on a hybrid mesh: name -> (ICI spec, DCN spec).
+HYBRID = {"hybrid_fsdp2_dp2": (dict(fsdp=2), dict(dp=2))}
 RING = {"ring_sp2": 2, "ring_sp4": 4}  # name: sp (= ranks)
 RING_SHAPE = dict(B=2, S=32, Hq=4, Hkv=2, D=16)
 
@@ -157,7 +160,13 @@ def _jax_reference(name: str) -> dict:
     losses, the first batch's global gradient norm, final weights."""
     n, mesh_kw, cfg_kw, train_kw, batch = CASES[name]
     jcfg = dataclasses.replace(jax_llama.LlamaConfig.tiny(seq_len=SEQ, dtype=jnp.float32), **cfg_kw)
-    mesh = build_mesh(MeshSpec(**mesh_kw), jax.devices()[:n])
+    if name in HYBRID:
+        from deeplearning_cfn_tpu.parallel.mesh import build_hybrid_mesh
+
+        ici, dcn = HYBRID[name]
+        mesh = build_hybrid_mesh(MeshSpec(**ici), MeshSpec(**dcn), jax.devices()[:n])
+    else:
+        mesh = build_mesh(MeshSpec(**mesh_kw), jax.devices()[:n])
     cfg = JaxTrainerConfig(**{**TRAIN, **train_kw})
     jtrainer = jax_llama.make_trainer(jcfg, mesh, cfg)
     ds = jax_data.SyntheticTokenDataset(seq_len=SEQ, vocab_size=jcfg.vocab_size, batch_size=batch)
@@ -178,6 +187,8 @@ def _jax_reference(name: str) -> dict:
             aux.append(float(metrics["moe_aux_loss"]))
     rank_case = {"mesh": mesh_kw, "cfg": {"max_seq_len": SEQ, **cfg_kw},
                  "trainer": {**TRAIN, **train_kw}, "init": init, "batches": batches}
+    if name in HYBRID:
+        rank_case["hybrid"] = HYBRID[name]
     return {"rank_case": rank_case, "losses": losses, "aux": aux, "norm": norm,
             "final": jax.device_get(state.params), "lr": cfg.learning_rate}
 
@@ -216,7 +227,32 @@ def _example_reference(name: str) -> dict:
             "losses": [h["loss"] for h in out["history"]]}
 
 
-def _reference(name: str) -> dict:
+EP_FSDP = ("ep_fsdp_save", "ep_fsdp_restore", "ep_fsdp_straight")
+EP_FSDP_CFG = dict(vocab_size=64, n_experts=4)
+
+
+def _ep_fsdp_reference(name: str, root: Path) -> dict:
+    """MoE at ep=2 x fsdp=2 from JAX's initial weights: saved after three
+    steps, restored into a state from another seed for two more, or five
+    straight."""
+    jcfg = dataclasses.replace(jax_llama.LlamaConfig.tiny(seq_len=SEQ, dtype=jnp.float32),
+                               **EP_FSDP_CFG)
+    init = jax.device_get(jax_llama.init_params(jcfg, jax.random.key(0)))
+    ds = jax_data.SyntheticTokenDataset(seq_len=SEQ, vocab_size=64, batch_size=8)
+    case = {"mesh": dict(ep=2, fsdp=2), "cfg": {"max_seq_len": SEQ, **EP_FSDP_CFG},
+            "trainer": {**TRAIN, "strategy": "fsdp"}, "init": init,
+            "batches": [(np.asarray(b.x), np.asarray(b.y)) for b in ds.batches(5)],
+            "steps": STEPS, "dir": str(root / "ep_fsdp")}
+    if name != "ep_fsdp_straight":
+        case["mode"] = name.rsplit("_", 1)[1]
+    return {"rank_case": case, "init": init}
+
+
+def _reference(name: str, root: Path | None = None) -> dict:
+    if name in EP_FSDP:
+        return _ep_fsdp_reference(name, root)
+    if name == "default_mesh_slices":
+        return {"rank_case": {"default_mesh": "fsdp", "slices": 2}}
     if name in CASES:
         return _jax_reference(name)
     return _jax_ring_reference(name) if name in RING else _example_reference(name)
@@ -224,8 +260,9 @@ def _reference(name: str) -> dict:
 
 def _run_ranks(tmp_path_factory, names: list[str]) -> dict:
     n = CASES[names[0]][0]
-    refs = {name: _reference(name) for name in names}
-    path = tmp_path_factory.mktemp("ranks") / "cases.pkl"
+    root = tmp_path_factory.mktemp("ranks")
+    refs = {name: _reference(name, root) for name in names}
+    path = root / "cases.pkl"
     path.write_bytes(pickle.dumps({k: r["rank_case"] for k, r in refs.items()}))
     _spawn(n, [str(REPO / "tests" / "torch_dist_ranks.py"), str(path)])
     ranks = [pickle.loads(Path(f"{path}.rank{i}").read_bytes()) for i in range(n)]
@@ -240,7 +277,8 @@ def two_ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    return _run_ranks(tmp_path_factory, ["hsdp", "fsdp2_tp2", "ring_sp4"])
+    return _run_ranks(tmp_path_factory, ["hsdp", "fsdp2_tp2", "ring_sp4", "hybrid_fsdp2_dp2",
+                                         *EP_FSDP, "default_mesh_slices"])
 
 
 def _check(name, ref, ranks):
@@ -374,6 +412,54 @@ def test_fsdp2_tp2_on_four_ranks_matches_jax(four_ranks):
     ref, ranks = four_ranks["fsdp2_tp2"]
     tcfg = _check("fsdp2_tp2", ref, ranks)
     _check_tp_sharding(tcfg, ranks)
+
+
+def test_llama_on_a_hybrid_mesh_matches_jax(four_ranks):
+    """FSDP2 within each node (ICI fsdp=2) and data parallel across the two
+    (DCN dp=2): the ranks' grid is JAX's device grid, FSDP2 shards within a
+    node, and losses, norm and parameters are held to JAX's on its hybrid
+    mesh."""
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec as TorchMeshSpec
+    from deeplearning_cfn_tpu_torch.parallel.mesh import hybrid_rank_grid
+
+    ref, ranks = four_ranks["hybrid_fsdp2_dp2"]
+    tcfg = _check("hybrid_fsdp2_dp2", ref, ranks)
+    _check_sharding(tcfg, ranks[0])
+    ici, dcn = HYBRID["hybrid_fsdp2_dp2"]
+    grid = hybrid_rank_grid(TorchMeshSpec(**ici), TorchMeshSpec(**dcn), 4).tolist()
+    assert all(r["mesh_grid"] == grid for r in ranks)
+
+
+def test_default_mesh_takes_the_slice_count(four_ranks):
+    """``DEEPLEARNING_SLICES_COUNT=2`` over four ranks: ``default_mesh("fsdp")``
+    is JAX's, fsdp=2 within each node and dp=2 across them."""
+    _, ranks = four_ranks["default_mesh_slices"]
+    for r in ranks:
+        assert r["sizes"] == {"dp": 2, "fsdp": 2, "pp": 1, "sp": 1, "tp": 1, "ep": 1}
+        assert np.asarray(r["grid"]).reshape(2, 2).tolist() == [[0, 1], [2, 3]]
+
+
+def test_ep_fsdp_checkpoint_restores_bitwise_with_jax_global_view(four_ranks):
+    """Experts split over ep=2 and sharded by FSDP2 over fsdp=2 (a 2-D
+    ``DTensor`` in the checkpoint): saved after three steps, restored into a
+    state from another seed, two more steps bitwise the five straight; the
+    checkpoint's global shapes are JAX's per-layer leaves."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    (ref, saved), (_, restored), (_, straight) = (four_ranks[n] for n in EP_FSDP)
+    for s_, r, full in zip(saved, restored, straight):
+        assert s_["losses"] + r["losses"] == full["losses"]
+        assert r["params"].keys() == full["params"].keys()
+        for pname, want in full["params"].items():
+            np.testing.assert_array_equal(r["params"][pname], want, err_msg=pname)
+    assert sorted({r["ep_rank"] for r in saved}) == [0, 1]
+    step_dir = Path(ref["rank_case"]["dir"]) / f"step-{STEPS:08d}"
+    meta = FileSystemReader(str(step_dir)).read_metadata().state_dict_metadata
+    for leaf, stacked in ref["init"]["layers"]["moe"].items():
+        want = tuple(np.asarray(stacked).shape[1:])
+        assert tuple(meta[f"model.layers.0.moe.{leaf}"].size) == want, leaf
+        if leaf != "router":
+            assert tuple(meta[f"optimizer.state.layers.0.moe.{leaf}.exp_avg"].size) == want
 
 
 @pytest.mark.parametrize("name", list(RING))

@@ -162,9 +162,10 @@ def test_attention_kind_dispatch():
     "kw", [{"pp_stages": 2}, {"use_ring_attention": True}]
 )
 def test_out_of_slice_configs_raise(kw):
-    """Pipeline stages still raise.  Ring attention is ported
-    (``parallel/ring_attention.py``): as in JAX it takes effect only over a
-    mesh with sp > 1, so without one the model is the dense one."""
+    """Both are ported: pipeline stages (``parallel/pipeline.py``) split the
+    layers only over a mesh with pp > 1, and ring attention
+    (``parallel/ring_attention.py``) takes effect only over a mesh with
+    sp > 1; without one, as in JAX, the model is the dense one."""
     _, tcfg = _configs()
     if "use_ring_attention" in kw:
         ring = llama.Llama(dataclasses.replace(tcfg, **kw), torch.Generator().manual_seed(0))
@@ -174,5 +175,8 @@ def test_out_of_slice_configs_raise(kw):
         tokens = torch.arange(2 * SEQ).reshape(2, SEQ) % VOCAB
         torch.testing.assert_close(ring(tokens), dense(tokens), rtol=0, atol=0)
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        llama.Llama(dataclasses.replace(tcfg, **kw))
+    staged = llama.Llama(dataclasses.replace(tcfg, **kw), torch.Generator().manual_seed(0))
+    dense = llama.Llama(tcfg, torch.Generator().manual_seed(0))
+    assert not staged.pipelined and staged.n_microbatches == 2
+    tokens = torch.arange(2 * SEQ).reshape(2, SEQ) % VOCAB
+    torch.testing.assert_close(staged(tokens), dense(tokens), rtol=0, atol=0)

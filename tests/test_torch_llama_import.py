@@ -118,8 +118,11 @@ def test_missing_weights_and_out_of_slice_raise():
     del sd["lm_head.weight"]
     with pytest.raises(llama_import.ImportError_, match="lm_head"):
         llama_import.from_hf_state_dict(cfg, sd)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        llama_import.from_hf_state_dict(dataclasses.replace(cfg, pp_stages=2), _hf_dict(cfg))
+    # A stage-stacked config imports the same per-layer dict (its blocks keep
+    # their global index): the importer no longer refuses it.
+    staged = llama_import.from_hf_state_dict(dataclasses.replace(cfg, pp_stages=2), _hf_dict(cfg))
+    flat = llama_import.from_hf_state_dict(cfg, _hf_dict(cfg))
+    assert staged.keys() == flat.keys() and all(torch.equal(staged[k], flat[k]) for k in flat)
 
 
 @pytest.mark.parametrize("tied", [False, True])

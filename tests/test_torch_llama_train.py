@@ -48,9 +48,9 @@ def test_main_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
      ["--data_dir", "/nonexistent"]],
 )
 def test_out_of_slice_flags_raise(flags):
-    """--pp is still a later slice's.  --data_dir is ported: a directory that
-    does not exist is the user's error.  --tp and --sp are ported
-    (``tests/test_torch_distributed.py`` runs them over ranks): on one
+    """--data_dir is ported: a directory that does not exist is the user's
+    error.  --tp, --sp and --pp are ported (``tests/test_torch_distributed.py``
+    and ``tests/test_torch_pipeline.py`` run them over ranks): on one
     process their mesh does not fit, as the JAX example's would not.
     --ring_attention is ported: on one process there is no sp to ring over,
     and the run is the dense one."""
@@ -58,7 +58,7 @@ def test_out_of_slice_flags_raise(flags):
     if flags == ["--ring_attention"]:
         assert np.isfinite(llama_train.main(argv)["final_loss"])
         return
-    exc, match = {"--data_dir": (SystemExit, "none of"), "--pp": (NotImplementedError, "later slice"),
+    exc, match = {"--data_dir": (SystemExit, "none of"), "--pp": (MeshError, "devices"),
                   "--tp": (MeshError, "devices"), "--sp": (MeshError, "devices")}[flags[0]]
     with pytest.raises(exc, match=match):
         llama_train.main(argv)

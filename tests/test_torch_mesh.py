@@ -149,9 +149,14 @@ def test_build_mesh_on_one_rank_and_slice_5b_axes():
         assert mesh.mesh_spec(m) == mesh.MeshSpec() and mesh.data_rank(m) == (0, 1)
         with pytest.raises(mesh.MeshError):
             mesh.build_mesh(mesh.MeshSpec(fsdp=2))
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            mesh.build_hybrid_mesh(mesh.MeshSpec(), mesh.MeshSpec())
-        with pytest.raises(NotImplementedError, match="slice 5b"):
+        # pp and the hybrid meshes are ported (tests/test_torch_hybrid_mesh.py,
+        # tests/test_torch_pipeline.py): on one rank pp=2 and two slices do
+        # not fit.
+        with pytest.raises(mesh.MeshError):
+            mesh.build_mesh(mesh.MeshSpec(pp=2))
+        assert mesh.mesh_spec(mesh.build_hybrid_mesh(mesh.MeshSpec(), mesh.MeshSpec())) == \
+            mesh.MeshSpec()
+        with pytest.raises(mesh.MeshError, match="do not divide"):
             mesh.hybrid_mesh_for_slices(2)
     finally:
         dist.destroy_process_group()

@@ -12,7 +12,13 @@ BERT, RetinaNet) loads the port's state dict the test converted from the JAX
 weights and reports every step's metrics and the final state.  A ``ring``
 case runs ``parallel.ring_attention`` on this rank's block of the sequence
 and reports its output and gradients; an ``argv`` case runs
-``examples.llama_train.main`` with its flags.  It imports no JAX.
+``examples.llama_train.main`` with its flags.  A ``toy_pipeline`` case runs
+``parallel.pipeline`` on a tanh stack; ``int8`` and ``sharded`` cases run
+one bucket through ``parallel.overlap``'s exchanges.  A Llama case may be
+pipelined (``pp`` in its mesh: each rank loads its stage from the JAX
+stage-stacked weights), run with ``comms_overlap`` (the buckets it issued
+reported), or built on a hybrid mesh (``hybrid``: ICI and DCN specs).  It
+imports no JAX.
 
     python tests/torch_dist_ranks.py <input.pkl>
 """
@@ -33,7 +39,12 @@ import torch.distributed as dist  # noqa: E402
 from deeplearning_cfn_tpu_torch import interop  # noqa: E402
 from deeplearning_cfn_tpu_torch.examples.common import maybe_init_distributed  # noqa: E402
 from deeplearning_cfn_tpu_torch.models import llama  # noqa: E402
-from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, axis_rank, build_mesh  # noqa: E402
+from deeplearning_cfn_tpu_torch.parallel.mesh import (  # noqa: E402
+    MeshSpec,
+    axis_rank,
+    build_hybrid_mesh,
+    build_mesh,
+)
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import ModelParallel  # noqa: E402
 from deeplearning_cfn_tpu_torch.train import trainer as trainer_lib  # noqa: E402
 from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer  # noqa: E402
@@ -44,6 +55,13 @@ def _full(p: torch.Tensor) -> torch.Tensor:
     return p.full_tensor() if hasattr(p, "full_tensor") else p
 
 
+def _mesh(case: dict):
+    if "hybrid" in case:
+        ici, dcn = case["hybrid"]
+        return build_hybrid_mesh(MeshSpec(**ici), MeshSpec(**dcn))
+    return build_mesh(MeshSpec(**case["mesh"]))
+
+
 def _trainer(case: dict, mesh, seed: int = 0):
     """The case's trainer over ``mesh`` and its state, from the case's
     initial weights (numpy, the JAX tree's or the port's own) when it has
@@ -52,8 +70,11 @@ def _trainer(case: dict, mesh, seed: int = 0):
     init = case.get("init")
     weights = None
     if init is not None:
-        weights = (interop.llama_params_from_jax(cfg, init) if not case.get("torch_init")
-                   else {k: torch.from_numpy(v) for k, v in init.items()})
+        pp = mesh.size(mesh.mesh_dim_names.index("pp"))
+        pp_cut = dict(pp_rank=axis_rank(mesh, "pp"), pp_size=pp) if pp > 1 else {}
+        weights = (interop.llama_params_from_jax(cfg, init, **pp_cut) if not case.get("torch_init")
+                   else {k: torch.from_numpy(v) for k, v in init.items()
+                         if k in _stage_names(cfg, mesh)})
 
     def model_fn(generator):
         model = llama.Llama(cfg, generator, mesh=mesh)
@@ -67,10 +88,16 @@ def _trainer(case: dict, mesh, seed: int = 0):
     return t, t.init(seed=seed)
 
 
+def _stage_names(cfg, mesh) -> set:
+    """The parameter names a rank of ``mesh`` holds."""
+    with torch.device("meta"):
+        return {n for n, _ in llama.Llama(cfg, mesh=mesh).named_parameters()}
+
+
 def run_checkpoint_case(case: dict) -> dict:
     """Save after ``case["steps"]`` steps, or restore into a state from
     another seed and take the remaining batches (``case["mode"]``)."""
-    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    mesh = _mesh(case)
     save = case["mode"] == "save"
     t, state = _trainer(case if save else {**case, "init": None}, mesh, seed=0 if save else 1)
     ck = Checkpointer(case["dir"], interval_s=None, async_save=False)
@@ -85,8 +112,11 @@ def run_checkpoint_case(case: dict) -> dict:
         ck.save(state.step, state)
     ck.close()
     params = {n: _full(p).detach().numpy().copy() for n, p in state.model.named_parameters()}
-    return {"losses": losses, "topology": mesh_topology(mesh), "params": params,
-            "ep_rank": axis_rank(mesh, "ep")}
+    out = {"losses": losses, "topology": mesh_topology(mesh), "params": params,
+           "ep_rank": axis_rank(mesh, "ep"), "pp_rank": axis_rank(mesh, "pp")}
+    if state.error_feedback is not None:
+        out["residual"] = [r.cpu().numpy().copy() for r in state.error_feedback.residual]
+    return out
 
 
 def _model_case_parts(case: dict):
@@ -118,6 +148,12 @@ def run_model_case(case: dict) -> dict:
     model_fn, loss_fn = _model_case_parts(case)
     t = trainer_lib.Trainer(model_fn, trainer_lib.TrainerConfig(**case["trainer"]),
                             loss_fn=loss_fn, device="cpu", mesh=mesh)
+    if case.get("expect_error"):  # a refusal: its message
+        try:
+            t.init(seed=0)
+        except ValueError as e:
+            return {"error": str(e)}
+        return {"error": None}
     state = t.init(seed=0)
     state.model.load_state_dict({k: torch.from_numpy(v) for k, v in case["init"].items()})
     metrics = []
@@ -155,7 +191,89 @@ def run_example_case(case: dict) -> dict:
     return {"losses": [h["loss"] for h in out["history"]], "mesh": out["mesh"]}
 
 
+class ToyStage(torch.nn.Module):
+    """One stage of a tanh stack: ``a <- tanh(a @ w[i])`` over its layers;
+    with ``aux``, each stage adds the sum of its output to the carried aux."""
+
+    def __init__(self, w, aux: bool):
+        super().__init__()
+        self.w = torch.nn.Parameter(w)
+        self.aux = aux
+
+    def forward(self, a, aux=None):
+        for i in range(self.w.shape[0]):
+            a = torch.tanh(a @ self.w[i])
+        return (a, aux + a.sum()) if self.aux else a
+
+
+def run_toy_pipeline_case(case: dict) -> dict:
+    """``pipeline_apply`` forward (output and aux on every rank), then one
+    GPipe step with the backward of ``sum(out)``: this stage's gradient."""
+    from deeplearning_cfn_tpu_torch.parallel import pipeline
+
+    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    rank = axis_rank(mesh, "pp")
+    w = torch.from_numpy(case["W"])  # [n_stages, L/pp, D, D]
+    x = torch.from_numpy(case["x"])
+    n_stages, M = w.shape[0], case["M"]
+    if "wrong_stages" in case:
+        try:
+            pipeline.pipeline_apply(ToyStage(w[0], False), x, mesh, M, n_stages=case["wrong_stages"])
+        except pipeline.PipelineError as e:
+            return {"error": str(e)}
+        return {"error": None}
+    stage = ToyStage(w[rank].clone(), case["aux"])
+    out, aux = pipeline.pipeline_apply(stage, x, mesh, M, n_stages, aux=case["aux"])
+    res = {"pp_rank": rank, "out": out.numpy(), "aux": float(aux)}
+    if not case["aux"]:
+        pipeline.run_schedule(stage, (x,), mesh, M, n_stages,
+                              loss_fn=lambda o, t: o.sum(), target=torch.zeros(x.shape[0]))
+        res["grad"] = stage.w.grad.numpy().copy()
+    return res
+
+
+def run_bucket_case(case: dict) -> dict:
+    """One bucket through ``_sync_fused_int8`` (``int8``: this rank's flat
+    and residual row; also its phase-1 int8 chunk) or ``_sync_sharded``
+    (``sharded``: this rank's whole gradient)."""
+    from deeplearning_cfn_tpu_torch.ops.quant import quantize_flat
+    from deeplearning_cfn_tpu_torch.parallel import overlap
+
+    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    rank, group = axis_rank(mesh, "dp"), mesh.get_group("dp")
+    nd = mesh.size(mesh.mesh_dim_names.index("dp"))
+    if "sharded" in case:
+        g = torch.from_numpy(case["sharded"][rank])
+        return {"rank": rank, "out": overlap._sync_sharded(g, group, case["dim"]).numpy()}
+    flat = torch.from_numpy(case["int8"][rank])
+    residual = torch.from_numpy(case["residual"][rank:rank + 1])
+    v = torch.cat([flat, flat.new_zeros(residual.shape[1] - flat.shape[0])]) + residual[0]
+    out, new_residual = overlap._sync_fused_int8(flat, residual, group, nd)
+    return {"rank": rank, "out": out.numpy(), "residual": new_residual.numpy(),
+            "q": quantize_flat(v)[0].numpy()}
+
+
+def run_default_mesh_case(case: dict) -> dict:
+    """``examples.common.default_mesh`` with ``DEEPLEARNING_SLICES_COUNT``
+    set: its axis sizes and rank grid."""
+    from deeplearning_cfn_tpu_torch.examples.common import default_mesh
+    from deeplearning_cfn_tpu_torch.parallel.mesh import mesh_spec
+
+    os.environ["DEEPLEARNING_SLICES_COUNT"] = str(case["slices"])
+    try:
+        mesh = default_mesh(case["default_mesh"])
+    finally:
+        del os.environ["DEEPLEARNING_SLICES_COUNT"]
+    return {"sizes": mesh_spec(mesh).axis_sizes(), "grid": mesh.mesh.tolist()}
+
+
 def run_case(case: dict) -> dict:
+    if "default_mesh" in case:
+        return run_default_mesh_case(case)
+    if "toy_pipeline" in case:
+        return run_toy_pipeline_case(case)
+    if "int8" in case or "sharded" in case:
+        return run_bucket_case(case)
     if "argv" in case:
         return run_example_case(case)
     if "mode" in case:
@@ -164,17 +282,33 @@ def run_case(case: dict) -> dict:
         return run_model_case(case)
     if "ring" in case:
         return run_ring_case(case)
-    mesh = build_mesh(MeshSpec(**case["mesh"]))
+    mesh = _mesh(case)
     t, state = _trainer(case, mesh)
     x0, y0 = (torch.from_numpy(a) for a in case["batches"][0])
-    loss, _ = llama.causal_lm_loss(state.runner or state.model, t._local_batch(x0),
-                                   t._local_batch(y0))
-    loss.backward()
-    t._sync_replicated_grads()  # as the step does before its clip
+    out = {}
+    if case.get("logits"):
+        with torch.no_grad():
+            out["logits"] = llama.forward(state.model, t._local_batch(x0)).numpy()
+        out["eval_loss"] = float(t.eval_step(state, x0, y0)["loss"])
+    sync = state.grad_sync
+    ef = state.error_feedback  # the norm's backward must leave the residuals as they are
+    kept = [r.clone() for r in ef.residual] if ef is not None else []
+    with t._data_ranks():  # as the step takes its gradients
+        loss, _ = t._grads(state.runner or state.model, t._local_batch(x0), t._local_batch(y0),
+                           sync)
+    if sync is None:
+        t._sync_replicated_grads()  # as the step does before its clip
+    t._sum_grads_over_pp()
     t._sum_grads_over_sp(state.model)
+    if case.get("grads"):
+        out["grads"] = {n: _full(p.grad).detach().numpy().copy()
+                        for n, p in state.model.named_parameters()}
     norm = trainer_lib.clip_by_global_norm(state.model.parameters(), float("inf"),
-                                           t._split_groups)
+                                           t._clip_groups())
     state.optimizer.zero_grad(set_to_none=True)
+    if ef is not None:
+        for r, k in zip(ef.residual, kept):
+            r.copy_(k)
     losses, aux = [], []
     for x, y in case["batches"]:
         state, metrics = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
@@ -184,9 +318,19 @@ def run_case(case: dict) -> dict:
     sharded = {n: [pl.dim for pl in p.placements if pl.is_shard()]
                for n, p in state.model.named_parameters() if hasattr(p, "placements")}
     params = {n: _full(p).detach().numpy().copy() for n, p in state.model.named_parameters()}
-    out = {"losses": losses, "aux": aux, "norm": float(norm), "params": params,
-           "ep_rank": axis_rank(mesh, "ep"), "sharded": sharded,
-           "tp_rank": axis_rank(mesh, "tp"), "ddp": state.runner is not None}
+    out.update({"losses": losses, "aux": aux, "norm": float(norm), "params": params,
+                "ep_rank": axis_rank(mesh, "ep"), "sharded": sharded,
+                "tp_rank": axis_rank(mesh, "tp"), "pp_rank": axis_rank(mesh, "pp"),
+                "data_index": t._data_index,
+                "ddp": state.runner is not None, "mesh_grid": mesh.mesh.tolist()})
+    if sync is not None:
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        out["issued"] = list(sync.issued)
+        out["members"] = [[names[id(p)] for p in ps] for ps in sync.members]
+        out["plan"] = t.bucket_plan.to_dict()
+        out["wire_bytes"] = sync.wire_bytes
+        if state.error_feedback is not None:
+            out["residual"] = [r.numpy().copy() for r in state.error_feedback.residual]
     mp = llama.model_parallel(state.model)
     if mp.tp > 1:  # the loss's logits: this rank's vocabulary, its nll the whole one's
         with torch.no_grad():
