@@ -124,7 +124,9 @@ Phases, one JSON line each:
 10. checkpoint  save and resume (``train/checkpoint.Checkpointer`` on
            ``torch.distributed.checkpoint``), checkpoints under a temporary
            directory removed at the end.  m435 (seq 2048, batch 8, AdamW,
-           full depth) on 8 synthetic batches: 8 steps straight; 4 steps, a
+           ``CKPT_LAYERS`` of its 24 layers: the full-depth save and
+           restore, held bitwise, are ``live_reshard``'s fallback) on 8 synthetic
+           batches: 8 steps straight; 4 steps, a
            synchronous save, then in a fresh trainer from another seed a
            restore (every tensor of the state bitwise the saved one: no
            weight moved on the way in) and the straight run's batches 5-8:
@@ -248,6 +250,38 @@ Phases, one JSON line each:
            graph): its losses and parameters bitwise four eager steps over
            that mesh, with the planted no-update control, then replays
            timed.  (DDP does not capture: ``tools/gloo_cuda_probe.py``.)
+18. live_reshard  two processes of this script on ``cuda:0`` over gloo,
+           ``DEEPLEARNING_SLICES_COUNT=2``, one slice each, driving the cluster
+           plane: the port's ``EventBus`` into ``ElasticityController`` (10 s
+           debounce on a ``VirtualClock``), ``LiveReshardManager`` and
+           ``LiveReshardCoordinator`` handed to ``Trainer.fit(reshard=)``.
+           m435 at full width and depth, seq 2048, batch 8 a rank (16 in
+           all), AdamW, ``strategy "fsdp"`` on the hybrid mesh (dp over the
+           slices), six steps, flash on.  Runs: ``straight`` (no loss,
+           ``fit`` without ``reshard=``); ``live`` (the slice-s1 terminate
+           burst, a duplicate in it, published on the coordinator rank's bus
+           while batch 3 is made, then the clock past the window: both ranks
+           pause at the next boundary, rank 1 leaves, rank 0 re-forms a
+           one-slice mesh and trains steps 4-6 on the whole batch of 16 as
+           two microbatches of 8); ``control`` (the live run to step 4 with
+           the survivor's Adam moments zeroed after migration, which the
+           state comparison must refuse, and a checkpoint saved at step 4,
+           after the boundary, by rank 0 alone over the survivors' group);
+           ``fallback`` (``force_fallback``: ``fit`` stops at the boundary,
+           the DCP checkpoint of step 3 is restored on the one-slice mesh
+           with accumulation 2, every tensor bitwise rank 0's state at the
+           boundary, then steps 4-6).
+           Gates: finite losses; live steps 1-3 bitwise straight's; live and
+           fallback after the boundary within ``RESHARD_RTOL``/``RESHARD_ATOL``
+           of straight (the JAX scenario's tolerance); rank 0's migrated
+           parameters and optimizer state bitwise its pre-pause state; one
+           live reshard, no fallback; accumulation 2 after; the mesh from
+           dp 2 to one device; the control's save after the boundary
+           committed; the fallback's restore bitwise; flash 48 a microbatch (48 a step a rank
+           before, 96 a step on rank 0 after), all ``wgmma_tma``.  Reported:
+           step times before and after, with and without ``reshard=``, the
+           pause (``ReshardRecord.seconds``), the fallback's save and restore,
+           each process's peak memory.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -426,8 +460,10 @@ NO_UPDATE_MARGIN = 4
 # Checkpoint and resume (phase 10): the m435 AdamW run over CKPT_STEPS
 # batches, saved at half of them; every checkpoint is written under a
 # temporary directory, which must have CKPT_DISK_BYTES free (at most three
-# m435 checkpoints of ~2.6 GB at once, one of them in flight).
-CKPT_STEPS, CKPT_EXAMPLE_STEPS = 8, 2
+# m435 checkpoints of ~2.6 GB at once, one of them in flight).  Its m435 is
+# cut to CKPT_LAYERS deep, to hold the whole script near 800 s; phase 18's
+# fallback saves and restores the full-depth m435 state, held bitwise.
+CKPT_STEPS, CKPT_EXAMPLE_STEPS, CKPT_LAYERS = 8, 2, 12
 CKPT_DISK_BYTES = 10 * 10**9
 # Detection (phase 11): the JAX RetinaNet configuration at full width --
 # ResNet-50, FPN 256, 80 classes, 9 anchors a cell, 16 prototypes, masks,
@@ -503,6 +539,15 @@ TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_TIMEOUT = 8, 4, 600
 INT8_RTOL, INT8_ATOL = 5e-3, 1e-3
 # mesh_captured: multi_step_fn(MESH_K) over the mesh phase's one-rank mesh.
 MESH_K, MESH_REPLAYS = 4, 2
+# live_reshard: two ranks on the one card, per-rank batch 8, the loss seen
+# while batch RESHARD_DIE_AT is made; the JAX slice-loss-live scenario's
+# continuity tolerance (chaos/scenarios.py).
+RESHARD_BATCH, RESHARD_STEPS, RESHARD_DIE_AT, RESHARD_TIMEOUT = 8, 6, 3, 900
+RESHARD_RTOL, RESHARD_ATOL = 5e-3, 1e-4
+
+
+# Traces _device_ms takes before it gives up on seeing device time.
+PROFILE_TRIES = 3
 
 
 def _emit(obj: dict) -> None:
@@ -541,21 +586,26 @@ def _device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     """Device time of one call of ``fn``: the summed time of the kernels and
     copies it ran on the card (``torch.profiler``), over ``iters`` calls.
     The host's time between launches (Python, the wrapper, ctypes) is not in
-    it; :func:`_time_ms` has it.  A trace without device time fails the run
-    (the kernel rows are taken in phase 3, before the long phases)."""
+    it; :func:`_time_ms` has it.  A trace that comes back without device
+    time (it happens now and then, even in phase 3) is taken again, up to
+    ``PROFILE_TRIES`` traces; none with device time fails the run (the kernel
+    rows are taken in phase 3, before the long phases)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False))
-    _require(total_us > 0, "the profiler saw no device time")
-    return total_us / 1e3 / iters
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0
+                       and not getattr(e, "is_user_annotation", False))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    _require(False, f"the profiler saw no device time in {PROFILE_TRIES} traces")
 
 
 def _variants(counts: dict, kernel: str) -> dict:
@@ -1467,7 +1517,7 @@ def _checkpoint_phase(torch, kernels_mod, smi: str) -> dict:
 
         # (a) Llama m435 across a synchronous save and a restore into a fresh
         # trainer from another seed, fed the straight run's batches 5-8.
-        cfg = llama.LlamaConfig.m435(seq_len=2048)
+        cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=2048), n_layers=CKPT_LAYERS)
         tcfg = TrainerConfig(strategy="fsdp", optimizer="adamw", learning_rate=3e-4,
                              weight_decay=0.1, grad_clip_norm=1.0, log_every=1)
         batches = list(SyntheticTokenDataset(seq_len=2048, vocab_size=cfg.vocab_size,
@@ -1562,7 +1612,8 @@ def _checkpoint_phase(torch, kernels_mod, smi: str) -> dict:
         control_gap = _param_gap(_param_copy(state.model), resumed_final, p0)
         del state, trainer
         torch.cuda.empty_cache()
-        row = {"phase": "checkpoint_llama", "model": "m435", "seq": 2048, "batch": 8,
+        row = {"phase": "checkpoint_llama", "model": "m435", "n_layers": cfg.n_layers,
+               "seq": 2048, "batch": 8,
                "optimizer": "adamw", "steps": [half, CKPT_STEPS - half],
                "straight_losses": straight, "resumed_losses": first + rest,
                "losses_bitwise_equal": first + rest == straight,
@@ -2764,6 +2815,368 @@ def _mesh_captured_phase(torch, kernels_mod, smi: str, flash_per_block: float) -
     return launches.get("flash_attention_fwd", 0)
 
 
+def _reshard_worker(rank: int, port: int, out: str) -> int:
+    """One of ``live_reshard``'s processes (``chip_smoke.py --reshard-worker
+    RANK PORT OUT``): the runs of phase 18, its results as JSON in
+    ``OUT.rank<RANK>``, the fallback's checkpoint in ``OUT.ckpt``.  Between
+    runs the rank of the lost slice waits at the store until rank 0 is done:
+    after a loss rank 0 uses no group of rank 1's."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from deeplearning_cfn_tpu_torch.analysis.schedules import VirtualClock
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+    from deeplearning_cfn_tpu_torch.cluster.elasticity import ElasticityController, GroupPolicy
+    from deeplearning_cfn_tpu_torch.cluster.recovery import LiveReshardManager
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.ops import _kernels
+    from deeplearning_cfn_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        data_group,
+        hybrid_mesh_for_slices,
+    )
+    from deeplearning_cfn_tpu_torch.provision.events import EventBus, EventKind, LifecycleEvent
+    from deeplearning_cfn_tpu_torch.train import reshard
+    from deeplearning_cfn_tpu_torch.train.checkpoint import Checkpointer
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset, device_put_batch
+    from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    store = dist.distributed_c10d._get_default_store()
+    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    cuda = torch.device("cuda")
+    batches = [device_put_batch(b, cuda) for b in SyntheticTokenDataset(
+        seq_len=2048, vocab_size=cfg.vocab_size,
+        batch_size=2 * RESHARD_BATCH).batches(RESHARD_STEPS)]
+    origin = ClusterContract.build(
+        cluster_name="chip-live", coordinator_ip="10.0.0.1", other_worker_ips=["10.0.0.2"],
+        chips_per_worker=1, storage_mount="/mnt/none",
+        slices={"s0": ["10.0.0.1"], "s1": ["10.0.0.2"]})
+
+    def mesh_for(contract):
+        return hybrid_mesh_for_slices(contract.slices_count, MeshSpec(fsdp=1), "dp",
+                                      device_type="cuda",
+                                      ranks=reshard.survivor_ranks(origin, contract))
+
+    def make_trainer(mesh, accum=1):
+        return llama.make_trainer(cfg, TrainerConfig(
+            strategy="fsdp", optimizer="adamw", learning_rate=3e-4,
+            weight_decay=0.1, grad_clip_norm=1.0, log_every=1, grad_accum_steps=accum),
+            device="cuda", mesh=mesh)
+
+    def local_state(state) -> dict:
+        return {k: local_part(v).detach().clone()
+                for k, v in reshard._flat(state.state_dict()).items()}
+
+    def same(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    def plane():
+        class Backend:
+            def __init__(self):
+                self.events = EventBus()
+
+        vclock = VirtualClock()
+        controller = ElasticityController(backend=Backend(), coordinator_queue_name="coord",
+                                          slice_loss_window_s=10.0, clock=vclock)
+        controller.register(GroupPolicy("s0", 1, "sig-s0", coordinator=True))
+        controller.register(GroupPolicy("s1", 1, "sig-s1"))
+        controller.attach()
+        manager = LiveReshardManager(origin)
+        manager.attach(controller)
+        return controller, manager, vclock
+
+    def flash_total() -> int:
+        return _kernels.launch_counts.get("flash_attention_fwd", 0)
+
+    def run(name: str, steps: int, coordinator=None, controller=None, vclock=None,
+            checkpointer=None, trainer=None, state=None, first=0) -> dict:
+        """``fit`` over ``batches[first:first + steps]``; per step its time
+        (between the pulls of consecutive batches: each step reads its loss
+        back) and its flash launches."""
+        if trainer is None:
+            trainer = make_trainer(mesh_for(origin))
+            state = trainer.init(seed=0, draw_on_device=True)
+        pulls, flash = [], []
+
+        def source():
+            for i, (x, y) in enumerate(batches[first:first + steps]):
+                if coordinator is not None and i == RESHARD_DIE_AT and rank == 0:
+                    for ip in ("10.0.0.2", "10.0.0.2"):  # the burst, a duplicate in it
+                        controller.backend.events.publish(LifecycleEvent(
+                            kind=EventKind.INSTANCE_TERMINATE, group="s1", instance_id=ip,
+                            detail={"reason": "preempted"}))
+                        vclock.advance(0.5)
+                    vclock.advance(11.0)
+                torch.cuda.synchronize()
+                pulls.append(time.perf_counter())
+                flash.append(flash_total())
+                yield x, y
+
+        from deeplearning_cfn_tpu_torch.train.data import Batch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        state, losses = trainer.fit(state, (Batch(x=x, y=y) for x, y in source()), steps=steps,
+                                    prefetch=0, reshard=coordinator, checkpointer=checkpointer)
+        torch.cuda.synchronize()
+        pulls.append(time.perf_counter())
+        flash.append(flash_total())
+        n = len(losses)
+        launches = dict(_kernels.launch_counts)
+        row = {"losses": losses, "step": state.step,
+               "step_ms": [(b - a) * 1e3 for a, b in zip(pulls[:n], pulls[1:n + 1])],
+               "flash_per_step": [b - a for a, b in zip(flash[:n], flash[1:n + 1])],
+               "flash_variants": _variants(launches, "flash_attention_fwd"),
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "grad_accum": trainer.config.grad_accum_steps,
+               "topology": reshard.mesh_topology(trainer.mesh)}
+        return row, trainer, state
+
+    class Checked(reshard.LiveReshardCoordinator):
+        """The coordinator with rank 0's state copied before the pause and
+        after the migration (kept as ``stopped_state`` on a fallback, for
+        the restore to be held to); ``plant`` zeroes the survivor's Adam
+        moments after it, as a re-keying bug would."""
+
+        plant = False
+        stopped_state = None
+
+        def execute(self, trainer, state, step):
+            before = local_state(state)
+            new_state, action = super().execute(trainer, state, step)
+            if action == "resume":
+                if self.plant:
+                    with torch.no_grad():
+                        for st in new_state.optimizer.state.values():
+                            for k in ("exp_avg", "exp_avg_sq"):
+                                local_part(st[k]).zero_()
+                self.migrated_bitwise = same(before, local_state(new_state))
+            elif action == "stop":
+                self.stopped_state = before
+            del before
+            return new_state, action
+
+    def wait_for_rank0(key: str, mine: dict) -> None:
+        if mine.get("left"):
+            store.wait([key])
+        elif rank == 0:
+            store.set(key, "done")
+
+    result = {"rank": rank}
+    # straight: no loss, fit without reshard=
+    row, trainer, state = run("straight", RESHARD_STEPS)
+    result["straight"] = row
+    del trainer, state
+    torch.cuda.empty_cache()
+    # live and its planted control
+    for name, steps in (("live", RESHARD_STEPS), ("control", RESHARD_DIE_AT + 1)):
+        controller, manager, vclock = plane()
+        coordinator = Checked(manager=manager, mesh_for=mesh_for,
+                              flush=controller.flush_slice_losses, clock=time.monotonic)
+        coordinator.plant = name == "control"
+        # The control saves once, at its last step, after the boundary: on
+        # rank 0 alone over the survivors' group (fit rebinds the
+        # checkpointer).  The live run's step times stay free of saves.
+        ck = (Checkpointer(f"{out}.ckpt_{name}", interval_s=None, every_steps=steps,
+                           async_save=False) if name == "control" else None)
+        row, trainer, state = run(name, steps, coordinator, controller, vclock,
+                                  checkpointer=ck)
+        if ck is not None and not coordinator.departed:
+            row.update(saved_steps=ck.all_steps(), save=dict(ck.last_save))
+        row.update(left=coordinator.departed, live_total=coordinator.live_total,
+                   fallback_total=coordinator.fallback_total,
+                   paused_at=[r.step for r in coordinator.records],
+                   migrated_bitwise=getattr(coordinator, "migrated_bitwise", None),
+                   pause_ms=[r.seconds * 1e3 for r in coordinator.records],
+                   records=[dataclasses.asdict(r) for r in coordinator.records],
+                   contract_slices=manager.contract.slices_count)
+        result[name] = row
+        del trainer, state, coordinator
+        torch.cuda.empty_cache()
+        wait_for_rank0(f"live_reshard/{name}", row)
+    # fallback: stop at the boundary, restore the checkpoint on the survivors' mesh
+    with contextlib.nullcontext(f"{out}.ckpt") as tmp:  # one directory for both ranks
+        controller, manager, vclock = plane()
+        coordinator = Checked(manager=manager, mesh_for=mesh_for,
+                              flush=controller.flush_slice_losses, clock=time.monotonic,
+                              force_fallback=True)
+        ck = Checkpointer(tmp, interval_s=None, every_steps=RESHARD_DIE_AT, async_save=False)
+        row, trainer, state = run("fallback", RESHARD_STEPS, coordinator, controller, vclock,
+                                  checkpointer=ck)
+        row.update(left=coordinator.departed, fallback_total=coordinator.fallback_total,
+                   live_total=coordinator.live_total, save=dict(ck.last_save),
+                   records=[dataclasses.asdict(r) for r in coordinator.records])
+        del trainer, state
+        torch.cuda.empty_cache()
+        if rank == 0:
+            mesh2 = mesh_for(coordinator.fallback_contract)
+            accum = reshard.rescale_grad_accum(1, 2, int(mesh2.size()))
+            trainer2 = make_trainer(mesh2, accum)
+            state2 = trainer2.init(seed=1, draw_on_device=True)
+            ck2 = Checkpointer(tmp, interval_s=None, async_save=False,
+                               process_group=data_group(mesh2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state2, restore_step = ck2.restore_latest(state2)
+            torch.cuda.synchronize()
+            restore_wall_ms = (time.perf_counter() - t0) * 1e3
+            restored_bitwise = (coordinator.stopped_state is not None
+                                and same(coordinator.stopped_state, local_state(state2)))
+            coordinator.stopped_state = None
+            resumed, _, _ = run("resumed", RESHARD_STEPS - restore_step, trainer=trainer2,
+                                state=state2, first=restore_step)
+            row.update(restore_step=restore_step, restore=dict(ck2.last_restore),
+                       restore_wall_ms=restore_wall_ms, restored_bitwise=restored_bitwise,
+                       resumed=resumed,
+                       restored_accum=accum, restored_topology=reshard.mesh_topology(mesh2))
+            del trainer2, state2
+        result["fallback"] = row
+    Path(f"{out}.rank{rank}").write_text(json.dumps(result))
+    sys.stdout.flush()
+    # No teardown of the groups: the lost slice's rank is gone (a gloo
+    # teardown with a peer gone may block).
+    os._exit(0)
+
+
+def _live_reshard_phase(torch, smi: str, flash_per_block: float) -> int:
+    """Phase 18 (see the module docstring): two processes of this script on
+    the card.  Returns the flash launches of both processes' runs."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    n_layers = 24
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "live_reshard")
+        env = dict(os.environ, DEEPLEARNING_SLICES_COUNT="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--reshard-worker", str(r), str(port), out],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(2)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=RESHARD_TIMEOUT)
+                errs.append(err)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for p, err in zip(procs, errs):
+            _require(p.returncode == 0, f"live_reshard: a process failed:\n{err[-3000:]}")
+        ranks = [json.loads(Path(f"{out}.rank{r}").read_text()) for r in range(2)]
+    r0, r1 = ranks
+    straight, live, control, fallback = (r0[k] for k in ("straight", "live", "control",
+                                                          "fallback"))
+    cut = RESHARD_DIE_AT
+    resumed = fallback["resumed"]
+    fallback_losses = fallback["losses"] + resumed["losses"]
+
+    def within(a: list, b: list) -> float:
+        """The largest excess of |a - b| over the tolerance (<= 0 holds)."""
+        return max(abs(x - y) - RESHARD_ATOL - RESHARD_RTOL * abs(y) for x, y in zip(a, b))
+
+    per_mb = flash_per_block * n_layers
+    before_ms = statistics.median(live["step_ms"][1:cut])
+    after_ms = statistics.median(live["step_ms"][cut + 1:])
+    row = {"phase": "live_reshard", "processes": 2, "device": "cuda:0 for both",
+           "backend": "gloo over CUDA tensors (host-staged)", "slices": 2, "model": "m435",
+           "S": 2048, "batch_per_rank": RESHARD_BATCH, "global_batch": 2 * RESHARD_BATCH,
+           "steps": RESHARD_STEPS, "pause_at_step": cut,
+           "strategy": "fsdp (FSDP2 at fsdp 1 under dp 2: HSDP over gloo)",
+           "times": "two ranks share the card over gloo before the pause: not NVLink times",
+           "wall_s": wall_s,
+           "losses": {"straight": straight["losses"], "live": live["losses"],
+                      "fallback": fallback_losses, "control": control["losses"],
+                      "straight_rank1": r1["straight"]["losses"], "live_rank1": r1["live"]["losses"]},
+           "pre_pause_bitwise": live["losses"][:cut] == straight["losses"][:cut],
+           "live_excess": within(live["losses"], straight["losses"]),
+           "fallback_excess": within(fallback_losses, straight["losses"]),
+           "rtol": RESHARD_RTOL, "atol": RESHARD_ATOL,
+           "migrated_bitwise": live["migrated_bitwise"],
+           "control_migrated_bitwise": control["migrated_bitwise"],
+           "live_total": live["live_total"], "fallback_total_live": live["fallback_total"],
+           "fallback_run_totals": {"live": fallback["live_total"],
+                                   "fallback": fallback["fallback_total"]},
+           "rank1_left": [r1[k]["left"] for k in ("live", "control", "fallback")],
+           "grad_accum_after": live["grad_accum"],
+           "mesh_before": straight["topology"], "mesh_after": live["topology"],
+           "flash_per_step_rank0": live["flash_per_step"],
+           "flash_per_step_rank1": r1["live"]["flash_per_step"],
+           "flash_variants": {k: [r[k]["flash_variants"] for r in ranks]
+                              for k in ("straight", "live", "control", "fallback")},
+           "step_ms_straight": straight["step_ms"], "step_ms_live": live["step_ms"],
+           "step_ms_before_pause": before_ms, "step_ms_after_pause": after_ms,
+           "step_ms_without_reshard_arg": statistics.median(straight["step_ms"][1:cut]),
+           "step_ms_with_reshard_arg": before_ms,
+           "pause_ms": live["pause_ms"], "pause_step_ms": live["step_ms"][cut],
+           "fallback_save_ms": fallback["save"].get("blocking_ms"),
+           "fallback_save_bytes": fallback["save"].get("bytes"),
+           "fallback_restore_ms": fallback["restore"].get("ms"),
+           "fallback_restore_wall_ms": fallback["restore_wall_ms"],
+           "fallback_restore_step": fallback["restore_step"],
+           "fallback_restored_bitwise": fallback["restored_bitwise"],
+           "control_saved_steps": control.get("saved_steps"),
+           "control_save_ms": control.get("save", {}).get("blocking_ms"),
+           "fallback_restored_accum": fallback["restored_accum"],
+           "peak_memory_bytes": {k: [r[k]["max_memory_allocated_bytes"] for r in ranks]
+                                 for k in ("straight", "live", "control", "fallback")},
+           "records": live["records"], "nvidia_smi": smi}
+    _emit(row)
+    every = [straight["losses"], live["losses"], fallback_losses, control["losses"],
+             r1["straight"]["losses"], r1["live"]["losses"]]
+    _require(all(math.isfinite(v) for run in every for v in run), "live_reshard: non-finite loss")
+    _require(row["pre_pause_bitwise"], "live_reshard: the live run's first steps are not "
+             "bitwise the straight run's")
+    _require(row["live_excess"] <= 0 and row["fallback_excess"] <= 0,
+             f"live_reshard: live or fallback off the straight run: {row['losses']}")
+    _require(live["migrated_bitwise"] is True,
+             "live_reshard: the migrated state is not bitwise the pre-pause state")
+    _require(control["migrated_bitwise"] is False,
+             "live_reshard: the state check passed the planted control (moments zeroed)")
+    _require(live["live_total"] == 1 and live["fallback_total"] == 0,
+             f"live_reshard: {live['live_total']} live, {live['fallback_total']} fallback")
+    _require(fallback["fallback_total"] == 1 and fallback["losses"] == straight["losses"][:cut]
+             and fallback["restore_step"] == cut,
+             "live_reshard: the fallback did not stop at the boundary and restore its step")
+    _require(fallback["restored_bitwise"] is True,
+             "live_reshard: the fallback's restored state is not bitwise rank 0's at the "
+             "boundary")
+    _require(control.get("saved_steps") == [cut + 1],
+             f"live_reshard: the save after the boundary: {control.get('saved_steps')}")
+    _require(live["grad_accum"] == 2 and fallback["restored_accum"] == 2,
+             "live_reshard: accumulation not 2 after the loss")
+    _require(straight["topology"] == {"devices": 2, "axes": {"dp": 2}}
+             and live["topology"] == {"devices": 1, "axes": {}},
+             f"live_reshard: mesh {straight['topology']} -> {live['topology']}")
+    _require(all(r1[k]["left"] for k in ("live", "control", "fallback"))
+             and r1["live"]["losses"] == live["losses"][:cut],
+             "live_reshard: rank 1 did not leave at the boundary")
+    _require(live["flash_per_step"] == [per_mb] * cut + [2 * per_mb] * (RESHARD_STEPS - cut)
+             and r1["live"]["flash_per_step"] == [per_mb] * cut
+             and resumed["flash_per_step"] == [2 * per_mb] * (RESHARD_STEPS - cut),
+             f"live_reshard: flash per step {live['flash_per_step']}, rank 1 "
+             f"{r1['live']['flash_per_step']}, expected {per_mb} a microbatch")
+    _require(all(set(v) <= {"wgmma_tma"} for runs in row["flash_variants"].values()
+                 for v in runs), f"live_reshard: flash variants {row['flash_variants']}")
+    return sum(sum(r[k]["flash_per_step"]) for r in ranks
+               for k in ("straight", "live", "control", "fallback")) + sum(
+        resumed["flash_per_step"])
+
+
 def main() -> int:
     import torch
 
@@ -3340,6 +3753,12 @@ def main() -> int:
     flash_by_path["two_ranks"] = _two_ranks_phase(torch, smi, flash_per_block)
     flash_by_path["mesh_captured"] = _mesh_captured_phase(torch, _kernels, smi, flash_per_block)
 
+    # 18. live_reshard: a slice lost mid-run, the trainer resharded live onto
+    # the survivor, beside the checkpoint/restore fallback.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_by_path["live_reshard"] = _live_reshard_phase(torch, smi, flash_per_block)
+
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with
         ``variants``, only those variants' launches."""
@@ -3401,4 +3820,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.exit(_two_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--reshard-worker":
+        sys.exit(_reshard_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -1,8 +1,10 @@
 """Command line of the port — counterpart of ``deeplearning_cfn_tpu/cli.py``.
 
 Run as ``python -m deeplearning_cfn_tpu_torch.cli <command>``.  Ported so
-far: ``serve`` and ``convert``, the counterparts of ``dlcfn serve`` and
-``dlcfn convert``.  The JAX package's other commands come with the later
+far: ``serve``, ``convert``, ``events``, ``status`` (its mesh, reshard and
+span sections) and ``chaos`` (the ``slice-loss-live`` scenario), the
+counterparts of the ``dlcfn`` commands of those names.  The JAX package's
+other commands, and the other sections of ``status``, come with the later
 slices that port what they drive.
 """
 
@@ -12,8 +14,10 @@ import argparse
 import json
 import os
 import sys
+from pathlib import Path
 
-_BROKER_SLICE = "a later slice of the PyTorch port (the cluster plane)"
+_BROKER_SLICE = "a later slice of the PyTorch port (the broker client and service)"
+_OBS_SLICE = "a later slice of the PyTorch port (obs/: liveness, profiler folds, aggregator)"
 
 
 def cmd_serve(args) -> int:
@@ -104,6 +108,168 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def _status_spans(args) -> dict | None:
+    """Span aggregates folded from a flight journal, or None; each span
+    with p50/p95/p99 over the journal's most recent samples."""
+    if not args.journal:
+        return None
+    from deeplearning_cfn_tpu_torch.obs.profiler import RollingQuantiles
+    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
+    from deeplearning_cfn_tpu_torch.obs.tracing import SpanStats
+
+    stats: dict[str, SpanStats] = {}
+    quantiles: dict[str, RollingQuantiles] = {}
+    for event in read_journal(args.journal, kind="span"):
+        name = event.get("span")
+        seconds = event.get("seconds")
+        if not isinstance(name, str) or not isinstance(seconds, (int, float)):
+            continue
+        agg = stats.setdefault(name, SpanStats())
+        agg.fold(float(seconds), bool(event.get("ok", True)))
+        quantiles.setdefault(name, RollingQuantiles()).add(float(seconds))
+    out = {}
+    for name, agg in sorted(stats.items()):
+        row = agg.as_dict()
+        for key, value in quantiles[name].quantiles().items():
+            row[f"{key}_s"] = round(value, 6)
+        out[name] = row
+    return out
+
+
+def _status_reshard(args) -> dict | None:
+    """Live-reshard counters folded from journaled ``reshard`` /
+    ``reshard_fallback`` events, or None (no journal / no reshards)."""
+    if not args.journal:
+        return None
+    from deeplearning_cfn_tpu_torch.obs.exporter import fold_reshard_events
+    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
+
+    return fold_reshard_events(read_journal(args.journal)) or None
+
+
+def _status_mesh(args) -> dict | None:
+    """The current mesh shape straight from the published cluster
+    contract (slices/workers/chips and the degraded flag) — after a live
+    reshard the surviving topology shows up here."""
+    if not args.cluster:
+        return None
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+
+    try:
+        contract = ClusterContract.read()
+    except (OSError, TypeError, ValueError, KeyError):
+        return None
+    if contract.cluster_name != args.cluster:
+        return None
+    return {
+        "cluster": contract.cluster_name,
+        "slices": contract.slices_count,
+        "workers": contract.workers_count,
+        "chips_total": contract.total_chips,
+        "degraded": contract.degraded,
+        "slice_groups": {
+            g: len(ips) for g, ips in (contract.slices or {}).items()
+        },
+    }
+
+
+def cmd_status(args) -> int:
+    """Cluster status: the mesh from the published cluster contract
+    (``--cluster``), the live-reshard counters and span aggregates from a
+    flight journal (``--journal``); ``--format prom`` renders them as
+    Prometheus text.  The JAX command's liveness and broker sections (read
+    from a broker) are not ported: with ``--cluster`` only the mesh shows;
+    the flags of the other sections raise, naming their slice."""
+    for flag, what, where in (("metrics_dir", "--metrics-dir", _OBS_SLICE),
+                              ("status_broker", "--broker", _BROKER_SLICE),
+                              ("profile", "--profile", _OBS_SLICE),
+                              ("serve", "--serve", _OBS_SLICE),
+                              ("fleet", "--fleet", _BROKER_SLICE)):
+        if getattr(args, flag):
+            raise NotImplementedError(f"status {what} is ported in {where}")
+    if not (args.cluster or args.journal):
+        raise SystemExit("status needs a source: --cluster and/or --journal")
+    spans = _status_spans(args)
+    reshard = _status_reshard(args)
+    mesh = _status_mesh(args)
+    if args.format == "prom":
+        from deeplearning_cfn_tpu_torch.obs.exporter import render_prometheus
+
+        print(render_prometheus(None, spans, cluster=args.cluster or "", reshard=reshard,
+                                mesh=mesh), end="")
+        return 0
+    out: dict = {}
+    if mesh is not None:
+        out["mesh"] = mesh
+    if reshard is not None:
+        out["reshard"] = reshard
+    if spans is not None:
+        out["spans"] = spans
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_events(args) -> int:
+    """Tail the flight journal: the last N structured events, as JSONL.
+    ``--follow`` prints everything already journaled (``-n`` is ignored),
+    then polls for appends across the recorder's ``<path>.1`` rotation —
+    ``tail -F`` for the journal; Ctrl-C exits cleanly."""
+    from deeplearning_cfn_tpu_torch.obs.recorder import ENV_JOURNAL, follow_journal, read_journal
+
+    path = args.journal or os.environ.get(ENV_JOURNAL)
+    if not path:
+        raise SystemExit(
+            f"events needs --journal (or ${ENV_JOURNAL}) pointing at a flight journal"
+        )
+    if args.follow:
+        try:
+            for event in follow_journal(path, kind=args.kind, poll_s=args.poll):
+                print(json.dumps(event, allow_nan=False, default=str), flush=True)
+        except KeyboardInterrupt:
+            pass
+        return 0
+    if not Path(path).exists() and not Path(path + ".1").exists():
+        print(f"no journal at {path}", file=sys.stderr)
+        return 1
+    count = 0
+    for event in read_journal(path, limit=args.last, kind=args.kind):
+        print(json.dumps(event, allow_nan=False, default=str))
+        count += 1
+    if count == 0:
+        print("journal is empty (no matching events)", file=sys.stderr)
+    return 0
+
+
+def cmd_chaos(args) -> int:
+    """Run named fault-injection scenarios (``chaos/scenarios.py``): each
+    drives real components through seeded faults and checks its recovery
+    invariants; the report is deterministic per (scenario, seed).  One
+    scenario prints one report dict, ``--all`` a list.  Exit 1 if any
+    invariant was violated, 2 on a bad name."""
+    from deeplearning_cfn_tpu_torch.chaos import SCENARIO_FAULTS, SCENARIOS, run_scenario
+
+    if args.list_scenarios:
+        width = max(len(name) for name in SCENARIOS)
+        for name in sorted(SCENARIOS):
+            doc = (SCENARIOS[name].__doc__ or "").strip().split("\n")[0]
+            faults = ", ".join(SCENARIO_FAULTS.get(name, ())) or "-"
+            print(f"{name:<{width}}  {doc}")
+            print(f"{'':<{width}}  faults: {faults}")
+        return 0
+    names = sorted(SCENARIOS) if args.all else [args.scenario]
+    if names == [None]:
+        print("chaos: pass --scenario NAME, --all, or --list")
+        return 2
+    unknown = [n for n in names if n not in SCENARIOS]
+    if unknown:
+        print(f"chaos: unknown scenario(s) {unknown}; available: {sorted(SCENARIOS)}")
+        return 2
+    reports = [run_scenario(name, args.seed, args.device) for name in names]
+    payload = [r.to_dict() for r in reports]
+    print(json.dumps(payload[0] if len(payload) == 1 else payload, indent=2))
+    return 0 if all(r.passed for r in reports) else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
@@ -155,6 +321,45 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--tokenizer", default=None,
                     help="local HF tokenizer dir for --format text (default: byte-level)")
     pc.set_defaults(fn=cmd_convert)
+    ps = sub.add_parser("status", help="the mesh, live-reshard counters and span aggregates")
+    ps.add_argument("--cluster", default=None,
+                    help="cluster name: the mesh from its published contract ($DLCFN_ROOT)")
+    ps.add_argument("--journal", default=None,
+                    help="flight journal (JSONL) to fold reshard counters and spans from")
+    ps.add_argument("--format", choices=["json", "prom"], default="json",
+                    help="prom = Prometheus text exposition")
+    ps.add_argument("--metrics-dir", dest="metrics_dir", default=None,
+                    help="per-worker training metrics (not ported yet)")
+    ps.add_argument("--broker", default=None, dest="status_broker", metavar="HOST:PORT",
+                    help="liveness from a broker (not ported yet)")
+    ps.add_argument("--profile", action="store_true", help="step profiles (not ported yet)")
+    ps.add_argument("--serve", action="store_true", help="serving snapshots (not ported yet)")
+    ps.add_argument("--fleet", action="store_true", help="fleet telemetry (not ported yet)")
+    ps.set_defaults(fn=cmd_status)
+    pe = sub.add_parser("events", help="tail the obs flight journal")
+    pe.add_argument("--journal", default=None,
+                    help="journal path (default: $DLCFN_FLIGHT_JOURNAL)")
+    pe.add_argument("-n", "--last", type=int, default=50, dest="last",
+                    help="how many trailing events to print")
+    pe.add_argument("--kind", default=None,
+                    help="only events of this kind (e.g. span, reshard)")
+    pe.add_argument("--follow", action="store_true",
+                    help="live mode: print existing events then poll for appends, across "
+                         "journal rotation (tail -F)")
+    pe.add_argument("--poll", type=float, default=0.5, metavar="S",
+                    help="--follow poll interval in seconds")
+    pe.set_defaults(fn=cmd_events)
+    px = sub.add_parser("chaos", help="run seeded fault-injection scenarios (resilience soak)")
+    px.add_argument("--scenario", default=None,
+                    help="scenario name (see --list): slice-loss-live")
+    px.add_argument("--seed", type=int, default=0,
+                    help="fault-schedule seed; reports are deterministic per (scenario, seed)")
+    px.add_argument("--all", action="store_true", help="run every scenario in the catalog")
+    px.add_argument("--list", action="store_true", dest="list_scenarios",
+                    help="list scenarios and exit")
+    px.add_argument("--device", default="cuda",
+                    help="where the scenario's trainers run: cuda (default) or cpu")
+    px.set_defaults(fn=cmd_chaos)
     return parser
 
 

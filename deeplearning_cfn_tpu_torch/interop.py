@@ -25,7 +25,11 @@ is transposed):
 - ``retinanet_params_from_jax``: the Flax ``RetinaNet`` tree and its
   ``batch_stats``: the backbone by the ResNet rules under ``backbone.``, the
   FPN, head and protonet convolutions (``kernel`` and ``bias``) as
-  ``weight`` (transposed) and ``bias``.
+  ``weight`` (transposed) and ``bias``;
+- ``dense_params_from_jax``: a Flax tree of ``nn.Dense`` layers as the
+  state dict of ``torch.nn.Linear`` layers of the same names, the second
+  exception: ``Linear`` keeps its weight ``[out, in]``, so each ``[in, out]``
+  kernel is transposed.
 """
 
 from __future__ import annotations
@@ -170,3 +174,13 @@ def retinanet_params_from_jax(params_np: dict,
                     leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
                 sd[f"{top}.{scope}.{leaf}"] = _tensor(arr)
     return sd
+
+
+def dense_params_from_jax(params_np: dict) -> dict[str, torch.Tensor]:
+    """``{name: {"kernel": [in, out], "bias": [out]}}`` (Flax ``nn.Dense``
+    layers) -> ``{name.weight: [out, in], name.bias: [out]}`` (``nn.Linear``)."""
+    out = {}
+    for name, layer in params_np.items():
+        out[f"{name}.weight"] = _tensor(np.asarray(layer["kernel"]).T)
+        out[f"{name}.bias"] = _tensor(layer["bias"])
+    return out

@@ -23,7 +23,8 @@ log = get_logger("dlcfn.obs")
 
 ENV_INTERVAL = "DLCFN_HEARTBEAT_S"
 DEFAULT_INTERVAL_S = 10.0
-_LATER_SLICE = "a later slice of the PyTorch port (the cluster plane)"
+_LATER_SLICE = ("a later slice of the PyTorch port (the broker client and service, with the "
+                "telemetry piggyback of obs/aggregator)")
 
 
 def heartbeat_interval_s() -> float:

@@ -6,7 +6,8 @@ for line (``{"ts", "kind", host, pid, [cluster], [worker], fields...}``,
 ``json.dumps(..., allow_nan=False, default=str)``, rotation to ``<path>.1``),
 so the JAX package's ``read_journal`` and ``fold_serve_events`` read a
 journal the port wrote.  Ported: ``FlightRecorder``, ``configure``,
-``get_recorder`` and ``read_journal``, what the serving plane uses.
+``get_recorder``, ``read_journal`` and ``follow_journal`` (the ``events``
+command's live mode).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import threading
 import time
 from collections import deque
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 ENV_JOURNAL = "DLCFN_FLIGHT_JOURNAL"
 
@@ -162,3 +163,80 @@ def read_journal(
     if limit is not None:
         events = events[-limit:]
     return iter(events)
+
+
+def _parse_journal_lines(
+    lines: list[str], kind: str | None
+) -> Iterator[dict[str, Any]]:
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            event = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if kind is not None and event.get("kind") != kind:
+            continue
+        yield event
+
+
+def follow_journal(
+    path: str | Path,
+    kind: str | None = None,
+    poll_s: float = 0.5,
+    sleep: Callable[[float], None] = time.sleep,
+    stop: Callable[[], bool] | None = None,
+) -> Iterator[dict[str, Any]]:
+    """Yield journal events as they are appended — ``tail -F`` semantics.
+
+    Emits the rotation (``<path>.1``) and any existing live-file content
+    first, then polls for new bytes.  A torn trailing line stays
+    buffered until its newline arrives.  Rotation is detected by inode:
+    ``FlightRecorder`` rotates with ``os.replace``, which leaves the old
+    file readable through the open handle — the handle is drained to EOF
+    before reopening the new live file, so no event is skipped across a
+    rotation.  Waits for ``path`` to appear if it does not exist yet.
+
+    ``sleep`` and ``stop`` are injectable so tests drive the poll loop
+    deterministically without wall-clock waits; ``stop`` is checked once
+    per poll after a full drain, so everything written before it flips
+    is still yielded.  No deadline arithmetic — the loop is purely
+    poll-driven.
+    """
+    path = Path(path)
+    rotated = path.with_suffix(path.suffix + ".1")
+    if rotated.exists():
+        with open(rotated, encoding="utf-8") as fh:
+            yield from _parse_journal_lines(fh.read().split("\n"), kind)
+    fh = None
+    buf = ""
+    try:
+        while True:
+            if fh is None and path.exists():
+                fh = open(path, encoding="utf-8")
+                buf = ""
+            if fh is not None:
+                chunk = fh.read()
+                if chunk:
+                    buf += chunk
+                    *complete, buf = buf.split("\n")
+                    yield from _parse_journal_lines(complete, kind)
+                else:
+                    # At EOF: if the live path now names a different file
+                    # (rotation happened), this handle is fully drained —
+                    # switch to the new file without sleeping.
+                    try:
+                        live_ino = os.stat(path).st_ino
+                    except FileNotFoundError:
+                        live_ino = None
+                    if live_ino != os.fstat(fh.fileno()).st_ino:
+                        fh.close()
+                        fh = None
+                        continue
+            if stop is not None and stop():
+                return
+            sleep(poll_s)
+    finally:
+        if fh is not None:
+            fh.close()

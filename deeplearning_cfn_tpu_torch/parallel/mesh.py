@@ -17,6 +17,14 @@ DCN is the network between the nodes; a node's ranks are consecutive in the
 cluster contract's order (``DLCFN_PROCESS_ID``), the grouping JAX's
 process-granule branch assumes.  Each combined axis is ``dcn x ici`` with the
 DCN part varying slowest, as the JAX package lays devices out.
+
+Every builder takes ``ranks``: the global ranks the mesh spans, in order
+(default: every rank of the default group).  After a slice loss the live
+reshard (``train/reshard.py``) builds its mesh over the survivors named by
+the cluster contract; the default group still counts the lost ranks, so such
+a mesh makes its process groups among its own ranks alone
+(``new_group(..., use_local_synchronization=True)``, then
+``DeviceMesh.from_group``): the lost ranks take no part.
 """
 
 from __future__ import annotations
@@ -77,17 +85,47 @@ class MeshSpec:
         return self
 
 
-def build_mesh(spec: MeshSpec, device_type: str | None = None) -> DeviceMesh:
-    """The ranks of the default process group as a ``DeviceMesh`` over
-    ``AXIS_ORDER``, row-major, so ``ep`` (then ``tp``, ``sp``) varies
-    fastest, as the JAX mesh lays its innermost axes on nearest neighbours.
-    ``device_type`` defaults to ``cuda`` when the group's backend is NCCL
-    and ``cpu`` otherwise."""
+def build_mesh(spec: MeshSpec, device_type: str | None = None,
+               ranks: list[int] | None = None) -> DeviceMesh:
+    """The ranks of the default process group (or ``ranks``) as a
+    ``DeviceMesh`` over ``AXIS_ORDER``, row-major, so ``ep`` (then ``tp``,
+    ``sp``) varies fastest, as the JAX mesh lays its innermost axes on
+    nearest neighbours.  ``device_type`` defaults to ``cuda`` when the
+    group's backend is NCCL and ``cpu`` otherwise."""
     _require_initialised("build_mesh")
+    shape = tuple(spec.axis_sizes()[a] for a in AXIS_ORDER)
+    if ranks is not None:
+        spec.validate(len(ranks))
+        return _mesh_over(np.asarray(ranks).reshape(shape), device_type)
     spec.validate(dist.get_world_size())
-    return init_device_mesh(_device_type(device_type),
-                            tuple(spec.axis_sizes()[a] for a in AXIS_ORDER),
-                            mesh_dim_names=AXIS_ORDER)
+    return init_device_mesh(_device_type(device_type), shape, mesh_dim_names=AXIS_ORDER)
+
+
+def _mesh_over(grid: np.ndarray, device_type: str | None) -> DeviceMesh:
+    """A mesh over the global ranks of ``grid`` (one dim an axis of
+    ``AXIS_ORDER``).  Over every rank of the default group it is a plain
+    ``DeviceMesh``; over fewer, each of its process groups is made by its
+    own members alone, in one order on every rank (``dp, fsdp, ..., ep``,
+    then the data group of :func:`data_group` when dp and fsdp are both
+    split), so ranks outside the grid, lost ones included, take no part."""
+    device_type = _device_type(device_type)
+    if grid.size == dist.get_world_size():
+        return DeviceMesh(device_type, torch.from_numpy(grid), mesh_dim_names=AXIS_ORDER)
+    me = dist.get_rank()
+    where = np.argwhere(grid == me)
+    if len(where) != 1:
+        raise MeshError(f"rank {me} is not in the mesh {grid.reshape(-1).tolist()}")
+    coord = tuple(where[0])
+    groups = []
+    for d in range(grid.ndim):
+        line = grid[coord[:d] + (slice(None),) + coord[d + 1:]]
+        groups.append(dist.new_group(line.tolist(), use_local_synchronization=True))
+    mesh = DeviceMesh.from_group(groups, device_type, mesh=torch.from_numpy(grid),
+                                 mesh_dim_names=AXIS_ORDER)
+    if grid.shape[0] > 1 and grid.shape[1] > 1:
+        data = grid[(slice(None), slice(None)) + coord[2:]].reshape(-1)
+        mesh._dlcfn_data_group = dist.new_group(data.tolist(), use_local_synchronization=True)
+    return mesh
 
 
 def _require_initialised(what: str) -> None:
@@ -120,6 +158,8 @@ def data_group(mesh: DeviceMesh):
         return mesh.get_group("dp")
     if sizes.dp == 1:
         return mesh.get_group("fsdp")
+    if hasattr(mesh, "_dlcfn_data_group"):  # a mesh over some of the ranks
+        return mesh._dlcfn_data_group
     return mesh["dp", "fsdp"]._flatten().get_group()
 
 
@@ -130,6 +170,8 @@ def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
         return mesh["dp"]
     if sizes.dp == 1:
         return mesh["fsdp"]
+    if hasattr(mesh, "_dlcfn_data_group"):
+        return DeviceMesh.from_group(mesh._dlcfn_data_group, mesh.device_type)
     return mesh["dp", "fsdp"]._flatten()
 
 
@@ -195,7 +237,8 @@ def hybrid_rank_grid(ici_spec: MeshSpec, dcn_spec: MeshSpec, n_ranks: int) -> np
 
 
 def build_hybrid_mesh(ici_spec: MeshSpec, dcn_spec: MeshSpec,
-                      device_type: str | None = None) -> DeviceMesh:
+                      device_type: str | None = None,
+                      ranks: list[int] | None = None) -> DeviceMesh:
     """Multi-slice mesh: ICI axes within a node x DCN axes across nodes.
 
     Only axes that communicate once a step or between stages (dp, fsdp,
@@ -204,22 +247,25 @@ def build_hybrid_mesh(ici_spec: MeshSpec, dcn_spec: MeshSpec,
     varying slowest: ici ``fsdp=4`` x dcn ``dp=2`` shards within each node
     and replicates across the two (:func:`hybrid_rank_grid`)."""
     _require_initialised("build_hybrid_mesh")
-    grid = hybrid_rank_grid(ici_spec, dcn_spec, dist.get_world_size())
-    return DeviceMesh(_device_type(device_type), torch.from_numpy(grid),
-                      mesh_dim_names=AXIS_ORDER)
+    n = dist.get_world_size() if ranks is None else len(ranks)
+    grid = hybrid_rank_grid(ici_spec, dcn_spec, n)
+    if ranks is not None:
+        grid = np.asarray(ranks)[grid]
+    return _mesh_over(grid, device_type)
 
 
 def hybrid_mesh_for_slices(n_slices: int, ici_spec: MeshSpec | None = None,
-                           dcn_axis: str = "dp", device_type: str | None = None) -> DeviceMesh:
+                           dcn_axis: str = "dp", device_type: str | None = None,
+                           ranks: list[int] | None = None) -> DeviceMesh:
     """Mesh for an ``n_slices`` cluster straight from the contract's
     topology (``DEEPLEARNING_SLICES_COUNT``): ICI axes within each node
     (default: data parallel over its ranks), one DCN axis of size
     ``n_slices`` across them."""
     _require_initialised("hybrid_mesh_for_slices")
-    n = dist.get_world_size()
+    n = dist.get_world_size() if ranks is None else len(ranks)
     if n_slices <= 1:
-        return build_mesh(ici_spec or MeshSpec.data_parallel(n), device_type)
-    return build_hybrid_mesh(*slice_specs(n, n_slices, ici_spec, dcn_axis), device_type)
+        return build_mesh(ici_spec or MeshSpec.data_parallel(n), device_type, ranks)
+    return build_hybrid_mesh(*slice_specs(n, n_slices, ici_spec, dcn_axis), device_type, ranks)
 
 
 def slice_specs(n_ranks: int, n_slices: int, ici_spec: MeshSpec | None = None,

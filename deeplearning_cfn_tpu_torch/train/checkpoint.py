@@ -208,7 +208,11 @@ class Checkpointer:
     the one before it, as Orbax's manager does.  Over a process group every
     rank calls ``save``/``restore_latest``/``wait`` together, and DCP talks
     over a gloo group of its own (async writes must not share the training
-    group).  ``last_save`` and ``last_restore`` hold the latest timings:
+    group): over every rank, or over ``process_group``'s ranks alone (the
+    survivors of a slice loss restoring on their mesh: the default group
+    still counts the lost ranks); :meth:`rebind` moves a live checkpointer
+    onto the survivors after a live reshard.  ``last_save`` and
+    ``last_restore`` hold the latest timings:
     bytes, ``blocking_ms`` (the caller's time in ``save``, of it ``wait_ms``
     for the save before), ``staging_ms`` (the copies' device time, on the
     card), ``write_s`` (save to commit; an async save's record is completed
@@ -219,19 +223,43 @@ class Checkpointer:
     every_steps: int | None = None
     max_to_keep: int = 3
     async_save: bool = True
+    process_group: Any = None
     _last_save_t: float = field(default_factory=time.monotonic, repr=False)
 
     def __post_init__(self) -> None:
         self._dir = Path(self.directory).absolute()
         self._dir.mkdir(parents=True, exist_ok=True)
-        self._group = dist.new_group(backend="gloo") if dist.is_initialized() else None
+        self._group = self._new_group()
         self._staging = _HostStaging()
         self._pending: _PendingSave | None = None
         self.last_save: dict = {}
         self.last_restore: dict = {}
 
+    def _new_group(self) -> Any:
+        """DCP's gloo group: over ``process_group``'s ranks, made among
+        them alone, or over every rank."""
+        if self.process_group is not None:
+            return dist.new_group(dist.get_process_group_ranks(self.process_group),
+                                  backend="gloo", use_local_synchronization=True)
+        return dist.new_group(backend="gloo") if dist.is_initialized() else None
+
+    def rebind(self, process_group: Any) -> None:
+        """Save and restore over ``process_group``'s ranks from now on: the
+        survivors of a live reshard (``Trainer.fit`` calls this on a
+        ``"resume"``), whose next save must not wait for the ranks that
+        left.  A save in flight spans the old group's ranks: every one of
+        them calls :meth:`wait` before the loss (``fit`` does at the pause).
+        The old group is left alone (a gloo teardown with peers gone may
+        block)."""
+        if self._pending is not None:
+            raise RuntimeError("a save is in flight over the old ranks: wait() on every "
+                               "one of them before rebind()")
+        self.process_group = process_group
+        self._group = self._new_group()
+
     def _rank(self) -> int:
-        return dist.get_rank() if self._group is not None else 0
+        """This rank's index in the checkpoint's group (0 commits)."""
+        return dist.get_rank(self._group) if self._group is not None else 0
 
     def _barrier(self) -> None:
         if self._group is not None:

@@ -87,8 +87,15 @@ Without a mesh the trainer runs on one device and ``strategy`` is the
 identity.  On the ``meta`` device (``models/llama_memory.trace_check``) a
 step traces shapes only, and FSDP2 and DDP, which cannot run on ``meta``,
 are left out (the one guard for it, in ``_distribute``): each rank's
-parameters keep their fsdp-gathered size.  Live reshard is ported in a
-later slice and raises ``NotImplementedError``.
+parameters keep their fsdp-gathered size.
+
+- ``fit(reshard=)`` (a ``train.reshard.LiveReshardCoordinator``): at each
+  step boundary every rank asks the coordinator whether to pause; on a slice
+  loss the state moves onto the survivors' mesh, the trainer is rebound
+  (:meth:`Trainer.rebind_mesh`: the data ranks, the batch split and the
+  groups the step reduces over come from the new mesh) and training goes on
+  with the next batch, or the ranks that leave stop, or (the fallback) every
+  rank stops for the checkpoint/restore path.
 """
 
 from __future__ import annotations
@@ -368,11 +375,17 @@ def decay_mask(named_parameters) -> dict[str, bool]:
 
 
 def _param_groups(model: nn.Module, weight_decay: float) -> list[dict]:
+    """The decayed and the undecayed parameters, each split into FSDP2's
+    DTensors and whole tensors (what the FSDP rule leaves whole stays out
+    of FSDP2): a foreach kernel (AdamW's on the card, SGD's) takes one kind
+    of tensor a list."""
     named = list(model.named_parameters())
     mask = decay_mask(named)
     groups = [
-        {"params": [p for n, p in named if mask[n]], "weight_decay": weight_decay},
-        {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
+        {"params": [p for n, p in named if mask[n] == decay
+                    and hasattr(p, "device_mesh") == dtensor],
+         "weight_decay": weight_decay if decay else 0.0}
+        for decay in (True, False) for dtensor in (True, False)
     ]
     return [g for g in groups if g["params"]]
 
@@ -556,31 +569,11 @@ class Trainer:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.analytic_flops_fn = analytic_flops_fn
-        self.mesh = mesh
         self.param_specs = param_specs
-        self._split_groups: dict[int, tuple] = {}
-        self._replicated: list[nn.Parameter] = []  # outside FSDP2, synced by the step
-        self._sp_index, self._sp_count, self._sp_group = 0, 1, None
-        self._pp_group = None
-        self._stage_params: set[int] = set()  # a pp rank's own blocks
-        self._pp_replicated: list[nn.Parameter] = []  # held by every pp rank
-        self._sync_axes: tuple[str, ...] = ()
         if config.comms_overlap and mesh is None:
             overlap_lib.check_sync(overlap_lib.BucketPlan((), 0, 1), overlap_lib.SYNC_AXES, 1,
                                    config.grad_accum_steps)
-        if mesh is not None:
-            sizes = mesh_lib.mesh_spec(mesh)
-            self._data_index, self._data_count = mesh_lib.data_rank(mesh)
-            self._data_group = mesh_lib.data_group(mesh)
-            self._sizes = sizes
-            if sizes.sp > 1:
-                self._sp_index, self._sp_count = mesh_lib.axis_rank(mesh, "sp"), sizes.sp
-                self._sp_group = mesh.get_group("sp")
-            if sizes.pp > 1:
-                self._pp_group = mesh.get_group("pp")
-            if config.comms_overlap:
-                batch_spec = (("dp", "fsdp"),) + (("sp",) if sizes.sp > 1 else ())
-                self._sync_axes = overlap_lib._resolve_sync_axes(batch_spec, sizes.axis_sizes())
+        self._bind_mesh(mesh)
         # Set by fit(): seconds from fit entry to the first completed step,
         # the perf_counter stamp of that completion, and the input
         # pipeline's counters.
@@ -590,6 +583,44 @@ class Trainer:
         # Set by fit(): the last eager step's metrics (device tensors).
         self.last_metrics: dict | None = None
         self._input_stats: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _bind_mesh(self, mesh) -> None:
+        """What the trainer derives from its mesh: this rank's share of the
+        batch, the data, sp and pp groups, the sync axes; the layout's
+        bookkeeping starts empty (``_distribute`` fills it)."""
+        self.mesh = mesh
+        self._split_groups: dict[int, tuple] = {}
+        self._replicated: list[nn.Parameter] = []  # outside FSDP2, synced by the step
+        self._sp_index, self._sp_count, self._sp_group = 0, 1, None
+        self._pp_group = None
+        self._stage_params: set[int] = set()  # a pp rank's own blocks
+        self._pp_replicated: list[nn.Parameter] = []  # held by every pp rank
+        self._sync_axes: tuple[str, ...] = ()
+        if mesh is None:
+            return
+        sizes = mesh_lib.mesh_spec(mesh)
+        self._data_index, self._data_count = mesh_lib.data_rank(mesh)
+        self._data_group = mesh_lib.data_group(mesh)
+        self._sizes = sizes
+        if sizes.sp > 1:
+            self._sp_index, self._sp_count = mesh_lib.axis_rank(mesh, "sp"), sizes.sp
+            self._sp_group = mesh.get_group("sp")
+        if sizes.pp > 1:
+            self._pp_group = mesh.get_group("pp")
+        if self.config.comms_overlap:
+            batch_spec = (("dp", "fsdp"),) + (("sp",) if sizes.sp > 1 else ())
+            self._sync_axes = overlap_lib._resolve_sync_axes(batch_spec, sizes.axis_sizes())
+
+    def rebind_mesh(self, mesh) -> None:
+        """Point the trainer at a new mesh — the live-reshard seam
+        (``train/reshard.py``).  This rank's share of the batch, the data
+        group its reductions span (the gradient average, the count-normalised
+        losses, the metrics) and the other groups come from ``mesh``; the
+        layout's bookkeeping is dropped.  The state's DDP or FSDP2 wrapping
+        belongs to the old groups: the caller lays a state out anew on
+        ``mesh`` (``init_from``), as ``migrate_state`` does, and a
+        ``multi_step_fn`` graph recaptures on that state's new model."""
+        self._bind_mesh(mesh)
 
     def init(self, seed: int = 0, draw_on_device: bool = False) -> TrainState:
         """Build the model from ``seed`` on the trainer's device, lay it out
@@ -673,10 +704,11 @@ class Trainer:
         return plan, members
 
     # --- the layout over the mesh -------------------------------------------
-    def _specs(self, model: nn.Module) -> dict[str, tuple]:
+    def _specs(self, model: nn.Module, fsdp: int | None = None) -> dict[str, tuple]:
         """Each parameter's spec: the model's explicit one, else the FSDP
-        rule on its shape."""
-        fsdp = self._sizes.fsdp if self.mesh is not None else 1
+        rule on its shape (over the trainer's fsdp size, or ``fsdp``)."""
+        if fsdp is None:
+            fsdp = self._sizes.fsdp if self.mesh is not None else 1
         specs = {}
         for name, p in model.named_parameters():
             if self.param_specs is not None and name in self.param_specs:
@@ -1073,14 +1105,32 @@ class Trainer:
         batch already on the card; its producers' copies fold as overlapped),
         ``dispatch`` (the step call), ``compute`` (the wait at the loss
         readback, spread over the steps it drains) and ``host`` (the rest),
-        one ``step_done`` a call.  ``reshard`` (live reshard, slice 7) is a
-        later slice's."""
+        one ``step_done`` a call.
+
+        ``reshard`` (a ``train.reshard.LiveReshardCoordinator``) is the
+        elastic pause seam: at every step boundary, with the next batch
+        pulled, each rank asks ``reshard.pending()`` (one broadcast from the
+        coordinator rank); on a coalesced slice loss the losses already
+        dispatched are read back and ``reshard.execute`` moves the state onto
+        the survivors and rebinds this trainer: ``"resume"`` trains that
+        batch and the rest on the new mesh, with no step lost or repeated;
+        ``"leave"`` (a rank of a lost slice) and ``"stop"`` (the fallback to
+        checkpoint/restore) end the run with the losses so far.  A
+        ``checkpointer`` finishes its saves at the pause and, on
+        ``"resume"``, saves over the survivors' group from then on
+        (``Checkpointer.rebind`` to ``reshard.group``).  Refused with
+        ``steps_per_call`` > 1: a captured call of k steps cannot pause
+        inside."""
         from deeplearning_cfn_tpu_torch.obs.profiler import NULL_PROFILER
 
-        if reshard is not None:
-            raise NotImplementedError(f"fit(reshard) is ported in {_LATER}")
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+        if steps_per_call > 1 and reshard is not None:
+            raise ValueError(
+                "steps_per_call > 1 is incompatible with live resharding: "
+                "the captured multi-step call cannot pause at an inner "
+                "step boundary — use steps_per_call=1 for elastic runs"
+            )
         k = steps_per_call
         stacked = steps // k if k > 1 else 0  # calls of k steps, first
         batches = itertools.islice(batches, steps)
@@ -1093,6 +1143,7 @@ class Trainer:
         pending: list[torch.Tensor] = []
         sync_every = max(1, int(self.config.log_every))
         prof = profiler if profiler is not None else NULL_PROFILER
+        rebind = getattr(checkpointer, "rebind", None) if reshard is not None else None
         t_fit = time.perf_counter()
         batches, prefetcher = self._pipeline(batches, prefetch, prefetch_workers,
                                              profiler=profiler)
@@ -1102,6 +1153,20 @@ class Trainer:
         prof.start()
         try:
             for i, batch in enumerate(batches):
+                if reshard is not None and reshard.pending():
+                    # Pause at the step boundary: settle the losses of the
+                    # old mesh, then migrate; the batch just pulled trains
+                    # on the new one.
+                    if pending:
+                        losses.extend(torch.cat(pending).tolist())
+                        pending.clear()
+                    if rebind is not None:
+                        checkpointer.wait()  # a save in flight spans the old ranks
+                    state, action = reshard.execute(self, state, step=state.step)
+                    if action != "resume":
+                        break
+                    if rebind is not None and reshard.group is not None:
+                        rebind(reshard.group)  # saves over the survivors from here
                 with prof.phase("h2d"):
                     x, y = device_put_batch(batch, self.device)
                 before = state.step

@@ -1,6 +1,6 @@
-"""Atomic file writes: write-temp -> fsync -> rename.  The streaming writer
-of ``deeplearning_cfn_tpu/utils/atomicio.py``, copied (the DLC1 record
-writer's).
+"""Atomic file writes: write-temp -> fsync -> rename.  Counterpart of
+``deeplearning_cfn_tpu/utils/atomicio.py``, copied: the streaming writer (the
+DLC1 record writer's) and the small-file writes (the cluster contract's).
 
 Control-plane records (cluster contract, storage binding, checkpoints)
 are read by *other* processes, possibly while the writer is being
@@ -16,6 +16,25 @@ import os
 from contextlib import contextmanager
 from pathlib import Path
 from typing import BinaryIO, Iterator
+
+
+def atomic_write_bytes(path: str | Path, data: bytes) -> Path:
+    path = Path(path)
+    tmp = path.parent / f".{path.name}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    finally:
+        if tmp.exists():
+            tmp.unlink(missing_ok=True)
+    return path
+
+
+def atomic_write_text(path: str | Path, text: str) -> Path:
+    return atomic_write_bytes(path, text.encode())
 
 
 @contextmanager

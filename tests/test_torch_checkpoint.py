@@ -499,13 +499,29 @@ def test_fit_saves_on_the_policy_at_the_true_step(tmp_path):
 
 
 def test_fit_still_refuses_reshard_and_profiler():
-    """The reshard is still a later slice's; the profiler is ported
-    (``tests/test_torch_profiler.py``) and profiles a checkpointed fit."""
+    """The live reshard is ported (``tests/test_torch_reshard.py``): what
+    ``fit`` still refuses is ``reshard=`` with a captured multi-step call,
+    and a coordinator with no loss armed leaves a checkpointed fit as it
+    was.  The profiler is ported (``tests/test_torch_profiler.py``) and
+    profiles a checkpointed fit."""
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+    from deeplearning_cfn_tpu_torch.cluster.recovery import LiveReshardManager
     from deeplearning_cfn_tpu_torch.obs.profiler import StepProfiler
+    from deeplearning_cfn_tpu_torch.train.reshard import LiveReshardCoordinator
 
     t = _llama_trainer()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.fit(t.init(seed=0), iter(_batches(1)), steps=1, reshard=object())
+    contract = ClusterContract.build(cluster_name="c", coordinator_ip="10.0.0.1",
+                                     other_worker_ips=["10.0.0.2"], chips_per_worker=1,
+                                     storage_mount="/mnt/none",
+                                     slices={"s0": ["10.0.0.1"], "s1": ["10.0.0.2"]})
+    coordinator = LiveReshardCoordinator(manager=LiveReshardManager(contract),
+                                         mesh_for=lambda c: None)
+    with pytest.raises(ValueError, match="steps_per_call"):
+        t.fit(t.init(seed=0), iter(_batches(2)), steps=2, steps_per_call=2,
+              reshard=coordinator)
+    _, plain = t.fit(t.init(seed=0), iter(_batches(2)), steps=2)
+    _, paused = t.fit(t.init(seed=0), iter(_batches(2)), steps=2, reshard=coordinator)
+    assert paused == plain and not coordinator.records
     prof = StepProfiler(name="fit")
     t.fit(t.init(seed=0), iter(_batches(1)), steps=1, profiler=prof)
     assert prof.snapshot()["steps"] == 1

@@ -313,6 +313,10 @@ def test_fit_profiles_the_stacked_calls_and_the_remainder(k, steps):
 
 
 def test_fit_without_a_profiler_still_refuses_a_reshard():
+    """The live reshard is ported (``tests/test_torch_reshard.py``): ``fit``
+    takes a coordinator, and refuses one only beside a captured multi-step
+    call, profiler or not."""
     ttrainer, tstate = _port_trainer(log_every=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttrainer.fit(tstate, iter(()), steps=1, reshard=object())
+    assert ttrainer.fit(tstate, iter(()), steps=1, reshard=object()) == (tstate, [])
+    with pytest.raises(ValueError, match="steps_per_call"):
+        ttrainer.fit(tstate, iter(()), steps=2, steps_per_call=2, reshard=object())

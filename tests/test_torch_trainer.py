@@ -106,6 +106,21 @@ def test_decay_mask_reads_leaf_names():
     }
 
 
+def test_param_groups_keep_fsdp2_dtensors_apart():
+    """A foreach kernel (AdamW's on the card) takes one kind of tensor a
+    list: FSDP2's DTensor parameters and the whole ones the FSDP rule leaves
+    out of it never share an optimizer group."""
+    model = torch.nn.Sequential(torch.nn.Linear(4, 4), torch.nn.Linear(4, 2))
+    for p in (model[0].weight, model[0].bias):
+        p.device_mesh = None  # as FSDP2's DTensor parameters carry one
+    groups = trainer._param_groups(model, 0.1)
+    assert [{hasattr(p, "device_mesh") for p in g["params"]} for g in groups] == [
+        {True}, {False}, {True}, {False}]
+    assert [g["weight_decay"] for g in groups] == [0.1, 0.1, 0.0, 0.0]
+    assert [p for g in groups for p in g["params"]] == [
+        model[0].weight, model[1].weight, model[0].bias, model[1].bias]
+
+
 @pytest.mark.parametrize("above", [True, False])
 def test_clip_matches_optax(above):
     rng = np.random.default_rng(0)
@@ -174,8 +189,11 @@ def test_out_of_slice_fit_options_raise(kw):
 
         assert ttrainer.fit(None, iter(()), steps=1, profiler=StepProfiler()) == (None, [])
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttrainer.fit(None, iter(()), steps=1, **kw)
+    # The live reshard is ported (tests/test_torch_reshard.py): a coordinator
+    # is taken, and refused only with a captured multi-step call.
+    assert ttrainer.fit(None, iter(()), steps=1, **kw) == (None, [])
+    with pytest.raises(ValueError, match="steps_per_call"):
+        ttrainer.fit(None, iter(()), steps=2, steps_per_call=2, **kw)
 
 
 def test_out_of_slice_trainer_options_raise():

@@ -14,7 +14,11 @@ case runs ``parallel.ring_attention`` on this rank's block of the sequence
 and reports its output and gradients; an ``argv`` case runs
 ``examples.llama_train.main`` with its flags.  A ``toy_pipeline`` case runs
 ``parallel.pipeline`` on a tanh stack; ``int8`` and ``sharded`` cases run
-one bucket through ``parallel.overlap``'s exchanges.  A Llama case may be
+one bucket through ``parallel.overlap``'s exchanges.  A ``reshard`` case
+(:func:`run_reshard_case`) drives the live reshard on a small MLP: the golden
+migration, ``fit(reshard=)`` with the cluster plane, the forced fallback and
+its DCP restore; the ranks of the lost slice leave the case and wait at the
+store (no collective) until the survivors are done.  A Llama case may be
 pipelined (``pp`` in its mesh: each rank loads its stage from the JAX
 stage-stacked weights), run with ``comms_overlap`` (the buckets it issued
 reported), or built on a hybrid mesh (``hybrid``: ICI and DCN specs).  It
@@ -267,7 +271,270 @@ def run_default_mesh_case(case: dict) -> dict:
     return {"sizes": mesh_spec(mesh).axis_sizes(), "grid": mesh.mesh.tolist()}
 
 
+class MLP(torch.nn.Module):
+    """The JAX reshard tests' ``_MLP`` (flatten, Dense 256, relu, Dense 256,
+    relu, Dense 10) in ``nn.Linear`` layers of the same names."""
+
+    def __init__(self, generator=None, d_in: int = 64):
+        super().__init__()
+        self.fc1 = torch.nn.Linear(d_in, 256)
+        self.fc2 = torch.nn.Linear(256, 256)
+        self.head = torch.nn.Linear(256, 10)
+
+    def forward(self, x):
+        x = x.reshape(x.shape[0], -1)
+        x = torch.relu(self.fc1(x))
+        x = torch.relu(self.fc2(x))
+        return self.head(x)
+
+
+def _plane(case: dict):
+    """``(contract, controller, manager, vclock)``: the 2-slice contract of
+    the ranks (``workers``, four by default; one chip a worker), the
+    elasticity controller on a virtual clock (10 s debounce) and the
+    live-reshard manager on it."""
+    from deeplearning_cfn_tpu_torch.analysis.schedules import VirtualClock
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+    from deeplearning_cfn_tpu_torch.cluster.elasticity import ElasticityController, GroupPolicy
+    from deeplearning_cfn_tpu_torch.cluster.recovery import LiveReshardManager
+    from deeplearning_cfn_tpu_torch.provision.events import EventBus
+
+    class Backend:
+        def __init__(self):
+            self.events = EventBus()
+
+    ips = [f"10.0.0.{i + 1}" for i in range(case.get("workers", 4))]
+    half = len(ips) // 2
+    contract = ClusterContract.build(
+        cluster_name="live", coordinator_ip=ips[0], other_worker_ips=ips[1:],
+        chips_per_worker=1, storage_mount="/mnt/none",
+        slices={"s0": ips[:half], "s1": ips[half:]})
+    vclock = VirtualClock()
+    controller = ElasticityController(backend=Backend(), coordinator_queue_name="coord",
+                                      slice_loss_window_s=10.0, clock=vclock)
+    controller.register(GroupPolicy("s0", 1, "sig-s0", coordinator=True))
+    controller.register(GroupPolicy("s1", 1, "sig-s1"))
+    controller.attach()
+    manager = LiveReshardManager(contract)
+    manager.attach(controller)
+    return contract, controller, manager, vclock
+
+
+def _mesh_for(case: dict):
+    """The mesh of a contract over its workers' ranks: the case's per-slice
+    fsdp on each slice, dp across the slices (``hybrid``), or all fsdp."""
+    from deeplearning_cfn_tpu_torch.parallel.mesh import hybrid_mesh_for_slices
+    from deeplearning_cfn_tpu_torch.train.reshard import survivor_ranks
+
+    origin = _plane(case)[0]
+
+    def mesh_for(contract):
+        ranks = survivor_ranks(origin, contract)
+        if case["reshard"] == "golden":
+            return build_mesh(MeshSpec(fsdp=len(ranks)), ranks=ranks)
+        per_slice = len(ranks) // contract.slices_count
+        return hybrid_mesh_for_slices(contract.slices_count, MeshSpec(fsdp=per_slice), "dp",
+                                      device_type=case.get("device", "cpu"), ranks=ranks)
+
+    return mesh_for
+
+
+def _mlp_trainer(case: dict, mesh, accum: int = 1):
+    from deeplearning_cfn_tpu_torch import interop
+
+    weights = interop.dense_params_from_jax(case["init"])
+
+    def model_fn(generator):
+        model = MLP(generator)
+        if generator is not None:
+            model.load_state_dict(weights)
+        return model
+
+    cfg = trainer_lib.TrainerConfig(optimizer=case.get("optimizer", "adamw"),
+                                    learning_rate=1e-3, strategy="fsdp",
+                                    matmul_precision="float32", log_every=1,
+                                    grad_accum_steps=accum)
+    t = trainer_lib.Trainer(model_fn, cfg, device=case.get("device", "cpu"), mesh=mesh)
+    return t, t.init(seed=0)
+
+
+def _batches(case: dict, hook=None):
+    from deeplearning_cfn_tpu_torch.train.data import Batch
+
+    device = torch.device(case.get("device", "cpu"))
+    for i, (x, y) in enumerate(case["batches"]):
+        if hook is not None:
+            hook(i)
+        yield Batch(x=torch.from_numpy(x).to(device), y=torch.from_numpy(y).to(device))
+
+
+def _golden(case: dict, mesh_for) -> dict:
+    """fsdp 4 -> 2 after two AdamW steps: the migrated state against a fresh
+    shard (``distribute_tensor``) of the state gathered before."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from deeplearning_cfn_tpu_torch.train import reshard
+
+    t, state = _mlp_trainer(case, build_mesh(MeshSpec(fsdp=4)))
+    for x, y in case["batches"][:2]:
+        state, _ = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
+    host = {k: (v.full_tensor() if hasattr(v, "device_mesh") else v).clone()
+            for k, v in reshard._flat(state.state_dict()).items()}
+    contract, _, manager, _ = _plane(case)
+    survivors = reshard.survivor_ranks(contract, contract.surviving({"s1"}))
+    if dist.get_rank() not in survivors:
+        assert reshard.migrate_state(t, state, None) is None
+        return {"left": True}
+    mesh2 = mesh_for(contract.surviving({"s1"}))
+    shardings = reshard.state_shardings_for(t, state, mesh2)
+    reshard.ensure_hostable(state, shardings)
+    migrated = reshard.migrate_state(t, state, shardings)
+    equal, sharded = {}, []
+    for k, v in reshard._flat(migrated.state_dict()).items():
+        if hasattr(v, "device_mesh"):
+            fresh = distribute_tensor(host[k], v.device_mesh, v.placements).to_local()
+            if any(pl.is_shard() for pl in v.placements) and v.device_mesh.size() > 1:
+                sharded.append(k)
+        else:
+            fresh = host[k]
+        mine = v.to_local() if hasattr(v, "device_mesh") else v
+        equal[k] = (mine.dtype == fresh.dtype and mine.shape == fresh.shape
+                    and mine.numpy().tobytes() == fresh.numpy().tobytes())
+    return {"left": False, "equal": equal, "sharded": sharded,
+            "topology": reshard.mesh_topology(t.mesh), "opt_keys": sorted(
+                {k.rsplit(".", 1)[1] for k in equal if k.startswith("optimizer.")})}
+
+
+def _journal_count(kind: str) -> int:
+    from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
+
+    return sum(1 for e in get_recorder().tail(4096) if e.get("kind") == kind)
+
+
+def run_reshard_case(case: dict) -> dict:
+    """One live-reshard case on four ranks (module docstring); ``reshard``
+    names it: ``golden``, ``straight`` (no loss), ``live`` (the terminate
+    burst published while batch ``die_at`` is produced, on the ranks of
+    ``events_on``; with ``dir`` every step checkpointed, the survivors' last
+    save restored onto a fresh state on their mesh; with ``plant_leaf`` the
+    survivors' model on the new mesh has a leaf the old state lacks),
+    ``fallback`` (the same with ``force_fallback``, every step checkpointed,
+    then the survivors' DCP restore and the remaining steps)."""
+    import itertools
+
+    from deeplearning_cfn_tpu_torch.parallel.mesh import data_group
+    from deeplearning_cfn_tpu_torch.provision.events import EventKind, LifecycleEvent
+    from deeplearning_cfn_tpu_torch.train import reshard
+    from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+
+    mesh_for = _mesh_for(case)
+    kind = case["reshard"]
+    if kind == "golden":
+        return _golden(case, mesh_for)
+    contract, controller, manager, vclock = _plane(case)
+    t, state = _mlp_trainer(case, mesh_for(contract))
+    if kind == "straight":
+        state, losses = t.fit(state, _batches(case), steps=len(case["batches"]), prefetch=0)
+        return {"losses": losses, "step": state.step}
+    die_at, rank = case["die_at"], dist.get_rank()
+
+    def publish(i):
+        if i == die_at and rank in case["events_on"]:
+            for ip in case["burst"]:
+                controller.backend.events.publish(LifecycleEvent(
+                    kind=EventKind.INSTANCE_TERMINATE, group="s1", instance_id=ip,
+                    detail={"reason": "preempted"}))
+                vclock.advance(0.5)
+            vclock.advance(11.0)
+
+    plane = None
+    if case.get("records"):
+        from deeplearning_cfn_tpu_torch.train import datastream, records
+
+        spec = records.RecordSpec((records.Field("x", "uint8", (2,)),
+                                   records.Field("y", "int32", ())))
+        plane = datastream.DataStreamPlane(contract, case["records"], spec, batch_size=2,
+                                           seed=case["seed"])
+        hook = publish
+
+        def publish(i):  # each host reads its batch as the step's is made
+            hook(i)
+            if i < die_at:
+                for host in plane.hosts:
+                    next(plane.stream(host).batches(1))
+
+    paused_at = []
+    coordinator = reshard.LiveReshardCoordinator(
+        manager=manager, mesh_for=mesh_for, flush=controller.flush_slice_losses, clock=vclock,
+        force_fallback=kind == "fallback",
+        on_commit=plane.reshard if plane is not None else None)
+    execute = coordinator.execute
+
+    def recorded(trainer, st, step):
+        paused_at.append(step)
+        return execute(trainer, st, step)
+
+    coordinator.execute = recorded
+    if case.get("plant_leaf"):
+        make = t.model_fn
+
+        def planted(generator):
+            model = make(generator)
+            if generator is None:  # the reshard's build on meta
+                model.register_buffer("planted", torch.zeros(1))
+            return model
+
+        t.model_fn = planted
+    ck = _sync_checkpointer(case["dir"]) if "dir" in case else None
+    before = {k: _journal_count(k) for k in ("reshard", "reshard_fallback",
+                                             "grad_accum_rescaled", "slice_loss_coalesced")}
+    state, losses = t.fit(state, _batches(case, publish), steps=len(case["batches"]),
+                          prefetch=0, reshard=coordinator, checkpointer=ck)
+    out = {"losses": losses, "step": state.step, "paused_at": paused_at,
+           "left": coordinator.departed, "live_total": coordinator.live_total,
+           "fallback_total": coordinator.fallback_total,
+           "journal": {k: _journal_count(k) - n for k, n in before.items()},
+           "grad_accum": t.config.grad_accum_steps, "topology": reshard.mesh_topology(t.mesh),
+           "slices": manager.contract.slices_count, "degraded": manager.contract.degraded,
+           "data": (t._data_index, t._data_count)}
+    if plane is not None:
+        out["plane_states"] = plane.states()
+    if kind == "live" and ck is not None and not coordinator.departed:
+        # The survivors' saves after the pause went over their own group:
+        # the last one restores, bitwise, onto a fresh state on their mesh.
+        out["saved_steps"] = ck.all_steps()
+        t2, state2 = _mlp_trainer(case, mesh_for(manager.contract), 2)
+        ck2 = _sync_checkpointer(case["dir"], process_group=data_group(t2.mesh))
+        state2, out["restored_step"] = ck2.restore_latest(state2)
+        mine, restored = (reshard._flat(st.state_dict()) for st in (state, state2))
+        out["restored_bitwise"] = mine.keys() == restored.keys() and all(
+            torch.equal(local_part(v), local_part(mine[k])) for k, v in restored.items())
+    if kind != "fallback" or coordinator.departed:
+        return out
+    ck.close()
+    surviving = coordinator.fallback_contract
+    mesh2 = mesh_for(surviving)
+    accum = reshard.rescale_grad_accum(1, dist.get_world_size(), mesh2.size())
+    t2, state2 = _mlp_trainer({**case, "init": case["init"]}, mesh2, accum)
+    ck2 = _sync_checkpointer(case["dir"], process_group=data_group(mesh2))
+    state2, restore_step = ck2.restore_latest(state2)
+    rest = itertools.islice(_batches(case), restore_step, None)
+    state2, losses2 = t2.fit(state2, rest, steps=len(case["batches"]) - restore_step, prefetch=0)
+    ck2.close()
+    out.update(restore_step=restore_step, resumed_losses=losses2, final_step=state2.step,
+               restored_accum=accum, restored_topology=reshard.mesh_topology(mesh2))
+    return out
+
+
+def _sync_checkpointer(directory, process_group=None):
+    """A synchronous DCP checkpointer saving every step."""
+    return Checkpointer(directory, interval_s=None, every_steps=1, async_save=False,
+                        process_group=process_group)
+
+
 def run_case(case: dict) -> dict:
+    if "reshard" in case:
+        return run_reshard_case(case)
     if "default_mesh" in case:
         return run_default_mesh_case(case)
     if "toy_pipeline" in case:
@@ -346,9 +613,20 @@ def main() -> None:
     torch.set_num_threads(1)
     path = Path(sys.argv[1])
     cases = pickle.loads(path.read_bytes())
+    if any(c.get("device") == "cuda" for c in cases.values()):
+        torch.cuda.set_device(0)  # every rank on the one card, over gloo
     pid = maybe_init_distributed("cpu")
+    store = dist.distributed_c10d._get_default_store()
+    out = {}
     try:
-        out = {name: run_case(case) for name, case in cases.items()}
+        for name, case in cases.items():
+            out[name] = run_case(case)
+            if "reshard" in case:  # the lost slice's ranks wait for the survivors
+                key = f"reshard-case/{name}"
+                if out[name].get("left"):
+                    store.wait([key])
+                elif pid == 0:
+                    store.set(key, "done")
     finally:
         dist.destroy_process_group()
     Path(f"{path}.rank{pid}").write_bytes(pickle.dumps(out))
