@@ -282,6 +282,32 @@ Phases, one JSON line each:
            step times before and after, with and without ``reshard=``, the
            pause (``ReshardRecord.seconds``), the fallback's save and restore,
            each process's peak memory.
+19. provision_run  the provisioning plane, template to trained job:
+           ``stock`` is ``python -m deeplearning_cfn_tpu_torch.cli run
+           templates/local.json`` (the committed template: the port's LeNet,
+           30 steps, on ``cuda:0``, 4 local workers); then a local template
+           written to a temporary directory (backend ``local``, 1 worker of
+           ``local-1``, local storage at a temporary mount, retained on
+           delete; job module ``deeplearning_cfn_tpu.examples.llama_train``,
+           which the launcher maps onto the port's; args m435, seq 2048,
+           batch 8, ``steps`` from the template parameter ``Steps``, the
+           checkpoint directory from ``CheckpointDir``).  ``straight``: ``cli
+           run <template> -P Steps=6``, no checkpoint.  ``recovered``:
+           ``run_with_recovery`` over ``Steps=3`` with ``<mount>/ckpt``; each
+           episode runs the plan's module through ``LocalJobRunner``; after
+           episode 1 ``LocalBackend.kill_instance`` takes the coordinator, the
+           ``RecoveryManager`` recreates the cluster on the retained storage
+           and episode 2 resumes at step 3.  ``control``: the same, but with
+           no checkpoint directory, so episode 2 starts at step 0.  Gates: the
+           stock run's rc 0 and finite losses; one recovery; episodes at steps
+           0 and 3, ending at 6; the storage id kept, ``created`` false; a
+           fresh ``contract.json`` and ``env.sh`` with 1 worker; one
+           ``recovery_start`` and one ``recovery_done`` in the journal;
+           recovered steps 1-6 bitwise ``straight``'s, the control refused;
+           flash 48 a step, all ``wgmma_tma``.  Reported:
+           ``template_to_first_step_s`` (stock, straight), the recreate
+           (``Provisioner.recover``'s ``recover`` span), episode 2's restore
+           and first step, the time to recover by recreate, the m435 step.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -293,7 +319,8 @@ The flash row of the kernels line counts the launches of every Llama path
 (``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, the resumed
 m435 run of ``checkpoint``, the m435 run of ``records``, the 8B run of
 ``llama8b``, ``pp_layout``, both processes' runs of ``two_ranks`` and
-``mesh_captured``; by path in ``launches_by_path``), each counted from zero just
+``mesh_captured``, ``live_reshard``, ``provision_run``; by path in
+``launches_by_path``), each counted from zero just
 before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
 dense's those of the ``resnet`` phase's eager kernel-head run, the resumed
@@ -544,6 +571,9 @@ MESH_K, MESH_REPLAYS = 4, 2
 # continuity tolerance (chaos/scenarios.py).
 RESHARD_BATCH, RESHARD_STEPS, RESHARD_DIE_AT, RESHARD_TIMEOUT = 8, 6, 3, 900
 RESHARD_RTOL, RESHARD_ATOL = 5e-3, 1e-4
+# provision_run: the job of the phase's template, steps of the straight run
+# and of each episode of the recovered one.
+PROV_STEPS, PROV_EPISODE_STEPS, PROV_STOCK_TIMEOUT = 6, 3, 600
 
 
 # Traces _device_ms takes before it gives up on seeing device time.
@@ -3177,6 +3207,254 @@ def _live_reshard_phase(torch, smi: str, flash_per_block: float) -> int:
         resumed["flash_per_step"])
 
 
+def _provision_template(mount: str) -> dict:
+    """Phase 19's local template: one worker, retained local storage at
+    ``mount``, the JAX package's Llama job module (the launcher maps it onto
+    the port's), m435 at seq 2048 and batch 8; ``Steps`` and
+    ``CheckpointDir`` are its parameters (an empty directory: no checkpoint)."""
+    return {
+        "Parameters": {
+            "Steps": {"type": "int", "default": PROV_STEPS, "min": 1},
+            "CheckpointDir": {"type": "str", "default": ""},
+        },
+        "Cluster": {
+            "name": "provision-run",
+            "backend": "local",
+            "pool": {"accelerator_type": "local-1", "workers": 1},
+            "storage": {"kind": "local", "mount_point": mount, "retain_on_delete": True},
+            "job": {
+                "name": "llama-m435",
+                "module": "deeplearning_cfn_tpu.examples.llama_train",
+                "global_batch_size": 8,
+                "args": {"size": "435m", "seq_len": 2048, "global_batch_size": 8,
+                         "steps": {"ref": "Steps"}, "log_every": 1,
+                         "checkpoint_dir": {"ref": "CheckpointDir"}},
+            },
+        },
+    }
+
+
+def _provision_run_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int:
+    """Phase 19 (see the module docstring).  Returns the flash launches of
+    its Llama runs."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    from deeplearning_cfn_tpu_torch import cli
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+    from deeplearning_cfn_tpu_torch.cluster.launcher import LocalJobRunner, build_launch_plan
+    from deeplearning_cfn_tpu_torch.cluster.recovery import run_with_recovery
+    from deeplearning_cfn_tpu_torch.config.template import render_template_file
+    from deeplearning_cfn_tpu_torch.obs.recorder import ENV_JOURNAL, configure, read_journal
+    from deeplearning_cfn_tpu_torch.provision.local import LocalBackend
+    from deeplearning_cfn_tpu_torch.provision.provisioner import Provisioner, worker_group_name
+    from deeplearning_cfn_tpu_torch.train import checkpoint as ckpt_mod
+
+    t_phase = time.perf_counter()
+    per_step = flash_per_block * 24
+    repo = Path(__file__).resolve().parent
+    restores = []
+    restore_latest = ckpt_mod.Checkpointer.restore_latest
+
+    def recording_restore(self, state):
+        out = restore_latest(self, state)
+        if out is not None:
+            restores.append(dict(self.last_restore))
+        return out
+
+    saved_env = {k: os.environ.get(k) for k in ("DLCFN_ROOT", "DLCFN_CHECKPOINT_DIR")}
+    ckpt_mod.Checkpointer.restore_latest = recording_restore
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            os.environ.pop("DLCFN_CHECKPOINT_DIR", None)
+
+            # stock: the committed template through the command line, its own process.
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "run",
+                 "templates/local.json"], cwd=repo, capture_output=True, text=True,
+                env=dict(os.environ, DLCFN_ROOT=str(tmp / "stock-root")),
+                timeout=PROV_STOCK_TIMEOUT)
+            stock_wall_s = time.perf_counter() - t0
+            _require(proc.returncode == 0,
+                     f"provision_run: cli run templates/local.json rc {proc.returncode}:\n"
+                     f"{proc.stderr[-3000:]}")
+            stock = json.loads(proc.stdout.strip().splitlines()[-1])
+
+            os.environ["DLCFN_ROOT"] = str(tmp / "root")
+            template = tmp / "provision-run.json"
+            mount = tmp / "mount"
+            template.write_text(json.dumps(_provision_template(str(mount))))
+
+            # straight: six steps through the command line, in this process.
+            kernels_mod.reset_launch_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["run", str(template), "-P", f"Steps={PROV_STEPS}"])
+            torch.cuda.synchronize()
+            straight_launches = dict(kernels_mod.launch_counts)
+            _require(rc == 0, f"provision_run: straight run rc {rc}")
+            straight = json.loads(out.getvalue().strip().splitlines()[-1])
+
+            def recovered_run(name: str, keep_checkpoint: bool) -> dict:
+                """``run_with_recovery`` over ``Steps=3``: the coordinator
+                killed after episode 1; episode 2 gets the checkpoint
+                directory only when ``keep_checkpoint``."""
+                journal = tmp / f"{name}.jsonl"
+                configure(journal)
+                spec = render_template_file(template, {
+                    "Steps": str(PROV_EPISODE_STEPS), "CheckpointDir": str(mount / name)})
+                backend = LocalBackend()
+                prov = Provisioner(backend, spec)
+                contract_json = ClusterContract.root_dir() / "contract.json"
+                episodes = []
+
+                def train_once(result) -> dict:
+                    plan = build_launch_plan(result.contract, spec.job, result.job_violation)
+                    job = dict(spec.job.args)
+                    if episodes and not keep_checkpoint:
+                        job["checkpoint_dir"] = ""
+                    job_args = [a for k, v in sorted(job.items()) for a in (f"--{k}", str(v))]
+                    main = importlib.import_module(plan.module).main
+                    n_restores = len(restores)
+                    kernels_mod.reset_launch_counts()
+                    res = LocalJobRunner(plan).run(main, job_args)
+                    torch.cuda.synchronize()
+                    episodes.append({
+                        "result": res, "launches": dict(kernels_mod.launch_counts),
+                        "module": plan.module, "storage": result.storage.storage_id,
+                        "storage_created": result.storage.created,
+                        "workers": result.contract.workers_count,
+                        "contract_mtime_ns": contract_json.stat().st_mtime_ns,
+                        "env_sh": (contract_json.parent / "env.sh").read_text(),
+                        "restore": restores[n_restores:]})
+                    if len(episodes) == 1:
+                        group = backend.describe_group(worker_group_name(spec.name))
+                        coordinator = min(group.instances, key=lambda i: i.index)
+                        backend.kill_instance(coordinator.instance_id)
+                    return {"final_step": res["end_step"]}
+
+                t0 = time.perf_counter()
+                final, _, recoveries = run_with_recovery(prov, train_once, max_recoveries=1)
+                wall_s = time.perf_counter() - t0
+                events = list(read_journal(journal))
+                configure(os.environ.get(ENV_JOURNAL) or None)
+                recover_s = [e["seconds"] for e in events
+                             if e.get("kind") == "span" and e.get("span") == "recover"]
+                kinds = [e.get("kind") for e in events]
+                return {"episodes": episodes, "final_step": final["final_step"],
+                        "recoveries": recoveries, "wall_s": wall_s, "recover_s": recover_s,
+                        "recovery_start": kinds.count("recovery_start"),
+                        "recovery_done": kinds.count("recovery_done")}
+
+            recovered = recovered_run("recovered", keep_checkpoint=True)
+            control = recovered_run("control", keep_checkpoint=False)
+    finally:
+        ckpt_mod.Checkpointer.restore_latest = restore_latest
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def losses(result: dict) -> list:
+        return [h["loss"] for h in result["history"]]
+
+    def resumed(run: dict) -> list:
+        """The run's losses if it resumed where episode 1 stopped, else None."""
+        ep1, ep2 = (e["result"] for e in run["episodes"])
+        if ep1["start_step"] != 0 or ep2["start_step"] != ep1["end_step"]:
+            return None
+        return losses(ep1) + losses(ep2)
+
+    tokens = 8 * 2048
+    straight_result = straight["result"]
+    s_sum = _run_summary(straight_result, tokens, tokens)
+    ep1, ep2 = recovered["episodes"]
+    e2_sum = _run_summary(ep2["result"], tokens, tokens)
+    recover_s = recovered["recover_s"][0] if recovered["recover_s"] else None
+    restore_ms = ep2["restore"][0]["ms"] if ep2["restore"] else None
+    row = {"phase": "provision_run", "model": "m435", "S": 2048, "batch": 8,
+           "template_module": "deeplearning_cfn_tpu.examples.llama_train",
+           "ran_module": ep1["module"],
+           "stock": {"rc": proc.returncode, "wall_s": stock_wall_s,
+                     "template_to_first_step_s": stock.get("template_to_first_step_s"),
+                     "first_step_s": stock["result"]["first_step_s"],
+                     "final_loss": stock["result"]["final_loss"],
+                     "device": stock["result"]["device"], "steps": stock["result"]["steps"]},
+           "straight": {"template_to_first_step_s": straight.get("template_to_first_step_s"),
+                        "first_step_s": straight_result["first_step_s"],
+                        "losses": s_sum["losses"], "step_ms": s_sum["step_ms"],
+                        "steady_step_ms": s_sum["steady_step_ms"], "mfu": s_sum["mfu"],
+                        "device": straight_result["device"]},
+           "recovered": {"recoveries": recovered["recoveries"],
+                         "starts": [e["result"]["start_step"] for e in recovered["episodes"]],
+                         "final_step": recovered["final_step"],
+                         "losses": resumed(recovered),
+                         "storage": [e["storage"] for e in recovered["episodes"]],
+                         "storage_created": [e["storage_created"]
+                                             for e in recovered["episodes"]],
+                         "workers": [e["workers"] for e in recovered["episodes"]],
+                         "recovery_start": recovered["recovery_start"],
+                         "recovery_done": recovered["recovery_done"],
+                         "wall_s": recovered["wall_s"]},
+           "control": {"starts": [e["result"]["start_step"] for e in control["episodes"]],
+                       "losses": [losses(e["result"]) for e in control["episodes"]],
+                       "resumed": resumed(control) is not None},
+           "recover_s": recover_s,
+           "episode2_restore_ms": restore_ms,
+           "episode2_first_step_s": ep2["result"]["first_step_s"],
+           "episode2_first_step_ms": e2_sum["step_ms"][0],
+           "time_to_recover_s": (recover_s + ep2["result"]["first_step_s"]
+                                 if recover_s is not None else None),
+           "time_to_recover_basis": "recover span + episode 2 from its main() to its first "
+                                    "step (model init, restore and the step)",
+           "flash_variants": {"straight": _variants(straight_launches, "flash_attention_fwd"),
+                              **{f"{name}{i + 1}": _variants(e["launches"], "flash_attention_fwd")
+                                 for name, run in (("recovered", recovered), ("control", control))
+                                 for i, e in enumerate(run["episodes"])}},
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    _emit(row)
+    rec = row["recovered"]
+    every = [losses(straight_result), *(losses(e["result"]) for run in (recovered, control)
+                                        for e in run["episodes"])]
+    _require(all(math.isfinite(v) for run in every for v in run)
+             and math.isfinite(stock["result"]["final_loss"]), "provision_run: non-finite loss")
+    _require(stock["result"]["device"].startswith("cuda")
+             and straight_result["device"].startswith("cuda"),
+             f"provision_run: the runs trained on {stock['result']['device']}, "
+             f"{straight_result['device']}")
+    _require(row["ran_module"] == "deeplearning_cfn_tpu_torch.examples.llama_train",
+             f"provision_run: the plan ran {row['ran_module']}")
+    _require(rec["recoveries"] == 1, f"provision_run: {rec['recoveries']} recoveries")
+    _require(rec["starts"] == [0, PROV_EPISODE_STEPS] and rec["final_step"] == PROV_STEPS,
+             f"provision_run: episodes started at {rec['starts']}, ended at {rec['final_step']}")
+    _require(rec["storage"][0] == rec["storage"][1] and rec["storage_created"][1] is False,
+             f"provision_run: storage {rec['storage']}, created {rec['storage_created']}")
+    _require(ep2["contract_mtime_ns"] > ep1["contract_mtime_ns"] and rec["workers"] == [1, 1]
+             and "DEEPLEARNING_WORKERS_COUNT=1\n" in ep2["env_sh"],
+             "provision_run: the contract was not rewritten for 1 worker")
+    _require(rec["recovery_start"] == 1 and rec["recovery_done"] == 1,
+             f"provision_run: the journal holds {rec['recovery_start']} recovery_start, "
+             f"{rec['recovery_done']} recovery_done")
+    _require(recover_s is not None and restore_ms is not None,
+             "provision_run: no recover span or no restore in episode 2")
+    _require(rec["losses"] == losses(straight_result),
+             f"provision_run: recovered steps {rec['losses']} are not bitwise the straight "
+             f"run's {losses(straight_result)}")
+    _require(resumed(control) is None and control["episodes"][1]["result"]["start_step"] == 0,
+             "provision_run: the resume check passed the planted control (no checkpoint)")
+    checked = [_flash_check(straight_launches, PROV_STEPS, per_step, "provision_run/straight")]
+    for name, run in (("recovered", recovered), ("control", control)):
+        for i, e in enumerate(run["episodes"]):
+            checked.append(_flash_check(e["launches"], PROV_EPISODE_STEPS, per_step,
+                                        f"provision_run/{name}{i + 1}"))
+    return sum(c["flash_launches"] for c in checked)
+
+
 def main() -> int:
     import torch
 
@@ -3758,6 +4036,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     flash_by_path["live_reshard"] = _live_reshard_phase(torch, smi, flash_per_block)
+
+    # 19. provision_run: template -> local cluster -> launched job, then the
+    # recreate-and-resume tier on an instance loss.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_by_path["provision_run"] = _provision_run_phase(torch, _kernels, smi, flash_per_block)
 
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with

@@ -27,6 +27,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     log,
     metrics_sink,
     open_checkpointer,
+    synthetic_from,
     token_record_loader,
 )
 from deeplearning_cfn_tpu_torch.models import bert
@@ -104,7 +105,8 @@ def main(argv: list[str] | None = None) -> dict:
     ckpt, start_step = open_checkpointer(args)
     ds = SyntheticMLMDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
     records = mlm_record_batches(args, cfg, batch, start_step=start_step)
-    batches, mask_token = records if records is not None else (ds.batches, None)
+    batches, mask_token = (records if records is not None
+                           else (synthetic_from(ds.batches, start_step), None))
     # As in the JAX example, the sample is the stream's first batch.
     sample = next(iter(batches(1)))
     state = trainer.init(seed=0)

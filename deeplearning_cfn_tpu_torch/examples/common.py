@@ -10,6 +10,7 @@ resumed step."""
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 from pathlib import Path
@@ -158,6 +159,15 @@ def resume_start_step(ckpt) -> int:
     if ckpt is None:
         return 0
     return int(ckpt.latest_step() or 0)
+
+
+def synthetic_from(batches, start_step: int):
+    """A synthetic stream's ``batches(steps)`` for a run resumed at
+    ``start_step``: the batches the straight run trains on from that step
+    (one a step), not the head of the stream again."""
+    if not start_step:
+        return batches
+    return lambda steps: itertools.islice(batches(start_step + steps), start_step, None)
 
 
 def open_checkpointer(args):
@@ -372,7 +382,7 @@ def image_pipeline(args, image_shape, fallback_ds, eval_mode: bool = False,
     step; this form serves the eval streams.  ``eval_mode`` is an unshuffled
     single pass over the test/val split when there is one."""
     if not args.data_dir:
-        return fallback_ds.batches, None
+        return synthetic_from(fallback_ds.batches, start_step), None
     batch = args.global_batch_size or fallback_ds.batch_size
     loader, input_stats, margin_spec = _open_image_records(
         args, image_shape, batch, eval_mode, start_step)
@@ -446,7 +456,7 @@ def device_image_pipeline(args, image_shape, fallback_ds, eval_mode: bool = Fals
     if not args.data_dir:
         stats = getattr(fallback_ds, "input_stats", None)
         augment = None if eval_mode else build_augment(False)
-        return fallback_ds.batches, stats, augment
+        return synthetic_from(fallback_ds.batches, start_step), stats, augment
     batch = args.global_batch_size or fallback_ds.batch_size
     loader, input_stats, margin_spec = _open_image_records(
         args, image_shape, batch, eval_mode, start_step)

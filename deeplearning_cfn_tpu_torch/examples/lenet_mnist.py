@@ -2,9 +2,12 @@
 counterpart of ``deeplearning_cfn_tpu/examples/lenet_mnist.py``.
 
 The same flags and result dict, plus ``--device`` (default ``cuda``; the run
-raises when CUDA is missing unless ``--device cpu`` was given).  Images are
-the synthetic MNIST-shaped stream (``SyntheticDataset.mnist_like``); several
-processes of the cluster contract's env train over ``default_mesh``.
+raises when CUDA is missing unless ``--device cpu`` was given) and
+``--checkpoint_dir``, which the JAX example takes and ignores: here a run
+saves there and a later run resumes from it, on the batches the straight run
+trains on from that step (``dlcfn run --auto-recover``'s job resumes).
+Images are the synthetic MNIST-shaped stream (``SyntheticDataset.mnist_like``);
+several processes of the cluster contract's env train over ``default_mesh``.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.lenet_mnist --steps 100``
 """
@@ -16,10 +19,13 @@ import torch.distributed as dist
 from deeplearning_cfn_tpu_torch.device import resolve_device
 from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
+    close_checkpointer,
     default_mesh,
     first_step_clock,
     maybe_init_distributed,
     metrics_sink,
+    open_checkpointer,
+    synthetic_from,
 )
 from deeplearning_cfn_tpu_torch.models.lenet import LeNet
 from deeplearning_cfn_tpu_torch.train.data import SyntheticDataset
@@ -50,16 +56,24 @@ def main(argv: list[str] | None = None) -> dict:
         device=device,
         mesh=mesh,
     )
+    ckpt, start_step = open_checkpointer(args)
     ds = SyntheticDataset.mnist_like(batch_size=batch)
     state = trainer.init(seed=0)
+    if ckpt is not None:
+        ckpt.restore_latest(state)
     logger = ThroughputLogger(global_batch_size=batch, log_every=args.log_every, name="lenet",
                               sink=metrics_sink(args, "lenet"))
-    state, losses = trainer.fit(state, ds.batches(args.steps), steps=args.steps, logger=logger)
+    batches = synthetic_from(ds.batches, start_step)
+    state, losses = trainer.fit(state, batches(args.steps), steps=args.steps, logger=logger,
+                                checkpointer=ckpt)
+    close_checkpointer(ckpt, state)
     if logger.sink is not None:
         logger.sink.close()
     return {
         "final_loss": losses[-1],
         "steps": len(losses),
+        "start_step": start_step,
+        "end_step": state.step,
         "history": logger.history,
         "device": str(trainer.device),
         "first_step_s": first_step_clock(trainer, t_main),

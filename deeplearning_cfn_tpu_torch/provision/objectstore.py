@@ -1,16 +1,25 @@
 """The object-store seam of ``deeplearning_cfn_tpu/provision/objectstore.py``,
 copied (the port imports nothing of the JAX package): the ``ObjectStore``
-protocol and its directory-backed ``LocalObjectStore``, the fake-cloud
-bucket behind ``train/checkpoint.ObjectStoreCheckpointer``.  The GCS store
-needs the network and is not ported.
+protocol, its directory-backed ``LocalObjectStore`` (the fake-cloud bucket
+behind ``train/checkpoint.ObjectStoreCheckpointer``) and the ``Stager`` of
+``cli stage`` (the prepare-s3-bucket.sh workflow as a library: artifacts
+tarred into the store under a prefix).  The GCS store needs the network and
+is not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import shutil
-from dataclasses import dataclass
+import tarfile
+import tempfile
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Protocol
+
+from deeplearning_cfn_tpu_torch.utils.logging import get_logger
+
+log = get_logger("dlcfn.stage")
 
 
 class ObjectStore(Protocol):
@@ -56,3 +65,75 @@ class LocalObjectStore:
             for p in base.rglob("*")
             if p.is_file() and str(p.relative_to(base)).startswith(prefix)
         )
+
+
+@dataclass
+class StagedArtifact:
+    name: str
+    key: str
+    size_bytes: int
+    sha256: str
+
+
+@dataclass
+class Stager:
+    """Stages local files/directories as tar artifacts into an object store
+    under ``{prefix}/`` — the prepare-s3-bucket.sh workflow as a library."""
+
+    store: ObjectStore
+    prefix: str = "dlcfn"
+    manifest: list[StagedArtifact] = field(default_factory=list)
+
+    def stage_path(self, path: str | Path, name: str | None = None) -> StagedArtifact:
+        """Tar a file or directory and upload as ``{prefix}/{name}.tar``.
+
+        The hash is computed streaming (datasets are multi-GB; never load
+        them whole).  Stores that support ``put_path`` get the file handed
+        over by path; others receive bytes."""
+        src = Path(path)
+        if not src.exists():
+            raise FileNotFoundError(f"artifact path does not exist: {src}")
+        name = name or src.name
+        key = f"{self.prefix}/{name}.tar"
+        with tempfile.NamedTemporaryFile(suffix=".tar") as tmp:
+            with tarfile.open(tmp.name, "w") as tar:
+                tar.add(src, arcname=src.name)
+            tmp_path = Path(tmp.name)
+            sha = hashlib.sha256()
+            size = 0
+            with open(tmp_path, "rb") as f:
+                while chunk := f.read(1 << 20):
+                    sha.update(chunk)
+                    size += len(chunk)
+            put_path = getattr(self.store, "put_path", None)
+            if put_path is not None:
+                put_path(key, tmp_path)
+            else:
+                self.store.put(key, tmp_path.read_bytes())
+        art = StagedArtifact(
+            name=f"{name}.tar",
+            key=key,
+            size_bytes=size,
+            sha256=sha.hexdigest(),
+        )
+        self.manifest.append(art)
+        log.info("staged %s -> %s (%d bytes)", src, key, art.size_bytes)
+        return art
+
+    def fetch_artifact(self, name: str, dest: str | Path) -> Path:
+        """Download + extract an artifact (the worker-side boot step,
+        mask-rcnn-cfn.yaml:790-827)."""
+        key = f"{self.prefix}/{name}"
+        data = self.store.get(key)
+        dest = Path(dest)
+        dest.mkdir(parents=True, exist_ok=True)
+        with tempfile.NamedTemporaryFile(suffix=".tar") as tmp:
+            Path(tmp.name).write_bytes(data)
+            with tarfile.open(tmp.name) as tar:
+                try:
+                    tar.extractall(dest, filter="data")
+                except TypeError:
+                    # filter= landed in 3.10.12/3.11.4; older patch
+                    # releases take no keyword.
+                    tar.extractall(dest)  # noqa: S202 (trusted self-staged tar)
+        return dest

@@ -1,26 +1,69 @@
-"""The circuit breaker of ``deeplearning_cfn_tpu/utils/resilience.py``, copied
-(the port imports nothing of the JAX package): what the checkpoint tiers of
-``train/checkpoint.FallbackCheckpointer`` sit behind.  ``RetryPolicy`` is
-not ported; nothing of the port retries yet.
+"""One resilience policy for every retry loop in the stack.
 
-:class:`CircuitBreaker`: after ``failure_threshold`` consecutive failures
+Before this module the repo had three divergent retry idioms: the GCP
+transport's unjittered ``2**attempt`` wall-clock loop, broker_client's
+bare ``time.sleep(0.05)`` readiness poll, and recovery's give-up
+counter.  Each one re-derived backoff, deadline, and error-classification
+logic, and none was testable without real sleeps.  :class:`RetryPolicy`
+is the single replacement:
+
+* **decorrelated jitter** (``sleep = min(cap, uniform(base, prev * 3))``)
+  instead of synchronized exponential waves — the classic thundering-herd
+  fix, seeded so chaos soaks replay byte-for-byte;
+* **monotonic deadlines** via :class:`~.timeouts.TimeoutBudget` — a retry
+  loop inside a bootstrap phase draws from the same budget as everything
+  else in that phase and raises the budget's typed error when starved;
+* **typed classification** — exceptions are Retryable, Fatal, or
+  classified by a callback; fatal errors propagate on the first throw
+  instead of burning the whole attempt budget.
+
+:class:`CircuitBreaker` layers on top for callers that talk to one
+dependency repeatedly: after ``failure_threshold`` consecutive failures
 the circuit opens, calls fail fast with :class:`CircuitOpen`, and a
-``degraded`` event lands in the port's flight recorder
-(``obs/recorder``).  After ``reset_after_s`` the breaker half-opens and
-admits a single probe.  It takes an injectable :class:`~.timeouts.Clock`
-and never reads the wall clock directly.
+``degraded`` event lands in the flight recorder so ``dlcfn events`` shows
+the outage.  After ``reset_after_s`` the breaker half-opens and admits a
+single probe.
+
+Everything takes an injectable :class:`~.timeouts.Clock`; nothing in this
+module reads the wall clock directly.
+
+Counterpart of ``deeplearning_cfn_tpu/utils/resilience.py``, copied: the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
-from deeplearning_cfn_tpu_torch.utils.timeouts import Clock, MonotonicClock
+from deeplearning_cfn_tpu_torch.utils.timeouts import (
+    BudgetExhausted,
+    Clock,
+    MonotonicClock,
+    TimeoutBudget,
+)
 
 log = get_logger("dlcfn.resilience")
+
+
+class Retryable(Exception):
+    """Marker: an operation failed transiently and may be re-attempted."""
+
+
+class Fatal(Exception):
+    """Marker: an operation failed permanently; retrying cannot help."""
+
+
+class RetryExhausted(RuntimeError):
+    """Every attempt failed; carries the count and the final cause."""
+
+    def __init__(self, attempts: int, last: BaseException | None):
+        super().__init__(f"retries exhausted after {attempts} attempts: {last}")
+        self.attempts = attempts
+        self.last = last
 
 
 class CircuitOpen(RuntimeError):
@@ -32,6 +75,120 @@ class CircuitOpen(RuntimeError):
         )
         self.name = name
         self.failures = failures
+
+
+# Exception types that are transient by nature, used when a policy is
+# built without an explicit classification.  TimeoutError is retryable
+# here, but BudgetExhausted (a TimeoutError subclass) always propagates:
+# the budget IS the deadline, retrying against it is self-defeating.
+DEFAULT_RETRYABLE: tuple[type[BaseException], ...] = (
+    Retryable,
+    ConnectionError,
+    TimeoutError,
+    OSError,
+)
+
+
+@dataclass
+class RetryPolicy:
+    """Seeded decorrelated-jitter retry with typed classification.
+
+    ``classify(exc)`` (when given) is consulted first and may return
+    ``True`` (retry), ``False`` (fatal), or ``None`` (fall through to the
+    ``fatal`` / ``retryable`` type tuples).  ``Fatal`` beats ``Retryable``
+    when both match.  :class:`~.timeouts.BudgetExhausted` is never
+    swallowed regardless of classification.
+    """
+
+    max_attempts: int = 4
+    base_s: float = 0.05
+    cap_s: float = 5.0
+    clock: Clock = field(default_factory=MonotonicClock)
+    seed: int | None = None
+    retryable: tuple[type[BaseException], ...] = DEFAULT_RETRYABLE
+    fatal: tuple[type[BaseException], ...] = (Fatal,)
+    classify: Callable[[BaseException], bool | None] | None = None
+
+    def __post_init__(self) -> None:
+        if self.max_attempts < 1:
+            raise ValueError(f"max_attempts must be >= 1: {self.max_attempts}")
+        if self.base_s < 0 or self.cap_s < self.base_s:
+            raise ValueError(
+                f"need 0 <= base_s <= cap_s: base={self.base_s} cap={self.cap_s}"
+            )
+        self._rng = random.Random(self.seed)
+
+    # -- backoff ---------------------------------------------------------
+    def delays(self) -> Iterator[float]:
+        """The (unbounded) jittered delay sequence this policy would sleep.
+
+        Decorrelated jitter: each delay is uniform on ``[base, prev * 3]``
+        clamped to ``cap_s``, so waits spread out instead of synchronizing
+        into retry waves.  Every yielded value is in ``[base_s, cap_s]``.
+        """
+        prev = self.base_s
+        while True:
+            prev = min(self.cap_s, self._rng.uniform(self.base_s, prev * 3))
+            yield prev
+
+    # -- classification --------------------------------------------------
+    def is_retryable(self, exc: BaseException) -> bool:
+        if isinstance(exc, BudgetExhausted):
+            return False
+        if self.classify is not None:
+            verdict = self.classify(exc)
+            if verdict is not None:
+                return bool(verdict)
+        if isinstance(exc, self.fatal):
+            return False
+        return isinstance(exc, self.retryable)
+
+    # -- the loop --------------------------------------------------------
+    def call(
+        self,
+        fn: Callable[[], Any],
+        *,
+        budget: TimeoutBudget | None = None,
+        phase: str = "retry",
+        on_retry: Callable[[int, float, BaseException], None] | None = None,
+    ) -> Any:
+        """Run ``fn`` under this policy; return its first successful value.
+
+        Fatal errors propagate immediately; retryable ones are re-attempted
+        up to ``max_attempts`` with jittered sleeps against the injected
+        clock (or ``budget``, which raises its own typed error when the
+        shared deadline runs out).  Exhaustion raises
+        :class:`RetryExhausted` chained to the final cause.
+        """
+        delays = self.delays()
+        last: BaseException | None = None
+        for attempt in range(1, self.max_attempts + 1):
+            if budget is not None:
+                budget.check(phase)
+            try:
+                return fn()
+            except BaseException as exc:
+                if not self.is_retryable(exc):
+                    raise
+                last = exc
+                if attempt >= self.max_attempts:
+                    break
+                delay = next(delays)
+                if on_retry is not None:
+                    on_retry(attempt, delay, exc)
+                log.debug(
+                    "retry %d/%d in %.3fs (%s): %s",
+                    attempt,
+                    self.max_attempts,
+                    delay,
+                    phase,
+                    exc,
+                )
+                if budget is not None:
+                    budget.sleep(delay, phase)
+                else:
+                    self.clock.sleep(delay)
+        raise RetryExhausted(self.max_attempts, last) from last
 
 
 CLOSED = "closed"

@@ -252,11 +252,21 @@ def test_live_reshard_manager_is_idempotent_as_jax():
     assert _manager_trace("port")[2] is False
 
 
-def test_recovery_manager_names_its_slice():
-    with pytest.raises(NotImplementedError, match="provisioning plane"):
-        recovery.RecoveryManager(None)
-    with pytest.raises(NotImplementedError, match="provisioning plane"):
-        recovery.run_with_recovery(None, None)
+def test_recovery_manager_names_its_slice(tmp_path):
+    """The recreate-and-resume tier is ported (``tests/test_torch_recovery.py``
+    holds it to JAX's); what it leaves to a later slice, agents on the VMs
+    reached through the broker, raises naming that slice."""
+    from deeplearning_cfn_tpu_torch.config.schema import ClusterSpec, JobSpec, NodePool
+    from deeplearning_cfn_tpu_torch.provision.local import LocalBackend
+    from deeplearning_cfn_tpu_torch.provision.provisioner import Provisioner
+
+    spec = ClusterSpec(name="c", backend="local",
+                       pool=NodePool(accelerator_type="local-1", workers=1),
+                       job=JobSpec(global_batch_size=8))
+    backend = LocalBackend(clock=timeouts.FakeClock())
+    assert recovery.RecoveryManager(Provisioner(backend, spec, contract_root=tmp_path))
+    with pytest.raises(NotImplementedError, match="broker"):
+        Provisioner(backend, spec, contract_root=tmp_path, remote_agents=True)
 
 
 # --- rescale_grad_accum --------------------------------------------------------------
