@@ -308,6 +308,36 @@ Phases, one JSON line each:
            ``template_to_first_step_s`` (stock, straight), the recreate
            (``Provisioner.recover``'s ``recover`` span), episode 2's restore
            and first step, the time to recover by recreate, the m435 step.
+           ``episode2_first_step_ms`` is one step's time: the throughput
+           record of a resumed run counts only the steps it ran (it used to
+           divide one step's time by the restored step + 1).
+20. provision_broker  the production topology, the broker's control plane
+           on the card: the broker built from ``native/broker/broker.cpp``
+           into ``build/torch_native/`` (``broker_build_s``, 0 when cached,
+           outside every other clock); a local template written to a
+           temporary directory (2 workers of ``local-1``, retained local
+           storage at a temporary mount, job module
+           ``deeplearning_cfn_tpu.examples.llama_train``, m435 at seq 2048,
+           batch 8, AdamW, flash on, ``Steps`` 6, 0.5 s polls);
+           ``python -m deeplearning_cfn_tpu_torch.cli run <template>
+           --broker auto`` in its own process (on the card, no
+           ``--device``), which starts the broker detached and records it
+           under its ``DLCFN_ROOT``; the script reads that record, as a VM
+           reads its metadata, and starts two ``python -m
+           deeplearning_cfn_tpu_torch.cluster.agent_main`` processes, each
+           with its own root and the stamped token, and a third without the
+           token.  Gates: the controller exits 0 with 6 steps on
+           ``cuda:0``; both agents exit 0; the tokenless one is refused at
+           AUTH and exits non-zero while the cluster comes up without it;
+           the three ``contract.json`` files byte-equal; ``status --cluster``
+           names both agents with at least one beat and ``--fleet`` merges
+           both agents' telemetry; ``delete`` prints ``"broker": "stopped"``,
+           the broker's pid is gone within 10 s and its record removed;
+           flash 48 a step, ``wgmma_tma`` (from the run's
+           ``kernel_launches``).  Reported: ``template_to_first_step_s``,
+           the bootstrap (the controller's ``broker_started`` to the
+           coordinator agent's ``bootstrap_complete``), the m435 step,
+           beats and telemetry frames per agent, the phase's seconds.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -319,7 +349,7 @@ The flash row of the kernels line counts the launches of every Llama path
 (``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, the resumed
 m435 run of ``checkpoint``, the m435 run of ``records``, the 8B run of
 ``llama8b``, ``pp_layout``, both processes' runs of ``two_ranks`` and
-``mesh_captured``, ``live_reshard``, ``provision_run``; by path in
+``mesh_captured``, ``live_reshard``, ``provision_run``, ``provision_broker``; by path in
 ``launches_by_path``), each counted from zero just
 before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
@@ -574,6 +604,9 @@ RESHARD_RTOL, RESHARD_ATOL = 5e-3, 1e-4
 # provision_run: the job of the phase's template, steps of the straight run
 # and of each episode of the recovered one.
 PROV_STEPS, PROV_EPISODE_STEPS, PROV_STOCK_TIMEOUT = 6, 3, 600
+# provision_broker: the cluster's name, the job's steps, the provisioner's and
+# the agents' poll interval, and the bootstrap budget (seconds).
+BROKER_CLUSTER, BROKER_STEPS, BROKER_POLL_S, BROKER_TIMEOUT = "provision-broker", 6, 0.5, 180
 
 
 # Traces _device_ms takes before it gives up on seeing device time.
@@ -1507,6 +1540,9 @@ class _StepClock:
     def __init__(self, model, copies=()):
         self.model, self.at, self.copies, self.ms = model, set(copies), {}, []
         self._t = time.perf_counter()
+
+    def resume(self, step: int) -> None:
+        """Nothing to re-anchor: each step is timed from the one before."""
 
     def step(self, step: int, loss) -> None:
         float(loss)
@@ -3455,6 +3491,212 @@ def _provision_run_phase(torch, kernels_mod, smi: str, flash_per_block: float) -
     return sum(c["flash_launches"] for c in checked)
 
 
+def _broker_template(mount: str) -> dict:
+    """Phase 20's local template: two workers of ``local-1``, retained local
+    storage at ``mount``, the JAX package's Llama job module (the launcher
+    maps it onto the port's), m435 at seq 2048 and batch 8 for ``Steps``
+    steps, on the card (no ``device`` arg); the provisioner polls every
+    ``BROKER_POLL_S``."""
+    return {
+        "Parameters": {"Steps": {"type": "int", "default": BROKER_STEPS, "min": 1}},
+        "Cluster": {
+            "name": BROKER_CLUSTER,
+            "backend": "local",
+            "pool": {"accelerator_type": "local-1", "workers": 2},
+            "storage": {"kind": "local", "mount_point": mount, "retain_on_delete": True},
+            "timeouts": {"cluster_ready_s": BROKER_TIMEOUT, "controller_launch_s": 30.0,
+                         "poll_interval_s": BROKER_POLL_S},
+            "job": {
+                "name": "llama-m435",
+                "module": "deeplearning_cfn_tpu.examples.llama_train",
+                "global_batch_size": 8,
+                "args": {"size": "435m", "seq_len": 2048, "global_batch_size": 8,
+                         "steps": {"ref": "Steps"}, "log_every": 1},
+            },
+        },
+    }
+
+
+def _provision_broker_phase(smi: str, flash_per_block: float) -> int:
+    """Phase 20 (see the module docstring).  Returns the flash launches of
+    the controller's Llama run."""
+    import signal
+    import tempfile
+
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import broker_binary_path, build_broker
+    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
+
+    t_phase = time.perf_counter()
+    per_step = flash_per_block * 24
+    repo = Path(__file__).resolve().parent
+
+    # 1. The broker from native/broker/broker.cpp into build/torch_native/,
+    # on no other clock (0 when a build of this source is there already).
+    cached = broker_binary_path().exists()
+    t0 = time.perf_counter()
+    build_broker()
+    broker_build_s = 0.0 if cached else time.perf_counter() - t0
+
+    procs: list = []
+    pid = None
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        template = tmp / "provision-broker.json"
+        template.write_text(json.dumps(_broker_template(str(tmp / "mount"))))
+        ctrl_root = tmp / "controller"
+        base_env = {k: v for k, v in os.environ.items() if k != "DLCFN_BROKER_TOKEN"}
+        ctrl_env = dict(base_env, DLCFN_ROOT=str(ctrl_root),
+                        DLCFN_FLIGHT_JOURNAL=str(tmp / "controller.jsonl"))
+        cli_cmd = [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli"]
+        try:
+            # 2-3. The controller: the operator's command, in its own process.
+            t_start = time.time()
+            controller = subprocess.Popen(
+                cli_cmd + ["run", str(template), "--broker", "auto"], cwd=repo, env=ctrl_env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(controller)
+            # 4. The agents learn the broker as a VM would: from the record
+            # the controller stamps (the VM metadata), not from this script.
+            record_path = ctrl_root / "broker" / f"{BROKER_CLUSTER}.json"
+            deadline = time.monotonic() + BROKER_TIMEOUT
+            while not record_path.exists():  # written whole, then renamed into place
+                if controller.poll() is not None or time.monotonic() > deadline:
+                    controller.kill()
+                    _require(False, f"provision_broker: no broker record, controller rc "
+                             f"{controller.wait()}:\n{controller.stderr.read()[-3000:]}")
+                time.sleep(0.05)
+            rec = json.loads(record_path.read_text())
+            pid = int(rec["pid"])
+            _require(bool(rec.get("token")), "provision_broker: the broker requires no AUTH")
+
+            def agent(index: int, name: str, token: str | None, budget_s: float):
+                env = dict(base_env, DLCFN_CLUSTER=BROKER_CLUSTER, DLCFN_WORKER_INDEX=str(index),
+                           DLCFN_BROKER=f"{rec['host']}:{rec['port']}",
+                           DLCFN_GROUPS=f"{BROKER_CLUSTER}-workers",
+                           DLCFN_STORAGE_MOUNT=str(tmp / "mount"),
+                           DLCFN_BOOTSTRAP_BUDGET_S=str(budget_s),
+                           DLCFN_POLL_INTERVAL_S=str(BROKER_POLL_S),
+                           DLCFN_ROOT=str(tmp / name),
+                           DLCFN_FLIGHT_JOURNAL=str(tmp / f"{name}.jsonl"),
+                           DLCFN_BLACKBOX_DIR=str(tmp / "blackbox"))
+                if token:
+                    env["DLCFN_BROKER_TOKEN"] = token
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cluster.agent_main"],
+                    cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                procs.append(proc)
+                return proc
+
+            intruder = agent(7, "intruder", None, 10.0)
+            agents = [agent(i, f"vm{i}", rec["token"], BROKER_TIMEOUT) for i in range(2)]
+            ctrl_out, ctrl_err = controller.communicate(timeout=BROKER_TIMEOUT + 300)
+            agent_out = [a.communicate(timeout=60)[0] for a in agents]
+            intruder_out = intruder.communicate(timeout=60)[0]
+            # 5. The controller first: a failed controller leaves the agents
+            # dying on their budget, which would hide the cause.
+            _require(controller.returncode == 0,
+                     f"provision_broker: controller rc {controller.returncode}:\n"
+                     f"{ctrl_err[-3000:]}")
+            for i, a in enumerate(agents):
+                _require(a.returncode == 0,
+                         f"provision_broker: agent {i} rc {a.returncode}:\n{agent_out[i][-3000:]}")
+            _require(intruder.returncode != 0 and "auth required" in intruder_out,
+                     f"provision_broker: the tokenless agent exited {intruder.returncode}:\n"
+                     f"{intruder_out[-2000:]}")
+            record = json.loads(ctrl_out.strip().splitlines()[-1])
+            contracts = [(root / "contract.json").read_bytes()
+                         for root in (ctrl_root, tmp / "vm0", tmp / "vm1")]
+
+            # 6. The broker's state, read back while it lives.
+            def status(*extra) -> dict:
+                proc = subprocess.run(cli_cmd + ["status", "--cluster", BROKER_CLUSTER, *extra],
+                                      cwd=repo, env=ctrl_env, capture_output=True, text=True,
+                                      timeout=120)
+                _require(proc.returncode == 0,
+                         f"provision_broker: status {extra} rc {proc.returncode}:\n{proc.stderr}")
+                return json.loads(proc.stdout)
+
+            liveness = status().get("liveness") or {}
+            fleet = status("--fleet").get("fleet") or {}
+
+            # 7. Tear down with the cluster.
+            deleted = subprocess.run(cli_cmd + ["delete", str(template)], cwd=repo,
+                                     env=ctrl_env, capture_output=True, text=True, timeout=120)
+            _require(deleted.returncode == 0,
+                     f"provision_broker: delete rc {deleted.returncode}:\n{deleted.stderr}")
+            teardown = json.loads(deleted.stdout)
+            deadline = time.monotonic() + 10
+            gone = False
+            while not gone and time.monotonic() < deadline:
+                try:
+                    os.kill(pid, 0)
+                    time.sleep(0.05)
+                except ProcessLookupError:
+                    gone = True
+            record_left = record_path.exists()
+            events = {name: list(read_journal(tmp / f"{name}.jsonl"))
+                      for name in ("controller", "vm0", "vm1")}
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if pid is not None:
+                try:
+                    os.kill(pid, signal.SIGKILL)  # only if delete left it
+                except ProcessLookupError:
+                    pass
+
+    def first(name: str, kind: str) -> float | None:
+        return next((e["ts"] for e in events[name] if e.get("kind") == kind), None)
+
+    result = record["result"]
+    tokens = 8 * 2048
+    summary = _run_summary(result, tokens, tokens)
+    started = first("controller", "broker_started")
+    ready = first("vm0", "bootstrap_complete")
+    workers = [f"{BROKER_CLUSTER}-workers/{i}" for i in range(2)]
+    row = {"phase": "provision_broker", "model": "m435", "S": 2048, "batch": 8,
+           "workers": 2, "poll_interval_s": BROKER_POLL_S,
+           "broker_build_s": broker_build_s, "broker_cached": cached,
+           "template_to_first_step_s": record.get("template_to_first_step_s"),
+           "first_step_s": result["first_step_s"],
+           "bootstrap_s": (ready - started) if started and ready else None,
+           "bootstrap_basis": "the controller's broker_started event to the coordinator "
+                              "agent's bootstrap_complete (its ready signal), one host clock",
+           "broker_started_after_s": (started - t_start) if started else None,
+           "steps": result["steps"], "device": result["device"],
+           "losses": summary["losses"], "step_ms": summary["step_ms"],
+           "steady_step_ms": summary["steady_step_ms"], "mfu": summary["mfu"],
+           "contracts_equal": len(set(contracts)) == 1,
+           "beats": {w: (liveness.get(w) or {}).get("beats") for w in workers},
+           "liveness_states": {w: (liveness.get(w) or {}).get("state") for w in workers},
+           "telemetry_frames": {w: ((fleet.get("workers") or {}).get(w) or {}).get("count")
+                                for w in workers},
+           "fleet_hosts": fleet.get("hosts"),
+           "fleet_gauges": sorted(fleet.get("gauges") or {}),
+           "intruder_rc": intruder.returncode,
+           "delete": {k: teardown.get(k) for k in ("broker", "pid")},
+           "broker_gone_within_10s": gone, "record_left": record_left,
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    _emit(row)
+    _require(result["steps"] == BROKER_STEPS and result["device"] == "cuda:0",
+             f"provision_broker: {result['steps']} steps on {result['device']}")
+    _require(all(math.isfinite(v) for v in summary["losses"]), "provision_broker: non-finite loss")
+    _require(row["contracts_equal"], "provision_broker: the three contract.json files differ")
+    _require(all((row["beats"][w] or 0) >= 1 for w in workers),
+             f"provision_broker: liveness {liveness}")
+    _require(fleet.get("hosts") == 2 and all(row["telemetry_frames"][w] for w in workers),
+             f"provision_broker: fleet {fleet}")
+    _require(teardown.get("broker") == "stopped" and gone and not record_left,
+             f"provision_broker: delete {teardown}, pid gone {gone}, record left {record_left}")
+    _require(started is not None and ready is not None,
+             "provision_broker: no broker_started or bootstrap_complete in the journals")
+    return _flash_check(result["kernel_launches"], BROKER_STEPS, per_step,
+                        "provision_broker")["flash_launches"]
+
+
 def main() -> int:
     import torch
 
@@ -4042,6 +4284,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     flash_by_path["provision_run"] = _provision_run_phase(torch, _kernels, smi, flash_per_block)
+
+    # 20. provision_broker: the production topology -- run --broker auto with
+    # two agent processes and a tokenless intruder.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_by_path["provision_broker"] = _provision_broker_phase(smi, flash_per_block)
 
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with

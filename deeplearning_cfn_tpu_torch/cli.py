@@ -12,16 +12,20 @@ far, each the counterpart of the ``dlcfn`` command of its name:
   run      <template.json> [--auto-recover N]  provision + run the job
   startup-script, stage, gen-scripts        worker boot script, staging,
                                             per-host launch scripts
-  serve, convert, events, status (its mesh, reshard and span sections),
-  chaos (the ``slice-loss-live`` scenario)
+  serve, convert, events, status (liveness, broker, fleet, mesh, reshard
+  and span sections), chaos (the ``slice-loss-live`` scenario)
 
 The local backend executes everything in-process (the fake cloud) and
 ``run`` trains the template's job in this process, on the card unless the
 template's job args say ``device: cpu``; the gcp backend renders the TPU API
-calls (``--print-requests``).  Templates name the JAX package's job modules;
-``cluster/launcher.resolve_job_module`` maps them onto the port's.
-``--broker`` and the other sections of ``status`` come with the later
-slices that port what they drive.
+calls (``--print-requests``).  ``--broker HOST:PORT|auto`` on create/run/
+recover is the production topology: bootstrap agents
+(``python -m deeplearning_cfn_tpu_torch.cluster.agent_main``) run on the
+VMs and rendezvous through the native broker, which ``auto`` builds and
+starts as part of the stack and ``delete`` tears down.  Templates name the
+JAX package's job modules; ``cluster/launcher.resolve_job_module`` maps them
+onto the port's.  ``status --metrics-dir/--profile/--serve`` come with the
+slice that ports the rest of ``obs/``.
 """
 
 from __future__ import annotations
@@ -34,8 +38,7 @@ import sys
 import time
 from pathlib import Path
 
-_BROKER_SLICE = "a later slice of the PyTorch port (the broker client and service)"
-_OBS_SLICE = "a later slice of the PyTorch port (obs/: liveness, profiler folds, aggregator)"
+_OBS_SLICE = "a later slice of the PyTorch port (obs/: profiler folds, serving folds, SLO)"
 
 
 # --- the operator commands: template -> cluster -> job -------------------------
@@ -65,11 +68,54 @@ def _load_spec(args):
         raise SystemExit(f"template error: {e}") from e
 
 
-def _refuse_broker(args) -> None:
-    """``--broker`` / ``--broker-advertise``: agents on the VMs, reached
-    through the broker, which a later slice ports."""
-    if getattr(args, "broker", None) or getattr(args, "broker_advertise", None):
-        raise NotImplementedError(f"--broker is ported in {_BROKER_SLICE}")
+def _parse_broker(broker: str) -> tuple[str, int]:
+    host, _, port_str = broker.rpartition(":")
+    try:
+        port = int(port_str)
+    except ValueError:
+        port = -1
+    if not host or not (0 < port < 65536):
+        raise SystemExit(f"--broker expects HOST:PORT or 'auto', got {broker!r}")
+    return host, port
+
+
+def _resolve_broker(spec, args) -> str | None:
+    """Resolve --broker, provisioning the broker itself for ``auto`` — the
+    control plane is a stack resource (deeplearning.template:743-754), not
+    an operator-managed prerequisite.  Returns HOST:PORT or None."""
+    broker = getattr(args, "broker", None)
+    if broker != "auto":
+        return broker
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerError
+    from deeplearning_cfn_tpu_torch.cluster.broker_service import (
+        broker_token,
+        detect_host_ip,
+        ensure_broker,
+    )
+
+    advertise = getattr(args, "broker_advertise", None)
+    if advertise is None:
+        # Loopback for the in-process dev backend; a routable address for
+        # real clusters (the VMs must dial back to this host).
+        advertise = "127.0.0.1" if spec.backend == "local" else detect_host_ip()
+    try:
+        host, port, started = ensure_broker(spec.name, advertise=advertise)
+    except (BrokerError, OSError) as e:
+        # OSError: e.g. no write access to $DLCFN_ROOT for the record.
+        raise SystemExit(f"broker provisioning failed: {e}") from e
+    # Publish the broker's AUTH token ambiently: every BrokerConnection
+    # this process opens (rendezvous backend, status) authenticates via
+    # $DLCFN_BROKER_TOKEN, and _backend_for stamps it into VM metadata.
+    # Operator-managed brokers (--broker HOST:PORT) export it themselves.
+    token = broker_token(spec.name)
+    if token:
+        os.environ["DLCFN_BROKER_TOKEN"] = token
+    print(
+        f"broker for {spec.name!r}: {host}:{port} "
+        f"({'started' if started else 'reused'})",
+        file=sys.stderr,
+    )
+    return f"{host}:{port}"
 
 
 class _DryRun:
@@ -78,12 +124,17 @@ class _DryRun:
     transcript emission — one implementation shared by all four commands
     so their dry-run behavior cannot drift."""
 
-    def __init__(self, spec):
+    def __init__(self, spec, broker: str | None):
         import tempfile
 
         if spec.backend != "gcp":
             raise SystemExit(
                 "--print-requests is only meaningful for backend 'gcp'"
+            )
+        if broker:
+            raise SystemExit(
+                "--print-requests dry-runs inline (no VMs, no broker); "
+                "drop --broker"
             )
         from deeplearning_cfn_tpu_torch.provision.gcp import (
             FakeGCPTransport,
@@ -120,39 +171,66 @@ class _DryRun:
 def _maybe_dryrun(args, spec) -> "_DryRun | None":
     if not getattr(args, "print_requests", False):
         return None
-    return _DryRun(spec)
+    return _DryRun(spec, getattr(args, "broker", None))
 
 
-def _backend_for(spec, recorder=None):
+def _backend_for(spec, broker: str | None = None, recorder=None):
+    broker_addr = _parse_broker(broker) if broker else None
     if spec.backend == "local":
         from deeplearning_cfn_tpu_torch.provision.local import LocalBackend
 
-        return LocalBackend()
-    from deeplearning_cfn_tpu_torch.cluster.startup import render_startup_script
-    from deeplearning_cfn_tpu_torch.provision.gcp import GCPBackend
+        backend = LocalBackend()
+    else:
+        from deeplearning_cfn_tpu_torch.cluster.startup import render_startup_script
+        from deeplearning_cfn_tpu_torch.provision.gcp import GCPBackend
 
-    extra = {}
-    if recorder is not None:
-        from deeplearning_cfn_tpu_torch.utils.timeouts import FakeClock
+        extra = {}
+        if recorder is not None:
+            from deeplearning_cfn_tpu_torch.utils.timeouts import FakeClock
 
-        # Dry-run: recorded fake transport + an instant clock (the
-        # 30 s-style poll sleeps would otherwise run on wallclock).
-        extra = {"transport": recorder, "clock": FakeClock()}
-    return GCPBackend(
-        project=spec.project,
-        zone=spec.zone,
-        accelerator_type=spec.pool.accelerator_type,
-        runtime_version=spec.pool.image_override or spec.pool.runtime_version,
-        network=spec.network.network,
-        subnetwork=spec.network.subnetwork,
-        external_ips=spec.network.external_ips,
-        disk_size_gb=spec.pool.disk_size_gb,
-        disk_type=spec.pool.disk_type,
-        spot=spec.pool.spot,
-        startup_script=render_startup_script(spec),
-        storage_namespace=spec.name,
-        **extra,
-    )
+            # Dry-run: recorded fake transport + an instant clock (the
+            # 30 s-style poll sleeps would otherwise run on wallclock).
+            extra = {"transport": recorder, "clock": FakeClock()}
+        backend = GCPBackend(
+            project=spec.project,
+            zone=spec.zone,
+            accelerator_type=spec.pool.accelerator_type,
+            runtime_version=spec.pool.image_override or spec.pool.runtime_version,
+            network=spec.network.network,
+            subnetwork=spec.network.subnetwork,
+            external_ips=spec.network.external_ips,
+            disk_size_gb=spec.pool.disk_size_gb,
+            disk_type=spec.pool.disk_type,
+            spot=spec.pool.spot,
+            startup_script=render_startup_script(spec),
+            # Stamped into VM metadata (dlcfn-broker) so the startup
+            # script can hand agents their control plane; the AUTH token
+            # rides the same channel (dlcfn-broker-token), the metadata
+            # analog of the reference's IAM-scoped credentials.
+            broker_host=broker_addr[0] if broker_addr else None,
+            broker_port=broker_addr[1] if broker_addr else 8477,
+            broker_token=os.environ.get("DLCFN_BROKER_TOKEN") or None,
+            storage_namespace=spec.name,
+            **extra,
+        )
+    if broker_addr:
+        # Production topology: agents run on the VMs and rendezvous through
+        # the broker; this process is the CloudFormation-engine side.
+        from deeplearning_cfn_tpu_torch.cluster.broker_backend import (
+            BrokerRendezvousBackend,
+        )
+
+        try:
+            backend = BrokerRendezvousBackend(backend, *broker_addr)
+        except OSError as e:
+            raise SystemExit(f"cannot reach broker at {broker}: {e}") from e
+    return backend
+
+
+def _progress_printer(elapsed_s: float, status: str) -> None:
+    # The stack drivers' poll loop printing elapsed time every 30 s
+    # (mask-rcnn-stack.sh:84-92).
+    print(f"  CREATE_IN_PROGRESS {elapsed_s:.0f}s elapsed: {status}", file=sys.stderr)
 
 
 def cmd_validate(args) -> int:
@@ -175,13 +253,21 @@ def cmd_create(args) -> int:
 
     spec = _load_spec(args)
     dry = _maybe_dryrun(args, spec)
-    _refuse_broker(args)
-    backend = _backend_for(spec, recorder=dry.recorder if dry else None)
-    # Dry runs must not touch the real contract dir.
-    prov = Provisioner(backend, spec, contract_root=dry.contract_root if dry else None)
+    broker = None if dry else _resolve_broker(spec, args)
+    backend = _backend_for(spec, broker, recorder=dry.recorder if dry else None)
+    prov = Provisioner(
+        backend,
+        spec,
+        remote_agents=bool(broker),
+        progress=_progress_printer,
+        # Dry runs must not touch the real contract dir.
+        contract_root=dry.contract_root if dry else None,
+    )
     t0 = time.monotonic()
     print(f"creating cluster {spec.name!r}...", file=sys.stderr)
     try:
+        # Inline (local) backends provision synchronously; with --broker the
+        # provisioner polls, calling _progress_printer each tick.
         result = prov.provision()
     except ProvisionFailure as e:
         print(f"CREATE FAILED after {time.monotonic() - t0:.0f}s: {e}", file=sys.stderr)
@@ -230,6 +316,7 @@ def cmd_describe(args) -> int:
 
 
 def cmd_delete(args) -> int:
+    from deeplearning_cfn_tpu_torch.cluster.broker_service import teardown_broker
     from deeplearning_cfn_tpu_torch.provision.provisioner import Provisioner
 
     spec = _load_spec(args)
@@ -241,10 +328,17 @@ def cmd_delete(args) -> int:
         prov = dry.seed(backend, spec)
         prov.delete(force_storage=args.force_storage)
         return dry.emit("delete")
-    out = Provisioner(backend, spec).delete(force_storage=args.force_storage)
-    # The JAX command tears down the cluster's auto-provisioned broker here;
-    # the port provisions none, so there is never one to tear down.
-    out["broker"] = "none"
+    prov = Provisioner(backend, spec)
+    # The broker is a stack resource: delete tears it down with the
+    # cluster (a no-op when none was auto-provisioned).  finally: broker
+    # teardown is independent of cloud-resource deletion — a transport
+    # error mid-teardown must not leave the detached broker running with
+    # no cleanup path besides re-running delete.
+    try:
+        out = prov.delete(force_storage=args.force_storage)
+    finally:
+        broker_out = teardown_broker(spec.name)
+    out.update(broker_out)
     print(json.dumps(out, indent=2))
     return 0
 
@@ -257,9 +351,15 @@ def cmd_recover(args) -> int:
 
     spec = _load_spec(args)
     dry = _maybe_dryrun(args, spec)
-    _refuse_broker(args)
-    backend = _backend_for(spec, recorder=dry.recorder if dry else None)
-    prov = Provisioner(backend, spec, contract_root=dry.contract_root if dry else None)
+    broker = None if dry else _resolve_broker(spec, args)
+    backend = _backend_for(spec, broker, recorder=dry.recorder if dry else None)
+    prov = Provisioner(
+        backend,
+        spec,
+        remote_agents=bool(broker),
+        progress=_progress_printer,
+        contract_root=dry.contract_root if dry else None,
+    )
     t0 = time.monotonic()
     print(f"recovering cluster {spec.name!r}...", file=sys.stderr)
     try:
@@ -434,7 +534,10 @@ def cmd_run(args) -> int:
     on the device its args name (the port's examples default to ``cuda``);
     ``--auto-recover N`` recreates the cluster on an instance loss, reusing
     the retained storage, and reruns the job, which resumes from its
-    checkpoints, up to N times.  Other backends print the launch scripts."""
+    checkpoints, up to N times.  With ``--broker`` the bootstrap agents run
+    as processes of their own (the VMs' ``agent_main``) and this process
+    publishes group state and waits for their ready signal.  Other backends
+    print the launch scripts."""
     from deeplearning_cfn_tpu_torch.cluster.launcher import (
         LaunchError,
         LocalJobRunner,
@@ -444,8 +547,10 @@ def cmd_run(args) -> int:
 
     t0 = time.monotonic()
     spec = _load_spec(args)
-    _refuse_broker(args)
-    prov = Provisioner(_backend_for(spec), spec)
+    broker = _resolve_broker(spec, args)
+    prov = Provisioner(
+        _backend_for(spec, broker), spec, remote_agents=bool(broker), progress=_progress_printer
+    )
     try:
         result = prov.provision()
         plan = build_launch_plan(result.contract, spec.job, result.job_violation)
@@ -514,8 +619,12 @@ def cmd_serve(args) -> int:
     smoke of the whole plane (admission, paging, continuous batching,
     metrics) on a toy model, as ``dlcfn serve`` runs it.  ``--disaggregate``
     prefills on a device of its own where there are two CUDA devices or
-    more.  ``--journal`` (or ``$DLCFN_FLIGHT_JOURNAL``) records the
-    ``serve_load`` and per-replica ``serve_metrics`` events."""
+    more.  With ``--broker HOST:PORT`` each replica registers in the
+    broker's KV table (``serve/<group>/<name>``) and beats its liveness
+    table every scheduler step, exactly like a training worker (the AUTH
+    token from ``$DLCFN_BROKER_TOKEN``).  ``--journal`` (or
+    ``$DLCFN_FLIGHT_JOURNAL``) records the ``serve_load`` and per-replica
+    ``serve_metrics`` events."""
     import torch
 
     from deeplearning_cfn_tpu_torch.analysis.schedules import VirtualClock
@@ -531,10 +640,6 @@ def cmd_serve(args) -> int:
         run_load,
     )
 
-    if args.serve_broker:
-        raise NotImplementedError(
-            f"--broker (registration and liveness at a broker) is ported in {_BROKER_SLICE}"
-        )
     if args.journal:
         os.environ["DLCFN_FLIGHT_JOURNAL"] = args.journal
     device = resolve_device(args.device)
@@ -546,18 +651,33 @@ def cmd_serve(args) -> int:
     if args.disaggregate:
         placement = plan_placement(None if device.type == "cuda" else [device])
     clock = VirtualClock()
-    replicas = [
-        ServeReplica(
+    conn = None
+    if args.serve_broker:
+        from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerConnection
+
+        host, _, port = args.serve_broker.partition(":")
+        conn = BrokerConnection(host, int(port))
+    replicas = []
+    for i in range(args.replicas):
+        replica = ServeReplica(
             ContinuousBatchingEngine(model, scfg, clock=clock, name=f"rep{i}",
                                      placement=placement),
             f"rep{i}",
             group=args.group,
+            connection_factory=(lambda: conn) if conn is not None else None,
         )
-        for i in range(args.replicas)
-    ]
+        if conn is not None:
+            replica.register(conn)
+        replicas.append(replica)
     frontend = ServeFrontEnd(replicas)
     traffic = TrafficConfig(requests=args.requests, seed=args.seed)
-    report = run_load(frontend, traffic, clock, journal=True)
+
+    def beat_all(_step: int) -> None:
+        for replica in frontend.replicas.values():
+            replica.beat()
+
+    report = run_load(frontend, traffic, clock,
+                      on_step=beat_all if conn is not None else None, journal=True)
     for replica in frontend.replicas.values():
         replica.engine.journal_metrics()
     print(json.dumps(report.to_dict(), indent=2))
@@ -591,6 +711,167 @@ def cmd_convert(args) -> int:
         return 1
     print(json.dumps(out, indent=2))
     return 0
+
+
+def _status_liveness(args) -> dict | None:
+    """Per-worker liveness from a broker, or None when none was asked for.
+
+    ``--broker HOST:PORT`` dials directly (token from the ambient
+    $DLCFN_BROKER_TOKEN); ``--cluster NAME`` resolves the recorded broker
+    and its token from the contract root."""
+    from deeplearning_cfn_tpu_torch.obs.liveness import LivenessConfig
+
+    if not (args.cluster or args.status_broker):
+        return None
+    config = LivenessConfig(
+        suspect_after_s=args.suspect_after, dead_after_s=args.dead_after
+    )
+    if args.status_broker:
+        from deeplearning_cfn_tpu_torch.cluster.broker_client import (
+            BrokerConnection,
+            BrokerError,
+        )
+        from deeplearning_cfn_tpu_torch.obs.liveness import LivenessTable
+
+        host, port = _parse_broker(args.status_broker)
+        try:
+            conn = BrokerConnection(host, port)
+        except OSError as e:
+            raise SystemExit(f"cannot reach broker at {host}:{port}: {e}") from e
+        try:
+            beats = conn.heartbeats()
+        except BrokerError as e:
+            raise SystemExit(f"heartbeat dump failed: {e}") from e
+        finally:
+            conn.close()
+        table = LivenessTable(config=config)
+        for worker, (age_s, count) in beats.items():
+            table.observe(worker, age_s=age_s, count=count)
+        table.sweep()
+        return table.snapshot()
+    from deeplearning_cfn_tpu_torch.cluster.broker_service import cluster_liveness
+
+    return cluster_liveness(args.cluster, config=config)
+
+
+def _status_broker_role(args) -> dict | None:
+    """Control-plane role / epoch / replication lag, or None.
+
+    ``--cluster`` reads the recorded replicated pair (primary plus warm
+    standby, with lag in entries and seconds) — or, when a shard map is
+    recorded (ensure_sharded_broker), the per-shard replication table
+    with a degraded flag per pair.  ``--broker HOST:PORT`` asks the
+    dialed node directly via the ROLE and SHARD verbs.  A cluster with
+    no recorded broker, or a dial failure, yields None — status stays
+    usable against legacy single-process brokers."""
+    if args.cluster:
+        from deeplearning_cfn_tpu_torch.cluster.broker_service import (
+            broker_replication_status,
+            broker_shard_replication_status,
+            broker_status,
+        )
+
+        sharded = broker_shard_replication_status(args.cluster)
+        if sharded is not None:
+            return sharded
+        if broker_status(args.cluster) is None:
+            return None
+        return broker_replication_status(args.cluster)
+    if args.status_broker:
+        from deeplearning_cfn_tpu_torch.cluster.broker_client import (
+            BrokerConnection,
+            BrokerError,
+        )
+
+        host, port = _parse_broker(args.status_broker)
+        try:
+            conn = BrokerConnection(host, port)
+            try:
+                role_name, epoch, seq = conn.role()
+                shard, n_shards = conn.shard()
+            finally:
+                conn.close()
+        except (OSError, BrokerError):
+            return None
+        primary = {
+            "host": host,
+            "port": port,
+            "alive": True,
+            "role": role_name,
+            "epoch": epoch,
+            "seq": seq,
+        }
+        if n_shards > 1:
+            primary["shard"] = shard
+            primary["n_shards"] = n_shards
+        return {
+            "primary": primary,
+            "standby": None,
+            "lag_entries": None,
+            "lag_seconds": None,
+        }
+    return None
+
+
+def _status_broker_events(args) -> dict | None:
+    """Broker lifecycle counters folded from journaled
+    ``broker_promoted`` / ``standby_reprovisioned`` events, or None (no
+    journal / no failovers).  Merged into the ``broker`` status block so
+    an operator sees promotion and self-heal counts next to the live
+    replication table."""
+    if not args.journal:
+        return None
+    from deeplearning_cfn_tpu_torch.obs.exporter import fold_broker_events
+    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
+
+    return fold_broker_events(read_journal(args.journal)) or None
+
+
+def _status_fleet(args, liveness) -> dict | None:
+    """Fleet-merged agent telemetry from the broker's TELEM table, or
+    None (``--fleet`` not passed / no broker source / dial failure).
+
+    Snapshots are whatever each agent's Heartbeater piggybacked on its
+    last beat; the merge (obs/aggregator.FleetAggregator) folds gauges
+    as sum/max/last-per-worker and summaries as fleet-wide quantiles
+    over the concatenated samples.  ``liveness`` (already computed for
+    the status view) contributes the dead-fraction."""
+    if not getattr(args, "fleet", False):
+        return None
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import (
+        BrokerConnection,
+        BrokerError,
+    )
+
+    token = None  # --broker: the ambient $DLCFN_BROKER_TOKEN
+    if args.status_broker:
+        host, port = _parse_broker(args.status_broker)
+    elif args.cluster:
+        from deeplearning_cfn_tpu_torch.cluster.broker_service import broker_status
+
+        record = broker_status(args.cluster)
+        if record is None or not record.get("alive"):
+            return None
+        # Loopback, same rationale as the liveness probe: the recorded
+        # host may be a NAT address not locally routable.  The record's
+        # token, as the liveness view uses (deliberate difference: the JAX
+        # command dials with the ambient token only, and without one reads
+        # no fleet from an AUTH-required broker).
+        host, port = "127.0.0.1", int(record["port"])
+        token = record.get("token") or None
+    else:
+        raise SystemExit("dlcfn status --fleet needs --broker or --cluster")
+    try:
+        conn = BrokerConnection(host, port, token=token)
+        try:
+            table = conn.telemetry()
+        finally:
+            conn.close()
+    except (OSError, BrokerError):
+        return None
+    from deeplearning_cfn_tpu_torch.obs.aggregator import FleetAggregator
+
+    return FleetAggregator().merge(table, liveness=liveness)
 
 
 def _status_spans(args) -> dict | None:
@@ -659,37 +940,48 @@ def _status_mesh(args) -> dict | None:
 
 
 def cmd_status(args) -> int:
-    """Cluster status: the mesh from the published cluster contract
-    (``--cluster``), the live-reshard counters and span aggregates from a
-    flight journal (``--journal``); ``--format prom`` renders them as
-    Prometheus text.  The JAX command's liveness and broker sections (read
-    from a broker) are not ported: with ``--cluster`` only the mesh shows;
-    the flags of the other sections raise, naming their slice."""
-    for flag, what, where in (("metrics_dir", "--metrics-dir", _OBS_SLICE),
-                              ("status_broker", "--broker", _BROKER_SLICE),
-                              ("profile", "--profile", _OBS_SLICE),
-                              ("serve", "--serve", _OBS_SLICE),
-                              ("fleet", "--fleet", _BROKER_SLICE)):
+    """Cluster status: broker-driven liveness plus the control plane's
+    role/epoch/replication lag (``--cluster`` / ``--broker``), fleet-merged
+    agent telemetry (``--fleet``), the mesh from the published cluster
+    contract (``--cluster``), and the live-reshard counters, broker
+    lifecycle counters and span aggregates from a flight journal
+    (``--journal``); ``--format prom`` renders them as Prometheus text.
+    ``--metrics-dir``, ``--profile`` and ``--serve`` raise, naming the slice
+    that ports them."""
+    for flag, what in (("metrics_dir", "--metrics-dir"), ("profile", "--profile"),
+                       ("serve", "--serve")):
         if getattr(args, flag):
-            raise NotImplementedError(f"status {what} is ported in {where}")
-    if not (args.cluster or args.journal):
-        raise SystemExit("status needs a source: --cluster and/or --journal")
+            raise NotImplementedError(f"status {what} is ported in {_OBS_SLICE}")
+    if not (args.cluster or args.status_broker or args.journal):
+        raise SystemExit("status needs a source: --cluster, --broker, and/or --journal")
+    liveness = _status_liveness(args)
+    broker = _status_broker_role(args)
+    broker_events = _status_broker_events(args)
+    if broker_events is not None:
+        broker = {**(broker or {}), "events": broker_events}
     spans = _status_spans(args)
     reshard = _status_reshard(args)
     mesh = _status_mesh(args)
+    fleet = _status_fleet(args, liveness)
     if args.format == "prom":
         from deeplearning_cfn_tpu_torch.obs.exporter import render_prometheus
 
-        print(render_prometheus(None, spans, cluster=args.cluster or "", reshard=reshard,
-                                mesh=mesh), end="")
+        print(render_prometheus(liveness, spans, cluster=args.cluster or "", reshard=reshard,
+                                mesh=mesh, broker=broker, fleet=fleet), end="")
         return 0
     out: dict = {}
+    if liveness is not None:
+        out["liveness"] = liveness
+    if broker is not None:
+        out["broker"] = broker
     if mesh is not None:
         out["mesh"] = mesh
     if reshard is not None:
         out["reshard"] = reshard
     if spans is not None:
         out["spans"] = spans
+    if fleet is not None:
+        out["fleet"] = fleet
     print(json.dumps(out, indent=2))
     return 0
 
@@ -779,9 +1071,14 @@ def build_parser() -> argparse.ArgumentParser:
                        help="template parameter override key=value (repeatable)")
         if name in ("create", "run", "recover"):
             p.add_argument("--broker", default=None, metavar="HOST:PORT|auto",
-                           help="rendezvous broker address (not ported yet)")
+                           help="rendezvous broker address; bootstrap agents run on the VMs "
+                                "(production topology) instead of inline.  'auto' provisions "
+                                "the broker as part of the stack (detached on this host, torn "
+                                "down by delete)")
             p.add_argument("--broker-advertise", default=None, dest="broker_advertise",
-                           metavar="HOST", help="with --broker auto (not ported yet)")
+                           metavar="HOST",
+                           help="with --broker auto: the address VMs dial (default: loopback "
+                                "for the local backend, this host's routable IP otherwise)")
         if name == "run":
             p.add_argument("--auto-recover", type=int, default=0, dest="auto_recover",
                            metavar="N",
@@ -815,7 +1112,7 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--group", default="serve",
                     help="worker-group name for registration/liveness")
     pv.add_argument("--broker", default=None, dest="serve_broker", metavar="HOST:PORT",
-                    help="register replicas and beat liveness at this broker (not ported yet)")
+                    help="register replicas and beat liveness at this broker")
     pv.add_argument("--disaggregate", action="store_true",
                     help="prefill on a dedicated device when >= 2 devices")
     pv.add_argument("--journal", default=None,
@@ -849,9 +1146,12 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--tokenizer", default=None,
                     help="local HF tokenizer dir for --format text (default: byte-level)")
     pc.set_defaults(fn=cmd_convert)
-    ps = sub.add_parser("status", help="the mesh, live-reshard counters and span aggregates")
+    ps = sub.add_parser("status", help="worker liveness, the broker, the mesh, live-reshard "
+                                       "counters and span aggregates")
     ps.add_argument("--cluster", default=None,
-                    help="cluster name: the mesh from its published contract ($DLCFN_ROOT)")
+                    help="cluster name: per-worker liveness from its recorded broker's "
+                         "HEARTBEAT table, the replicated pair's role/epoch/replication lag, "
+                         "and the mesh from its published contract ($DLCFN_ROOT)")
     ps.add_argument("--journal", default=None,
                     help="flight journal (JSONL) to fold reshard counters and spans from")
     ps.add_argument("--format", choices=["json", "prom"], default="json",
@@ -859,10 +1159,18 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--metrics-dir", dest="metrics_dir", default=None,
                     help="per-worker training metrics (not ported yet)")
     ps.add_argument("--broker", default=None, dest="status_broker", metavar="HOST:PORT",
-                    help="liveness from a broker (not ported yet)")
+                    help="dial a broker directly for the liveness table and its ROLE "
+                         "(role/epoch/applied-seq); AUTH token from $DLCFN_BROKER_TOKEN")
+    ps.add_argument("--suspect-after", type=float, default=15.0, dest="suspect_after",
+                    metavar="S", help="heartbeat age (s) before a worker is SUSPECT")
+    ps.add_argument("--dead-after", type=float, default=60.0, dest="dead_after",
+                    metavar="S", help="heartbeat age (s) before a worker is DEAD")
     ps.add_argument("--profile", action="store_true", help="step profiles (not ported yet)")
     ps.add_argument("--serve", action="store_true", help="serving snapshots (not ported yet)")
-    ps.add_argument("--fleet", action="store_true", help="fleet telemetry (not ported yet)")
+    ps.add_argument("--fleet", action="store_true",
+                    help="with --broker/--cluster: fleet-merged agent telemetry from the "
+                         "broker's TELEM table (gauge sum/max/last per worker, fleet-wide "
+                         "summary quantiles, dead fraction)")
     ps.set_defaults(fn=cmd_status)
     pe = sub.add_parser("events", help="tail the obs flight journal")
     pe.add_argument("--journal", default=None,

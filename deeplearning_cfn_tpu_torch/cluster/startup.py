@@ -22,8 +22,8 @@ preserved from the reference:
 
 Counterpart of ``deeplearning_cfn_tpu/cluster/startup.py``, copied: the port imports
 nothing of the JAX package.  The agent step execs the port's
-``cluster.agent_main``, which comes with the broker (the agent's control
-plane) in a later slice of the port.
+``cluster.agent_main``, which reaches its control plane, the broker, at the
+address and token stamped into the VM's metadata.
 """
 
 from __future__ import annotations

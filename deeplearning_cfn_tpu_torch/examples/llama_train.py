@@ -16,7 +16,10 @@ kernel, as does ``--size 8b`` (Llama-3-8B, its weights drawn on the card).
 ``--data_dir`` trains on token records (``cli convert --format
 text``) through the native loader, from the resumed step with
 ``--checkpoint_dir``; ``--eval_steps`` then scores the held-out split (the
-val/test records when there are any).
+val/test records when there are any).  The result's ``kernel_launches``
+counts the port's kernel launches over the training run (``ops._kernels``'
+counters, by kernel and by variant), so a process that ran the job, such as
+``cli run``, can show which kernels its path went through.
 
 Run: ``python -m deeplearning_cfn_tpu_torch.examples.llama_train --size 435m --seq_len 2048``
 """
@@ -42,6 +45,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     token_record_loader,
 )
 from deeplearning_cfn_tpu_torch.models import llama
+from deeplearning_cfn_tpu_torch.ops import _kernels
 from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset
 from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
@@ -156,8 +160,10 @@ def main(argv: list[str] | None = None) -> dict:
         sink=metrics_sink(args, "llama"),
         log_every=args.log_every,
     )
+    launches_before = dict(_kernels.launch_counts)
     state, losses = trainer.fit(state, batches(args.steps), steps=args.steps, logger=logger,
                                 checkpointer=ckpt)
+    launches = {k: v - launches_before.get(k, 0) for k, v in _kernels.launch_counts.items()}
     close_checkpointer(ckpt, state)
     if logger.sink is not None:
         logger.sink.close()
@@ -172,6 +178,7 @@ def main(argv: list[str] | None = None) -> dict:
         "active_params": llama.active_param_count(cfg),
         "first_step_s": first_step_clock(trainer, t_main),
         "history": logger.history,
+        "kernel_launches": {k: n for k, n in launches.items() if n},
     }
     if cfg.moe is not None:
         result["moe_aux_loss"] = float(trainer.last_metrics["moe_aux_loss"])

@@ -1,1 +1,3 @@
-"""Observability of the port: the flight recorder and the heartbeater."""
+"""Observability of the port: the flight recorder, spans, the heartbeater,
+liveness, fleet telemetry, the crash black box, the cross-host trace and the
+Prometheus exporter."""

@@ -26,9 +26,28 @@ from typing import Any, Callable, Iterator
 ENV_JOURNAL = "DLCFN_FLIGHT_JOURNAL"
 
 
+def json_safe(obj):
+    """Recursively map non-finite floats to None so the result serializes
+    under ``json.dumps(..., allow_nan=False)``; 0-d tensors and numpy
+    scalars unwrap to Python numbers first.  Kept here, free of ``torch``,
+    so the on-VM agent's journal and telemetry never import it;
+    ``train.metrics`` re-exports it."""
+    if isinstance(obj, float):
+        if obj != obj or obj in (float("inf"), float("-inf")):
+            return None
+        return obj
+    if getattr(obj, "shape", None) == () and hasattr(obj, "item"):
+        return json_safe(obj.item())
+    if isinstance(obj, dict):
+        return {k: json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_safe(v) for v in obj]
+    return obj
+
+
 def _safe(obj: dict[str, Any]) -> dict[str, Any]:
     """Plain scalars pass as they are (non-finite floats become None); any
-    other value takes ``train.metrics.json_safe``, imported lazily."""
+    other value takes :func:`json_safe`."""
     out = {}
     for key, value in obj.items():
         t = type(value)
@@ -39,8 +58,6 @@ def _safe(obj: dict[str, Any]) -> dict[str, Any]:
                 value if value == value and value not in (float("inf"), float("-inf")) else None
             )
         else:
-            from deeplearning_cfn_tpu_torch.train.metrics import json_safe
-
             out[key] = json_safe(value)
     return out
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerQueue
 from deeplearning_cfn_tpu_torch.cluster.queue import InMemoryQueue, RendezvousQueue
 from deeplearning_cfn_tpu_torch.provision.backend import (
     Backend,
@@ -42,8 +43,6 @@ from deeplearning_cfn_tpu_torch.provision.backend import (
 from deeplearning_cfn_tpu_torch.provision.events import EventBus, EventKind, LifecycleEvent
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 from deeplearning_cfn_tpu_torch.utils.timeouts import Clock, MonotonicClock
-
-BROKER_SLICE = "a later slice of the PyTorch port (the broker client and service)"
 
 log = get_logger("dlcfn.gcp")
 
@@ -82,10 +81,12 @@ class GCPBackend(Backend):
     transport: Transport = field(default_factory=NoNetworkTransport)
     accelerator_type: str = "v5p-32"
     runtime_version: str = "tpu-ubuntu2204-base"
-    # The coordinator VM running dlcfn-broker: queues through the broker and
-    # the broker address and token stamped into VM metadata come with the
-    # broker slice; here a set value raises.
-    broker_host: str | None = None
+    broker_host: str | None = None  # coordinator VM running dlcfn-broker
+    broker_port: int = 8477
+    # Shared-secret for the broker's AUTH handshake; stamped into VM
+    # metadata (the reference's IAM-gated control plane analog,
+    # deeplearning.template:193-197).
+    broker_token: str | None = None
     clock: Clock = field(default_factory=MonotonicClock)
     # Networking (SURVEY C10): None network/subnetwork = the default network
     # (create path); explicit names = bring-your-own private subnet.
@@ -111,11 +112,6 @@ class GCPBackend(Backend):
     state_bucket: str = "dlcfn-signals"
 
     def __post_init__(self) -> None:
-        if self.broker_host:
-            raise NotImplementedError(
-                f"broker_host (queues and agents through the broker) is ported in "
-                f"{BROKER_SLICE}"
-            )
         self.events = EventBus()
         self._queues: dict[str, RendezvousQueue] = {}
         self._groups: dict[str, dict] = {}  # name -> request/record
@@ -183,10 +179,16 @@ class GCPBackend(Backend):
     # -- queues ------------------------------------------------------------
     def create_queue(self, name: str) -> RendezvousQueue:
         if name not in self._queues:
-            # Control logic co-located with the provisioner (single
-            # controller process): in-memory is correct and avoids a
-            # network dependency before the coordinator VM exists.
-            self._queues[name] = InMemoryQueue(name, clock=self.clock)
+            if self.broker_host:
+                self._queues[name] = BrokerQueue(
+                    name, host=self.broker_host, port=self.broker_port,
+                    token=self.broker_token,
+                )
+            else:
+                # Control logic co-located with the provisioner (single
+                # controller process): in-memory is correct and avoids a
+                # network dependency before the coordinator VM exists.
+                self._queues[name] = InMemoryQueue(name, clock=self.clock)
         return self._queues[name]
 
     def get_queue(self, name: str) -> RendezvousQueue:
@@ -238,6 +240,27 @@ class GCPBackend(Backend):
                                     # runs the coordinator role; every
                                     # other slice's worker 0 must NOT.
                                     "dlcfn-slice": _slice_ordinal(name),
+                                    # Rendezvous address the startup script
+                                    # reads back (attributes/dlcfn-broker);
+                                    # without it agents have no control
+                                    # plane and refuse to bootstrap.
+                                    **(
+                                        {
+                                            "dlcfn-broker": (
+                                                f"{self.broker_host}:{self.broker_port}"
+                                            )
+                                        }
+                                        if self.broker_host
+                                        else {}
+                                    ),
+                                    # AUTH shared secret; without it a VM
+                                    # can reach but not speak to the
+                                    # rendezvous plane.
+                                    **(
+                                        {"dlcfn-broker-token": self.broker_token}
+                                        if self.broker_host and self.broker_token
+                                        else {}
+                                    ),
                                 },
                             },
                         }

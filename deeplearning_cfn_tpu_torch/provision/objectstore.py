@@ -3,8 +3,9 @@ copied (the port imports nothing of the JAX package): the ``ObjectStore``
 protocol, its directory-backed ``LocalObjectStore`` (the fake-cloud bucket
 behind ``train/checkpoint.ObjectStoreCheckpointer``) and the ``Stager`` of
 ``cli stage`` (the prepare-s3-bucket.sh workflow as a library: artifacts
-tarred into the store under a prefix).  The GCS store needs the network and
-is not ported.
+tarred into the store under a prefix), and ``GCSObjectStore``, the GCS
+JSON-API store over an injectable transport (the same requests as the JAX
+store, request by request; a deployment injects an authenticated session).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import tarfile
 import tempfile
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Protocol
+from typing import Callable, Protocol
 
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 
@@ -65,6 +66,43 @@ class LocalObjectStore:
             for p in base.rglob("*")
             if p.is_file() and str(p.relative_to(base)).startswith(prefix)
         )
+
+
+@dataclass
+class GCSObjectStore:
+    """GCS JSON-API store over the injectable transport (no egress in CI;
+    deployments inject an authenticated session).  The transport receives
+    the object bytes under ``body["data"]`` (media upload); ``get`` reads
+    them back from ``resp["data"]`` symmetrically."""
+
+    bucket: str
+    transport: Callable[[str, str, dict | None], dict]
+
+    def put(self, key: str, data: bytes) -> None:
+        self.transport(
+            "POST",
+            f"upload/storage/v1/b/{self.bucket}/o?uploadType=media&name={key}",
+            {
+                "data": data,
+                "size": len(data),
+                "md5": hashlib.md5(data).hexdigest(),
+            },
+        )
+
+    def get(self, key: str) -> bytes:
+        resp = self.transport("GET", f"b/{self.bucket}/o/{key}?alt=media", None)
+        return resp.get("data", b"")
+
+    def exists(self, key: str) -> bool:
+        try:
+            self.transport("GET", f"b/{self.bucket}/o/{key}", None)
+            return True
+        except KeyError:
+            return False
+
+    def list(self, prefix: str) -> list[str]:
+        resp = self.transport("GET", f"b/{self.bucket}/o?prefix={prefix}", None)
+        return [item["name"] for item in resp.get("items", [])]
 
 
 @dataclass

@@ -27,6 +27,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable
 
 from deeplearning_cfn_tpu_torch.cluster.bootstrap import (
     BootstrapAgent,
@@ -42,8 +43,6 @@ from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 from deeplearning_cfn_tpu_torch.utils.timeouts import BudgetExhausted, TimeoutBudget
 
 log = get_logger("dlcfn.provision")
-
-BROKER_SLICE = "a later slice of the PyTorch port (the broker client and service)"
 
 WORKER_GROUP_SUFFIX = "workers"
 
@@ -105,20 +104,18 @@ class Provisioner:
         spec: ClusterSpec,
         contract_root: Path | None = None,
         remote_agents: bool = False,
+        progress: "Callable[[float, str], None] | None" = None,
     ):
         """``remote_agents=True`` is the production topology: bootstrap
         agents run on the VMs themselves (``agent_main`` processes reached
         via the broker) and this process only publishes cloud state and
         waits for the coordinator's ready signal — the CloudFormation
-        engine's role.  It comes with the broker (with the JAX package's
-        ``progress`` callback, which only its wait calls) and raises
-        ``NotImplementedError`` here.  ``False`` runs the agents inline
-        against the backend (the fake-cloud simulation)."""
-        if remote_agents:
-            raise NotImplementedError(
-                f"remote_agents (bootstrap agents on the VMs, reached through the "
-                f"broker) is ported in {BROKER_SLICE}"
-            )
+        engine's role.  ``False`` runs the agents inline against the
+        backend (the fake-cloud simulation used by unit tests).
+
+        ``progress(elapsed_s, status)`` is called once per poll tick during
+        any slow wait — the stack drivers' poll-every-30s-printing-elapsed
+        behavior (mask-rcnn-stack.sh:84-92)."""
         self.backend = backend
         # Every lifecycle event the backend fires lands in the flight
         # journal alongside the controller's own records (obs plane).
@@ -127,8 +124,15 @@ class Provisioner:
         get_recorder().attach_event_bus(backend.events)
         self.spec = spec.validate()
         self.contract_root = contract_root
+        self.remote_agents = remote_agents
+        self.progress = progress
         self._storage: StorageHandle | None = None
         self._controller = None
+        if remote_agents and not hasattr(backend, "publish_group_state"):
+            raise ValueError(
+                "remote_agents requires a broker-connected backend "
+                "(wrap it in BrokerRendezvousBackend)"
+            )
 
     # -- resource names ---------------------------------------------------
     @property
@@ -147,11 +151,28 @@ class Provisioner:
     def worker_queue_name(self) -> str:
         return f"{self.spec.name}-worker-queue"
 
+    @property
+    def ready_queue_name(self) -> str:
+        return f"{self.spec.name}-ready-queue"
+
     # -- create -----------------------------------------------------------
     def provision(self) -> ProvisionResult:
         spec = self.spec
         pool = spec.pool
 
+        if self.remote_agents:
+            # A shared broker outlives cluster generations; scrub any
+            # signals/broadcasts a previous provision of this name left
+            # behind before agents can read them.
+            self.backend.reset_cluster_state(
+                spec.name,
+                self.group_names,
+                [
+                    self.coordinator_queue_name,
+                    self.worker_queue_name,
+                    self.ready_queue_name,
+                ],
+            )
         coord_q = self.backend.create_queue(self.coordinator_queue_name)
         worker_q = self.backend.create_queue(self.worker_queue_name)
 
@@ -199,13 +220,16 @@ class Provisioner:
                 chips_per_worker=pool.chips_per_worker,
             )
 
-        if self._inline_bootstrap_is_simulation():
-            log.warning(
-                "inline bootstrap over the GCP backend simulates "
-                "worker agents in-process; use --broker for a real "
-                "deployment so on-VM agents prove readiness"
-            )
-        contract = self._run_bootstrap(coord_q, worker_q)
+        if self.remote_agents:
+            contract = self._await_remote_bootstrap(worker_q)
+        else:
+            if self._inline_bootstrap_is_simulation():
+                log.warning(
+                    "inline bootstrap over the GCP backend simulates "
+                    "worker agents in-process; use --broker for a real "
+                    "deployment so on-VM agents prove readiness"
+                )
+            contract = self._run_bootstrap(coord_q, worker_q)
         # Non-coordinator slices that rendered FAILURE but were tolerated
         # under min_slices: mark them degraded (journaled, queryable on the
         # result) instead of failing the whole bring-up.
@@ -336,6 +360,132 @@ class Provisioner:
             )
             worker_agent.run_worker()
         return contract
+
+    def _await_remote_bootstrap(self, worker_q) -> ClusterContract:
+        """The CloudFormation-engine side of a real deployment: agents run
+        on the VMs; this process publishes cloud state for them and blocks
+        on the cluster-ready signal (the WaitCondition,
+        deeplearning.template:769-780).
+
+        Each poll tick re-publishes the group snapshot so agents see
+        instance-state transitions (the describe-loop the reference's
+        master ran against EC2 itself, dl_cfn_setup_v2.py:210-281 — here
+        run controller-side because only the controller has credentials).
+        On SUCCESS the contract is read from the coordinator's worker-setup
+        broadcast, which visibility-0/no-delete semantics leave in place
+        for late consumers (dl_cfn_setup_v2.py:180-190)."""
+        spec = self.spec
+        budget = TimeoutBudget(spec.timeouts.cluster_ready_s)
+        resource = cluster_ready_resource(spec.name)
+        min_groups = spec.pool.min_slices or len(self.group_names)
+        phase = "remote-bootstrap"
+        while True:
+            groups = [
+                self.backend.publish_group_state(g) for g in self.group_names
+            ]
+            signal = self.backend.get_resource_signal(resource)
+            if signal is ResourceSignal.SUCCESS:
+                break
+            if signal is ResourceSignal.FAILURE:
+                raise ProvisionFailure(
+                    f"cluster {spec.name!r} signaled FAILURE during bootstrap"
+                )
+            # Fail fast when enough groups rendered a below-minimum verdict
+            # that the min_slices policy can no longer be met: if no
+            # coordinator VM ever booted, nobody translates group FAILUREs
+            # into a cluster-ready FAILURE — the controller must read the
+            # verdicts it already rendered instead of burning the budget.
+            failed = [
+                g
+                for g in self.group_names
+                if self.backend.get_resource_signal(f"group:{g}")
+                is ResourceSignal.FAILURE
+            ]
+            # The coordinator slice is always required (it hosts the
+            # bootstrap choreography — the master-ASG CreationPolicy
+            # analog); min_slices governs the rest.
+            if (
+                self.group_names[0] in failed
+                or len(self.group_names) - len(failed) < min_groups
+            ):
+                self.backend.signal_resource(resource, ResourceSignal.FAILURE)
+                raise ProvisionFailure(
+                    f"group(s) {failed} failed to reach minimum capacity "
+                    f"({len(self.group_names) - len(failed)} surviving, "
+                    f"min {min_groups}, coordinator slice required)"
+                )
+            if self.progress is not None:
+                running = sum(
+                    1
+                    for g in groups
+                    for i in g.healthy_instances
+                    if i.private_ip
+                )
+                desired = sum(g.desired for g in groups)
+                self.progress(
+                    budget.elapsed_s, f"{running}/{desired} workers up"
+                )
+            try:
+                budget.sleep(spec.timeouts.poll_interval_s, phase)
+            except BudgetExhausted as e:
+                self.backend.signal_resource(resource, ResourceSignal.FAILURE)
+                raise ProvisionFailure(
+                    f"cluster {spec.name!r} did not become ready within "
+                    f"{spec.timeouts.cluster_ready_s:.0f}s"
+                ) from e
+        # Non-destructive read of the broadcast (late consumers still see it).
+        contract: ClusterContract | None = None
+        for msg in worker_q.receive(max_messages=10, visibility_timeout_s=0.0):
+            if msg.body.get("event") == "worker-setup":
+                contract = ClusterContract.from_message(msg.body)
+                break
+        if contract is None:
+            raise ProvisionFailure(
+                "cluster signaled ready but no worker-setup broadcast found"
+            )
+        self._await_worker_acks(contract, budget)
+        contract.write(self.contract_root)
+        return contract
+
+    def _await_worker_acks(
+        self, contract: ClusterContract, budget: TimeoutBudget
+    ) -> None:
+        """Require a positive worker-ready acknowledgment from every
+        non-coordinator worker before declaring the cluster usable.
+
+        The coordinator's SUCCESS only proves instances were RUNNING; a
+        worker process that died before publishing its contract would
+        otherwise surface as a hang at jax.distributed.initialize.  (The
+        reference shipped exactly that trap — only the master signaled the
+        WaitCondition; worker health was asserted by ASG instance state
+        alone.)"""
+        expected = contract.workers_count - 1
+        if expected <= 0:
+            return
+        ready_q = self.backend.get_queue(self.ready_queue_name)
+        # Keyed by (group, index): per-slice worker indices restart at 0,
+        # so index alone under-counts on multi-slice clusters.
+        seen: set[tuple[str, int]] = set()
+        phase = "worker-acks"
+        while len(seen) < expected:
+            for msg in ready_q.receive(max_messages=10, visibility_timeout_s=60.0):
+                if msg.body.get("event") == "worker-ready":
+                    seen.add(
+                        (
+                            str(msg.body.get("group", "")),
+                            int(msg.body.get("index", -1)),
+                        )
+                    )
+                ready_q.delete(msg.receipt)
+            if len(seen) >= expected:
+                return
+            try:
+                budget.sleep(self.spec.timeouts.poll_interval_s, phase)
+            except BudgetExhausted as e:
+                raise ProvisionFailure(
+                    f"only {len(seen)}/{expected} workers acknowledged "
+                    "readiness within budget"
+                ) from e
 
     # -- WaitCondition ----------------------------------------------------
     def wait_until_ready(self) -> None:

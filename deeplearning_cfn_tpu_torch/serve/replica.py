@@ -2,11 +2,13 @@
 counterpart of ``deeplearning_cfn_tpu/serve/replica.py``.
 
 :class:`ServeReplica` wraps one :class:`ContinuousBatchingEngine` in a
-cluster identity: it registers itself in a KV table (``serve/<group>/<name>``,
-any object with ``set(key, value)``) and, given a ``connection_factory``,
-beats a liveness table through the port's
-:class:`~deeplearning_cfn_tpu_torch.obs.heartbeat.Heartbeater`.  The broker
-client behind a bare ``broker_host`` is not ported yet and raises.
+cluster identity: it registers itself in the broker's KV table
+(``serve/<group>/<name>``, any object with ``set(key, value)``) and beats the
+broker's liveness table through the port's
+:class:`~deeplearning_cfn_tpu_torch.obs.heartbeat.Heartbeater` — over a
+``connection_factory``'s connection, or a ``BrokerConnection`` it dials to a
+bare ``broker_host`` — so sustained silence becomes an ``INSTANCE_TERMINATE``
+exactly like a dead training host (``broker_service.BrokerLivenessWatcher``).
 
 :class:`ServeFrontEnd` routes requests to the least-loaded replica and
 owns the durability contract: every accepted request either completes or
@@ -67,7 +69,10 @@ class ServeReplica:
 
     def register(self, conn) -> None:
         """Advertise this replica in the broker KV table (any object with
-        ``set(key, value)`` — a BrokerConnection in production)."""
+        ``set(key, value)`` — a BrokerConnection in production).  The value
+        is the JAX package's JSON, encoded to bytes (deliberate difference:
+        the JAX replica hands ``BrokerConnection.set`` a str, which it
+        cannot send, so ``dlcfn serve --broker`` raises ``TypeError``)."""
         scfg = self.engine.serve_cfg
         conn.set(
             REGISTRY_KEY_FMT.format(group=self.group, name=self.name),
@@ -80,7 +85,7 @@ class ServeReplica:
                     "prefill_len": scfg.prefill_len,
                 },
                 sort_keys=True,
-            ),
+            ).encode(),
         )
         get_recorder().record(
             "serve_register", replica=self.name, group=self.group

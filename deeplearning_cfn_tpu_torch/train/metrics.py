@@ -16,6 +16,8 @@ from pathlib import Path
 
 import torch
 
+from deeplearning_cfn_tpu_torch.obs.recorder import json_safe  # noqa: F401  (re-exported)
+
 log = logging.getLogger("dlcfn.train")
 
 # (substring of the device name, dense bf16 FLOP/s, HBM bytes/s, f32 FLOP/s on
@@ -72,23 +74,6 @@ def utilization(
     return round(value, ndigits)
 
 
-def json_safe(obj):
-    """Recursively map non-finite floats to None so the result serializes
-    under ``json.dumps(..., allow_nan=False)``; 0-d tensors and numpy
-    scalars unwrap to Python numbers first."""
-    if isinstance(obj, float):
-        if obj != obj or obj in (float("inf"), float("-inf")):
-            return None
-        return obj
-    if getattr(obj, "shape", None) == () and hasattr(obj, "item"):
-        return json_safe(obj.item())
-    if isinstance(obj, dict):
-        return {k: json_safe(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [json_safe(v) for v in obj]
-    return obj
-
-
 def _process_index() -> int:
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return torch.distributed.get_rank()
@@ -132,7 +117,15 @@ class JsonlMetricsSink:
 class ThroughputLogger:
     """Per-N-steps throughput/loss logger.  ``loss`` may be a device tensor:
     it is read back (a host sync) only on log steps.  With
-    ``flops_per_step`` and ``peak_flops`` each record also carries MFU."""
+    ``flops_per_step`` and ``peak_flops`` each record also carries MFU.
+
+    ``Trainer.fit`` calls ``resume(state.step)`` before its first step: a
+    logger not yet driven to that step (a restored run) re-anchors its count
+    there and its clock then, so each rate counts only the steps this
+    process ran.  (Deliberate difference: the JAX logger counts from step
+    0, so a run resumed at step s reports its first interval about s + 1
+    times too fast.)  A new run at step 0, or a later ``fit`` of the same
+    run, keeps its count and its clock, as JAX's does."""
 
     global_batch_size: int
     log_every: int = 10
@@ -140,11 +133,22 @@ class ThroughputLogger:
     sink: JsonlMetricsSink | None = None
     flops_per_step: float | None = None
     peak_flops: float | None = None
-    _t0: float = field(default_factory=time.perf_counter)
-    _last_step: int = 0
     history: list[dict] = field(default_factory=list)
 
+    def __post_init__(self) -> None:
+        self._t0 = time.perf_counter()
+        self._last_step = 0  # the last step logged
+        self._seen_step = 0  # the last step passed to step()
+
+    def resume(self, step: int) -> None:
+        """The run goes on from ``step``; re-anchor unless this logger was
+        driven there."""
+        if step != self._seen_step:
+            self._t0 = time.perf_counter()
+            self._last_step = self._seen_step = int(step)
+
     def step(self, step: int, loss) -> None:
+        self._seen_step = step
         if step % self.log_every:
             return
         loss = float(loss)  # the sync: the steps logged are done on the device

@@ -1095,6 +1095,12 @@ class Trainer:
         A stacked call's batch is freed once the call is dispatched
         (``train.data.donate_buffers``).
 
+        ``logger`` (a ``ThroughputLogger``, or any object with its
+        ``resume(step)`` and ``step(step, loss)``) is told
+        ``logger.resume(state.step)`` before the first step, so a restored
+        run's rates count only its own steps, and is called as
+        ``logger.step(state.step, loss)`` after each call.
+
         After each call, ``checkpointer.should_save(state.step)`` decides a
         save at the state's true step (a restored run continues the count);
         with ``datastream`` (a ``train.datastream.HostShardStream``) the
@@ -1150,6 +1156,8 @@ class Trainer:
         # data_wait: the pull from the prefetcher (a full buffer reads as
         # no wait) or from the source itself.
         batches = prof.wrap_source(batches)
+        if logger:
+            logger.resume(state.step)
         prof.start()
         try:
             for i, batch in enumerate(batches):

@@ -210,14 +210,70 @@ def test_missing_template_and_print_requests_off_gcp_exit_as_jax(tmp_path, monke
         assert port[0] == jax_side[0] and port[0][0] == "exit"
 
 
-def test_broker_names_its_slice(tmp_path, monkeypatch):
-    monkeypatch.setenv("DLCFN_ROOT", str(tmp_path / "root"))
-    template = _write(tmp_path, TEMPLATE)
-    for argv in (["create", template, "--broker", "127.0.0.1:8477"],
-                 ["run", template, "--broker", "auto"],
-                 ["recover", template, "--broker-advertise", "10.0.0.9"]):
-        with pytest.raises(NotImplementedError, match="broker"):
-            cli.main(argv)
+def _agents(port: int, root: Path, token: str, workers: int = 2):
+    """The VMs' boot processes: the port's agent, one a worker, each with
+    its own contract root."""
+    import os
+    import subprocess
+
+    base = {k: v for k, v in os.environ.items() if not k.startswith("DLCFN_")}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cluster.agent_main"],
+        env={**base, "DLCFN_CLUSTER": "cli-test", "DLCFN_WORKER_INDEX": str(i),
+             "DLCFN_BROKER": f"127.0.0.1:{port}", "DLCFN_GROUPS": "cli-test-workers",
+             "DLCFN_BOOTSTRAP_BUDGET_S": "60", "DLCFN_POLL_INTERVAL_S": "0.1",
+             "DLCFN_ROOT": str(root / f"vm{i}"), "DLCFN_BROKER_TOKEN": token},
+        cwd=Path(__file__).resolve().parents[1], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(workers)]
+
+
+@pytest.mark.parametrize("command", ["create", "run", "recover"])
+def test_broker_names_its_slice(tmp_path, monkeypatch, capsys, lossy_job, command):
+    """``--broker HOST:PORT``: the production topology, against a broker the
+    port built.  The command publishes group state and waits for agent
+    processes (the port's ``agent_main``, for the JAX command too: the wire
+    is the same); every process writes the same contract, the operator's
+    ambient token authenticates, and where the JAX package is there to
+    compare with, both commands print the same JSON."""
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerProcess
+
+    body = _job_template(args={"steps": 3})
+    body["Cluster"]["timeouts"] = {"cluster_ready_s": 60.0, "controller_launch_s": 30.0,
+                                   "poll_interval_s": 0.1}
+    template = _write(tmp_path, body)
+    monkeypatch.setenv("DLCFN_BROKER_TOKEN", "tok-lifecycle")
+    outs = {}
+    sides = [("port", cli.main)] + ([("jax", jcli.main)] if jcli is not None else [])
+    for side, main in sides:
+        # A broker each: agents that start ahead of the command would read
+        # the other side's cluster before the command scrubs it.
+        root = tmp_path / side
+        monkeypatch.setenv("DLCFN_ROOT", str(root / "controller"))
+        lossy_job.update(kills=0, calls=0)
+        with BrokerProcess(token="tok-lifecycle") as broker:
+            agents = _agents(broker.port, root, "tok-lifecycle")
+            try:
+                outs[side] = _invoke(main, [command, template, "--broker",
+                                            f"127.0.0.1:{broker.port}"], capsys)
+                logs = [a.communicate(timeout=60)[0] for a in agents]
+            finally:
+                for a in agents:
+                    if a.poll() is None:
+                        a.kill()
+                        a.wait()
+        assert [a.returncode for a in agents] == [0, 0], logs
+        contracts = {(root / d / "contract.json").read_bytes()
+                     for d in ("controller", "vm0", "vm1")}
+        assert len(contracts) == 1
+    port = outs["port"]
+    assert port[0] == 0
+    if "jax" in outs:
+        assert outs["jax"][0] == 0
+        assert _json(port[1]) == _json(outs["jax"][1])
+    progress = [ln for ln in port[2].splitlines() if "CREATE_IN_PROGRESS" in ln]
+    assert all(ln.endswith("2/2 workers up") for ln in progress)
+    if command == "run":
+        assert _json(port[1])["result"]["episode"] == 1
 
 
 # --- run ------------------------------------------------------------------------

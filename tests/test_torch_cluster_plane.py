@@ -254,19 +254,38 @@ def test_live_reshard_manager_is_idempotent_as_jax():
 
 def test_recovery_manager_names_its_slice(tmp_path):
     """The recreate-and-resume tier is ported (``tests/test_torch_recovery.py``
-    holds it to JAX's); what it leaves to a later slice, agents on the VMs
-    reached through the broker, raises naming that slice."""
-    from deeplearning_cfn_tpu_torch.config.schema import ClusterSpec, JobSpec, NodePool
-    from deeplearning_cfn_tpu_torch.provision.local import LocalBackend
+    holds it to JAX's), and so are agents on the VMs reached through the
+    broker: ``remote_agents=True`` refuses a backend with no broker behind
+    it with JAX's error, and takes a ``BrokerRendezvousBackend``."""
+    from deeplearning_cfn_tpu.config import schema as jschema
+    from deeplearning_cfn_tpu.provision import local as jlocal
+    from deeplearning_cfn_tpu.provision import provisioner as jprovisioner
+
+    from deeplearning_cfn_tpu_torch.cluster.broker_backend import BrokerRendezvousBackend
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerProcess
+    from deeplearning_cfn_tpu_torch.config import schema
+    from deeplearning_cfn_tpu_torch.provision import local
     from deeplearning_cfn_tpu_torch.provision.provisioner import Provisioner
 
-    spec = ClusterSpec(name="c", backend="local",
-                       pool=NodePool(accelerator_type="local-1", workers=1),
-                       job=JobSpec(global_batch_size=8))
-    backend = LocalBackend(clock=timeouts.FakeClock())
-    assert recovery.RecoveryManager(Provisioner(backend, spec, contract_root=tmp_path))
-    with pytest.raises(NotImplementedError, match="broker"):
-        Provisioner(backend, spec, contract_root=tmp_path, remote_agents=True)
+    errors = []
+    for sch, loc, prov, clock in ((schema, local, Provisioner, timeouts.FakeClock),
+                                  (jschema, jlocal, jprovisioner.Provisioner,
+                                   jtimeouts.FakeClock)):
+        spec = sch.ClusterSpec(name="c", backend="local",
+                               pool=sch.NodePool(accelerator_type="local-1", workers=1),
+                               job=sch.JobSpec(global_batch_size=8))
+        backend = loc.LocalBackend(clock=clock())
+        assert prov(backend, spec, contract_root=tmp_path)
+        with pytest.raises(ValueError) as err:
+            prov(backend, spec, contract_root=tmp_path, remote_agents=True)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert recovery.RecoveryManager(Provisioner(backend := local.LocalBackend(
+        clock=timeouts.FakeClock()), spec, contract_root=tmp_path))
+    with BrokerProcess() as broker:
+        remote = Provisioner(BrokerRendezvousBackend(backend, "127.0.0.1", broker.port), spec,
+                             contract_root=tmp_path, remote_agents=True)
+        assert remote.remote_agents and recovery.RecoveryManager(remote)
 
 
 # --- rescale_grad_accum --------------------------------------------------------------
@@ -449,10 +468,9 @@ def test_status_command_equals_jax(fmt, tmp_path, monkeypatch, capsys):
     if fmt == "prom":
         assert port == ref
         return
-    # The JAX command adds the broker's liveness table, empty with no broker
-    # recorded; the port has no liveness section yet.
+    # Both add the broker's liveness table, empty with no broker recorded.
     ref = json.loads(ref)
-    assert ref.pop("liveness") == {}
+    assert ref["liveness"] == {}
     assert json.loads(port) == ref
     assert list(json.loads(port)) == list(ref)
     assert ref["reshard"]["total"] == 3 and ref["mesh"]["slices"] == 1
@@ -468,11 +486,34 @@ def test_events_command_equals_jax(argv, tmp_path, capsys):
     assert port == capsys.readouterr().out and port
 
 
-def test_status_sections_not_ported_name_their_slice(tmp_path):
+@pytest.mark.parametrize("flag", ["--metrics-dir", "--profile", "--serve", "--broker",
+                                  "liveness"])
+def test_status_sections_not_ported_name_their_slice(flag, tmp_path, monkeypatch, capsys):
+    """``--metrics-dir``, ``--profile`` and ``--serve`` still name the slice
+    that ports them; ``--broker`` and the liveness families now render, as
+    JAX's do (an unreachable broker exits with JAX's message)."""
+    if flag == "liveness":
+        live = {"w0": {"state": "alive", "age_s": 1.0, "beats": 2},
+                "w1": {"state": "dead", "age_s": 90.0, "beats": 1}}
+        text = exporter.render_prometheus(live, cluster="c")
+        assert text == jexporter.render_prometheus(live, cluster="c")
+        assert 'dlcfn_worker_up{cluster="c",worker="w1",state="dead"} 0' in text
+        return
+    if flag == "--broker":
+        monkeypatch.delenv("DLCFN_BROKER_TOKEN", raising=False)
+        argv = ["status", "--broker", "127.0.0.1:1"]
+        errors = []
+        for main in (cli.main, jcli.main):
+            with pytest.raises(SystemExit) as err:
+                main(argv)
+            errors.append(str(err.value).split(":")[:3])
+        assert errors[0] == errors[1] and "cannot reach broker" in errors[0][0]
+        return
+    argv = ["status", "--journal", str(tmp_path / "j"), flag]
+    if flag == "--metrics-dir":
+        argv.append(str(tmp_path))
     with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main(["status", "--journal", str(tmp_path / "j"), "--broker", "h:1"])
-    with pytest.raises(NotImplementedError, match="liveness"):
-        exporter.render_prometheus({"w0": {"state": "alive", "age_s": 1.0, "beats": 2}})
+        cli.main(argv)
 
 
 # --- queue, bus, spans ---------------------------------------------------------------------

@@ -73,9 +73,27 @@ def test_no_network_transport_refuses():
         backend.create_group("g", 4, 4, 4)
 
 
-def test_broker_host_names_its_slice():
-    with pytest.raises(NotImplementedError, match="broker"):
-        gcp.GCPBackend(project="p", zone="z", broker_host="10.0.0.2")
+@needs_jax
+@pytest.mark.parametrize("token", [None, "tok-9"], ids=["open", "auth"])
+def test_broker_host_names_its_slice(token):
+    """``broker_host`` stamps the broker's address (and its AUTH token,
+    when there is one) into every VM's metadata: the queued-resource
+    request equals JAX's, apart from the agent module of the boot
+    command."""
+    bodies = []
+    for mod in (gcp, jgcp):
+        rec = mod.RecordingTransport(mod.FakeGCPTransport(workers=2, provision_polls=1),
+                                     project="p")
+        backend = mod.GCPBackend(project="p", zone="z", transport=rec,
+                                 broker_host="10.0.0.2", broker_port=9001, broker_token=token,
+                                 clock=(timeouts if mod is gcp else jtimeouts).FakeClock())
+        backend.create_group("g-workers", 2, 2, 4)
+        bodies.append(json.dumps(rec.requests))
+    assert bodies[0] == bodies[1].replace(JAX_AGENT, PORT_AGENT)
+    metadata = json.loads(bodies[0])[0]["body"]["queuedResource"]["tpu"]["nodeSpec"][0][
+        "node"]["metadata"]
+    assert metadata["dlcfn-broker"] == "10.0.0.2:9001"
+    assert metadata.get("dlcfn-broker-token") == token
 
 
 def test_inline_bootstrap_over_a_real_transport_is_flagged(tmp_path):
@@ -258,3 +276,59 @@ def test_transport_as_jax(case):
         out[side] = (result, opener.requests, len(tokens), clock.now(),
                      transport.resolve(method, path, body)[0])
     assert out["port"] == out["jax"]
+
+
+# --- the GCS object store --------------------------------------------------------------
+
+
+def _gcs_calls(mod) -> tuple:
+    """One ``GCSObjectStore`` session over a transport that records every
+    request and answers from an in-memory bucket (a missing object is
+    ``KeyError``, as the transport seam raises for a 404)."""
+    calls, bucket = [], {}
+
+    def transport(method, path, body):
+        calls.append((method, path, None if body is None else dict(body)))
+        if method == "POST":
+            bucket[path.rsplit("name=", 1)[1]] = body["data"]
+            return {}
+        obj = path.split("/o/", 1)[1] if "/o/" in path else None
+        if obj is None:  # a listing
+            prefix = path.rsplit("prefix=", 1)[1]
+            return {"items": [{"name": k} for k in sorted(bucket) if k.startswith(prefix)]}
+        key = obj.split("?", 1)[0]
+        if key not in bucket:
+            raise KeyError(key)
+        return {"data": bucket[key]} if path.endswith("?alt=media") else {"name": key}
+
+    store = mod.GCSObjectStore("stage-bucket", transport)
+    store.put("runs/data.tar", b"\x00payload")
+    store.put("runs/code.tar", b"code")
+    out = [store.get("runs/data.tar"), store.exists("runs/code.tar"), store.exists("nope"),
+           store.list("runs/"), store.list("other/")]
+    return out, calls
+
+
+@needs_jax
+def test_gcs_object_store_requests_equal_jax():
+    from deeplearning_cfn_tpu.provision import objectstore as jobjectstore
+
+    from deeplearning_cfn_tpu_torch.provision import objectstore
+
+    port = _gcs_calls(objectstore)
+    assert port == _gcs_calls(jobjectstore)
+    assert port[0] == [b"\x00payload", True, False, ["runs/code.tar", "runs/data.tar"], []]
+    assert port[1][0][2]["size"] == 8 and len(port[1][0][2]["md5"]) == 32
+
+
+def test_stage_hint_names_a_class_that_exists(capsys, monkeypatch, tmp_path):
+    from deeplearning_cfn_tpu_torch.provision import objectstore
+
+    monkeypatch.setenv("DLCFN_ROOT", str(tmp_path))
+    body = json.loads((REPO / "templates" / "v5p-cluster.json").read_text())
+    body["Cluster"]["staging"] = {"bucket": "stage-bucket", "prefix": "runs"}
+    template = tmp_path / "staged.json"
+    template.write_text(json.dumps(body))
+    with pytest.raises(SystemExit, match=r"Stager\(GCSObjectStore\(bucket, transport\)\)"):
+        cli.main(["stage", str(template), *ARGS[1:]])
+    assert callable(objectstore.GCSObjectStore)

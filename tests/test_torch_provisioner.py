@@ -177,11 +177,54 @@ def test_scenarios_cover_the_outcomes(tmp_path):
     assert set(runs["happy"]["files"]) >= {"contract.json", "env.sh", "workers", "storage.json"}
 
 
-def test_remote_agents_name_the_broker_slice(tmp_path):
-    backend = local.LocalBackend(clock=timeouts.FakeClock())
-    with pytest.raises(NotImplementedError, match="broker"):
-        provisioner.Provisioner(backend, _spec(_sides()["port"]), contract_root=tmp_path,
-                                remote_agents=True)
+def _remote_without_agents(side: str, port: int, root) -> list:
+    """``remote_agents=True`` over a live broker with no agent: the previous
+    generation's ready signal is scrubbed first, the wait reports progress
+    each poll, and the budget ends in FAILURE, as JAX's."""
+    s = _sides()[side]
+    if side == "port":
+        from deeplearning_cfn_tpu_torch.cluster import bootstrap, broker_backend
+        from deeplearning_cfn_tpu_torch.provision.backend import ResourceSignal
+    else:
+        from deeplearning_cfn_tpu.cluster import bootstrap, broker_backend
+        from deeplearning_cfn_tpu.provision.backend import ResourceSignal
+    spec = _spec(s)
+    spec.timeouts.controller_launch_s = 0.1
+    spec.timeouts.cluster_ready_s = 0.6
+    spec.timeouts.poll_interval_s = 0.2
+    backend = broker_backend.BrokerRendezvousBackend(
+        s["local"].LocalBackend(clock=s["timeouts"].FakeClock()), "127.0.0.1", port)
+    ready = bootstrap.cluster_ready_resource(spec.name)
+    backend.signal_resource(ready, ResourceSignal.SUCCESS)  # the previous generation's
+    statuses = []
+    prov = s["provisioner"].Provisioner(backend, spec, contract_root=root, remote_agents=True,
+                                        progress=lambda _t, status: statuses.append(status))
+    try:
+        prov.provision()
+        outcome = "ready"
+    except s["provisioner"].ProvisionFailure as e:
+        outcome = str(e)
+    return [outcome, sorted(set(statuses)), backend.get_resource_signal(ready).value]
+
+
+def test_remote_agents_name_the_broker_slice(tmp_path, monkeypatch):
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerProcess
+
+    monkeypatch.delenv("DLCFN_BROKER_TOKEN", raising=False)
+    refusals = []
+    for side in ("port", "jax"):
+        s = _sides()[side]
+        with pytest.raises(ValueError) as err:
+            s["provisioner"].Provisioner(s["local"].LocalBackend(clock=s["timeouts"].FakeClock()),
+                                         _spec(s), contract_root=tmp_path, remote_agents=True)
+        refusals.append(str(err.value))
+    assert refusals[0] == refusals[1] and "BrokerRendezvousBackend" in refusals[0]
+    with BrokerProcess() as broker:
+        port = _remote_without_agents("port", broker.port, tmp_path / "port")
+        assert port == _remote_without_agents("jax", broker.port, tmp_path / "jax")
+    assert "did not become ready" in port[0] and port[2] == "FAILURE"
+    assert port[1] == [f"{_spec(_sides()['port']).pool.num_workers}/"
+                       f"{_spec(_sides()['port']).pool.num_workers} workers up"]
 
 
 def test_worker_group_names_as_jax():

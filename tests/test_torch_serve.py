@@ -431,11 +431,34 @@ def test_replica_beats_through_its_connection_factory(model):
     assert ServeReplica(make_engine(model), "solo").beat() is False
 
 
-def test_unported_broker_paths_raise(model):
-    with pytest.raises(NotImplementedError, match="broker client"):
-        ServeReplica(make_engine(model), "rep0", broker_host="localhost", broker_port=1)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        Heartbeater("", 0, "w", connection_factory=object, telemetry_source=lambda: {})
+@needs_jax
+def test_unported_broker_paths_raise(model, monkeypatch):
+    """A bare ``broker_host``: the replica's heartbeater dials the broker
+    itself, and a heartbeater with a telemetry source piggybacks one TELEM
+    frame a beat; the JAX client reads both back, the frame's bytes JAX's
+    encoding of the same snapshot."""
+    from deeplearning_cfn_tpu.cluster import broker_client as jbroker_client
+    from deeplearning_cfn_tpu.obs import aggregator as jaggregator
+
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerProcess
+
+    monkeypatch.delenv("DLCFN_BROKER_TOKEN", raising=False)
+    snapshot = {"gauges": {"dlcfn_serve_queue_depth": 2.0}, "summaries": {"x": [1.0]}}
+    with BrokerProcess() as broker:
+        replica = ServeReplica(make_engine(model), "rep0", group="g", broker_host="127.0.0.1",
+                               broker_port=broker.port)
+        assert replica.beat() and replica.beat()
+        hb = Heartbeater("127.0.0.1", broker.port, "g/w", telemetry_source=lambda: snapshot)
+        assert hb.beat_step() and hb.snapshots_sent == 1
+        replica.heartbeater.stop()
+        hb.stop()
+        conn = jbroker_client.BrokerConnection("127.0.0.1", broker.port)
+        try:
+            beats, telemetry = conn.heartbeats(), conn.telemetry()
+        finally:
+            conn.close()
+    assert {w: n for w, (_, n) in beats.items()} == {"g/rep0": 2, "g/w": 1}
+    assert telemetry["g/w"][1:] == (1, jaggregator.encode_snapshot(snapshot))
 
 
 # --- the port's copies of JAX-package modules ----------------------------------------
@@ -525,9 +548,42 @@ def test_cli_serve_report_matches_dlcfn_serve(capsys):
     assert json.loads(capsys.readouterr().out) == ref
 
 
-def test_cli_serve_refuses_the_broker_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main(["serve", "--device", "cpu", "--broker", "localhost:1"])
+@needs_jax
+def test_cli_serve_refuses_the_broker_and_a_missing_card(monkeypatch, capsys):
+    """``--broker`` registers every replica in the broker's KV table and
+    beats its liveness table each scheduler step: the report is ``dlcfn
+    serve``'s on the same traffic, the registry value JAX's JSON (as bytes:
+    the JAX command hands the connection a str and raises ``TypeError``,
+    a deliberate difference), one beat a step for each replica.  Without a
+    card and without ``--device cpu`` the command still refuses."""
+    from deeplearning_cfn_tpu.cli import main as jax_main
+
+    from deeplearning_cfn_tpu_torch.cluster.broker_client import BrokerConnection, BrokerProcess
+
+    monkeypatch.delenv("DLCFN_BROKER_TOKEN", raising=False)
+    traffic = ["serve", "--requests", "12", "--seed", "3", "--replicas", "2", "--group", "pool"]
+    assert jax_main(traffic) == 0
+    ref = json.loads(capsys.readouterr().out)
+    with BrokerProcess() as broker:
+        argv = traffic + ["--broker", f"127.0.0.1:{broker.port}"]
+        with pytest.raises(TypeError):
+            jax_main(argv)
+        capsys.readouterr()
+        assert cli.main(argv + ["--device", "cpu"]) == 0
+        report = json.loads(capsys.readouterr().out)
+        conn = BrokerConnection("127.0.0.1", broker.port)
+        try:
+            registry = [conn.get(f"serve/pool/rep{i}") for i in range(3)]
+            beats = {w: n for w, (_, n) in conn.heartbeats().items()}
+        finally:
+            conn.close()
+    assert report == ref and report["completed"] == 12
+    assert registry[0] == json.dumps({"name": "rep0", "group": "pool", "num_slots": 4,
+                                      "max_context": 32, "prefill_len": 16},
+                                     sort_keys=True).encode()
+    assert registry[1] is not None and registry[2] is None
+    assert set(beats) == {"pool/rep0", "pool/rep1"} and len(set(beats.values())) == 1
+    assert beats["pool/rep0"] >= 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["serve", "--requests", "1"])
