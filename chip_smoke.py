@@ -255,7 +255,8 @@ Phases, one JSON line each:
            plane: the port's ``EventBus`` into ``ElasticityController`` (10 s
            debounce on a ``VirtualClock``), ``LiveReshardManager`` and
            ``LiveReshardCoordinator`` handed to ``Trainer.fit(reshard=)``.
-           m435 at full width and depth, seq 2048, batch 8 a rank (16 in
+           m435 at full width, ``RESHARD_LAYERS`` (6) of its 24 layers
+           deep, seq 2048, batch 8 a rank (16 in
            all), AdamW, ``strategy "fsdp"`` on the hybrid mesh (dp over the
            slices), six steps, flash on.  Runs: ``straight`` (no loss,
            ``fit`` without ``reshard=``); ``live`` (the slice-s1 terminate
@@ -277,8 +278,9 @@ Phases, one JSON line each:
            parameters and optimizer state bitwise its pre-pause state; one
            live reshard, no fallback; accumulation 2 after; the mesh from
            dp 2 to one device; the control's save after the boundary
-           committed; the fallback's restore bitwise; flash 48 a microbatch (48 a step a rank
-           before, 96 a step on rank 0 after), all ``wgmma_tma``.  Reported:
+           committed; the fallback's restore bitwise; flash 2 a block and
+           microbatch (24 a step a rank before, 48 a step on rank 0 after),
+           all ``wgmma_tma``.  Reported:
            step times before and after, with and without ``reshard=``, the
            pause (``ReshardRecord.seconds``), the fallback's save and restore,
            each process's peak memory.
@@ -338,6 +340,43 @@ Phases, one JSON line each:
            the bootstrap (the controller's ``broker_started`` to the
            coordinator agent's ``bootstrap_complete``), the m435 step,
            beats and telemetry frames per agent, the phase's seconds.
+21. sched_flash_crowd  the fleet scheduler with live regrowth, JAX's
+           ``sched-flash-crowd`` incident on the card: two processes of this
+           script on ``cuda:0`` over gloo, training JAX's
+           ``LlamaConfig.m435`` at full width and depth (seq 2048, per-rank
+           batch 8, AdamW, flash on; FSDP2 at fsdp 1 under dp 2; job
+           ``train-fsdp``, ``prod-train``, slices s1 and s2, one rank each).
+           Each first trains 16 steps straight; then in rank 0's process the
+           ``chaos.scenarios.FlashCrowd`` world: job ``serve-chat``
+           (``prod-serve``, s0) with replicas ``pool-a``/``pool-b`` of the
+           paged-KV engine at m435 width in bf16 (seed-0 weights, 4 slots,
+           blocks of 4, 8 a slot, prefill 16, a decode CUDA graph each),
+           one round a train step: 2, 2, 8, 8, 8, 1, 1 arrivals (4-11
+           tokens from the vocab, 4 new each), ``pool-a`` killed in round
+           3.  The inflight rule pages, the arbiter preempts s2 (the live
+           reshard to rank 0 alone, accumulation 2; rank 1 parks, its black
+           box capturing the notice) and lends it as a 6-slot replica; the
+           resolve reclaims it and regrows the mesh (rank 1 rejoins, the
+           state broadcast to it, accumulation 1).  Gates: JAX's invariants
+           (``crowd_checks``: the SLO fires and resolves once, no request
+           lost, one preemption and one restore journaled, the loan
+           returned, a crashed arbiter's resume absorbs the replayed page);
+           the steps before the preemption bitwise the straight run's, the
+           whole run within rtol 5e-3/atol 1e-4; both ranks' parameters and
+           optimizer state bitwise equal after the regrowth (rank 0's
+           broadcast and compared on rank 1, after the pause), the returning
+           rank's state as laid out before the transfer (a planted control:
+           what a grow without it leaves) unequal; flash 48
+           a microbatch, ``wgmma_tma``.  Then over the run's journals, black
+           boxes and metrics streams through ``cli.main``: ``status
+           --profile --serve --format prom`` (the ``dlcfn_sched_*``,
+           ``dlcfn_serve_*``, ``dlcfn_step_phase_ms`` families), ``trace``
+           (two host rows), ``postmortem`` (two hosts), ``status
+           --metrics-dir`` (both workers at step 16).  Reported: the shrink
+           and regrowth pauses (``ReshardRecord.seconds``), the step ms
+           before, while lent and after (the world's round excluded), the
+           pool's TTFT p50/p99 on the wall clock and its tokens/s over its
+           steps, the phase's seconds.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -349,7 +388,8 @@ The flash row of the kernels line counts the launches of every Llama path
 (``slice``, ``moe``, ``adafactor``, ``mesh``, ``llama_captured``, the resumed
 m435 run of ``checkpoint``, the m435 run of ``records``, the 8B run of
 ``llama8b``, ``pp_layout``, both processes' runs of ``two_ranks`` and
-``mesh_captured``, ``live_reshard``, ``provision_run``, ``provision_broker``; by path in
+``mesh_captured``, ``live_reshard``, ``provision_run``, ``provision_broker``,
+``sched_flash_crowd``; by path in
 ``launches_by_path``), each counted from zero just
 before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
@@ -600,6 +640,9 @@ MESH_K, MESH_REPLAYS = 4, 2
 # while batch RESHARD_DIE_AT is made; the JAX slice-loss-live scenario's
 # continuity tolerance (chaos/scenarios.py).
 RESHARD_BATCH, RESHARD_STEPS, RESHARD_DIE_AT, RESHARD_TIMEOUT = 8, 6, 3, 900
+# ... cut to RESHARD_LAYERS of m435's 24 layers, to hold the whole script
+# within its time limit beside phase 21 (which keeps m435's full depth).
+RESHARD_LAYERS = 6
 RESHARD_RTOL, RESHARD_ATOL = 5e-3, 1e-4
 # provision_run: the job of the phase's template, steps of the straight run
 # and of each episode of the recovered one.
@@ -607,6 +650,11 @@ PROV_STEPS, PROV_EPISODE_STEPS, PROV_STOCK_TIMEOUT = 6, 3, 600
 # provision_broker: the cluster's name, the job's steps, the provisioner's and
 # the agents' poll interval, and the bootstrap budget (seconds).
 BROKER_CLUSTER, BROKER_STEPS, BROKER_POLL_S, BROKER_TIMEOUT = "provision-broker", 6, 0.5, 180
+# sched_flash_crowd: two ranks on the one card, per-rank batch 8, JAX's
+# incident (chaos/scenarios.py CROWD_SCHEDULE, 16 steps); JAX's continuity
+# tolerance (deeplearning_cfn_tpu/chaos/scenarios.py:2777).
+SCHED_BATCH, SCHED_TIMEOUT = 8, 900
+SCHED_RTOL, SCHED_ATOL = 5e-3, 1e-4
 
 
 # Traces _device_ms takes before it gives up on seeing device time.
@@ -2915,7 +2963,7 @@ def _reshard_worker(rank: int, port: int, out: str) -> int:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
                             rank=rank)
     store = dist.distributed_c10d._get_default_store()
-    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=2048), n_layers=RESHARD_LAYERS)
     cuda = torch.device("cuda")
     batches = [device_put_batch(b, cuda) for b in SyntheticTokenDataset(
         seq_len=2048, vocab_size=cfg.vocab_size,
@@ -3121,7 +3169,7 @@ def _live_reshard_phase(torch, smi: str, flash_per_block: float) -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    n_layers = 24
+    n_layers = RESHARD_LAYERS
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "live_reshard")
         env = dict(os.environ, DEEPLEARNING_SLICES_COUNT="2")
@@ -3160,6 +3208,7 @@ def _live_reshard_phase(torch, smi: str, flash_per_block: float) -> int:
     after_ms = statistics.median(live["step_ms"][cut + 1:])
     row = {"phase": "live_reshard", "processes": 2, "device": "cuda:0 for both",
            "backend": "gloo over CUDA tensors (host-staged)", "slices": 2, "model": "m435",
+           "layers": n_layers,
            "S": 2048, "batch_per_rank": RESHARD_BATCH, "global_batch": 2 * RESHARD_BATCH,
            "steps": RESHARD_STEPS, "pause_at_step": cut,
            "strategy": "fsdp (FSDP2 at fsdp 1 under dp 2: HSDP over gloo)",
@@ -3695,6 +3744,398 @@ def _provision_broker_phase(smi: str, flash_per_block: float) -> int:
              "provision_broker: no broker_started or bootstrap_complete in the journals")
     return _flash_check(result["kernel_launches"], BROKER_STEPS, per_step,
                         "provision_broker")["flash_launches"]
+
+
+def _local_tensors(torch, state) -> dict:
+    """Every parameter, buffer and optimizer state tensor of ``state`` that
+    this rank holds (its local part of a sharded one), by key."""
+    from deeplearning_cfn_tpu_torch.train import reshard
+    from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+
+    return {k: local_part(v).detach() for k, v in reshard._flat(state.state_dict()).items()}
+
+
+def _bitwise_across(torch, mine: dict, group) -> bool:
+    """Whether ``mine`` (``_local_tensors``) is, bit for bit, the first rank
+    of ``group``'s: that rank broadcasts each tensor over the group, the
+    others compare their bits with it, and the ranks agree on the verdict."""
+    import torch.distributed as dist
+
+    views = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    src = dist.get_global_rank(group, 0)
+    same = True
+    with torch.no_grad():
+        for key in sorted(mine):
+            t = mine[key].contiguous()
+            theirs = t if dist.get_rank() == src else torch.empty_like(t)
+            dist.broadcast(theirs, src=src, group=group)
+            bits = views[t.element_size()]
+            same = same and torch.equal(theirs.view(bits), t.view(bits))
+    verdict = torch.tensor([int(same)])
+    dist.all_reduce(verdict, op=dist.ReduceOp.MIN, group=group)
+    return bool(verdict.item())
+
+
+def _sched_worker(rank: int, port: int, out: str) -> int:
+    """One of ``sched_flash_crowd``'s processes (``chip_smoke.py
+    --sched-worker RANK PORT OUT``): the straight run, then the incident (on
+    rank 0 with the ``FlashCrowd`` world: the serve pool, the arbiter, the
+    SLO engine), its results as JSON in ``OUT.rank<RANK>``.  Its journal is
+    ``$DLCFN_FLIGHT_JOURNAL``, its black box under ``OUT.blackbox``, its
+    metrics stream under ``OUT.metrics``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from deeplearning_cfn_tpu_torch.chaos.scenarios import (
+        CROWD_STEPS,
+        FlashCrowd,
+        crowd_train_contract,
+    )
+    from deeplearning_cfn_tpu_torch.cluster.recovery import LiveReshardManager
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.obs.blackbox import BlackBox
+    from deeplearning_cfn_tpu_torch.obs.profiler import StepProfiler
+    from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
+    from deeplearning_cfn_tpu_torch.ops import _kernels
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, hybrid_mesh_for_slices
+    from deeplearning_cfn_tpu_torch.provision.events import EventBus, EventKind, LifecycleEvent
+    from deeplearning_cfn_tpu_torch.serve import ContinuousBatchingEngine, ServeConfig
+    from deeplearning_cfn_tpu_torch.train import reshard
+    from deeplearning_cfn_tpu_torch.train.data import (
+        Batch,
+        SyntheticTokenDataset,
+        device_put_batch,
+    )
+    from deeplearning_cfn_tpu_torch.train.metrics import JsonlMetricsSink, ThroughputLogger
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    cuda = torch.device("cuda")
+    batches = [device_put_batch(b, cuda) for b in SyntheticTokenDataset(
+        seq_len=2048, vocab_size=cfg.vocab_size,
+        batch_size=2 * SCHED_BATCH).batches(CROWD_STEPS)]
+    origin = crowd_train_contract(hosts_per_slice=1)
+
+    def mesh_for(contract):
+        return hybrid_mesh_for_slices(contract.slices_count, MeshSpec(fsdp=1), "dp",
+                                      device_type="cuda",
+                                      ranks=reshard.survivor_ranks(origin, contract))
+
+    def make_trainer():
+        return llama.make_trainer(cfg, TrainerConfig(
+            strategy="fsdp", optimizer="adamw", learning_rate=3e-4, weight_decay=0.1,
+            grad_clip_norm=1.0, log_every=1, grad_accum_steps=1), device="cuda",
+            mesh=mesh_for(origin))
+
+    def flash_total() -> int:
+        return _kernels.launch_counts.get("flash_attention_fwd", 0)
+
+    def fit(trainer, state, first, coordinator=None, crowd=None, **kw):
+        """``fit`` over ``batches[first:]``: per step its time less the
+        world's round (each step reads its loss back), the round's time,
+        and the flash launches."""
+        marks, rounds, flash = [], [], []
+
+        def source():
+            for i, (x, y) in enumerate(batches[first:], start=first):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                flash.append(flash_total())
+                t0 = time.perf_counter()
+                if crowd is not None:
+                    crowd.round(i)
+                    if "mid" not in result and coordinator.live_total == 1:
+                        result["mid"] = {"topology": reshard.mesh_topology(trainer.mesh),
+                                         "grad_accum": trainer.config.grad_accum_steps}
+                torch.cuda.synchronize()
+                rounds.append(time.perf_counter() - t0)
+                yield Batch(x=x, y=y)
+
+        state, losses = trainer.fit(state, source(), steps=CROWD_STEPS - first, prefetch=0,
+                                    reshard=coordinator, **kw)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        flash.append(flash_total())
+        n = len(losses)
+        return state, {"losses": losses,
+                       "step_ms": [(b - a - r) * 1e3 for a, b, r in
+                                   zip(marks[:n], marks[1:n + 1], rounds)],
+                       "round_ms": [r * 1e3 for r in rounds[:n]],
+                       "flash_per_step": [b - a for a, b in zip(flash[:n], flash[1:n + 1])]}
+
+    result: dict = {"rank": rank}
+    # straight: the same steps with no world and no reshard=
+    _kernels.reset_launch_counts()
+    trainer = make_trainer()
+    _, row = fit(trainer, trainer.init(seed=0, draw_on_device=True), 0)
+    row["flash_variants"] = _variants(dict(_kernels.launch_counts), "flash_attention_fwd")
+    result["straight"] = row
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the incident
+    _kernels.reset_launch_counts()
+    crowd = bus = None
+    if rank == 0:
+        model = _llama_on_card(torch, llama, cfg, seed=0)
+        model.eval()
+
+        def make_engine(name, slots, clock):
+            scfg = ServeConfig(num_slots=slots, block_size=4, blocks_per_slot=8,
+                               prefill_len=16)
+            return ContinuousBatchingEngine(model, scfg, clock=clock, name=name,
+                                            journal=False)
+
+        crowd = FlashCrowd(0, make_engine, origin, vocab_size=cfg.vocab_size,
+                           serve_clock=time.perf_counter)
+        manager, bus = crowd.manager, crowd.backend.events
+    else:
+        manager, bus = LiveReshardManager(origin), EventBus()
+    profiler = StepProfiler(name="train", per_step_events=True)
+    box = BlackBox(f"{out}.blackbox", host=f"rank{rank}", worker=f"rank{rank}",
+                   instance_id=None if rank == 0 else origin.slices["s2"][0],
+                   profiler=profiler, recorder=get_recorder())
+    box.attach(bus)
+    coordinator = reshard.LiveReshardCoordinator(
+        manager=manager, mesh_for=mesh_for,
+        flush=crowd.controller.flush_slice_losses if crowd is not None else None,
+        clock=time.monotonic, symmetric_accum=True)
+    execute = coordinator.execute
+
+    control: dict = {}
+
+    def compared(state) -> None:
+        """After the regrowth, on both ranks (outside the pause): the state
+        against rank 0's, then the planted control against it."""
+        result["regrown_bitwise"] = _bitwise_across(torch, _local_tensors(torch, state),
+                                                    coordinator.group)
+        mine = control if rank == 1 else _local_tensors(torch, state)
+        result["control_bitwise"] = _bitwise_across(torch, mine, coordinator.group)
+        control.clear()
+
+    def recorded(trainer, state, step):
+        state, action = execute(trainer, state, step)
+        if action == "resume" and coordinator.live_total == 2:
+            compared(state)
+        return state, action
+
+    coordinator.execute = recorded
+    if rank == 1:
+        # The planted control: what a grow without the transfer leaves on the
+        # returning rank (a copy of its state as laid out, before the fill).
+        regrow = reshard._regrow
+
+        def kept(state, new, *args):
+            control.update({k: v.clone() for k, v in _local_tensors(torch, new).items()})
+            return regrow(state, new, *args)
+
+        reshard._regrow = kept
+    logger = ThroughputLogger(global_batch_size=2 * SCHED_BATCH, log_every=1,
+                              sink=JsonlMetricsSink(Path(f"{out}.metrics") / "sched"
+                                                    / f"worker{rank}.jsonl"))
+    trainer = make_trainer()
+    state, live = fit(trainer, trainer.init(seed=0, draw_on_device=True), 0, coordinator,
+                      crowd, profiler=profiler, logger=logger)
+    result["left_at"] = len(live["losses"]) if coordinator.departed else None
+    if coordinator.departed:
+        # The preemption's notice on this host's bus (its black box captures).
+        bus.publish(LifecycleEvent(kind=EventKind.INSTANCE_TERMINATE, group="s2",
+                                   instance_id=origin.slices["s2"][0],
+                                   detail={"reason": "sched-preempt"}))
+        state = coordinator.rejoin(trainer, state)
+        _require(state is not None, "sched_flash_crowd: rank 1 was released, not regrown")
+        result["rejoined_at"] = state.step
+        compared(state)
+        state, more = fit(trainer, state, state.step, coordinator, profiler=profiler,
+                          logger=logger)
+        live = {k: live[k] + more[k] for k in live}
+    profiler.journal()
+    logger.sink.close()
+    live["flash_variants"] = _variants(dict(_kernels.launch_counts), "flash_attention_fwd")
+    result.update(live=live, step=state.step, records=[dataclasses.asdict(r)
+                                                       for r in coordinator.records],
+                  post={"topology": reshard.mesh_topology(trainer.mesh),
+                        "grad_accum": trainer.config.grad_accum_steps},
+                  slices=manager.contract.slices_count, live_total=coordinator.live_total,
+                  fallback_total=coordinator.fallback_total)
+    if crowd is not None:
+        coordinator.release()
+        t0 = time.perf_counter()
+        crowd.drain()
+        result["drain_s"] = time.perf_counter() - t0
+        for replica in crowd.frontend.replicas.values():
+            get_recorder().record("serve_metrics", **replica.engine.snapshot())
+        result["crowd"] = crowd.summary()
+        result["journal"] = result["crowd"]["journal"]
+        result["serve_graphs"] = [r.engine.decode_captures
+                                  for r in crowd.frontend.replicas.values()]
+    Path(f"{out}.rank{rank}").write_text(json.dumps(result))
+    sys.stdout.flush()
+    dist.barrier()  # both ranks are back in the group
+    os._exit(0)
+
+
+def _sched_flash_crowd_phase(torch, smi: str, flash_per_block: float) -> int:
+    """Phase 21 (see the module docstring): two processes of this script on
+    the card, then the obs commands over their files.  Returns the flash
+    launches of both processes' runs."""
+    import contextlib
+    import io
+    import socket
+    import tempfile
+
+    from deeplearning_cfn_tpu_torch import cli
+    from deeplearning_cfn_tpu_torch.chaos.scenarios import (
+        CROWD_STEPS,
+        ScenarioReport,
+        crowd_checks,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    n_layers = 24
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "sched")
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, DLCFN_WORKER=f"rank{r}",
+                       DLCFN_FLIGHT_JOURNAL=f"{out}.journal.rank{r}")
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "--sched-worker", str(r), str(port), out],
+                                          env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=SCHED_TIMEOUT)
+                errs.append(err)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        workers_s = time.perf_counter() - t_phase
+        for p, err in zip(procs, errs):
+            _require(p.returncode == 0, f"sched_flash_crowd: a process failed:\n{err[-3000:]}")
+        r0, r1 = (json.loads(Path(f"{out}.rank{r}").read_text()) for r in range(2))
+
+        def run_cli(*argv) -> str:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(list(argv))
+            _require(rc == 0, f"sched_flash_crowd: cli {argv[0]} exited {rc}")
+            return buf.getvalue()
+
+        j0, j1 = f"{out}.journal.rank0", f"{out}.journal.rank1"
+        prom = run_cli("status", "--journal", j0, "--profile", "--serve", "--format", "prom")
+        run_cli("trace", "--journal", j0, "--journal", j1, "--out", f"{out}.trace.json")
+        trace = json.loads(Path(f"{out}.trace.json").read_text())
+        rows = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                      if e.get("name") == "process_name")
+        postmortem = run_cli("postmortem", f"{out}.blackbox")
+        workers = json.loads(run_cli("status", "--metrics-dir", f"{out}.metrics"))
+    wall_s = time.perf_counter() - t_phase
+
+    report = ScenarioReport("sched-flash-crowd", 0)
+    c = r0["crowd"]
+    report.check(c["initial"] == {"serve-chat": ["s0"], "train-fsdp": ["s1", "s2"]},
+                 "placer gave prod-serve the first slice and prod-train the rest")
+    crowd_checks(report, r0, r0["straight"]["losses"], r0["live"]["losses"],
+                 {**(r0.get("mid") or {"topology": None, "grad_accum": None}),
+                  "want": {"devices": 1, "axes": {}}},
+                 {**r0["post"], "want": {"devices": 2, "axes": {"dp": 2}}},
+                 SCHED_RTOL, SCHED_ATOL)
+    records = r0["records"]
+    shrink, grow = (rec["step"] for rec in records[:2])
+    live, straight = r0["live"], r0["straight"]
+
+    def median(xs):
+        return statistics.median(xs) if xs else None
+
+    per_mb = flash_per_block * n_layers
+    mb0 = CROWD_STEPS + (grow - shrink)
+    mb1 = shrink + (CROWD_STEPS - grow)
+    ttft = sorted(c["ttft_s"])
+    row = {"phase": "sched_flash_crowd", "processes": 2, "device": "cuda:0 for both",
+           "backend": "gloo over CUDA tensors (host-staged)", "model": "m435", "S": 2048,
+           "batch_per_rank": SCHED_BATCH, "global_batch": 2 * SCHED_BATCH,
+           "steps": CROWD_STEPS, "serve": "m435 bf16, seed 0, pool-a/pool-b 4 slots, lent 6",
+           "strategy": "fsdp (FSDP2 at fsdp 1 under dp 2: HSDP over gloo)",
+           "times": "two ranks and the pool share the card: not NVLink times",
+           "wall_s": wall_s, "workers_s": workers_s,
+           "shrink_at": shrink, "grow_at": grow,
+           "pause_ms": {"shrink": records[0]["seconds"] * 1e3,
+                        "regrowth": records[1]["seconds"] * 1e3},
+           "rank1_regrowth_ms": r1["records"][-1]["seconds"] * 1e3 if r1["records"] else None,
+           "step_ms": {"before": median(live["step_ms"][1:shrink]),
+                       "lent": median(live["step_ms"][shrink + 1:grow]),
+                       "after": median(live["step_ms"][grow + 1:]),
+                       "straight": median(straight["step_ms"][1:])},
+           "step_ms_all": live["step_ms"], "round_ms": live["round_ms"],
+           "ttft_ms": {"p50": 1e3 * ttft[len(ttft) // 2] if ttft else None,
+                       "p99": 1e3 * ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))]
+                       if ttft else None},
+           "pool_tokens_per_s": c["tokens"] / c["serve_s"] if c["serve_s"] else None,
+           "pool_tokens": c["tokens"], "pool_serve_s": c["serve_s"], "drain_s": r0["drain_s"],
+           "requests": c["requests"], "completions": c["completions"],
+           "timeline": c["timeline"], "counters": c["counters"],
+           "serve_graphs": r0["serve_graphs"],
+           "losses": {"straight": straight["losses"], "live": live["losses"],
+                      "rank1": r1["live"]["losses"]},
+           "pre_preempt_bitwise": live["losses"][:shrink] == straight["losses"][:shrink],
+           "rtol": SCHED_RTOL, "atol": SCHED_ATOL,
+           "regrown_bitwise": [r0.get("regrown_bitwise"), r1.get("regrown_bitwise")],
+           "control_bitwise": [r0.get("control_bitwise"), r1.get("control_bitwise")],
+           "grad_accum": [rec["grad_accum_after"] for rec in records],
+           "flash": {"rank0": sum(live["flash_per_step"]), "rank1": sum(
+               r1["live"]["flash_per_step"]), "microbatches": [mb0, mb1],
+               "per_microbatch": per_mb},
+           "flash_variants": [r0["live"]["flash_variants"], r1["live"]["flash_variants"],
+                              r0["straight"]["flash_variants"],
+                              r1["straight"]["flash_variants"]],
+           "trace_rows": rows, "postmortem_head": postmortem.splitlines()[:1],
+           "metrics_workers": [(w["worker"], w.get("step")) for w in workers],
+           "invariants": report.invariants, "violations": report.violations,
+           "nvidia_smi": smi}
+    _emit(row)
+    _require(report.passed, f"sched_flash_crowd: {report.violations}")
+    _require(row["pre_preempt_bitwise"], "sched_flash_crowd: the steps before the "
+             "preemption are not bitwise the straight run's")
+    _require(row["grad_accum"] == [2, 1], f"sched_flash_crowd: accumulation {row['grad_accum']}")
+    _require(r1["left_at"] == shrink and r1["rejoined_at"] == grow
+             and r1["live"]["losses"] == live["losses"][:shrink] + live["losses"][grow:],
+             "sched_flash_crowd: rank 1 did not park at the shrink and train on from the grow")
+    _require(row["regrown_bitwise"] == [True, True],
+             "sched_flash_crowd: the ranks' states differ after the regrowth")
+    _require(row["control_bitwise"] == [False, False], "sched_flash_crowd: the state check "
+             "passed the planted control (a grow without the transfer)")
+    _require(sum(live["flash_per_step"]) == per_mb * mb0
+             and sum(r1["live"]["flash_per_step"]) == per_mb * mb1
+             and sum(straight["flash_per_step"]) == sum(r1["straight"]["flash_per_step"])
+             == per_mb * CROWD_STEPS,
+             f"sched_flash_crowd: flash launches {row['flash']}, expected {per_mb} a "
+             "microbatch")
+    _require(all(set(v) <= {"wgmma_tma"} and v for v in row["flash_variants"]),
+             f"sched_flash_crowd: flash variants {row['flash_variants']}")
+    for family in ("dlcfn_sched_preemptions_total 1", "dlcfn_sched_restores_total 1",
+                   "dlcfn_serve_ttft_ms", "dlcfn_step_phase_ms"):
+        _require(family in prom, f"sched_flash_crowd: status prom lacks {family}")
+    _require(rows == ["rank0", "rank1"], f"sched_flash_crowd: trace rows {rows}")
+    _require(postmortem.startswith("postmortem: 2 host(s)"),
+             f"sched_flash_crowd: postmortem {postmortem[:200]}")
+    _require(sorted(row["metrics_workers"]) == [("worker0", CROWD_STEPS),
+                                                ("worker1", CROWD_STEPS)],
+             f"sched_flash_crowd: status --metrics-dir {row['metrics_workers']}")
+    return (sum(live["flash_per_step"]) + sum(r1["live"]["flash_per_step"])
+            + sum(straight["flash_per_step"]) + sum(r1["straight"]["flash_per_step"]))
 
 
 def main() -> int:
@@ -4291,6 +4732,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_by_path["provision_broker"] = _provision_broker_phase(smi, flash_per_block)
 
+    # 21. sched_flash_crowd: a serve pool under a flash crowd takes a slice
+    # of m435 training, which grows back live when the crowd drains.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_by_path["sched_flash_crowd"] = _sched_flash_crowd_phase(torch, smi, flash_per_block)
+
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with
         ``variants``, only those variants' launches."""
@@ -4354,4 +4801,6 @@ if __name__ == "__main__":
         sys.exit(_two_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) == 5 and sys.argv[1] == "--reshard-worker":
         sys.exit(_reshard_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--sched-worker":
+        sys.exit(_sched_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -1,19 +1,25 @@
 """Chaos scenarios — counterpart of ``deeplearning_cfn_tpu/chaos/scenarios.py``.
 
-Ported: :class:`ScenarioReport` (the report's wire shape, schema 2) and the
+Ported: :class:`ScenarioReport` (the report's wire shape, schema 2), the
 ``slice-loss-live`` scenario, the JAX package's own driver of the live
-reshard, with its invariants, on the port's trainer.  The JAX scenario runs
-one SPMD trainer over eight virtual CPU devices in one process; here every
-rank is a process: four gloo ranks (2 slices x fsdp 2, one rank a
-worker), each running its own ``fit``, and this process checks the
-invariants on what the ranks report.  The other scenarios (silent death,
-partitions, the broker's failover, the data plane's writer crash, serving,
-the scheduler, the gauntlet) drive planes that later slices port.
+reshard, and ``sched-flash-crowd``, the fleet scheduler's gate (a serve pool
+under a flash crowd takes a slice from a training job, which grows back when
+the crowd drains), each with its invariants, on the port's trainer and
+serving engine.  The JAX scenarios run one SPMD trainer over eight virtual
+CPU devices in one process; here every rank is a process: four gloo ranks
+(2 slices x fsdp 2, one rank a worker), each running its own ``fit``, and
+this process checks the invariants on what the ranks report.  In
+``sched-flash-crowd`` the control plane (the arbiter, the SLO engine, the
+preemption driver, the serve front end) lives in rank 0's process
+(:class:`FlashCrowd`), and the preempted slice's ranks park and rejoin at
+the grow.  The other scenarios (silent death, partitions, the broker's
+failover, the data plane's writer crash, serving, the gauntlet) drive planes
+that later slices port.
 
 Run one with ``python -m deeplearning_cfn_tpu_torch.cli chaos --scenario
-slice-loss-live --seed N``: its ranks train on the card (all on ``cuda:0``
-of a one-card host, still over gloo), or on the CPU with ``--device cpu``;
-the report is deterministic per seed.
+NAME --seed N``: its ranks train on the card (all on ``cuda:0`` of a
+one-card host, still over gloo), or on the CPU with ``--device cpu``; the
+report is deterministic per seed.
 """
 
 from __future__ import annotations
@@ -263,9 +269,11 @@ def _slice_loss_live_rank(seed: int, root: str, device: str) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_ranks(seed: int, root: str, device: str) -> list[dict[str, Any]]:
-    """Run ``slice-loss-live``'s ranks as processes of one gloo group on
-    this host; each rank's results.  A rank that fails raises."""
+def _spawn_ranks(seed: int, root: str, device: str, entry: str = "--slice-loss-live-rank",
+                 extra: tuple[str, ...] = ()) -> list[dict[str, Any]]:
+    """Run a scenario's ranks (``entry``: the flag of this module's rank
+    function) as processes of one gloo group on this host; each rank's
+    results.  A rank that fails raises."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -277,7 +285,7 @@ def _spawn_ranks(seed: int, root: str, device: str) -> list[dict[str, Any]]:
                    PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")])))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "deeplearning_cfn_tpu_torch.chaos.scenarios",
-             "--slice-loss-live-rank", str(seed), root, device],
+             entry, str(seed), root, device, *extra],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errors = []
     try:
@@ -291,7 +299,8 @@ def _spawn_ranks(seed: int, root: str, device: str) -> list[dict[str, Any]]:
                 p.kill()
                 p.wait()
     if errors:
-        raise RuntimeError("a slice-loss-live rank failed:\n" + errors[0])
+        name = entry.removeprefix("--").removesuffix("-rank")
+        raise RuntimeError(f"a {name} rank failed:\n" + errors[0])
     return [json.loads(Path(root, f"rank{i}.json").read_text()) for i in range(RANKS)]
 
 
@@ -405,13 +414,514 @@ def slice_loss_live(seed: int, device: str = "cuda") -> ScenarioReport:
     return report
 
 
+# --- sched-flash-crowd ---------------------------------------------------------------
+
+#: Arrivals a round: calm, a three-round flash crowd, then the tail (JAX's).
+CROWD_SCHEDULE = {0: 2, 1: 2, 2: 8, 3: 8, 4: 8, 5: 1, 6: 1}
+CROWD_STEPS, CROWD_DRAIN_ROUNDS = 16, 200
+#: The journal kinds the incident counts (their increase over the run).
+CROWD_KINDS = ("sched_preempt", "sched_restore", "serve_failover", "serve_pool_resize",
+               "reshard", "grad_accum_rescaled", "slice_restore_armed")
+
+
+def crowd_fleet(hosts_per_slice: int = 2) -> Any:
+    """JAX's 3-slice inventory (2 hosts x 2 chips a slice; its first
+    ``hosts_per_slice`` hosts a slice): the arbiter's slices and the hosts
+    its synthetic terminates name."""
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+
+    slices = {f"s{k}": [f"10.0.0.{2 * k + 1 + h}" for h in range(hosts_per_slice)]
+              for k in range(3)}
+    ips = [ip for hosts in slices.values() for ip in hosts]
+    return ClusterContract.build(
+        cluster_name="chaos-sched", coordinator_ip=ips[0], other_worker_ips=ips[1:],
+        chips_per_worker=2, storage_mount="/mnt/none", slices=slices)
+
+
+def crowd_train_contract(hosts_per_slice: int = 2) -> Any:
+    """The training job's contract: slices s1 (the coordinator's) and s2 of
+    the fleet, their first ``hosts_per_slice`` hosts, one rank a host."""
+    from deeplearning_cfn_tpu_torch.cluster.contract import ClusterContract
+
+    s1 = ["10.0.0.3", "10.0.0.4"][:hosts_per_slice]
+    s2 = ["10.0.0.5", "10.0.0.6"][:hosts_per_slice]
+    return ClusterContract.build(
+        cluster_name="chaos-sched-train", coordinator_ip=s1[0], other_worker_ips=s1[1:] + s2,
+        chips_per_worker=1, storage_mount="/mnt/none", slices={"s1": s1, "s2": s2})
+
+
+class FlashCrowd:
+    """The ``sched-flash-crowd`` world around one training job, in the
+    process of the job's coordinator rank: a serve pool (``pool-a``,
+    ``pool-b``) of engines from ``make_engine(name, slots, clock)`` on slice s0,
+    the elasticity controller on a virtual clock (its safe points run the
+    arbiter's ``reconcile``), the ``LiveReshardManager`` of the job's
+    ``contract``, the arbiter persisting its ledger to a dict store, the
+    preemption driver (a lent slice becomes a 6-slot replica), and the page
+    rule on the pool's inflight requests.  :meth:`round` is one round of
+    JAX's incident (arrivals, a replica death in round ``3 + seed % 2``, a
+    step of the pool, the SLO's evaluation); ``serve_clock`` times the
+    requests (the virtual clock by default, as JAX's)."""
+
+    def __init__(self, seed: int, make_engine: Callable[[str, int, Any], Any], contract: Any,
+                 vocab_size: int = 64, serve_clock: Callable[[], float] | None = None):
+        import numpy as np
+
+        from deeplearning_cfn_tpu_torch.analysis.schedules import VirtualClock
+        from deeplearning_cfn_tpu_torch.cluster.elasticity import (
+            ElasticityController,
+            GroupPolicy,
+        )
+        from deeplearning_cfn_tpu_torch.cluster.recovery import LiveReshardManager
+        from deeplearning_cfn_tpu_torch.obs.slo import SloEngine, SloRule
+        from deeplearning_cfn_tpu_torch.provision.events import EventBus
+        from deeplearning_cfn_tpu_torch.sched import (
+            FleetArbiter,
+            JobSpec,
+            PreemptionDriver,
+            ServePoolHandle,
+            TrainJobHandle,
+        )
+        from deeplearning_cfn_tpu_torch.serve import ServeFrontEnd, ServeReplica
+
+        class Backend:
+            def __init__(self):
+                self.events = EventBus()
+
+        self.seed, self.vocab_size = seed, vocab_size
+        self.vclock = VirtualClock()
+        self.serve_clock = serve_clock or self.vclock
+        self.frontend = ServeFrontEnd([
+            ServeReplica(make_engine(name, 4, self.serve_clock), name, group="serve")
+            for name in ("pool-a", "pool-b")])
+        self.backend = Backend()
+        self.controller = ElasticityController(
+            backend=self.backend, coordinator_queue_name="coord",
+            on_instance_loss=self.frontend.on_instance_loss, slice_loss_window_s=1.0,
+            clock=self.vclock)
+        self.controller.register(GroupPolicy("serve", 1, "sig-serve"))
+        self.controller.register(GroupPolicy("s1", 1, "sig-s1", coordinator=True))
+        self.controller.register(GroupPolicy("s2", 1, "sig-s2"))
+        self.controller.attach()
+        self.manager = LiveReshardManager(contract)
+        self.manager.attach(self.controller)
+        self.store = _DictStore()
+        driver = PreemptionDriver()
+        driver.register_train("train-fsdp", TrainJobHandle(self.manager,
+                                                           bus=self.backend.events))
+        # A whole lent slice is a bigger replica than the s0 pair's: 6 slots.
+        driver.register_serve("serve-chat", ServePoolHandle(
+            self.frontend, spawn=lambda name: ServeReplica(
+                make_engine(name, 6, self.serve_clock), name, group="serve")))
+        self.arbiter = FleetArbiter.from_contract(
+            crowd_fleet(len(contract.slices["s1"])), store=self.store, driver=driver)
+        self.arbiter.attach(self.backend.events)
+        self.controller.add_safe_point_hook(self.arbiter.reconcile)
+        self.arbiter.submit(JobSpec(name="serve-chat", kind="serve", priority="prod-serve"))
+        self.arbiter.submit(JobSpec(name="train-fsdp", kind="train", priority="prod-train",
+                                    min_slices=1, max_slices=2))
+        self.initial = {j: list(s) for j, s in self.arbiter.assignments.items()}
+        # The page rule: total inflight (queued + slotted) across the pool.
+        # Inflight is invariant under replay/resize (requests move between
+        # replicas, the total only drains), so a monotone drain produces
+        # exactly one fire and one resolve — no flap at the reclaim.
+        self.rule = SloRule(name="serve-queue-depth", metric="dlcfn_serve_queue_depth",
+                            agg="sum", op=">", threshold=12.0, for_s=2.0, severity="page",
+                            description="chaos: pool inflight beyond the two-replica budget")
+        self.slo = SloEngine(rules=(self.rule,), clock=self.vclock, bus=self.backend.events)
+        self.kill_round = 3 + seed % 2
+        self.victim = "pool-a" if seed % 2 == 0 else "pool-b"
+        self.rng = np.random.default_rng(seed)
+        self.submitted: list[str] = []
+        self.killed: list[str] = []
+        self.timeline: list[tuple[int, str, str]] = []
+        self.ledger_mid = self.assignments_mid = None
+        self.serve_s = 0.0  # wall seconds in the pool's steps
+        self.drain_rounds = 0
+        self.before = {k: _journal_count(k) for k in CROWD_KINDS}
+
+    def _step_pool(self) -> None:
+        import time
+
+        t0 = time.perf_counter()
+        self.frontend.step_all()
+        self.serve_s += time.perf_counter() - t0
+        self.vclock.advance(1.0)
+
+    def round(self, round_no: int) -> None:
+        import numpy as np
+
+        from deeplearning_cfn_tpu_torch.provision.events import EventKind, LifecycleEvent
+        from deeplearning_cfn_tpu_torch.sched import LEDGER_KEY
+        from deeplearning_cfn_tpu_torch.serve import ServeRequest
+
+        for _ in range(CROWD_SCHEDULE.get(round_no, 0)):
+            rid = f"req-{len(self.submitted):03d}"
+            prompt = self.rng.integers(1, self.vocab_size, size=int(self.rng.integers(4, 12)),
+                                       dtype=np.int32)
+            self.frontend.submit(ServeRequest(rid, prompt, max_new_tokens=4),
+                                 arrival_s=self.serve_clock())
+            self.submitted.append(rid)
+        if round_no == self.kill_round and not self.killed:
+            self.killed.append(self.victim)
+            self.backend.events.publish(LifecycleEvent(
+                kind=EventKind.INSTANCE_TERMINATE, group="serve",
+                instance_id=f"serve/{self.victim}", detail={"reason": "chaos"}))
+        self._step_pool()
+        inflight = float(sum(r.load for r in self.frontend.replicas.values()))
+        for t in self.slo.evaluate({"dlcfn_serve_queue_depth": {"sum": inflight}}):
+            self.timeline.append((round_no, t["rule"], t["state"]))
+        # Crash evidence: the ledger as persisted right after the
+        # preemption, while its loan is still outstanding.
+        if self.ledger_mid is None and self.arbiter.counters["preemptions"] == 1:
+            self.ledger_mid = self.store.get(LEDGER_KEY)
+            self.assignments_mid = {j: list(s) for j, s in self.arbiter.assignments.items()}
+
+    def drain(self) -> None:
+        """Step the pool until every request completed (train is done)."""
+        while self.frontend.pending() and self.drain_rounds < CROWD_DRAIN_ROUNDS:
+            self._step_pool()
+            self.drain_rounds += 1
+
+    def crash_resume_ok(self) -> bool:
+        """An arbiter resumed from the ledger persisted mid-preemption absorbs
+        the replayed page that caused it: no second preemption."""
+        from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
+        from deeplearning_cfn_tpu_torch.provision.events import EventKind, LifecycleEvent
+        from deeplearning_cfn_tpu_torch.sched import LEDGER_KEY, FleetArbiter
+
+        def absorbed() -> int:
+            return sum(1 for e in get_recorder().tail(4096)
+                       if e.get("kind") == "sched_decision" and e.get("action") == "page-absorbed")
+
+        if self.ledger_mid is None:
+            return False
+        store = _DictStore()
+        store.set(LEDGER_KEY, self.ledger_mid)
+        arbiter = FleetArbiter.resume(store)
+        preempts, absorbed_before = _journal_count("sched_preempt"), absorbed()
+        arbiter.on_event(LifecycleEvent(kind=EventKind.ALERT, group="fleet", detail={
+            "rule": self.rule.name, "state": "firing", "value": 13.0, "severity": "page"}))
+        actions = arbiter.reconcile()
+        return (actions == [] and _journal_count("sched_preempt") - preempts == 0
+                and absorbed() - absorbed_before == 1
+                and {j: list(s) for j, s in arbiter.assignments.items()} == self.assignments_mid
+                and json.loads(self.ledger_mid)["loans"][0]["slice"] == "s2")
+
+    def summary(self) -> dict[str, Any]:
+        """What rank 0 reports: the serve, SLO, arbiter and journal sides."""
+        snap = self.slo.snapshot()[self.rule.name]
+        completions = self.frontend.completions
+        return {
+            "kill_round": self.kill_round, "victim": self.victim, "timeline": self.timeline,
+            "requests": len(self.submitted), "completions": len(completions),
+            "lost": self.frontend.lost_requests(), "failed": list(self.frontend.failed),
+            "replayed": sorted(set(self.frontend.replayed)), "drain_rounds": self.drain_rounds,
+            "alert_counts": self.arbiter.alert_counts,
+            "slo": {"fired": snap["fired_count"], "resolved": snap["resolved_count"]},
+            "counters": dict(self.arbiter.counters), "loans": self.arbiter.loans,
+            "initial": self.initial, "final": {j: list(s) for j, s in
+                                               self.arbiter.assignments.items()},
+            "assignments_mid": self.assignments_mid,
+            "journal": {k: _journal_count(k) - n for k, n in self.before.items()},
+            "crash_resume_ok": self.crash_resume_ok(),
+            "ttft_s": [c.first_token_s - c.arrival_s for c in completions.values()],
+            "tokens": sum(len(c.tokens) for c in completions.values()),
+            "serve_s": self.serve_s,
+        }
+
+
+class _DictStore:
+    """Broker KV stand-in the ledger persists through."""
+
+    def __init__(self):
+        self.table: dict[str, str] = {}
+
+    def set(self, key: str, value: str) -> None:
+        self.table[key] = value
+
+    def get(self, key: str) -> str | None:
+        return self.table.get(key)
+
+
+def crowd_checks(report: ScenarioReport, r0: dict, straight: list[float], live: list[float],
+                 mid: dict, post: dict, rtol: float = 5e-3, atol: float = 1e-4) -> None:
+    """JAX's ``sched-flash-crowd`` invariants on rank 0's report (``mid``
+    and ``post``: the topology and accumulation while lent and after the
+    regrowth, each beside the one expected)."""
+    j, c = r0["journal"], r0["crowd"]
+    report.check(
+        len(live) == CROWD_STEPS and r0["step"] == CROWD_STEPS,
+        "train survived preempt AND restore in one fit() call (no restart, monotone step "
+        "count)")
+    report.check(
+        r0["live_total"] == 2 and r0["fallback_total"] == 0 and c["journal"]["reshard"] == 2,
+        "exactly two live reshards: the preempt shrink and the off-peak re-grow, zero "
+        "fallbacks")
+    report.check(
+        mid["topology"] == mid["want"] and mid["grad_accum"] == 2,
+        "preempted mesh was the one-slice fsdp survivor with grad accum rescaled 1 -> 2 "
+        "(global batch preserved)")
+    report.check(
+        post["topology"] == post["want"] and r0["slices"] == 2 and post["grad_accum"] == 1
+        and c["journal"]["grad_accum_rescaled"] == 2 and c["journal"]["slice_restore_armed"] == 1,
+        "restore was bit-safe: full 2-slice mesh re-formed and grad accum returned to exactly "
+        "1 (symmetric rescale, journaled)")
+    report.check(
+        live[:5] == straight[:5],
+        "pre-preemption losses identical to the uninterrupted run")
+    report.check(
+        _close(live, straight, rtol, atol),
+        "loss continuity through preempt and restore: full curve matches the uninterrupted "
+        "run within tolerance")
+    report.check(
+        c["completions"] == c["requests"] and not c["lost"],
+        f"zero lost requests: all {c['requests']} accepted requests completed through the "
+        "replica death and both pool resizes")
+    report.check(
+        c["failed"] == [c["victim"]] and c["journal"]["serve_failover"] == 1,
+        "the mid-crowd replica death failed over exactly once")
+    report.check(
+        c["journal"]["serve_pool_resize"] == 2,
+        "journal shows exactly two pool resizes: the lend and the reclaim")
+    report.check(
+        c["alert_counts"] == {"serve-queue-depth": {"firing": 1, "resolved": 1}}
+        and c["slo"] == {"fired": 1, "resolved": 1},
+        "the SLO paged exactly once and resolved exactly once (engine and arbiter agree)")
+    report.check(
+        c["counters"]["preemptions"] == 1 and c["counters"]["restores"] == 1
+        and c["journal"]["sched_preempt"] == 1 and c["journal"]["sched_restore"] == 1,
+        "exactly one preemption and one restore, counted and journaled")
+    report.check(
+        c["final"] == c["initial"] == {"serve-chat": ["s0"], "train-fsdp": ["s1", "s2"]}
+        and c["loans"] == []
+        and c["assignments_mid"] == {"serve-chat": ["s0", "s2"], "train-fsdp": ["s1"]},
+        "the loan round-tripped: s2 to the serve pool during the crowd, back to the train "
+        "job after, no loan left open")
+    report.check(
+        c["crash_resume_ok"],
+        "arbiter crashed mid-preemption resumed from the persisted ledger and ABSORBED the "
+        "replayed page — no repeated preemption")
+
+
+def _sched_flash_crowd_rank(seed: int, root: str, device: str, weights: str) -> None:
+    """One rank of ``sched-flash-crowd`` (the cluster contract's env): the
+    straight run, then the incident — on rank 0 with the :class:`FlashCrowd`
+    world, its engines on ``device`` (the tiny f32 Llama, seed-0 weights or
+    the state dict at ``weights``); on the ranks of s2 parking when the
+    arbiter preempts their slice and rejoining at the restore.  Results as
+    JSON in ``<root>/rank<id>.json``."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+    from torch import nn
+
+    from deeplearning_cfn_tpu_torch.analysis.schedules import VirtualClock
+    from deeplearning_cfn_tpu_torch.cluster.recovery import LiveReshardManager
+    from deeplearning_cfn_tpu_torch.examples.common import maybe_init_distributed
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, hybrid_mesh_for_slices
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticDataset
+    from deeplearning_cfn_tpu_torch.train.reshard import (
+        LiveReshardCoordinator,
+        mesh_topology,
+        survivor_ranks,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.set_num_threads(1)
+    rank = maybe_init_distributed("cpu")  # gloo
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    origin = crowd_train_contract()
+
+    class MLP(nn.Module):
+        """The JAX scenario's ``_MLP`` (as ``slice-loss-live``'s)."""
+
+        def __init__(self, generator=None):
+            super().__init__()
+            self.fc1, self.fc2, self.head = (nn.Linear(a, b) for a, b in
+                                             ((64, 256), (256, 256), (256, 10)))
+            if generator is not None:  # normal / sqrt(fan_in), zero biases
+                with torch.no_grad():
+                    for layer in (self.fc1, self.fc2, self.head):
+                        fan_in = layer.weight.shape[1]
+                        layer.weight.copy_(torch.randn(layer.weight.shape, generator=generator)
+                                           * fan_in**-0.5)
+                        layer.bias.zero_()
+
+        def forward(self, x):
+            x = x.reshape(x.shape[0], -1)
+            return self.head(torch.relu(self.fc2(torch.relu(self.fc1(x)))))
+
+    def mesh_for(contract):
+        n = contract.slices_count
+        return hybrid_mesh_for_slices(n, MeshSpec(fsdp=contract.total_chips // n), "dp",
+                                      device_type=device,
+                                      ranks=survivor_ranks(origin, contract))
+
+    def make_trainer():
+        return Trainer(MLP, TrainerConfig(optimizer="adamw", learning_rate=1e-3,
+                                          strategy="fsdp", matmul_precision="float32",
+                                          log_every=1, grad_accum_steps=1),
+                       device=device, mesh=mesh_for(origin))
+
+    dataset = lambda: SyntheticDataset(  # noqa: E731 - a fresh iterator a run
+        shape=(8, 8, 1), num_classes=10, batch_size=32, seed=seed)
+    out: dict[str, Any] = {"rank": rank}
+    trainer = make_trainer()
+    _, out["straight"] = trainer.fit(trainer.init(seed=seed),
+                                     dataset().batches(CROWD_STEPS), steps=CROWD_STEPS,
+                                     prefetch=0)
+
+    crowd = None
+    if rank == 0:
+        from deeplearning_cfn_tpu_torch.models import llama
+        from deeplearning_cfn_tpu_torch.serve import ContinuousBatchingEngine, ServeConfig
+
+        cfg = llama.LlamaConfig.tiny(vocab_size=64, seq_len=64, dtype=torch.float32)
+        model = llama.init_model(cfg, seed=0, device=device)
+        if weights:
+            model.load_state_dict(torch.load(weights, map_location=device))
+
+        def make_engine(name, slots, clock):
+            scfg = ServeConfig(num_slots=slots, block_size=4, blocks_per_slot=8, prefill_len=16)
+            return ContinuousBatchingEngine(model, scfg, clock=clock, name=name, journal=False)
+
+        crowd = FlashCrowd(seed, make_engine, origin)
+        manager = crowd.manager
+    else:
+        manager = LiveReshardManager(origin)
+    coordinator = LiveReshardCoordinator(
+        manager=manager, mesh_for=mesh_for,
+        flush=crowd.controller.flush_slice_losses if crowd is not None else None,
+        clock=crowd.vclock if crowd is not None else VirtualClock(),
+        symmetric_accum=True)
+    trainer = make_trainer()
+    captured: dict[str, Any] = {}
+
+    def world(src):
+        for i, b in enumerate(src):
+            if crowd is not None:
+                crowd.round(i)
+                if "mid" not in captured and coordinator.live_total == 1:
+                    captured["mid"] = {"topology": mesh_topology(trainer.mesh),
+                                       "grad_accum": trainer.config.grad_accum_steps}
+            yield b
+
+    state, live = trainer.fit(trainer.init(seed=seed), world(dataset().batches(CROWD_STEPS)),
+                              steps=CROWD_STEPS, prefetch=0, reshard=coordinator)
+    out["left_at"] = len(live) if coordinator.departed else None
+    if coordinator.departed:
+        state = coordinator.rejoin(trainer, state)
+        if state is not None:
+            out["rejoined_at"] = state.step
+            rest = itertools.islice(dataset().batches(CROWD_STEPS), state.step, None)
+            state, more = trainer.fit(state, rest, steps=CROWD_STEPS - state.step, prefetch=0,
+                                      reshard=coordinator)
+            live += more
+    out.update(live=live, step=state.step if state is not None else None,
+               live_total=coordinator.live_total, fallback_total=coordinator.fallback_total,
+               slices=manager.contract.slices_count,
+               post={"topology": mesh_topology(trainer.mesh),
+                     "grad_accum": trainer.config.grad_accum_steps},
+               mid=captured.get("mid"))
+    if crowd is not None:
+        coordinator.release()
+        crowd.drain()
+        out["crowd"] = crowd.summary()
+        out["journal"] = out["crowd"]["journal"]
+    Path(root, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()  # every rank is back in the group: the teardown meets
+    dist.destroy_process_group()
+
+
+def sched_flash_crowd(seed: int, device: str = "cuda",
+                      serve_weights: str | None = None) -> ScenarioReport:
+    """Competing train+serve jobs under a flash crowd; the arbiter preempts.
+
+    The multi-tenancy gate, end to end on virtual time: a FleetArbiter places
+    a ``prod-serve`` chat job (slice s0, two replicas) and a ``prod-train``
+    FSDP job (slices s1+s2: four gloo ranks, 2 x fsdp 2) on one 3-slice
+    inventory.  A seeded flash crowd floods the serve pool while — mid-crowd
+    — one of its replicas dies outright; the inflight SLO rule pages, the
+    arbiter preempts the train job's non-anchor slice (live reshard 4 -> 2
+    ranks, grad accum 1 -> 2 preserving the global batch; s2's ranks park)
+    and lends it to the serve pool as a fresh replica.  The crowd draining
+    resolves the page; the arbiter reclaims the replica (stragglers replayed
+    — zero loss) and re-grows the mesh (s2's ranks rejoin), returning grad
+    accum to exactly 1 (``symmetric_accum``).
+
+    Invariants (JAX's): train loss continuity against an uninterrupted
+    4-rank run; the SLO fires and resolves exactly once; zero lost serve
+    requests through BOTH the replica death and the pool resizes; exactly
+    one ``sched_preempt`` and one ``sched_restore`` in the journal; and an
+    arbiter crashed mid-preemption resumes from the persisted ledger
+    absorbing a replayed page WITHOUT repeating the preemption.  The ranks
+    and the pool run on ``device`` (``cuda`` unless the caller asks for the
+    CPU); ``serve_weights`` is a state dict for the pool's tiny Llama (the
+    port's seed-0 weights without it).
+    """
+    from deeplearning_cfn_tpu_torch.device import resolve_device
+
+    device = resolve_device(device).type
+    report = ScenarioReport("sched-flash-crowd", seed)
+    root = tempfile.mkdtemp(prefix="dlcfn-chaos-sched-")
+    try:
+        ranks = _spawn_ranks(seed, root, device, "--sched-flash-crowd-rank",
+                             (serve_weights or "",))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    straight, live = r0["straight"], r0["live"]
+    report.check(
+        r0["crowd"]["initial"] == {"serve-chat": ["s0"], "train-fsdp": ["s1", "s2"]},
+        "placer gave prod-serve the first slice and prod-train the rest (floors then "
+        "priority-ordered fill)")
+    crowd_checks(report, r0, straight, live,
+                 {**(r0["mid"] or {"topology": None, "grad_accum": None}),
+                  "want": {"devices": 2, "axes": {"fsdp": 2}}},
+                 {**r0["post"], "want": {"devices": 4, "axes": {"dp": 2, "fsdp": 2}}})
+    left = [r["left_at"] for r in ranks[2:]]
+    back = [r.get("rejoined_at") for r in ranks[2:]]
+    report.check(
+        len(set(left)) == 1 and left[0] is not None and back[0] is not None
+        and len(set(back)) == 1 and all(r["step"] == CROWD_STEPS for r in ranks)
+        and all(r["live"][left[0]:] == live[back[0]:] for r in ranks[2:]),
+        "the preempted slice's ranks parked at the shrink and rejoined at the re-grow, "
+        "training its last steps with the survivors")
+    c = r0["crowd"]
+    report.details.update(
+        schedule={str(k): v for k, v in sorted(CROWD_SCHEDULE.items())},
+        kill_round=c["kill_round"],
+        victim=c["victim"],
+        timeline=[list(t) for t in c["timeline"]],
+        requests=c["requests"],
+        completions=c["completions"],
+        replayed=c["replayed"],
+        drain_rounds=c["drain_rounds"],
+        mid_topology=(r0["mid"] or {}).get("topology"),
+        post_topology=r0["post"]["topology"],
+        grad_accum_mid=(r0["mid"] or {}).get("grad_accum"),
+        grad_accum_final=r0["post"]["grad_accum"],
+        straight_losses=[round(v, 6) for v in straight],
+        live_losses=[round(v, 6) for v in live],
+        arbiter_counters=c["counters"],
+        parked_at=left[0],
+        rejoined_at=back[0],
+    )
+    return report
+
+
 SCENARIOS: dict[str, Callable[[int], ScenarioReport]] = {
     "slice-loss-live": slice_loss_live,
+    "sched-flash-crowd": sched_flash_crowd,
 }
 
 #: The fault kinds each scenario injects (the JAX catalog's entries).
 SCENARIO_FAULTS: dict[str, tuple[str, ...]] = {
     "slice-loss-live": ("slice-loss", "forced-fallback"),
+    "sched-flash-crowd": ("flash-crowd", "replica-loss", "preemption"),
 }
 
 
@@ -430,7 +940,9 @@ def run_scenario(name: str, seed: int = 0, device: str = "cuda") -> ScenarioRepo
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--slice-loss-live-rank":
         _slice_loss_live_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif len(sys.argv) == 6 and sys.argv[1] == "--sched-flash-crowd-rank":
+        _sched_flash_crowd_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     else:
         raise SystemExit("usage: python -m deeplearning_cfn_tpu_torch.chaos.scenarios "
-                         "--slice-loss-live-rank SEED ROOT DEVICE (one rank; run_scenario "
-                         "starts them)")
+                         "--slice-loss-live-rank SEED ROOT DEVICE | --sched-flash-crowd-rank "
+                         "SEED ROOT DEVICE WEIGHTS (one rank; run_scenario starts them)")

@@ -12,8 +12,10 @@ far, each the counterpart of the ``dlcfn`` command of its name:
   run      <template.json> [--auto-recover N]  provision + run the job
   startup-script, stage, gen-scripts        worker boot script, staging,
                                             per-host launch scripts
-  serve, convert, events, status (liveness, broker, fleet, mesh, reshard
-  and span sections), chaos (the ``slice-loss-live`` scenario)
+  serve, convert, events, status, trace, postmortem
+  sched --ledger PATH [--init s0=4,...] [--submit NAME ...]
+                                            the fleet arbiter's ledger
+  chaos (``slice-loss-live``, ``sched-flash-crowd``)
 
 The local backend executes everything in-process (the fake cloud) and
 ``run`` trains the template's job in this process, on the card unless the
@@ -24,8 +26,7 @@ recover is the production topology: bootstrap agents
 VMs and rendezvous through the native broker, which ``auto`` builds and
 starts as part of the stack and ``delete`` tears down.  Templates name the
 JAX package's job modules; ``cluster/launcher.resolve_job_module`` maps them
-onto the port's.  ``status --metrics-dir/--profile/--serve`` come with the
-slice that ports the rest of ``obs/``.
+onto the port's.
 """
 
 from __future__ import annotations
@@ -37,9 +38,6 @@ import os
 import sys
 import time
 from pathlib import Path
-
-_OBS_SLICE = "a later slice of the PyTorch port (obs/: profiler folds, serving folds, SLO)"
-
 
 # --- the operator commands: template -> cluster -> job -------------------------
 
@@ -813,20 +811,6 @@ def _status_broker_role(args) -> dict | None:
     return None
 
 
-def _status_broker_events(args) -> dict | None:
-    """Broker lifecycle counters folded from journaled
-    ``broker_promoted`` / ``standby_reprovisioned`` events, or None (no
-    journal / no failovers).  Merged into the ``broker`` status block so
-    an operator sees promotion and self-heal counts next to the live
-    replication table."""
-    if not args.journal:
-        return None
-    from deeplearning_cfn_tpu_torch.obs.exporter import fold_broker_events
-    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
-
-    return fold_broker_events(read_journal(args.journal)) or None
-
-
 def _status_fleet(args, liveness) -> dict | None:
     """Fleet-merged agent telemetry from the broker's TELEM table, or
     None (``--fleet`` not passed / no broker source / dial failure).
@@ -902,17 +886,6 @@ def _status_spans(args) -> dict | None:
     return out
 
 
-def _status_reshard(args) -> dict | None:
-    """Live-reshard counters folded from journaled ``reshard`` /
-    ``reshard_fallback`` events, or None (no journal / no reshards)."""
-    if not args.journal:
-        return None
-    from deeplearning_cfn_tpu_torch.obs.exporter import fold_reshard_events
-    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
-
-    return fold_reshard_events(read_journal(args.journal)) or None
-
-
 def _status_mesh(args) -> dict | None:
     """The current mesh shape straight from the published cluster
     contract (slices/workers/chips and the degraded flag) — after a live
@@ -939,49 +912,195 @@ def _status_mesh(args) -> dict | None:
     }
 
 
+def _journal_fold(args, fold, kind: str | None = None, flag: str | None = None,
+                  by_name: bool = False) -> dict | None:
+    """``fold`` over the flight journal's events (those of ``kind``), or
+    None: no ``--journal``, the section's ``flag`` not passed, or nothing
+    folded.  ``by_name`` sorts a per-name fold (pipelines, replicas,
+    programs) by name, as ``status`` prints it."""
+    if not args.journal or (flag is not None and not getattr(args, flag, False)):
+        return None
+    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
+
+    folded = fold(read_journal(args.journal, kind=kind))
+    return (dict(sorted(folded.items())) if by_name else folded) or None
+
+
+def _status_profile(args) -> dict | None:
+    """Step-profile snapshots and straggler table from the journal, or
+    None (``--profile`` not passed / no journal / no profile events).
+
+    ``step_profile`` events carry a StepProfiler snapshot (the latest
+    per profiler name wins — it aggregates everything before it);
+    ``step_time`` events from two or more hosts feed the slowest-host-
+    per-step table (obs/trace_export.straggler_table)."""
+    if not getattr(args, "profile", False) or not args.journal:
+        return None
+    from deeplearning_cfn_tpu_torch.obs.recorder import read_journal
+    from deeplearning_cfn_tpu_torch.obs.trace_export import straggler_table
+
+    profilers: dict[str, dict] = {}
+    for event in read_journal(args.journal, kind="step_profile"):
+        name = event.get("name")
+        if isinstance(name, str):
+            profilers[name] = {
+                key: event[key]
+                for key in (
+                    "steps",
+                    "data_wait_ms",
+                    "h2d_ms",
+                    "dispatch_ms",
+                    "compute_ms",
+                    "host_ms",
+                    "step_ms",
+                    "phases",
+                )
+                if key in event
+            }
+    step_events = list(read_journal(args.journal, kind="step_time"))
+    hosts = {
+        e.get("worker") or e.get("host")
+        for e in step_events
+        if e.get("worker") or e.get("host")
+    }
+    stragglers = straggler_table(step_events) if len(hosts) >= 2 else None
+    out: dict = {}
+    if profilers:
+        out["profilers"] = dict(sorted(profilers.items()))
+    if stragglers and stragglers["steps"]:
+        out["stragglers"] = stragglers
+    return out or None
+
+
+def _status_metrics(base: str) -> list | None:
+    """Latest per-worker train/eval records from the JSONL metrics stream
+    (``train.metrics.JsonlMetricsSink`` files on the shared mount),
+    machine-read instead of tailing per-rank logs."""
+    import glob as _glob
+
+    files = sorted(_glob.glob(str(Path(base) / "*" / "worker*.jsonl")))
+    if not files:
+        return None
+    out = []
+    for path in files:
+        run = Path(path).parent.name
+        last_step, last_eval = None, None
+        with open(path) as fh:
+            for line in fh:
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue  # torn tail write on shared storage
+                if rec.get("event") == "train_step":
+                    last_step = rec
+                elif rec.get("event") == "eval":
+                    last_eval = rec
+        entry = {"run": run, "worker": Path(path).stem}
+        if last_step:
+            entry.update(
+                step=last_step.get("step"),
+                loss=last_step.get("loss"),
+                examples_per_sec=round(last_step.get("examples_per_sec", 0), 1),
+            )
+            if "mfu" in last_step:
+                entry["mfu"] = round(last_step["mfu"], 4)
+        if last_eval:
+            entry["eval"] = {
+                k: v
+                for k, v in last_eval.items()
+                if k not in ("ts", "process", "event", "run")
+            }
+        out.append(entry)
+    return out
+
+
 def cmd_status(args) -> int:
-    """Cluster status: broker-driven liveness plus the control plane's
-    role/epoch/replication lag (``--cluster`` / ``--broker``), fleet-merged
-    agent telemetry (``--fleet``), the mesh from the published cluster
-    contract (``--cluster``), and the live-reshard counters, broker
-    lifecycle counters and span aggregates from a flight journal
-    (``--journal``); ``--format prom`` renders them as Prometheus text.
-    ``--metrics-dir``, ``--profile`` and ``--serve`` raise, naming the slice
-    that ports them."""
-    for flag, what in (("metrics_dir", "--metrics-dir"), ("profile", "--profile"),
-                       ("serve", "--serve")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"status {what} is ported in {_OBS_SLICE}")
-    if not (args.cluster or args.status_broker or args.journal):
-        raise SystemExit("status needs a source: --cluster, --broker, and/or --journal")
+    """Cluster status from any of four sources (at least one required):
+    per-worker training metrics (``--metrics-dir``), broker-driven liveness
+    plus the control plane's role/epoch/replication lag (``--cluster`` /
+    ``--broker``), fleet-merged agent telemetry (``--fleet``), and the
+    folds of a flight journal (``--journal``: spans, the input pipeline,
+    reshards, the broker's lifecycle, with ``--profile`` the step profiles
+    and the straggler table, with ``--serve`` the replicas' snapshots, and
+    the comms, replay, data-plane, gauntlet and scheduler sections).
+    ``--format prom`` renders them as Prometheus text."""
+    if not (args.metrics_dir or args.cluster or args.status_broker or args.journal):
+        raise SystemExit(
+            "status needs a source: --metrics-dir, --cluster, --broker, and/or --journal"
+        )
+    from deeplearning_cfn_tpu_torch.obs import exporter
+    from deeplearning_cfn_tpu_torch.train.pipeline import fold_pipeline_events
+
     liveness = _status_liveness(args)
     broker = _status_broker_role(args)
-    broker_events = _status_broker_events(args)
+    # The broker's promotions and self-heals, beside its live replication.
+    broker_events = _journal_fold(args, exporter.fold_broker_events)
     if broker_events is not None:
         broker = {**(broker or {}), "events": broker_events}
     spans = _status_spans(args)
-    reshard = _status_reshard(args)
+    pipeline = _journal_fold(args, fold_pipeline_events, "input_pipeline", by_name=True)
+    reshard = _journal_fold(args, exporter.fold_reshard_events)
     mesh = _status_mesh(args)
+    profile = _status_profile(args)
+    serve = _journal_fold(args, exporter.fold_serve_events, "serve_metrics", "serve",
+                          by_name=True)
+    comms = _journal_fold(args, exporter.fold_comms_events, "comms_audit", by_name=True)
+    replay = _journal_fold(args, exporter.fold_replay_events, "replay_audit")
+    datastream = _journal_fold(args, exporter.fold_datastream_events, "datastream")
+    gauntlet = _journal_fold(args, exporter.fold_gauntlet_events, "gauntlet")
+    # The arbiter's counters: JAX's status leaves this fold to callers of
+    # render_prometheus(sched=).
+    sched = _journal_fold(args, exporter.fold_sched_events)
     fleet = _status_fleet(args, liveness)
+    workers = _status_metrics(args.metrics_dir) if args.metrics_dir else None
+    if args.metrics_dir and workers is None:
+        print(f"no metrics under {args.metrics_dir}", file=sys.stderr)
+        return 1
     if args.format == "prom":
-        from deeplearning_cfn_tpu_torch.obs.exporter import render_prometheus
-
-        print(render_prometheus(liveness, spans, cluster=args.cluster or "", reshard=reshard,
-                                mesh=mesh, broker=broker, fleet=fleet), end="")
+        print(
+            exporter.render_prometheus(
+                liveness,
+                spans,
+                cluster=args.cluster or "",
+                pipeline=pipeline,
+                reshard=reshard,
+                mesh=mesh,
+                profile=profile,
+                serve=serve,
+                broker=broker,
+                comms=comms,
+                fleet=fleet,
+                datastream=datastream,
+                sched=sched,
+                replay=replay,
+                gauntlet=gauntlet,
+            ),
+            end="",
+        )
         return 0
-    out: dict = {}
-    if liveness is not None:
-        out["liveness"] = liveness
-    if broker is not None:
-        out["broker"] = broker
-    if mesh is not None:
-        out["mesh"] = mesh
-    if reshard is not None:
-        out["reshard"] = reshard
-    if spans is not None:
-        out["spans"] = spans
-    if fleet is not None:
-        out["fleet"] = fleet
+    sections = {
+        "liveness": liveness,
+        "broker": broker,
+        "mesh": mesh,
+        "reshard": reshard,
+        "spans": spans,
+        "input_pipeline": pipeline,
+        "profile": profile,
+        "serve": serve,
+        "comms": comms,
+        "replay": replay,
+        "datastream": datastream,
+        "gauntlet": gauntlet,
+        "fleet": fleet,
+        "sched": sched,
+    }
+    if all(v is None for v in sections.values()):
+        # Metrics only: the bare list of workers, as JAX's status prints it.
+        print(json.dumps(workers, indent=2))
+        return 0
+    out = {k: v for k, v in sections.items() if v is not None}
+    if workers is not None:
+        out["workers"] = workers
     print(json.dumps(out, indent=2))
     return 0
 
@@ -1014,6 +1133,157 @@ def cmd_events(args) -> int:
         count += 1
     if count == 0:
         print("journal is empty (no matching events)", file=sys.stderr)
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Merge per-host flight journals into one Chrome/Perfetto timeline.
+
+    Clock alignment (on by default) recovers per-host offsets from the
+    heartbeat_sent / heartbeat_observed pairs both sides already journal
+    (obs/trace_export.py); the offsets and the straggler table go to
+    stderr, the trace JSON to ``--out`` (or stdout).  Load the JSON in
+    chrome://tracing or https://ui.perfetto.dev."""
+    from deeplearning_cfn_tpu_torch.obs.trace_export import (
+        chrome_trace,
+        merge_journals,
+        straggler_table,
+    )
+
+    paths = [p for p in args.journal or []]
+    if not paths:
+        raise SystemExit(
+            "trace needs --journal PATH (repeat once per host)"
+        )
+    missing = [
+        p for p in paths
+        if not Path(p).exists() and not Path(p + ".1").exists()
+    ]
+    if missing:
+        print(f"no journal at {', '.join(missing)}", file=sys.stderr)
+        return 1
+    events, meta = merge_journals(paths, align=not args.no_align)
+    trace = chrome_trace(events)
+    payload = json.dumps(trace, allow_nan=False, default=str)
+    if args.out:
+        Path(args.out).write_text(payload + "\n", encoding="utf-8")
+        print(
+            f"wrote {len(trace['traceEvents'])} trace events to {args.out}",
+            file=sys.stderr,
+        )
+    else:
+        print(payload)
+    summary: dict = {"clock": meta}
+    stragglers = straggler_table(events)
+    if stragglers["steps"]:
+        summary["stragglers"] = stragglers
+    print(json.dumps(summary, indent=2, default=str), file=sys.stderr)
+    return 0
+
+
+def cmd_postmortem(args) -> int:
+    """Merge per-host blackbox bundles into one causal timeline.
+
+    Bundles are what obs/blackbox.py captured at each host's death
+    (journal tail, profiler state, config, budgets); clocks are aligned
+    with the heartbeat pairs inside the bundles' journals, ties break
+    deterministically by (host, seq), and SLO alert transitions are
+    overlaid so "what fired" reads next to "what happened"."""
+    from deeplearning_cfn_tpu_torch.obs.blackbox import (
+        merge_bundles,
+        read_bundle,
+        render_timeline,
+    )
+
+    paths: list[Path] = []
+    for raw in args.bundle or []:
+        p = Path(raw)
+        if p.is_dir():
+            paths.extend(sorted(p.glob("blackbox-*.json")))
+        else:
+            paths.append(p)
+    if not paths:
+        raise SystemExit(
+            "postmortem needs bundle files or a directory of "
+            "blackbox-*.json captures"
+        )
+    missing = [str(p) for p in paths if not p.exists()]
+    if missing:
+        print(f"no bundle at {', '.join(missing)}", file=sys.stderr)
+        return 1
+    bundles = []
+    for p in paths:
+        try:
+            bundles.append(read_bundle(p))
+        except (ValueError, OSError) as e:
+            print(f"skipping unreadable bundle {p}: {e}", file=sys.stderr)
+    if not bundles:
+        return 1
+    merged = merge_bundles(bundles)
+    if args.format == "json":
+        print(json.dumps(merged, indent=2, default=str))
+    else:
+        print(render_timeline(merged, last_n=args.last or None), end="")
+    return 0
+
+
+class _FileLedger:
+    """File-backed stand-in for the broker KV (``set``/``get`` duck type)
+    so ``sched`` works against a plain JSON file — the production
+    path stores the same ledger through a BrokerConnection."""
+
+    def __init__(self, path: Path):
+        self.path = path
+
+    def get(self, key: str) -> str | None:
+        if not self.path.exists():
+            return None
+        table = json.loads(self.path.read_text() or "{}")
+        return table.get(key)
+
+    def set(self, key: str, value: str) -> None:
+        table = {}
+        if self.path.exists():
+            table = json.loads(self.path.read_text() or "{}")
+        table[key] = value
+        self.path.write_text(json.dumps(table, sort_keys=True))
+
+
+def cmd_sched(args) -> int:
+    """Inspect or build the fleet arbiter's ledger (``sched/``).  ``--init``
+    seeds a fresh ledger from a slice inventory; ``--submit`` admits a job
+    and places it; with neither, prints the resumed arbiter's status."""
+    from deeplearning_cfn_tpu_torch.sched import FleetArbiter, JobSpec, SchedError
+
+    store = _FileLedger(args.ledger)
+    try:
+        if args.init:
+            inventory = {}
+            for part in args.init.split(","):
+                name, _, chips = part.partition("=")
+                if not name or not chips:
+                    print(f"dlcfn sched: bad --init entry {part!r} "
+                          "(want slice=chips, e.g. s0=4)")
+                    return 2
+                inventory[name.strip()] = int(chips)
+            arbiter = FleetArbiter(inventory, store=store)
+            arbiter.persist()
+        else:
+            arbiter = FleetArbiter.resume(store)
+        if args.submit:
+            arbiter.submit(
+                JobSpec(
+                    name=args.submit,
+                    kind=args.kind,
+                    priority=args.priority,
+                    min_slices=args.min_slices,
+                    max_slices=args.max_slices,
+                )
+            )
+    except SchedError as exc:
+        print(f"dlcfn sched: {exc}")
+        return 2
+    print(json.dumps(arbiter.status(), indent=2, sort_keys=True))
     return 0
 
 
@@ -1146,18 +1416,20 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--tokenizer", default=None,
                     help="local HF tokenizer dir for --format text (default: byte-level)")
     pc.set_defaults(fn=cmd_convert)
-    ps = sub.add_parser("status", help="worker liveness, the broker, the mesh, live-reshard "
-                                       "counters and span aggregates")
+    ps = sub.add_parser("status", help="worker metrics, liveness, the broker, the mesh and "
+                                       "the flight journal's folds")
     ps.add_argument("--cluster", default=None,
                     help="cluster name: per-worker liveness from its recorded broker's "
                          "HEARTBEAT table, the replicated pair's role/epoch/replication lag, "
                          "and the mesh from its published contract ($DLCFN_ROOT)")
     ps.add_argument("--journal", default=None,
-                    help="flight journal (JSONL) to fold reshard counters and spans from")
+                    help="flight journal (JSONL) to fold spans, reshards, profiles and "
+                         "serving snapshots from")
     ps.add_argument("--format", choices=["json", "prom"], default="json",
                     help="prom = Prometheus text exposition")
     ps.add_argument("--metrics-dir", dest="metrics_dir", default=None,
-                    help="per-worker training metrics (not ported yet)")
+                    help="shared metrics dir: the latest train/eval record of every "
+                         "worker's JSONL stream (<dir>/<run>/worker*.jsonl)")
     ps.add_argument("--broker", default=None, dest="status_broker", metavar="HOST:PORT",
                     help="dial a broker directly for the liveness table and its ROLE "
                          "(role/epoch/applied-seq); AUTH token from $DLCFN_BROKER_TOKEN")
@@ -1165,8 +1437,13 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="S", help="heartbeat age (s) before a worker is SUSPECT")
     ps.add_argument("--dead-after", type=float, default=60.0, dest="dead_after",
                     metavar="S", help="heartbeat age (s) before a worker is DEAD")
-    ps.add_argument("--profile", action="store_true", help="step profiles (not ported yet)")
-    ps.add_argument("--serve", action="store_true", help="serving snapshots (not ported yet)")
+    ps.add_argument("--profile", action="store_true",
+                    help="with --journal: step-profiler snapshots (per-phase p50/p95/p99) "
+                         "and, when step_time events span 2+ hosts, the slowest-host-per-step "
+                         "straggler table")
+    ps.add_argument("--serve", action="store_true",
+                    help="with --journal: per-replica serving snapshots (slots, queue depth, "
+                         "TTFT quantiles, tokens/s) folded from serve_metrics events")
     ps.add_argument("--fleet", action="store_true",
                     help="with --broker/--cluster: fleet-merged agent telemetry from the "
                          "broker's TELEM table (gauge sum/max/last per worker, fleet-wide "
@@ -1185,9 +1462,51 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--poll", type=float, default=0.5, metavar="S",
                     help="--follow poll interval in seconds")
     pe.set_defaults(fn=cmd_events)
+    pt = sub.add_parser("trace", help="merge flight journals into a Chrome/Perfetto trace "
+                                      "timeline")
+    pt.add_argument("--journal", action="append", default=[], metavar="PATH",
+                    help="flight journal to merge (repeat once per host)")
+    pt.add_argument("--out", default=None,
+                    help="write trace JSON here (default: stdout; the clock-offset/straggler "
+                         "summary always goes to stderr)")
+    pt.add_argument("--no-align", action="store_true", dest="no_align",
+                    help="skip heartbeat-based cross-host clock alignment (merge on raw "
+                         "per-host timestamps)")
+    pt.set_defaults(fn=cmd_trace)
+    pm = sub.add_parser("postmortem",
+                        help="merge blackbox bundles into one causal cross-host timeline")
+    pm.add_argument("bundle", nargs="*", metavar="PATH",
+                    help="bundle file (blackbox-<host>.json) or a directory of them; repeat "
+                         "once per host")
+    pm.add_argument("--format", choices=["text", "json"], default="text",
+                    help="text = aligned timeline with alerts overlaid; json = the full "
+                         "merged structure")
+    pm.add_argument("-n", "--last", type=int, default=0, dest="last",
+                    help="only the last N timeline events (0 = all)")
+    pm.set_defaults(fn=cmd_postmortem)
+    pd = sub.add_parser("sched", help="fleet arbiter: inspect or build the scheduling ledger")
+    pd.add_argument("--ledger", required=True, type=Path, metavar="PATH",
+                    help="JSON ledger file (file-backed stand-in for the broker KV the "
+                         "arbiter persists through)")
+    pd.add_argument("--init", default=None, metavar="SPEC",
+                    help="seed a fresh ledger with this slice inventory, e.g. s0=4,s1=4,s2=4 "
+                         "(slice=chips, comma-separated)")
+    pd.add_argument("--submit", default=None, metavar="NAME",
+                    help="admit a job and place it on free slices")
+    pd.add_argument("--kind", default="train", choices=["train", "serve"],
+                    help="job kind for --submit")
+    pd.add_argument("--priority", default="batch",
+                    choices=["prod-serve", "prod-train", "batch"],
+                    help="priority class for --submit")
+    pd.add_argument("--min-slices", type=int, default=1, dest="min_slices",
+                    help="quota floor: fewer than this and the job is unplaced, never "
+                         "partially placed")
+    pd.add_argument("--max-slices", type=int, default=1, dest="max_slices",
+                    help="quota ceiling for opportunistic fill")
+    pd.set_defaults(fn=cmd_sched)
     px = sub.add_parser("chaos", help="run seeded fault-injection scenarios (resilience soak)")
     px.add_argument("--scenario", default=None,
-                    help="scenario name (see --list): slice-loss-live")
+                    help="scenario name (see --list): slice-loss-live, sched-flash-crowd")
     px.add_argument("--seed", type=int, default=0,
                     help="fault-schedule seed; reports are deterministic per (scenario, seed)")
     px.add_argument("--all", action="store_true", help="run every scenario in the catalog")

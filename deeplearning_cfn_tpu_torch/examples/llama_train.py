@@ -50,6 +50,10 @@ from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset
 from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
 
+#: Past this many parameters the weights are drawn on the trainer's device:
+#: a billion normals take the host a minute or more.
+DEVICE_DRAW_PARAMS = 10**9
+
 
 def token_record_batches(args, cfg, batch: int, eval_mode: bool = False, start_step: int = 0):
     """Token records (``cli convert --format text``) as causal-LM batches
@@ -149,8 +153,9 @@ def main(argv: list[str] | None = None) -> dict:
     # runs train from the next one (a resumed run too, so its stream lines
     # up with the straight run's).
     sample = next(iter(batches(1)))
-    # At 8B the weights are drawn on the card: 8 B normals take minutes on the host.
-    state = trainer.init(seed=0, **({"draw_on_device": True} if args.size == "8b" else {}))
+    # (A trainer on the CPU draws on the host either way.)
+    big = llama.param_count(cfg) > DEVICE_DRAW_PARAMS
+    state = trainer.init(seed=0, **({"draw_on_device": True} if big else {}))
     if ckpt is not None:
         ckpt.restore_latest(state)
     logger = trainer.throughput_logger(

@@ -1,8 +1,8 @@
 """Step-time profiler: the training step loop split into phases — the
 port's own copy of ``deeplearning_cfn_tpu/obs/profiler.py`` (its
-``RollingQuantiles``, ``PhaseStats``, ``StepProfiler``, ``NULL_PROFILER`` and
-``PHASES``; the per-program cost attribution reads XLA's cost analysis and
-is not ported).
+``RollingQuantiles``, ``PhaseStats``, ``StepProfiler``, ``NULL_PROFILER``,
+``PHASES`` and the per-program cost attribution, whose ``program_cost``
+counts with PyTorch's flop counter where JAX reads XLA's cost analysis).
 
 - ``data_wait``: the host blocked pulling the next batch from the source
   (``wrap_source`` times each ``next()``).
@@ -364,3 +364,97 @@ class StepProfiler:
 
 #: Shared disabled instance: ``Trainer.fit``'s default profiler.
 NULL_PROFILER = StepProfiler(name="null", enabled=False)
+
+
+# -- per-program cost attribution ---------------------------------------
+
+
+def program_cost(model: Any, x: Any, *, flops: float | None = None) -> dict[str, float | None]:
+    """FLOPs and bytes of one training step of ``model`` on the batch ``x``,
+    under JAX's keys (``flops``, ``bytes_accessed``).
+
+    JAX reads them from XLA's cost model of the compiled program; PyTorch
+    compiles no program to ask, so one forward of ``model(x)`` is run (on a
+    ``meta`` twin it takes no memory and no compute).  ``flops`` is the
+    caller's analytic count when given (``models.llama.train_flops_per_token
+    (cfg, S) * tokens``), else what ``torch.utils.flop_counter
+    .FlopCounterMode`` counts over that forward and one backward, taken with
+    ``torch.autograd.grad``: the caller's ``.grad`` are left as they were,
+    and with ``flops`` given no backward runs.  ``bytes_accessed`` counts
+    the parameters read and their gradients written, ``x`` read, the output
+    written, and every other tensor the forward saves for the backward
+    (``saved_tensors_hooks``, one count a storage) written and read back.
+    A step's optimizer traffic, re-reads and recomputation have no count
+    here, and no value stands in for them.  ``None`` values when the forward
+    cannot run (the backend reports no cost model, in JAX's words)."""
+    import contextlib
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def nbytes(t) -> int:
+        return t.numel() * t.element_size()
+
+    def storage(t) -> int:
+        return t.untyped_storage()._cdata
+
+    params = list(model.parameters())
+    counted = {storage(p) for p in params} | {storage(x)}
+    saved: dict[int, int] = {}
+
+    def pack(t):
+        key = storage(t)
+        if key not in counted:
+            saved[key] = max(saved.get(key, 0), nbytes(t))
+        return t
+
+    trainable = [p for p in params if p.requires_grad]
+    try:
+        with contextlib.ExitStack() as stack:
+            counter = None if flops is not None else stack.enter_context(
+                FlopCounterMode(display=False))
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                out = model(x)
+            logits = out[0] if isinstance(out, (tuple, list)) else out
+            if counter is not None and trainable:
+                torch.autograd.grad(logits.float().sum(), trainable, allow_unused=True)
+    except (RuntimeError, TypeError, ValueError):
+        return {"flops": flops, "bytes_accessed": None}
+    counted_flops = float(flops) if counter is None else float(counter.get_total_flops())
+    if not isinstance(logits, torch.Tensor):
+        return {"flops": counted_flops, "bytes_accessed": None}
+    # The output is written once; saved for the backward, it is read back too.
+    written = sum(v for k, v in saved.items() if k != storage(logits))
+    moved = (2 * sum(nbytes(p) for p in params) + nbytes(x) + nbytes(logits)
+             + 2 * written + saved.get(storage(logits), 0))
+    return {"flops": counted_flops, "bytes_accessed": float(moved)}
+
+
+def program_attribution(
+    *,
+    flops: float | None,
+    bytes_accessed: float | None,
+    seconds_per_call: float,
+    steps_per_call: int = 1,
+    peak_flops: float | None = None,
+) -> dict[str, Any]:
+    """Per-program MFU/MBU from a cost count and the measured call time.
+
+    ``flops``/``bytes_accessed`` are per *call* (a k-step program's cost
+    covers all k iterations) and per rank, so
+    ``mfu = flops / (seconds_per_call * peak_flops)`` is the per-device
+    utilization of that one program.  The JAX package's function, copied."""
+    steps_per_call = max(1, int(steps_per_call))
+    out: dict[str, Any] = {
+        "steps_per_call": steps_per_call,
+        "seconds_per_call": round(seconds_per_call, 6),
+    }
+    if flops is not None:
+        out["flops_per_step"] = flops / steps_per_call
+        if peak_flops and seconds_per_call > 0:
+            out["mfu"] = round(flops / (seconds_per_call * peak_flops), 4)
+    if bytes_accessed is not None:
+        out["bytes_per_step"] = bytes_accessed / steps_per_call
+        if seconds_per_call > 0:
+            out["bytes_per_sec"] = round(bytes_accessed / seconds_per_call, 1)
+    return out

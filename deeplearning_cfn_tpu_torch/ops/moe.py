@@ -167,8 +167,15 @@ def moe_mlp(cfg: MoEConfig, params, x: torch.Tensor, ep_group=None,
     return y.reshape(B, S, d), aux_loss(cfg, r)
 
 
+def _device(generator):
+    """Where a draw from ``generator`` lands: its device (the default one
+    without a generator), as ``models/llama._dense`` draws."""
+    return generator.device if generator is not None else None
+
+
 def _dense(shape, dtype, generator) -> nn.Parameter:
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) / shape[-2] ** 0.5
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=_device(generator)) / shape[-2] ** 0.5
     return nn.Parameter(w.to(dtype))
 
 
@@ -184,7 +191,8 @@ class MoE(nn.Module):
         self.cfg = cfg
         E = cfg.n_experts
         self.router = nn.Parameter(
-            torch.randn((dim, E), generator=generator, dtype=torch.float32) * 0.02)
+            torch.randn((dim, E), generator=generator, dtype=torch.float32,
+                        device=_device(generator)) * 0.02)
         self.w_gate = _dense((E, dim, mlp_dim), dtype, generator)
         self.w_up = _dense((E, dim, mlp_dim), dtype, generator)
         self.w_down = _dense((E, mlp_dim, dim), dtype, generator)

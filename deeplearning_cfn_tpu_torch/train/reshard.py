@@ -50,11 +50,33 @@ Failure in 2-4 (``ReshardError``, ``MeshError``, ``ValueError``, and
 ``force_fallback``) degrades to the checkpoint/restore path: the coordinator
 journals ``reshard_fallback`` and returns ``"stop"``, and the caller
 restores on the surviving mesh.  The catch is not widened: a CUDA, NCCL or
-gloo error propagates.  Growing the mesh (``arm_restore``) needs ranks that
-rejoin, which comes with the scheduler (``sched/``) in a later slice:
-``execute`` raises ``NotImplementedError`` on it.  Live migration keeps to
-the data axes (dp, fsdp); a mesh split over pp, sp, tp or ep, and the
-bucketed sync's per-rank residuals, take the fallback.
+gloo error propagates.  Live migration keeps to the data axes (dp, fsdp); a
+mesh split over pp, sp, tp or ep, and the bucketed sync's per-rank
+residuals, take the fallback.
+
+Growing the mesh (``arm_restore``, the scheduler's restore of a slice it
+lent away) is where the JAX design cannot carry over: JAX re-meshes devices
+inside one process, and ``torch.distributed`` cannot add a rank to a running
+process group.  So a rank comes back only if it never left the group:
+
+- The ranks of a slice that leaves *park* (the scheduler's preemption is a
+  controlled loss): once ``fit`` returns ``"leave"`` they call
+  :meth:`LiveReshardCoordinator.rejoin`, which writes a key on the process
+  group's store and waits for a decision keyed to them.
+- At the grow boundary the survivors publish the decision (step, contract,
+  accumulation) on the store; every rank of the grown mesh first makes as
+  many process groups as the busiest of them has made (the hashed names of
+  groups made with ``use_local_synchronization`` count a process's groups),
+  then they build the new mesh and a coordinator group together.
+- The survivors send the state to the returning ranks: where every survivor
+  already holds its shards of the grown mesh (a slice returns to a dp x
+  fsdp mesh) each leaf is broadcast over the mesh's ``dp`` group from a
+  survivor; otherwise each leaf is gathered on the survivors and broadcast
+  whole from the coordinator rank.  The returning ranks are rebound and
+  accumulation returns to its pre-shrink value (``symmetric_accum``).
+- A slice whose processes are gone (a real death: they never call
+  ``rejoin``) has no key on the store within ``PARK_WAIT_S`` of the grow:
+  the grow takes the checkpoint fallback.
 
 Timing comes from the injected ``clock`` (``time.monotonic`` by default, a
 virtual clock in scenarios), never ``time.time()`` arithmetic.
@@ -62,6 +84,8 @@ virtual clock in scenarios), never ``time.time()`` arithmetic.
 
 from __future__ import annotations
 
+import datetime
+import json
 import math
 import time
 from dataclasses import dataclass, field
@@ -78,8 +102,13 @@ from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dlcfn.reshard")
 
-SCHED_SLICE = ("a later slice of the PyTorch port (sched/: ranks that rejoin a "
-               "running job)")
+#: Prefix of the keys the grow direction writes on the process group's store.
+STORE_PREFIX = "dlcfn-reshard"
+#: How long the survivors at a grow wait for a returning rank to park.  A
+#: rank parks as ``fit`` hands it ``"leave"``, and the survivors train at
+#: least one batch between the shrink and the grow: a rank not parked by
+#: then is taken for gone.
+PARK_WAIT_S = 5.0
 
 
 class ReshardError(RuntimeError):
@@ -232,14 +261,29 @@ def _region(t: torch.Tensor) -> tuple[slice, ...]:
     return tuple(slice(o, o + n) for o, n in zip(offset, shape))
 
 
-def _agree(value: int, group: Any) -> int:
-    """The least ``value`` over the ranks of ``group`` (this one's alone
-    without a process group)."""
+def _agree(value: int, group: Any, op: Any = None) -> int:
+    """The least ``value`` over the ranks of ``group`` (the greatest with
+    ``op=ReduceOp.MAX``; this one's alone without a process group)."""
     if not dist.is_initialized():
         return value
     t = torch.tensor([value], dtype=torch.int64)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN if op is None else op, group=group)
     return int(t.item())
+
+
+def _groups_made() -> int:
+    """Process groups this process has registered (the default one too)."""
+    return len(dist.distributed_c10d._world.pg_names)
+
+
+def _pad_groups(count: int) -> None:
+    """Make one-rank groups until this process has made ``count``.  A group
+    made with ``use_local_synchronization`` is named by a hash of its ranks
+    and of the count of groups its maker has made, so the ranks that meet in
+    a new group must have made as many before."""
+    me = dist.get_rank()
+    while _groups_made() < count:
+        dist.new_group([me], backend="gloo", use_local_synchronization=True)
 
 
 def _layout(trainer: Any, state: Any, shardings: StateShardings) -> tuple[Any, dict]:
@@ -317,6 +361,57 @@ def migrate_state(trainer: Any, state: Any, shardings: StateShardings | None,
     return _move(state, new, group)
 
 
+@torch.no_grad()
+def _broadcast_into(dst: torch.Tensor, src: int, group: Any) -> None:
+    """``dist.broadcast`` into ``dst`` in place (through a contiguous copy
+    when ``dst`` is a strided view)."""
+    if dst.is_contiguous():
+        dist.broadcast(dst, src=src, group=group)
+        return
+    buf = dst.contiguous()
+    dist.broadcast(buf, src=src, group=group)
+    dst.copy_(buf)
+
+
+@torch.no_grad()
+def _regrow(state: Any, new: Any, mesh: Any, group: Any, holders: list[int]) -> Any:
+    """Fill ``new`` (a state laid out on the grown ``mesh``) on every rank of
+    ``group``: a survivor passes its old ``state``, a returning rank None.
+    The ranks agree on the mode first: when every survivor's shards on the
+    grown mesh are its old ones and the mesh has a ``dp`` axis (a slice
+    comes back to a dp x fsdp mesh), each leaf is copied in place on the
+    survivors and broadcast over the ``dp`` group from its lowest survivor
+    (``holders`` are the survivors' global ranks); otherwise every sharded
+    leaf is gathered whole on the survivors and broadcast from the first
+    survivor over ``group``, each rank keeping its part."""
+    targets = _flat(new.state_dict())
+    old = _flat(state.state_dict()) if state is not None else None
+    dp = mesh_spec(mesh).dp if mesh is not None else 1
+    local = 1 if old is None else int(old.keys() == targets.keys() and all(
+        _region(targets[k]) == _region(v) for k, v in old.items()))
+    if _agree(int(local and dp > 1), group):
+        line = mesh.get_group("dp")
+        src = min((r for r in dist.get_process_group_ranks(line) if r in holders), default=None)
+        if src is None:
+            raise ReshardError("a dp group of the grown mesh holds no survivor")
+        for key in sorted(targets):
+            dst = local_part(targets[key])
+            if old is not None:
+                dst.copy_(local_part(old[key]))
+            _broadcast_into(dst, src, line)
+        return new
+    for key in sorted(targets):
+        dst = targets[key]
+        if old is not None:
+            whole = old[key].full_tensor() if hasattr(old[key], "device_mesh") else old[key]
+            whole = whole.contiguous()
+        else:
+            whole = torch.empty(dst.shape, dtype=dst.dtype, device=local_part(dst).device)
+        dist.broadcast(whole, src=holders[0], group=group)
+        local_part(dst).copy_(whole[_region(dst)])
+    return new
+
+
 def rescale_grad_accum(
     accum: int, old_devices: int, new_devices: int, *, symmetric: bool = False
 ) -> int:
@@ -392,7 +487,13 @@ class LiveReshardCoordinator:
     ``origin`` is the launch contract (the manager's at construction), which
     numbers the ranks; ``group`` the gloo group the decision is broadcast
     over (made over every rank at the first boundary, over the survivors
-    after a reshard); ``departed`` is set on a rank that left."""
+    after a reshard); ``departed`` is set on a rank that left.
+
+    A boundary that brings a slice back (``manager.arm_restore``) grows the
+    mesh when that slice's ranks parked: they wait in :meth:`rejoin` and
+    take part from there (module docstring); otherwise the grow takes the
+    fallback.  :meth:`release` on the coordinator rank
+    tells ranks still parked at the end of a run that no grow comes."""
 
     manager: Any  # cluster/recovery.LiveReshardManager (duck-typed)
     mesh_for: Callable[[Any], Any]  # surviving contract -> DeviceMesh
@@ -408,10 +509,22 @@ class LiveReshardCoordinator:
     #: over the survivors at the same step boundary the mesh is
     #: (train/datastream.DataStreamPlane).
     on_commit: Callable[[Any], Any] | None = None
+    #: Scheduler mode (``sched/preempt.py``): grad-accum rescale inverts
+    #: exactly on a grown mesh, so a preempt-then-restore round trip returns
+    #: accum to its pre-preempt value (bit-safe restore).  Off by default — a
+    #: plain slice-loss reshard keeps the conservative never-shrink-on-grow
+    #: behavior.
+    symmetric_accum: bool = False
     origin: Any = field(default=None, init=False)
     group: Any = field(default=None, init=False)
     departed: bool = field(default=False, init=False)
     _target: Any = field(default=None, init=False, repr=False)
+    #: global rank -> how many times it left (names its store keys)
+    _departures: dict = field(default_factory=dict, init=False, repr=False)
+    #: set by ``rejoin``: the survivors took the boundary it returns at
+    _rejoined: bool = field(default=False, init=False, repr=False)
+    #: this coordinator's namespace on the store (its first group's name)
+    _space: str = field(default="", init=False, repr=False)
 
     def __post_init__(self) -> None:
         self.origin = self.manager.contract
@@ -431,12 +544,18 @@ class LiveReshardCoordinator:
     def pending(self) -> bool:
         if self.fallback_pending or self.departed:
             return False
+        if self._rejoined:
+            # This rank came back at a boundary whose decision the
+            # survivors had taken: it trains that batch with them.
+            self._rejoined = False
+            return False
         if self.flush is not None:
             self.flush()
         if not dist.is_initialized():
             return bool(self.manager.needs_reshard)
         if self.group is None:
             self.group = dist.new_group(backend="gloo")
+            self._space = self.group.group_name  # one name on every rank, a coordinator
         lead = dist.get_rank(self.group) == 0
         src = dist.get_global_rank(self.group, 0)
         # 0: train on; 1: pause (the contract follows); 2: impossible.
@@ -481,11 +600,14 @@ class LiveReshardCoordinator:
         contract = self._target if self._target is not None else self.manager.surviving_contract()
         self._target = None
         if set(contract.worker_ips) - set(self.manager.contract.worker_ips):
-            raise NotImplementedError(f"growing a live mesh is ported in {SCHED_SLICE}")
+            return self._grow(trainer, state, step, contract, t0)
         leaving = False
         if dist.is_initialized():
             ranks = survivor_ranks(self.origin, contract)
             leaving = dist.get_rank() not in ranks
+            for r in survivor_ranks(self.origin, self.manager.contract):
+                if r not in ranks:
+                    self._departures[r] = self._departures.get(r, 0) + 1
         reason = None
         new_mesh = target = kept = None
         new_accum = old_accum
@@ -501,7 +623,8 @@ class LiveReshardCoordinator:
                 new_mesh = self.mesh_for(contract)
                 shardings = state_shardings_for(trainer, state, new_mesh)
                 ensure_hostable(state, shardings)
-                new_accum = rescale_grad_accum(old_accum, old_devices, _devices(new_mesh))
+                new_accum = rescale_grad_accum(old_accum, old_devices, _devices(new_mesh),
+                                               symmetric=self.symmetric_accum)
                 target, kept = _layout(trainer, state, shardings)
             except (ReshardError, MeshError, ValueError) as exc:
                 reason = str(exc)
@@ -532,24 +655,29 @@ class LiveReshardCoordinator:
             self.group = dist.new_group(ranks, backend="gloo", use_local_synchronization=True)
         if self.on_commit is not None:
             self.on_commit(contract)
+        self._journal_live(step, old_topology, mesh_topology(new_mesh), old_accum, new_accum,
+                           self.clock() - t0)
+        return new_state, "resume"
+
+    def _journal_live(self, step, old_topology, new_topology, old_accum, new_accum, seconds):
         record = ReshardRecord(
             step=step,
             mode="live",
             old_topology=old_topology,
-            new_topology=mesh_topology(new_mesh),
+            new_topology=new_topology,
             grad_accum_before=old_accum,
             grad_accum_after=new_accum,
-            seconds=self.clock() - t0,
+            seconds=seconds,
         )
         self.records.append(record)
         get_recorder().record(
             "reshard",
             step=step,
             old_topology=old_topology,
-            new_topology=record.new_topology,
+            new_topology=new_topology,
             grad_accum_before=old_accum,
             grad_accum_after=new_accum,
-            seconds=record.seconds,
+            seconds=seconds,
         )
         if new_accum != old_accum:
             get_recorder().record(
@@ -563,8 +691,126 @@ class LiveReshardCoordinator:
             "live reshard at step %d: %s -> %s (grad_accum %d -> %d)",
             step,
             old_topology,
-            record.new_topology,
+            new_topology,
             old_accum,
             new_accum,
         )
-        return new_state, "resume"
+
+    # --- the grow direction -------------------------------------------------
+
+    def _key(self, what: str, rank: int) -> str:
+        """The store key of ``rank``'s current parking: ``parked`` (written
+        by the rank as it parks) or ``rejoin`` (the decision it waits for)."""
+        return f"{STORE_PREFIX}/{self._space}/{what}/{rank}/{self._departures.get(rank, 0)}"
+
+    def _grow(self, trainer: Any, state: Any, step: int, contract: Any, t0: float):
+        """A survivor at a boundary that brings ranks back: the decision on
+        the store for the parked ranks, then :meth:`_join` with them; the
+        fallback when they are not parked."""
+        old_topology = mesh_topology(trainer.mesh)
+        old_accum = int(trainer.config.grad_accum_steps)
+        reason = None
+        current = ranks = joining = []
+        if not dist.is_initialized():
+            reason = "growing a mesh needs the returning ranks in a process group"
+        else:
+            current = survivor_ranks(self.origin, self.manager.contract)
+            ranks = survivor_ranks(self.origin, contract)
+            joining = [r for r in ranks if r not in current]
+            if self.force_fallback:
+                reason = "forced fallback (chaos injection)"
+            elif set(current) - set(ranks):
+                reason = "a boundary that both loses and regains ranks is not taken live"
+            elif not _parked([self._key("parked", r) for r in joining]):
+                reason = (f"ranks {joining} of the returning slice are not parked in the "
+                          "process group (their processes are gone)")
+        if not _agree(int(reason is None), self.group):
+            self._journal_fallback(step, old_topology, old_accum, self.clock() - t0,
+                                   reason or "another survivor cannot take the grow live",
+                                   contract)
+            return state, "stop"
+        store = _store()
+        groups = _agree(_groups_made(), self.group, dist.ReduceOp.MAX)
+        for r in joining:
+            groups = max(groups, json.loads(store.get(self._key("parked", r)))["groups"])
+        decision = {"step": step, "contract": contract.to_message(), "groups": groups,
+                    "holders": current, "old_topology": old_topology, "old_accum": old_accum,
+                    "accum": rescale_grad_accum(old_accum, _devices(trainer.mesh), len(ranks),
+                                                symmetric=self.symmetric_accum)}
+        if dist.get_rank(self.group) == 0:
+            for r in joining:
+                store.set(self._key("rejoin", r), json.dumps(decision))
+        return self._join(trainer, state, decision, t0), "resume"
+
+    def _join(self, trainer: Any, state: Any, decision: dict, t0: float) -> Any:
+        """Every rank of the grown mesh, survivors and returning ranks alike:
+        the same groups in the same order (padded to one count, the mesh's,
+        the coordinator's), the state laid out on the grown mesh and filled
+        by :func:`_regrow`, the trainer rebound."""
+        contract = type(self.manager.contract).from_message(decision["contract"])
+        ranks = survivor_ranks(self.origin, contract)
+        holders = decision["holders"]
+        _pad_groups(decision["groups"])
+        new_mesh = self.mesh_for(contract)
+        shardings = state_shardings_for(trainer, state, new_mesh)
+        target, _ = _layout(trainer, state, shardings)
+        self.group = dist.new_group(ranks, backend="gloo", use_local_synchronization=True)
+        with span("reshard", step=decision["step"]):
+            new_state = _regrow(state if dist.get_rank() in holders else None, target,
+                                new_mesh, self.group, holders)
+        new_state.step = decision["step"]
+        trainer.config.grad_accum_steps = decision["accum"]
+        self.manager.commit(contract)
+        if self.on_commit is not None:
+            self.on_commit(contract)
+        self._journal_live(decision["step"], decision["old_topology"], mesh_topology(new_mesh),
+                           decision["old_accum"], decision["accum"], self.clock() - t0)
+        return new_state
+
+    def rejoin(self, trainer: Any, state: Any, timeout_s: float = 3600.0) -> Any:
+        """Park a rank whose slice left (``fit`` returned ``"leave"``): wait
+        for the survivors' grow decision and take part in it.  Returns the state on the grown mesh, at the step the survivors
+        paused at — train on from that batch, with this coordinator: the
+        survivors train it on the grown mesh, and this rank's first
+        ``pending()`` is the one they already took — or None when the
+        coordinator rank released it (:meth:`release`).  ``trainer`` and
+        ``state`` are the rank's from before it left: the state names the
+        leaves to lay out, the trainer is rebound to the grown mesh."""
+        if not (self.departed and dist.is_initialized()):
+            raise ValueError("rejoin is for a rank of a process group whose slice left")
+        store = _store()
+        store.set(self._key("parked", dist.get_rank()), json.dumps({"groups": _groups_made()}))
+        key = self._key("rejoin", dist.get_rank())
+        store.wait([key], datetime.timedelta(seconds=timeout_s))
+        decision = json.loads(store.get(key))
+        if decision.get("release"):
+            return None
+        t0 = self.clock()
+        self.departed = False
+        self._rejoined = True
+        return self._join(trainer, state, decision, t0)
+
+    def release(self) -> None:
+        """On the coordinator rank when its run is over: every rank still
+        parked, or parking later, returns None from :meth:`rejoin`."""
+        if not dist.is_initialized() or dist.get_rank(self.group) != 0:
+            return
+        store = _store()
+        current = set(survivor_ranks(self.origin, self.manager.contract))
+        for r in sorted(self._departures):
+            if r not in current and not store.check([self._key("rejoin", r)]):
+                store.set(self._key("rejoin", r), json.dumps({"release": True}))
+
+
+def _store() -> Any:
+    """The store of the default process group (where ranks rendezvoused)."""
+    return dist.distributed_c10d._get_default_store()
+
+
+def _parked(keys: list[str]) -> bool:
+    """Whether every key is on the store within ``PARK_WAIT_S``."""
+    try:
+        _store().wait(keys, datetime.timedelta(seconds=PARK_WAIT_S))
+    except dist.DistStoreError:
+        return False
+    return True

@@ -489,9 +489,10 @@ def test_events_command_equals_jax(argv, tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--metrics-dir", "--profile", "--serve", "--broker",
                                   "liveness"])
 def test_status_sections_not_ported_name_their_slice(flag, tmp_path, monkeypatch, capsys):
-    """``--metrics-dir``, ``--profile`` and ``--serve`` still name the slice
-    that ports them; ``--broker`` and the liveness families now render, as
-    JAX's do (an unreachable broker exits with JAX's message)."""
+    """The sections that once named the slice porting them now render as
+    JAX's do: ``--metrics-dir`` (the workers' last records), ``--profile``
+    and ``--serve`` (their journal folds), ``--broker`` (an unreachable
+    broker exits with JAX's message) and the liveness families."""
     if flag == "liveness":
         live = {"w0": {"state": "alive", "age_s": 1.0, "beats": 2},
                 "w1": {"state": "dead", "age_s": 90.0, "beats": 1}}
@@ -509,11 +510,41 @@ def test_status_sections_not_ported_name_their_slice(flag, tmp_path, monkeypatch
             errors.append(str(err.value).split(":")[:3])
         assert errors[0] == errors[1] and "cannot reach broker" in errors[0][0]
         return
+    from deeplearning_cfn_tpu_torch.obs.profiler import StepProfiler
+
+    rec = FlightRecorder(path=tmp_path / "j")
+    clock = iter(i * 0.004 for i in range(100)).__next__
+    prof = StepProfiler(name="train", clock=clock, recorder=rec)
+    prof.start()
+    for i in range(2):
+        with prof.phase("dispatch"):
+            pass
+        prof.step_done(step=i)
+    prof.journal()
+    rec.record("serve_metrics", replica="r0", steps=3, queue_depth=1, active_slots=2,
+               tokens_per_s=10.0, ttft_ms={"p50": 5.0, "p95": 6.0, "p99": 7.0})
+    rec.close()
     argv = ["status", "--journal", str(tmp_path / "j"), flag]
     if flag == "--metrics-dir":
+        (tmp_path / "run").mkdir()
+        (tmp_path / "run" / "worker0.jsonl").write_text(json.dumps(
+            {"event": "train_step", "step": 4, "loss": 1.5, "examples_per_sec": 12.0}) + "\n")
         argv.append(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main(argv)
+    for fmt in ("json", "prom"):
+        outs = []
+        for main in (cli.main, jcli.main):
+            assert main([*argv, "--format", fmt]) == 0
+            outs.append(capsys.readouterr().out)
+        # The metrics dir has no Prometheus family: an empty text on both.
+        assert outs[0] == outs[1] and (outs[0] or (fmt, flag) == ("prom", "--metrics-dir"))
+    body = json.loads(_json_status(argv, capsys))
+    key = {"--metrics-dir": "workers", "--profile": "profile", "--serve": "serve"}[flag]
+    assert body[key]
+
+
+def _json_status(argv, capsys) -> str:
+    assert cli.main(argv) == 0
+    return capsys.readouterr().out
 
 
 # --- queue, bus, spans ---------------------------------------------------------------------

@@ -320,3 +320,60 @@ def test_fit_without_a_profiler_still_refuses_a_reshard():
     assert ttrainer.fit(tstate, iter(()), steps=1, reshard=object()) == (tstate, [])
     with pytest.raises(ValueError, match="steps_per_call"):
         ttrainer.fit(tstate, iter(()), steps=2, steps_per_call=2, reshard=object())
+
+
+@needs_jax
+@pytest.mark.parametrize("kw", [
+    dict(flops=4.0e12, bytes_accessed=2.0e9, seconds_per_call=0.5, steps_per_call=4,
+         peak_flops=989e12),
+    dict(flops=None, bytes_accessed=3.0e6, seconds_per_call=0.0),
+    dict(flops=7.0, bytes_accessed=None, seconds_per_call=0.125, peak_flops=None),
+])
+def test_program_attribution_equals_jax(kw):
+    assert profiler.program_attribution(**kw) == jax_profiler.program_attribution(**kw)
+
+
+def test_program_cost_counts_a_training_step():
+    """``program_cost`` keeps JAX's keys; its FLOPs are ``FlopCounterMode``'s
+    over one forward and backward (on ``meta``, no memory) or the analytic
+    count given; its bytes the parameters twice, the input, the output and
+    the tensors saved for the backward, written and read back."""
+    cfg = llama.LlamaConfig.tiny(vocab_size=64, seq_len=16, dtype=torch.float32)
+    with torch.device("meta"):
+        model = llama.Llama(cfg)
+        x = torch.zeros((2, 16), dtype=torch.int64)
+    got = profiler.program_cost(model, x)
+    assert set(got) == {"flops", "bytes_accessed"}
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    floor = 2 * params + 2 * 16 * 8 + 2 * 16 * 64 * 4
+    # Every block saves at least its two norms' inputs and its MLP's hidden.
+    acts = cfg.n_layers * 2 * 16 * (2 * cfg.dim + cfg.mlp_dim) * 4
+    assert got["bytes_accessed"] >= floor + 2 * acts
+    analytic = llama.train_flops_per_token(cfg, 16) * 2 * 16
+    assert 0.5 < got["flops"] / analytic < 2.0
+    given = profiler.program_cost(model, x, flops=analytic)
+    assert given == {"flops": analytic, "bytes_accessed": got["bytes_accessed"]}
+    assert profiler.program_cost(model, torch.zeros((2, 3, 4, 5)))["bytes_accessed"] is None
+    lin = torch.nn.Linear(8, 4)
+    assert profiler.program_cost(lin, torch.zeros(2, 8))["flops"] == 2 * (2 * 2 * 8 * 4)
+
+
+def test_program_cost_leaves_the_callers_gradients():
+    """Gradients being accumulated survive a count, bitwise; with ``flops``
+    given no backward runs.  Linear then ReLU: the parameters read and
+    written (36 f32), x read (16), the output written (8) and, saved by the
+    ReLU, read back (8); the Linear's saved x is x."""
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.ReLU())
+    x = torch.randn(2, 8)
+    net(x).sum().backward()
+    before = [p.grad.clone() for p in net.parameters()]
+    got = profiler.program_cost(net, x)
+    assert got == {"flops": 2 * (2 * 2 * 8 * 4), "bytes_accessed": 4.0 * (2 * 36 + 16 + 8 + 8)}
+    assert all(torch.equal(p.grad, b) for p, b in zip(net.parameters(), before))
+    backward_ran = []
+    net[0].weight.register_hook(lambda g: backward_ran.append(g))
+    assert profiler.program_cost(net, x, flops=1.0) == {
+        "flops": 1.0, "bytes_accessed": got["bytes_accessed"]}
+    assert backward_ran == []
+    assert all(torch.equal(p.grad, b) for p, b in zip(net.parameters(), before))

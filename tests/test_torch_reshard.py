@@ -27,9 +27,10 @@ layers, its initial weights carried from JAX through
   lacks: ``reshard_fallback``, the trainer back on its old mesh.
 
 In process (no spawn): ``ensure_hostable`` refuses where JAX's does; which
-optimizer states migrate live and which take the fallback; the grow
-direction and ``steps_per_call`` refused; a loss of the coordinator's slice
-raises.  The ``slice-loss-live`` chaos scenario (its own four-rank spawn)
+optimizer states migrate live and which take the fallback; a grow with no
+process group takes the fallback (the spawn's ``regrow`` cases: a parked
+slice comes back live, one whose ranks left takes the fallback);
+``steps_per_call`` refused; a loss of the coordinator's slice raises.  The ``slice-loss-live`` chaos scenario (its own four-rank spawn)
 holds its invariants on three seeds, its fault schedule JAX's, its report
 byte-identical run over run.  A ``cuda`` test runs a two-rank live reshard
 on the card.
@@ -91,7 +92,7 @@ needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX, the reference")
 RTOL, ATOL = 1e-5, 1e-6
 # The JAX slice-loss-live scenario's continuity tolerance (chaos/scenarios.py).
 SCENARIO_RTOL, SCENARIO_ATOL = 5e-3, 1e-4
-STEPS, DIE_AT, JOIN_TIMEOUT = 6, 2, 300
+STEPS, DIE_AT, GROW_AT, JOIN_TIMEOUT = 6, 2, 4, 300
 BURST = ["10.0.0.3", "10.0.0.4", "10.0.0.3"]  # a duplicate in it, as JAX's
 
 
@@ -262,6 +263,8 @@ def runs(tmp_path_factory):
         "fallback": {**base, "reshard": "fallback", "events_on": [0, 1, 2, 3],
                      "dir": str(tmp / "ckpt")},
         "leaf": {**base, "reshard": "live", "events_on": [0], "plant_leaf": True},
+        "regrow": {**base, "regrow": True, "rejoin": True, "grow_at": GROW_AT},
+        "regrow_absent": {**base, "regrow": True, "rejoin": False, "grow_at": GROW_AT},
     }
     path = tmp / "cases.pkl"
     path.write_bytes(pickle.dumps(cases))
@@ -495,15 +498,33 @@ def _port_contract():
         slices={"s0": ["10.0.0.1", "10.0.0.2"], "s1": ["10.0.0.3", "10.0.0.4"]})
 
 
-def test_growing_the_mesh_is_not_executed_live():
+def test_growing_the_mesh_is_not_executed_live(runs):
+    """A grow is live only for ranks that parked in the process group: on one
+    device (no group), and on four ranks whose returning slice left for good
+    (its ranks never call ``rejoin``), it takes the fallback; the parked slice of the spawn's
+    ``regrow`` case comes back live, accumulation 1 -> 2 -> 1."""
     t, state = _one_device("adamw")
     manager = LiveReshardManager(_port_contract().surviving({"s1"}))
     manager.arm_restore("s1", ["10.0.0.3", "10.0.0.4"])
     coordinator = reshard.LiveReshardCoordinator(manager=manager, mesh_for=lambda c: None)
     assert coordinator.pending()
-    with pytest.raises(NotImplementedError, match="sched"):
-        coordinator.execute(t, state, step=state.step)
-    assert not coordinator.fallback_pending and not coordinator.records
+    out, action = coordinator.execute(t, state, step=state.step)
+    assert action == "stop" and out is state and coordinator.fallback_pending
+    assert "process group" in coordinator.records[-1].reason
+    assert coordinator.fallback_contract.slices_count == 2
+    ranks = runs["ranks"]
+    for r in ranks[:2]:
+        assert [(b["action"], b["grad_accum"]) for b in r["regrow"]["boundaries"]] == [
+            ("resume", 2), ("resume", 1)]
+        assert r["regrow"]["live_total"] == 2 and r["regrow"]["step"] == STEPS
+        assert [b["action"] for b in r["regrow_absent"]["boundaries"]] == ["resume", "stop"]
+        assert r["regrow_absent"]["fallback_total"] == 1
+    for r in ranks[2:]:
+        assert r["regrow"]["rejoined_at"] == GROW_AT and r["regrow"]["step"] == STEPS
+        assert r["regrow_absent"]["left"] and r["regrow_absent"]["rejoined_at"] is None
+    assert ranks[0]["regrow"]["losses"][:DIE_AT] == ranks[0]["straight"]["losses"][:DIE_AT]
+    assert _close(ranks[0]["regrow"]["losses"], ranks[0]["straight"]["losses"],
+                  SCENARIO_RTOL, SCENARIO_ATOL)
 
 
 def test_fit_refuses_steps_per_call_with_reshard():
@@ -594,7 +615,9 @@ def test_chaos_command(capsys):
 
     assert cli.main(["chaos", "--list"]) == 0
     out = capsys.readouterr().out
-    assert out.startswith("slice-loss-live") and "slice-loss, forced-fallback" in out
+    # The catalog in name order: sched-flash-crowd, then slice-loss-live.
+    assert out.startswith("sched-flash-crowd") and "slice-loss, forced-fallback" in out
+    assert "\nslice-loss-live " in out
     assert cli.main(["chaos", "--scenario", "bogus"]) == 2
     assert cli.main(["chaos"]) == 2
 

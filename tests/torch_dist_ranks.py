@@ -18,7 +18,10 @@ one bucket through ``parallel.overlap``'s exchanges.  A ``reshard`` case
 (:func:`run_reshard_case`) drives the live reshard on a small MLP: the golden
 migration, ``fit(reshard=)`` with the cluster plane, the forced fallback and
 its DCP restore; the ranks of the lost slice leave the case and wait at the
-store (no collective) until the survivors are done.  A Llama case may be
+store (no collective) until the survivors are done.  A ``regrow`` case
+(:func:`run_regrow_case`) shrinks the mesh by a slice and grows it back: the
+slice's ranks park and rejoin, or (``rejoin`` false) never call ``rejoin``,
+as processes that died, and the grow takes the fallback.  A Llama case may be
 pipelined (``pp`` in its mesh: each rank loads its stage from the JAX
 stage-stacked weights), run with ``comms_overlap`` (the buckets it issued
 reported), or built on a hybrid mesh (``hybrid``: ICI and DCN specs).  It
@@ -330,7 +333,7 @@ def _mesh_for(case: dict):
 
     def mesh_for(contract):
         ranks = survivor_ranks(origin, contract)
-        if case["reshard"] == "golden":
+        if case["reshard"] == "golden" or case.get("layout") == "fsdp":
             return build_mesh(MeshSpec(fsdp=len(ranks)), ranks=ranks)
         per_slice = len(ranks) // contract.slices_count
         return hybrid_mesh_for_slices(contract.slices_count, MeshSpec(fsdp=per_slice), "dp",
@@ -526,6 +529,99 @@ def run_reshard_case(case: dict) -> dict:
     return out
 
 
+def run_regrow_case(case: dict) -> dict:
+    """Slice ``s1`` leaves at the boundary of batch ``die_at`` (its terminate
+    burst on rank 0) and is armed to return at batch ``grow_at`` (rank 0's
+    manager), with ``symmetric_accum``; with ``rejoin`` its ranks park and
+    rejoin, training on from the grow's batch (without, they leave the case
+    as a slice that died does) (a ``grow_at`` past the run:
+    rank 0 releases them at its end).  ``layout`` ``"fsdp"`` runs one fsdp
+    axis over every rank (the survivors' shards change at the grow) in
+    place of 2 slices x fsdp 2.  Reports the losses, the accumulation and
+    topology at every boundary, the fallback counters, and each rank's state
+    right after the grow (a survivor's also right before it): its local
+    parts, or with the fsdp layout every leaf whole (gathered over the mesh,
+    by every rank of it alike)."""
+    import itertools
+
+    from deeplearning_cfn_tpu_torch.provision.events import EventKind, LifecycleEvent
+    from deeplearning_cfn_tpu_torch.train import reshard
+    from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+
+    case = {**case, "reshard": "live"}
+    mesh_for = _mesh_for(case)
+    contract, controller, manager, vclock = _plane(case)
+    t, state = _mlp_trainer(case, mesh_for(contract))
+    rank = dist.get_rank()
+
+    def local(st) -> dict:
+        if case.get("layout") == "fsdp":
+            return {k: (v.full_tensor() if hasattr(v, "device_mesh") else v).detach().clone()
+                    for k, v in sorted(reshard._flat(st.state_dict()).items())}
+        return {k: local_part(v).detach().clone() for k, v in reshard._flat(st.state_dict()).items()}
+
+    def hook(i):
+        if rank != 0:
+            return
+        if i == case["die_at"]:
+            for ip in case["burst"]:
+                controller.backend.events.publish(LifecycleEvent(
+                    kind=EventKind.INSTANCE_TERMINATE, group="s1", instance_id=ip,
+                    detail={"reason": "sched-preempt"}))
+                vclock.advance(0.5)
+            vclock.advance(11.0)
+        if i == case["grow_at"]:
+            manager.arm_restore("s1", list(contract.slices["s1"]))
+
+    coordinator = reshard.LiveReshardCoordinator(
+        manager=manager, mesh_for=mesh_for, flush=controller.flush_slice_losses, clock=vclock,
+        symmetric_accum=True)
+    boundaries, snaps = [], {}
+    execute = coordinator.execute
+
+    def recorded(trainer, st, step):
+        before = local(st)
+        new, action = execute(trainer, st, step)
+        boundaries.append({"step": step, "action": action,
+                           "grad_accum": trainer.config.grad_accum_steps,
+                           "topology": reshard.mesh_topology(trainer.mesh)})
+        if step == case["grow_at"] and action == "resume":
+            snaps.update(before=before, after=local(new))
+        return new, action
+
+    coordinator.execute = recorded
+    n = len(case["batches"])
+    before = {k: _journal_count(k) for k in ("reshard", "reshard_fallback",
+                                             "grad_accum_rescaled", "slice_restore_armed")}
+    state, losses = t.fit(state, _batches(case, hook), steps=n, prefetch=0, reshard=coordinator)
+    rejoined_at = None
+    if coordinator.departed and case["rejoin"]:
+        state = coordinator.rejoin(t, state)
+        if state is not None:
+            rejoined_at = state.step
+            snaps["after"] = local(state)
+            boundaries.append({"step": state.step, "action": "rejoin",
+                               "grad_accum": t.config.grad_accum_steps,
+                               "topology": reshard.mesh_topology(t.mesh)})
+            rest = itertools.islice(_batches(case), state.step, None)
+            state, more = t.fit(state, rest, steps=n - state.step, prefetch=0,
+                                reshard=coordinator)
+            losses += more
+    if rank == 0:
+        coordinator.release()
+    return {"losses": losses, "boundaries": boundaries, "rejoined_at": rejoined_at,
+            "left": coordinator.departed, "live_total": coordinator.live_total,
+            "fallback_total": coordinator.fallback_total,
+            "fallback_pending": coordinator.fallback_pending,
+            "fallback_reason": next((r.reason for r in coordinator.records
+                                     if r.mode == "fallback"), None),
+            "journal": {k: _journal_count(k) - v for k, v in before.items()},
+            "grad_accum": t.config.grad_accum_steps, "topology": reshard.mesh_topology(t.mesh),
+            "slices": manager.contract.slices_count,
+            "step": state.step if state is not None else None,
+            "snaps": {k: {n: v.numpy() for n, v in d.items()} for k, d in snaps.items()}}
+
+
 def _sync_checkpointer(directory, process_group=None):
     """A synchronous DCP checkpointer saving every step."""
     return Checkpointer(directory, interval_s=None, every_steps=1, async_save=False,
@@ -533,6 +629,8 @@ def _sync_checkpointer(directory, process_group=None):
 
 
 def run_case(case: dict) -> dict:
+    if "regrow" in case:
+        return run_regrow_case(case)
     if "reshard" in case:
         return run_reshard_case(case)
     if "default_mesh" in case:
@@ -621,7 +719,7 @@ def main() -> None:
     try:
         for name, case in cases.items():
             out[name] = run_case(case)
-            if "reshard" in case:  # the lost slice's ranks wait for the survivors
+            if "reshard" in case or "regrow" in case:  # the lost slice's ranks wait
                 key = f"reshard-case/{name}"
                 if out[name].get("left"):
                     store.wait([key])
