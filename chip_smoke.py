@@ -343,7 +343,8 @@ Phases, one JSON line each:
 21. sched_flash_crowd  the fleet scheduler with live regrowth, JAX's
            ``sched-flash-crowd`` incident on the card: two processes of this
            script on ``cuda:0`` over gloo, training JAX's
-           ``LlamaConfig.m435`` at full width and depth (seq 2048, per-rank
+           ``LlamaConfig.m435`` at full width, ``SCHED_LAYERS`` (12) of its
+           24 layers (seq 2048, per-rank
            batch 8, AdamW, flash on; FSDP2 at fsdp 1 under dp 2; job
            ``train-fsdp``, ``prod-train``, slices s1 and s2, one rank each).
            Each first trains 16 steps straight; then in rank 0's process the
@@ -366,8 +367,8 @@ Phases, one JSON line each:
            optimizer state bitwise equal after the regrowth (rank 0's
            broadcast and compared on rank 1, after the pause), the returning
            rank's state as laid out before the transfer (a planted control:
-           what a grow without it leaves) unequal; flash 48
-           a microbatch, ``wgmma_tma``.  Then over the run's journals, black
+           what a grow without it leaves) unequal; flash 2 a block and
+           microbatch (24 at 12 layers), ``wgmma_tma``.  Then over the run's journals, black
            boxes and metrics streams through ``cli.main``: ``status
            --profile --serve --format prom`` (the ``dlcfn_sched_*``,
            ``dlcfn_serve_*``, ``dlcfn_step_phase_ms`` families), ``trace``
@@ -377,6 +378,33 @@ Phases, one JSON line each:
            before, while lent and after (the world's round excluded), the
            pool's TTFT p50/p99 on the wall clock and its tokens/s over its
            steps, the phase's seconds.
+22. chaos_catalog  the rest of the chaos catalog and the composed-incident
+           gauntlet, seed 0, at JAX's sizes, through ``chaos.run_scenario``
+           with ``device="cuda"``: the ten control-plane scenarios in this
+           process on virtual clocks; ``serve-replica-loss`` (two engines of
+           the tiny f32 Llama on ``cuda:0``, 80 Poisson requests, a replica
+           killed mid-traffic); ``data-reshard-live`` and the ``gauntlet``
+           (four gloo ranks of ``chaos.scenarios``, 2 slices x fsdp 2, all on
+           ``cuda:0``, training JAX's 64-256-256-10 MLP from DLC1 records;
+           the gauntlet's broker ring, data plane and SLO engine in rank 0's
+           process).  The in-process ones run first; then, concurrently,
+           ``data-reshard-live``, the gauntlet, the gauntlet's pinned
+           schedule once more, and ``cli gauntlet --sweep 2 --device cuda``
+           in its own process (a rank process spends seconds importing
+           torch).  One line a scenario: passed, the number of invariants,
+           the violations, its seconds, its ranks' or engines' devices, the
+           ranks' seconds by stage.  Then the two gauntlet ``to_dict()``
+           reports byte-equal, and the straight curves that each of the
+           two trained for itself equal; rank 0's composed pause
+           (``ReshardRecord.seconds``: the MLP's live reshard 4 -> 2 ranks
+           with the data plane's reshard and the shard failover inside it)
+           beside phase 18's plain pause; the sweep passing both
+           schedules.  Gates: every report passes, every
+           rank and engine on ``cuda:0``, the reports and straight curves
+           equal, the sweep clean, no kernel of the port launched in this
+           process or in the ranks' (the sweep's ranks counted by ``cli
+           gauntlet``'s stderr line; the MLP and the tiny Llama's serving
+           run none).
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -395,9 +423,9 @@ before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
 dense's those of the ``resnet`` phase's eager kernel-head run, the resumed
 ResNet-50 run of ``checkpoint`` and the ResNet-50 run of ``records``.  The
-``detection`` and ``cifar10`` phases launch no kernel of the port (the JAX
-models they port are plain XLA): each kernel's ``launches_by_path`` reports
-them as 0, and a launch there fails the run.
+``detection``, ``cifar10`` and ``chaos_catalog`` phases launch no kernel of
+the port (the JAX models they port are plain XLA): each kernel's
+``launches_by_path`` reports them as 0, and a launch there fails the run.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without the last line; with no CUDA card, or
@@ -654,11 +682,24 @@ BROKER_CLUSTER, BROKER_STEPS, BROKER_POLL_S, BROKER_TIMEOUT = "provision-broker"
 # incident (chaos/scenarios.py CROWD_SCHEDULE, 16 steps); JAX's continuity
 # tolerance (deeplearning_cfn_tpu/chaos/scenarios.py:2777).
 SCHED_BATCH, SCHED_TIMEOUT = 8, 900
+# ... cut to SCHED_LAYERS of m435's 24 layers (training and the serve pool),
+# to hold the whole script within its time limit beside phase 22.
+SCHED_LAYERS = 12
 SCHED_RTOL, SCHED_ATOL = 5e-3, 1e-4
+# Phase 22: the scenarios this slice added, in the JAX catalog's order
+# (slice-loss-live and sched-flash-crowd are phases 18 and 21's).
+CHAOS_TIMEOUT = 900
+CHAOS_ADDED = ("silent-death", "partition", "flaky-rpc", "slow-disk", "data-reshard-live",
+               "straggler", "serve-replica-loss", "broker-failover", "split-brain",
+               "shard-failover", "degraded-pair-heal", "alert-storm", "gauntlet")
 
 
 # Traces _device_ms takes before it gives up on seeing device time.
 PROFILE_TRIES = 3
+
+
+#: What one phase measured that a later one reports beside its own.
+_NOTES: dict = {}
 
 
 def _emit(obj: dict) -> None:
@@ -3251,6 +3292,7 @@ def _live_reshard_phase(torch, smi: str, flash_per_block: float) -> int:
                                  for k in ("straight", "live", "control", "fallback")},
            "records": live["records"], "nvidia_smi": smi}
     _emit(row)
+    _NOTES["live_reshard_pause_ms"] = row["pause_ms"]
     every = [straight["losses"], live["losses"], fallback_losses, control["losses"],
              r1["straight"]["losses"], r1["live"]["losses"]]
     _require(all(math.isfinite(v) for run in every for v in run), "live_reshard: non-finite loss")
@@ -3815,7 +3857,7 @@ def _sched_worker(rank: int, port: int, out: str) -> int:
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
                             rank=rank)
-    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=2048), n_layers=SCHED_LAYERS)
     cuda = torch.device("cuda")
     batches = [device_put_batch(b, cuda) for b in SyntheticTokenDataset(
         seq_len=2048, vocab_size=cfg.vocab_size,
@@ -4000,7 +4042,7 @@ def _sched_flash_crowd_phase(torch, smi: str, flash_per_block: float) -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    n_layers = 24
+    n_layers = SCHED_LAYERS
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "sched")
@@ -4065,9 +4107,11 @@ def _sched_flash_crowd_phase(torch, smi: str, flash_per_block: float) -> int:
     mb1 = shrink + (CROWD_STEPS - grow)
     ttft = sorted(c["ttft_s"])
     row = {"phase": "sched_flash_crowd", "processes": 2, "device": "cuda:0 for both",
-           "backend": "gloo over CUDA tensors (host-staged)", "model": "m435", "S": 2048,
+           "backend": "gloo over CUDA tensors (host-staged)", "model": "m435",
+           "n_layers": n_layers, "S": 2048,
            "batch_per_rank": SCHED_BATCH, "global_batch": 2 * SCHED_BATCH,
-           "steps": CROWD_STEPS, "serve": "m435 bf16, seed 0, pool-a/pool-b 4 slots, lent 6",
+           "steps": CROWD_STEPS,
+           "serve": f"m435 at {n_layers} layers, bf16, seed 0, pool-a/pool-b 4 slots, lent 6",
            "strategy": "fsdp (FSDP2 at fsdp 1 under dp 2: HSDP over gloo)",
            "times": "two ranks and the pool share the card: not NVLink times",
            "wall_s": wall_s, "workers_s": workers_s,
@@ -4136,6 +4180,108 @@ def _sched_flash_crowd_phase(torch, smi: str, flash_per_block: float) -> int:
              f"sched_flash_crowd: status --metrics-dir {row['metrics_workers']}")
     return (sum(live["flash_per_step"]) + sum(r1["live"]["flash_per_step"])
             + sum(straight["flash_per_step"]) + sum(r1["straight"]["flash_per_step"]))
+
+
+def _chaos_catalog_phase(torch, kernels_mod, smi: str) -> dict:
+    """Phase 22 (see the module docstring): every scenario this slice added,
+    seed 0, its trainers and engines on the card; the gauntlet's pinned
+    schedule again (the two reports byte-equal); ``cli gauntlet --sweep 2``
+    in its own process.  The runs that start rank processes go
+    concurrently (each start imports torch for seconds).  Returns the
+    port's kernel launches over the phase, its rank processes' included
+    (none)."""
+    from deeplearning_cfn_tpu_torch.chaos import gauntlet as gauntlet_mod
+    from deeplearning_cfn_tpu_torch.chaos import pinned_schedule, run_gauntlet, run_scenario
+    from deeplearning_cfn_tpu_torch.chaos.scenarios import on_device
+
+    t_phase = time.perf_counter()
+    kernels_mod.reset_launch_counts()
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        return fn(*args), time.perf_counter() - t0
+
+    def sweep():
+        return subprocess.run(
+            [sys.executable, "-m", "deeplearning_cfn_tpu_torch.cli", "gauntlet", "--sweep", "2",
+             "--device", "cuda"], capture_output=True, text=True, timeout=CHAOS_TIMEOUT,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                filter(None, [str(Path(__file__).resolve().parent),
+                              os.environ.get("PYTHONPATH")]))))
+
+    # The in-process scenarios first: they count their journal events in
+    # this process's ring, which the others' must not crowd meanwhile.
+    spawning = ("data-reshard-live", "gauntlet")
+    done = {name: timed(run_scenario, name, 0, "cuda")
+            for name in CHAOS_ADDED if name not in spawning}
+    # Both pinned runs start with no cached straight curve, so each trains
+    # its own and checks against it: the two are compared below.
+    gauntlet_mod._STRAIGHT_CACHE.clear()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        running = {name: pool.submit(timed, run_scenario, name, 0, "cuda") for name in spawning}
+        again = pool.submit(timed, run_gauntlet, pinned_schedule(0), "cuda")
+        swept = pool.submit(timed, sweep)
+        done.update({name: f.result() for name, f in running.items()})
+        second, again_s = again.result()
+        proc, sweep_s = swept.result()
+    in_ranks: dict = {}
+    for name in CHAOS_ADDED:
+        rep, wall_s = done[name]
+        for k, n in rep.observed.get("kernel_launches", {}).items():
+            in_ranks[k] = in_ranks.get(k, 0) + n
+        devices = rep.observed.get("devices")
+        _emit({"phase": "chaos_catalog", "scenario": name, "seed": 0, "passed": rep.passed,
+               "invariants": len(rep.invariants), "violations": rep.violations,
+               "wall_s": wall_s, "concurrent": name in spawning,
+               "device": devices or "host (virtual clocks, no tensors)",
+               "rank_kernel_launches": rep.observed.get("kernel_launches"),
+               "rank_seconds": rep.observed.get("rank_seconds"), "nvidia_smi": smi})
+        _require(rep.passed, f"chaos_catalog: {name} violated {rep.violations}")
+        _require(on_device(name) == (devices is not None)
+                 and all(d == "cuda:0" for d in devices or ()),
+                 f"chaos_catalog: {name} ran on {devices}")
+    first = done["gauntlet"][0]
+    a, b = (json.dumps(r.to_dict(), sort_keys=True) for r in (first, second))
+    for k, n in second.observed.get("kernel_launches", {}).items():
+        in_ranks[k] = in_ranks.get(k, 0) + n
+    _require(proc.returncode == 0, f"chaos_catalog: cli gauntlet --sweep 2 exited "
+             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout)
+    swept_launches = [json.loads(line)["kernel_launches"] for line in proc.stderr.splitlines()
+                      if line.startswith('{"kernel_launches"')]
+    _require(len(swept_launches) == 1, "chaos_catalog: cli gauntlet --sweep 2 printed no "
+             f"kernel launches:\n{proc.stderr[-3000:]}")
+    for k, n in swept_launches[0].items():
+        in_ranks[k] = in_ranks.get(k, 0) + n
+    straights = [r.observed["straight"] for r in (first, second)]
+    got = dict(kernels_mod.launch_counts)
+    row = {"phase": "chaos_catalog", "scenario": "gauntlet-determinism", "seed": 0,
+           "reports_byte_equal": a == b, "report_bytes": len(a), "second_run_s": again_s,
+           "straight_curves_equal": straights[0] == straights[1],
+           "straight_trained_by_both": [r.observed["straight_ran"] for r in (first, second)],
+           "composed_pause_ms": [r.observed["pause_s"][0] * 1e3 for r in (first, second)],
+           "composed_pause": "ReshardRecord.seconds on rank 0: the MLP's live reshard 4 -> 2 "
+                             "gloo ranks with the data plane's reshard and the broker shard "
+                             "failover inside it (on_commit)",
+           "live_reshard_pause_ms": _NOTES.get("live_reshard_pause_ms"),
+           "live_reshard_pause": "phase 18: m435 at RESHARD_LAYERS, 2 -> 1 rank, no failover",
+           "post_mesh": first.observed["post_mesh"], "grad_accum": first.observed["grad_accum"],
+           "sweep": {"cli": "gauntlet --sweep 2 --device cuda", "rc": proc.returncode,
+                     "passed": summary["passed"], "failures": summary["failures"],
+                     "fault_counts": summary["fault_counts"], "wall_s": sweep_s},
+           "main_process_kernel_launches": {k: n for k, n in got.items() if n},
+           "rank_kernel_launches": in_ranks, "wall_s": time.perf_counter() - t_phase,
+           "nvidia_smi": smi}
+    _emit(row)
+    _require(a == b, "chaos_catalog: the gauntlet's two seed-0 reports differ")
+    _require(first.observed["straight_ran"] and second.observed["straight_ran"]
+             and straights[0] == straights[1],
+             "chaos_catalog: the two pinned runs did not each train the same straight curve")
+    _require(summary["passed"] == 2 and summary["failures"] == [],
+             f"chaos_catalog: cli gauntlet --sweep 2: {row['sweep']}")
+    _kernel_free(got, "chaos_catalog")
+    _kernel_free(in_ranks, "chaos_catalog (rank processes)")
+    return got
 
 
 def main() -> int:
@@ -4737,6 +4883,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     flash_by_path["sched_flash_crowd"] = _sched_flash_crowd_phase(torch, smi, flash_per_block)
+
+    # 22. chaos_catalog: the rest of the chaos catalog and the composed-incident
+    # gauntlet, their trainers' ranks and serving engines on the card.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    new_paths["chaos_catalog"] = _chaos_catalog_phase(torch, _kernels, smi)
+    flash_by_path["chaos_catalog"] = new_paths["chaos_catalog"].get("flash_attention_fwd", 0)
 
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with

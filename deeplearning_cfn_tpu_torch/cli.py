@@ -15,7 +15,8 @@ far, each the counterpart of the ``dlcfn`` command of its name:
   serve, convert, events, status, trace, postmortem
   sched --ledger PATH [--init s0=4,...] [--submit NAME ...]
                                             the fleet arbiter's ledger
-  chaos (``slice-loss-live``, ``sched-flash-crowd``)
+  chaos --scenario NAME | --all | --list     the chaos catalog (JAX's 15 scenarios)
+  gauntlet [--seed N] [--sweep N]           composed multi-fault incidents
 
 The local backend executes everything in-process (the fake cloud) and
 ``run`` trains the template's job in this process, on the card unless the
@@ -1317,6 +1318,40 @@ def cmd_chaos(args) -> int:
     return 0 if all(r.passed for r in reports) else 1
 
 
+def cmd_gauntlet(args) -> int:
+    """Composed multi-fault incidents over the real end-to-end stack
+    (``chaos/gauntlet.py``), the trainer's ranks on ``--device``.
+
+    Default runs the pinned 3-fault schedule for --seed and prints the
+    report; ``--sweep N`` runs the seeded incident explorer over N
+    perturbed schedules, shrinking any failure to a minimal reproducer.
+    Exit 1 on any invariant violation / failing schedule, 2 on a sweep of
+    fewer than one seed.  A sweep's last line on stderr is the kernel
+    launches its runs' ranks made, summed (``{"kernel_launches": {...}}``);
+    stdout holds the summary alone."""
+    from deeplearning_cfn_tpu_torch.chaos import pinned_schedule, run_gauntlet, run_gauntlet_sweep
+
+    if args.sweep is not None:
+        if args.sweep < 1:
+            print("gauntlet: --sweep needs at least 1 seed")
+            return 2
+        launches: dict[str, int] = {}
+
+        def runner(schedule):
+            report = run_gauntlet(schedule, args.device)
+            for k, n in report.observed.get("kernel_launches", {}).items():
+                launches[k] = launches.get(k, 0) + n
+            return report
+
+        summary = run_gauntlet_sweep(n_seeds=args.sweep, base_seed=args.seed, runner=runner)
+        print(json.dumps(summary, indent=2))
+        print(json.dumps({"kernel_launches": launches}), file=sys.stderr)
+        return 0 if not summary["failures"] else 1
+    report = run_gauntlet(pinned_schedule(args.seed), args.device)
+    print(json.dumps(report.to_dict(), indent=2))
+    return 0 if report.passed else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m deeplearning_cfn_tpu_torch.cli",
@@ -1506,15 +1541,29 @@ def build_parser() -> argparse.ArgumentParser:
     pd.set_defaults(fn=cmd_sched)
     px = sub.add_parser("chaos", help="run seeded fault-injection scenarios (resilience soak)")
     px.add_argument("--scenario", default=None,
-                    help="scenario name (see --list): slice-loss-live, sched-flash-crowd")
+                    help="scenario name (see --list): silent-death, partition, flaky-rpc, "
+                         "slow-disk, slice-loss-live, data-reshard-live, straggler, "
+                         "serve-replica-loss, broker-failover, split-brain, shard-failover, "
+                         "degraded-pair-heal, alert-storm, sched-flash-crowd, gauntlet")
     px.add_argument("--seed", type=int, default=0,
                     help="fault-schedule seed; reports are deterministic per (scenario, seed)")
     px.add_argument("--all", action="store_true", help="run every scenario in the catalog")
     px.add_argument("--list", action="store_true", dest="list_scenarios",
                     help="list scenarios and exit")
     px.add_argument("--device", default="cuda",
-                    help="where the scenario's trainers run: cuda (default) or cpu")
+                    help="where the scenarios' trainers and engines run: cuda (default) or cpu")
     px.set_defaults(fn=cmd_chaos)
+    pg = sub.add_parser("gauntlet", help="run composed multi-fault incidents with "
+                                         "cross-subsystem invariants (chaos gauntlet)")
+    pg.add_argument("--seed", type=int, default=0,
+                    help="schedule seed (pinned run) or sweep base seed; reports are the "
+                         "same per seed")
+    pg.add_argument("--sweep", type=int, default=None, metavar="N",
+                    help="explore N perturbed fault schedules instead of the pinned 3-fault "
+                         "incident, shrinking any failure to a minimal reproducer")
+    pg.add_argument("--device", default="cuda",
+                    help="where the trainer's ranks run: cuda (default) or cpu")
+    pg.set_defaults(fn=cmd_gauntlet)
     return parser
 
 

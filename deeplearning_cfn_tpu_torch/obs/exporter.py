@@ -10,9 +10,10 @@ per-render seen-set, so two folds that touch one family never produce two
 ``# TYPE`` lines.  The registry is also what SLO rules are validated against
 (``obs/slo.validate_rules``).  A copy of the JAX module (it imports nothing):
 every fold and family renders the JAX package's text line for line.  The
-comms, replay and gauntlet folds read journal events that no part of the
-port writes yet (they come with the port of ``analysis/`` and ``chaos/``);
-they are pure functions of the events all the same.
+gauntlet fold reads the ``gauntlet`` events that ``chaos/gauntlet.py``
+journals (a run, a sweep); the comms and replay folds read events that no
+part of the port writes yet (they come with the port of ``analysis/``),
+and are pure functions of the events all the same.
 """
 
 from __future__ import annotations

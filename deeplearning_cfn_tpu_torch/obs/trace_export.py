@@ -1,7 +1,8 @@
 """Cross-host trace timeline: merge flight journals into Chrome trace JSON.
 
 Counterpart of ``deeplearning_cfn_tpu/obs/trace_export.py``, copied (the port imports
-nothing of the JAX package).  ``dlcfn trace`` itself is not ported yet.
+nothing of the JAX package); ``cli trace`` renders through it, and the
+``straggler`` chaos scenario checks it.
 
 Each host writes its own flight-recorder journal with timestamps from
 its own clock.  Merging them naively interleaves events wrongly whenever

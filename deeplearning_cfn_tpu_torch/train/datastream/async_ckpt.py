@@ -50,8 +50,10 @@ from deeplearning_cfn_tpu_torch.train.checkpoint import (
     _check_topology,
     _envelope,
     _HostStaging,
+    _map_tensors,
     _open_envelope,
 )
+from deeplearning_cfn_tpu_torch.train.optimizers import host_whole
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dlcfn.datastream.ckpt")
@@ -88,10 +90,7 @@ def _leaves(tree: Any) -> list:
 
 def _leaf_doc(leaf: Any) -> dict[str, Any]:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
-        if hasattr(t, "full_tensor"):  # a DTensor: the whole of it
-            t = t.full_tensor()
-        t = t.cpu()
+        t = leaf.detach().cpu()
         name = str(t.dtype).removeprefix("torch.")
         # bfloat16 -> float64 is exact, and json takes float64.
         data = t.to(torch.float64).tolist() if t.dtype == torch.bfloat16 else t.tolist()
@@ -144,9 +143,13 @@ def _snapshot(tree: Any) -> tuple[Any, Any]:
     """Host copies of every leaf, so the pending slot survives the in-place
     updates of the next steps; and the event the writer waits for before it
     reads them (None on the CPU, where the copies are done on return).
-    Python scalars are immutable and stay as they are."""
+    Python scalars are immutable and stay as they are.  A ``DTensor`` (a
+    state laid out over ranks) is gathered whole here, on the step path:
+    the gather is a collective every rank makes at the same save, which
+    the writer thread could not make in step with the others."""
     staging = _HostStaging()
     tree = tree.state_dict() if _is_state(tree) else tree
+    tree = _map_tensors(tree, lambda t: host_whole(t) if hasattr(t, "device_mesh") else t)
     staged = staging.stage(tree)
     return _map_arrays(staged), staging.ready
 
@@ -179,6 +182,12 @@ class AsyncShardedCheckpointer:
     any manifest whose shards fail verification — a crash mid-write is
     invisible.  ``n_shards`` is the per-host write fan-out (one shard
     file per writer host in production; any value works in-process).
+    A state laid out over ranks is gathered by collectives in ``save()``,
+    so its ranks must save at the same steps: with ``interval_s`` (each
+    rank's own clock) they pass ``group``, the process group over them,
+    and ``should_save`` is then their agreed decision (any rank due saves
+    on all).  ``save()`` refuses such a state under ``interval_s`` without
+    ``group``.
     """
 
     directory: str | Path
@@ -189,6 +198,7 @@ class AsyncShardedCheckpointer:
     io: CheckpointIO = field(default_factory=CheckpointIO)
     clock: Callable[[], float] = time.monotonic
     accepts_stream_state: bool = True
+    group: Any = None
 
     def __post_init__(self) -> None:
         if self.n_shards <= 0:
@@ -216,11 +226,18 @@ class AsyncShardedCheckpointer:
     def should_save(self, step: int) -> bool:
         if self.every_steps and step > 0 and step % self.every_steps == 0:
             return True
+        if self.interval_s is None:
+            return False
         with self._lock:
             last = self._last_save_t
-        if self.interval_s is not None and self.clock() - last >= self.interval_s:
-            return True
-        return False
+        due = self.clock() - last >= self.interval_s
+        if self.group is not None:
+            import torch.distributed as dist
+
+            flag = torch.tensor([int(due)])
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+            due = bool(flag.item())
+        return due
 
     # --- step path --------------------------------------------------------
     def save(
@@ -233,6 +250,11 @@ class AsyncShardedCheckpointer:
         """Snapshot-and-enqueue; returns once the host copies are issued
         (on the card they run on a side stream the next step waits for).
         An unstarted pending save is superseded (latest wins)."""
+        if self.interval_s is not None and self.group is None and any(
+            hasattr(leaf, "device_mesh") for leaf in _leaves(state)
+        ):
+            raise ValueError("a state laid out over ranks saves on interval_s only with "
+                             "group= (the ranks must agree when to save: the save gathers)")
         item = _Pending(int(step), *_snapshot(state), mesh_topology, stream_state)
         with self._lock:
             if self._stop:

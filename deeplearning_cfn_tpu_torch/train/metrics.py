@@ -11,12 +11,15 @@ from __future__ import annotations
 import json
 import logging
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Any
 
 import torch
 
-from deeplearning_cfn_tpu_torch.obs.recorder import json_safe  # noqa: F401  (re-exported)
+from deeplearning_cfn_tpu_torch.obs.recorder import json_safe
+from deeplearning_cfn_tpu_torch.utils.timeouts import Clock, MonotonicClock
 
 log = logging.getLogger("dlcfn.train")
 
@@ -111,6 +114,88 @@ class JsonlMetricsSink:
     def for_run(cls, base_dir: str | Path, run_name: str) -> "JsonlMetricsSink":
         """<base>/<run>/worker<pid>.jsonl."""
         return cls(Path(base_dir) / run_name / f"worker{_process_index()}.jsonl")
+
+
+class MetricsOutage(RuntimeError):
+    """The metrics sink stayed down past the configured grace window."""
+
+    def __init__(self, grace_s: float, buffered: int):
+        super().__init__(
+            f"metrics sink down for more than {grace_s:.0f}s "
+            f"({buffered} records buffered)"
+        )
+        self.grace_s = grace_s
+        self.buffered = buffered
+
+
+@dataclass
+class ResilientSink:
+    """Keep training through a metrics-plane outage (graceful degradation).
+
+    Wraps any sink with ``write``/``close``.  When the inner sink starts
+    raising OSError (broker gone, shared storage unmounted), records are
+    buffered — bounded in memory and mirrored to the flight recorder ring
+    as ``metric_buffered`` events so nothing is silently dropped — and the
+    trainer keeps stepping.  The first successful write flushes the buffer
+    in order.  Only after ``grace_s`` of continuous outage (measured on
+    the injected clock, so chaos soaks run in virtual time) does the
+    typed :class:`MetricsOutage` escape to the caller.
+    """
+
+    inner: Any
+    grace_s: float = 120.0
+    clock: Clock = field(default_factory=MonotonicClock)
+    max_buffered: int = 10_000
+
+    def __post_init__(self) -> None:
+        self._buffer: deque[dict] = deque(maxlen=self.max_buffered)
+        self._outage_start: float | None = None
+
+    @property
+    def degraded(self) -> bool:
+        return self._outage_start is not None
+
+    @property
+    def buffered(self) -> int:
+        return len(self._buffer)
+
+    def write(self, record: dict) -> None:
+        try:
+            while self._buffer:
+                self.inner.write(self._buffer[0])
+                self._buffer.popleft()
+            self.inner.write(record)
+        except OSError as exc:
+            self._on_failure(record, exc)
+            return
+        if self._outage_start is not None:
+            self._outage_start = None
+            self._record("metrics_recovered", buffered=0)
+
+    def _on_failure(self, record: dict, exc: OSError) -> None:
+        now = self.clock.now()
+        if self._outage_start is None:
+            self._outage_start = now
+            log.warning("metrics sink down, buffering (%s)", exc)
+        self._buffer.append(record)
+        self._record(
+            "metric_buffered",
+            buffered=len(self._buffer),
+            record=json_safe(record),
+        )
+        if now - self._outage_start > self.grace_s:
+            raise MetricsOutage(self.grace_s, len(self._buffer)) from exc
+
+    def _record(self, kind: str, **fields) -> None:
+        try:
+            from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
+
+            get_recorder().record(kind, **fields)
+        except Exception:  # pragma: no cover - journaling is best-effort
+            pass
+
+    def close(self) -> None:
+        self.inner.close()
 
 
 @dataclass

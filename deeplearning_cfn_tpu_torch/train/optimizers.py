@@ -73,6 +73,30 @@ def local_part(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def host_whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value on the host: its local shard gathered over
+    each mesh dim that shards it, innermost first, by plain all-gathers of
+    host tensors (``DTensor.full_tensor`` on the card over gloo crashes the
+    process).  Uneven shards are padded to the widest and trimmed."""
+    mesh, out = t.device_mesh, t.to_local().detach().cpu()
+    for i in reversed(range(mesh.ndim)):
+        placement = t.placements[i]
+        if not placement.is_shard():
+            continue
+        group, d = mesh.get_group(i), placement.dim
+        n = dist.get_world_size(group)
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
+        dist.all_gather(sizes, torch.tensor([out.shape[d]]), group=group)
+        widths = [int(w) for w in sizes]
+        pad = list(out.shape)
+        pad[d] = max(widths) - out.shape[d]
+        padded = torch.cat([out, out.new_zeros(pad)], dim=d) if pad[d] else out.contiguous()
+        parts = [torch.empty_like(padded) for _ in range(n)]
+        dist.all_gather(parts, padded, group=group)
+        out = torch.cat([p.narrow(d, 0, w) for p, w in zip(parts, widths)], dim=d)
+    return out
+
+
 def shard_groups(p: torch.Tensor) -> list[tuple[int, object]]:
     """``(dim, group)`` for each mesh dim a DTensor is sharded over."""
     if not hasattr(p, "placements"):

@@ -26,7 +26,7 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, Sequence
+from typing import Any, Iterator, Sequence
 
 import numpy as np
 
@@ -137,6 +137,19 @@ def write_records(path: str | Path, spec: RecordSpec, records: Iterator[bytes] |
         f.seek(0)
         f.write(HEADER.pack(MAGIC, spec.record_size, n))
     return n
+
+
+def write_dataset(path: str | Path, spec: RecordSpec, batches: Iterator[Any], steps: int) -> int:
+    """Stage a Batch iterator (e.g. SyntheticDataset.batches) to a file."""
+
+    def gen():
+        for i, b in enumerate(batches):
+            if i >= steps:
+                break
+            for x, y in zip(b.x, b.y):
+                yield spec.encode(x=x, y=y)
+
+    return write_records(path, spec, gen())
 
 
 def read_header(path: str | Path) -> tuple[int, int]:

@@ -97,7 +97,7 @@ import torch.distributed as dist
 from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
 from deeplearning_cfn_tpu_torch.obs.tracing import span
 from deeplearning_cfn_tpu_torch.parallel.mesh import MeshError, MeshSpec, mesh_spec
-from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+from deeplearning_cfn_tpu_torch.train.optimizers import host_whole, local_part
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dlcfn.reshard")
@@ -321,8 +321,8 @@ def _move(state: Any, new: Any, group: Any) -> Any:
     into ``new`` (None on a rank that leaves) from the old state's global
     views.  The ranks of ``group`` first agree whether the survivors' local
     shards are already their new ones (whole slices left: nothing moves) or
-    each sharded leaf is gathered over the old mesh (departing ranks
-    handing theirs over)."""
+    each sharded leaf is gathered on the host over the old mesh
+    (:func:`host_whole`; departing ranks handing theirs over)."""
     old = _flat(state.state_dict())
     targets = _flat(new.state_dict()) if new is not None else {}
     local = 1 if new is None else int(all(_region(targets[k]) == _region(v)
@@ -331,7 +331,7 @@ def _move(state: Any, new: Any, group: Any) -> Any:
     for key in sorted(old):
         src = old[key]
         if gather and hasattr(src, "device_mesh"):
-            src = src.full_tensor()
+            src = host_whole(src)
             region = tuple(slice(0, n) for n in src.shape)
         else:
             src, region = local_part(src), _region(src)
@@ -382,8 +382,9 @@ def _regrow(state: Any, new: Any, mesh: Any, group: Any, holders: list[int]) -> 
     comes back to a dp x fsdp mesh), each leaf is copied in place on the
     survivors and broadcast over the ``dp`` group from its lowest survivor
     (``holders`` are the survivors' global ranks); otherwise every sharded
-    leaf is gathered whole on the survivors and broadcast from the first
-    survivor over ``group``, each rank keeping its part."""
+    leaf is gathered whole on the survivors' hosts (:func:`host_whole`)
+    and broadcast from the first survivor over ``group``, each rank
+    keeping its part."""
     targets = _flat(new.state_dict())
     old = _flat(state.state_dict()) if state is not None else None
     dp = mesh_spec(mesh).dp if mesh is not None else 1
@@ -403,10 +404,11 @@ def _regrow(state: Any, new: Any, mesh: Any, group: Any, holders: list[int]) -> 
     for key in sorted(targets):
         dst = targets[key]
         if old is not None:
-            whole = old[key].full_tensor() if hasattr(old[key], "device_mesh") else old[key]
+            whole = old[key]
+            whole = host_whole(whole) if hasattr(whole, "device_mesh") else whole.detach().cpu()
             whole = whole.contiguous()
         else:
-            whole = torch.empty(dst.shape, dtype=dst.dtype, device=local_part(dst).device)
+            whole = torch.empty(dst.shape, dtype=dst.dtype)
         dist.broadcast(whole, src=holders[0], group=group)
         local_part(dst).copy_(whole[_region(dst)])
     return new

@@ -338,8 +338,9 @@ def _split_global(t: torch.Tensor, state: "TrainState", ep_mesh) -> torch.Tensor
 
 def _copy_into(dst: Any, src: Any, path: str) -> None:
     """Copy the tensors of ``src`` into those of ``dst`` (same structure and
-    layout), skipping those that already share storage (DCP loaded them in
-    place)."""
+    layout, or a whole tensor where ``dst`` holds a DTensor of its shape:
+    this rank's part of it), skipping those that already share storage (DCP
+    loaded them in place)."""
     if isinstance(dst, dict):
         for k, v in dst.items():
             if k not in src:
@@ -348,6 +349,11 @@ def _copy_into(dst: Any, src: Any, path: str) -> None:
         return
     if not isinstance(dst, torch.Tensor):
         return
+    if hasattr(dst, "device_mesh") and not hasattr(src, "device_mesh") \
+            and tuple(src.shape) == tuple(dst.shape):
+        from deeplearning_cfn_tpu_torch.train.reshard import _region
+
+        src = src[_region(dst)]  # a whole tensor (a JSON checkpoint's): this rank's part
     d, s = local_part(dst), local_part(src)
     if d.data_ptr() == s.data_ptr() and d.device == s.device:
         return

@@ -334,3 +334,93 @@ def test_fit_with_datastream_resumes_the_records_the_lost_run_never_saw(tmp_path
     assert s_c.records_total == stop * 16  # no replay, no skip
     _, rest = t_c.fit(state_c, s_c.batches(), steps=total - stop, prefetch=0)
     assert first + rest == straight  # bit for bit
+
+
+_LAID_OUT = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+from deeplearning_cfn_tpu_torch.train.datastream import AsyncShardedCheckpointer
+from deeplearning_cfn_tpu_torch.train.trainer import _copy_into
+
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + sys.argv[2], rank=rank,
+                        world_size=4)
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("dp", "fsdp"))
+g = torch.Generator().manual_seed(0)
+whole = {"a": torch.randn(5, 3, generator=g), "b": torch.randn(3, 7, generator=g),
+         "c": torch.randn(7, generator=g)}
+placements = {"a": [Replicate(), Shard(0)], "b": [Shard(1), Shard(1)], "c": [Shard(0), Shard(0)]}
+laid = {k: distribute_tensor(v, mesh, placements[k]) for k, v in whole.items()}
+ck = AsyncShardedCheckpointer(sys.argv[3] + "/rank" + str(rank), every_steps=1, n_shards=2)
+ck.save(1, laid)
+ck.wait()
+docs, step = ck.restore_latest()
+back = {k: distribute_tensor(torch.zeros_like(v), mesh, placements[k]) for k, v in whole.items()}
+restored, _ = ck.restore_latest(template={k: torch.zeros_like(v) for k, v in whole.items()})
+_copy_into(back, restored, "state")
+ck.close()
+lone = AsyncShardedCheckpointer(sys.argv[3] + "/lone" + str(rank), interval_s=5.0)
+try:
+    lone.save(2, laid)
+    refused = False
+except ValueError:
+    refused = True
+lone.close()
+now = [0.0]
+timed = AsyncShardedCheckpointer(sys.argv[3] + "/timed" + str(rank), interval_s=5.0,
+                                 n_shards=2, clock=lambda: now[0], group=dist.group.WORLD)
+now[0] = 6.0 if rank == 0 else 1.0  # rank 0's clock alone is due
+due = timed.should_save(2)
+if due:
+    timed.save(2, laid)
+timed.wait()
+timed_step = timed.latest_step()
+timed.close()
+out = {"step": step,
+       "saved_whole": all(torch.equal(torch.tensor(d["data"]).reshape(d["shape"]), whole[k])
+                          for k, d in zip(sorted(whole), docs)),
+       "loaded_parts": all(torch.equal(back[k].to_local(), laid[k].to_local()) for k in whole),
+       "shapes": {k: list(laid[k].to_local().shape) for k in whole},
+       "interval_refused_without_group": refused, "interval_due": due,
+       "interval_saved_step": timed_step}
+print(json.dumps(out))
+dist.destroy_process_group()
+'''
+
+
+def test_async_checkpoint_saves_and_loads_a_state_laid_out_over_ranks(tmp_path):
+    """Four gloo ranks on a 2 x 2 mesh: uneven shards over one and over both
+    mesh dims are saved whole (gathered by plain host all-gathers in
+    ``save()``), and the whole tensors load back into the layout as each
+    rank's part (``trainer._copy_into``).  On ``interval_s`` the ranks save
+    only with ``group=``, where one rank's due clock saves on every rank;
+    without it the save is refused."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    repo = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")])))
+    procs = [subprocess.Popen([sys.executable, "-c", _LAID_OUT, str(r), port, str(tmp_path)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(4)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    for out in outs:
+        assert out["step"] == 1 and out["saved_whole"] and out["loaded_parts"]
+        assert out["interval_refused_without_group"]
+        assert out["interval_due"] and out["interval_saved_step"] == 2
+    for k in ("a", "b", "c"):  # each leaf's shards differ in size across the ranks
+        assert len({tuple(o["shapes"][k]) for o in outs}) > 1, k

@@ -615,8 +615,8 @@ def test_chaos_command(capsys):
 
     assert cli.main(["chaos", "--list"]) == 0
     out = capsys.readouterr().out
-    # The catalog in name order: sched-flash-crowd, then slice-loss-live.
-    assert out.startswith("sched-flash-crowd") and "slice-loss, forced-fallback" in out
+    # The catalog in name order: alert-storm first, slice-loss-live among the rest.
+    assert out.startswith("alert-storm") and "slice-loss, forced-fallback" in out
     assert "\nslice-loss-live " in out
     assert cli.main(["chaos", "--scenario", "bogus"]) == 2
     assert cli.main(["chaos"]) == 2

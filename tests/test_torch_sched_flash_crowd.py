@@ -72,4 +72,9 @@ def test_scenario_is_listed(capsys):
     assert cli.main(["chaos", "--list"]) == 0
     out = capsys.readouterr().out
     assert "sched-flash-crowd" in out and "flash-crowd, replica-loss, preemption" in out
-    assert list(scenarios.SCENARIOS) == ["slice-loss-live", "sched-flash-crowd"]
+    assert list(scenarios.SCENARIOS) == [
+        "silent-death", "partition", "flaky-rpc", "slow-disk", "slice-loss-live",
+        "data-reshard-live", "straggler", "serve-replica-loss", "broker-failover",
+        "split-brain", "shard-failover", "degraded-pair-heal", "alert-storm",
+        "sched-flash-crowd", "gauntlet"]
+    assert list(scenarios.SCENARIOS) == list(jscenarios.SCENARIOS)  # JAX's, in its order
