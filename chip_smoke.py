@@ -235,7 +235,8 @@ Phases, one JSON line each:
 16. two_ranks  two processes of this script on the one card, a gloo group
            over CUDA tensors (host-staged), ``DEEPLEARNING_SLICES_COUNT=2``:
            the mesh is ``hybrid_mesh_for_slices(2)``, dp 2 over the "DCN"
-           axis.  m435, seq 2048, batch 8 a rank, 4 AdamW steps on the same
+           axis.  m435 at ``TWO_RANK_LAYERS`` (6) of its 24 layers, seq
+           2048, batch 8 a rank, 4 AdamW steps on the same
            batches each: hookless DDP; ``comms_overlap`` (f32 buckets),
            bitwise the hookless run (losses and parameters); a planted
            control (the bucketed run with its first bucket left unsynced),
@@ -255,7 +256,7 @@ Phases, one JSON line each:
            plane: the port's ``EventBus`` into ``ElasticityController`` (10 s
            debounce on a ``VirtualClock``), ``LiveReshardManager`` and
            ``LiveReshardCoordinator`` handed to ``Trainer.fit(reshard=)``.
-           m435 at full width, ``RESHARD_LAYERS`` (6) of its 24 layers
+           m435 at full width, ``RESHARD_LAYERS`` (4) of its 24 layers
            deep, seq 2048, batch 8 a rank (16 in
            all), AdamW, ``strategy "fsdp"`` on the hybrid mesh (dp over the
            slices), six steps, flash on.  Runs: ``straight`` (no loss,
@@ -343,7 +344,7 @@ Phases, one JSON line each:
 21. sched_flash_crowd  the fleet scheduler with live regrowth, JAX's
            ``sched-flash-crowd`` incident on the card: two processes of this
            script on ``cuda:0`` over gloo, training JAX's
-           ``LlamaConfig.m435`` at full width, ``SCHED_LAYERS`` (12) of its
+           ``LlamaConfig.m435`` at full width, ``SCHED_LAYERS`` (4) of its
            24 layers (seq 2048, per-rank
            batch 8, AdamW, flash on; FSDP2 at fsdp 1 under dp 2; job
            ``train-fsdp``, ``prod-train``, slices s1 and s2, one rank each).
@@ -405,6 +406,29 @@ Phases, one JSON line each:
            process or in the ranks' (the sweep's ranks counted by ``cli
            gauntlet``'s stderr line; the MLP and the tiny Llama's serving
            run none).
+23. analysis  the port's ``analysis/`` on the card.  ``cli lint`` with every
+           pass against the port's baseline (exit 0; the findings the
+           baseline holds, by rule) and on a planted file (a host sync in a
+           ``torch.cuda.graph`` block, a host read of ``full_tensor()``:
+           exit 1 with DLC003 and DLC502).  The compile audit: the audit
+           MLP's ``single_step`` and ``multi_step`` paths; m435 at full
+           width (seq 2048, bf16) cut to ``ANALYSIS_LAYERS``,
+           ``multi_step_fn(ANALYSIS_K)`` with one warm-up call and
+           ``ANALYSIS_STEADY`` steady calls (exactly one capture, no capture
+           or build after the mark, flash in its wgmma variant in the
+           warm-up and capture, every state leaf updated in place); the
+           serve engine at m435 widths (``ANALYSIS_SERVE_LAYERS``, bf16),
+           ``ANALYSIS_REQUESTS`` mixed requests (one ``CapturedDecode``, the
+           pool's storage unchanged); a control, a second model handed to
+           one wrapper, must give DLC410.  The comms audit: the six programs
+           on 2 gloo ranks on ``cuda:0`` (``multi_step`` eagerly: its graph
+           needs NCCL, phase 17's), counts and bytes equal to the committed
+           CPU budget, c10d's count equal to the backend's, peak memory
+           reported.  The replay audit: every catalog scenario that starts
+           no rank process and both soaks, twice each, byte-equal; the four
+           that do are named as not replayed here.  The lints, the comms
+           ranks and the replay audit are subprocesses that run while this
+           process runs the compile audit.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -417,7 +441,7 @@ The flash row of the kernels line counts the launches of every Llama path
 m435 run of ``checkpoint``, the m435 run of ``records``, the 8B run of
 ``llama8b``, ``pp_layout``, both processes' runs of ``two_ranks`` and
 ``mesh_captured``, ``live_reshard``, ``provision_run``, ``provision_broker``,
-``sched_flash_crowd``; by path in
+``sched_flash_crowd``, ``analysis``; by path in
 ``launches_by_path``), each counted from zero just
 before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
@@ -443,6 +467,7 @@ import statistics
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -586,9 +611,10 @@ NO_UPDATE_MARGIN = 4
 # batches, saved at half of them; every checkpoint is written under a
 # temporary directory, which must have CKPT_DISK_BYTES free (at most three
 # m435 checkpoints of ~2.6 GB at once, one of them in flight).  Its m435 is
-# cut to CKPT_LAYERS deep, to hold the whole script near 800 s; phase 18's
-# fallback saves and restores the full-depth m435 state, held bitwise.
-CKPT_STEPS, CKPT_EXAMPLE_STEPS, CKPT_LAYERS = 8, 2, 12
+# cut to CKPT_LAYERS deep (6 since phase 23 joined), to hold the whole script
+# within its time limit; phase 18's fallback saves and restores the m435
+# state, held bitwise.
+CKPT_STEPS, CKPT_EXAMPLE_STEPS, CKPT_LAYERS = 8, 2, 6
 CKPT_DISK_BYTES = 10 * 10**9
 # Detection (phase 11): the JAX RetinaNet configuration at full width --
 # ResNet-50, FPN 256, 80 classes, 9 anchors a cell, 16 prototypes, masks,
@@ -658,8 +684,10 @@ REMAT_GRAD_RTOL = 1e-2
 # The rest of the parallelism slice (phases 15-17), m435 at seq 2048.
 # pp_layout: JAX's stage-stacked m435 at 2 stages and 4 microbatches.
 PP_STAGES, PP_MICROBATCHES, PP_STEPS, PP_BATCH = 2, 4, 4, 8
-# two_ranks: two processes on the one card, a gloo group, per-rank batch 8.
-TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_TIMEOUT = 8, 4, 600
+# two_ranks: two processes on the one card, a gloo group, per-rank batch 8;
+# m435 cut to TWO_RANK_LAYERS of its 24 layers since phase 23 joined, to hold
+# the whole script within its time limit.
+TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_TIMEOUT, TWO_RANK_LAYERS = 8, 4, 600, 6
 # JAX's test_int8_error_feedback_tracks_the_f32_curve.
 INT8_RTOL, INT8_ATOL = 5e-3, 1e-3
 # mesh_captured: multi_step_fn(MESH_K) over the mesh phase's one-rank mesh.
@@ -669,8 +697,8 @@ MESH_K, MESH_REPLAYS = 4, 2
 # continuity tolerance (chaos/scenarios.py).
 RESHARD_BATCH, RESHARD_STEPS, RESHARD_DIE_AT, RESHARD_TIMEOUT = 8, 6, 3, 900
 # ... cut to RESHARD_LAYERS of m435's 24 layers, to hold the whole script
-# within its time limit beside phase 21 (which keeps m435's full depth).
-RESHARD_LAYERS = 6
+# within its time limit beside phases 21-23.
+RESHARD_LAYERS = 4
 RESHARD_RTOL, RESHARD_ATOL = 5e-3, 1e-4
 # provision_run: the job of the phase's template, steps of the straight run
 # and of each episode of the recovered one.
@@ -683,8 +711,8 @@ BROKER_CLUSTER, BROKER_STEPS, BROKER_POLL_S, BROKER_TIMEOUT = "provision-broker"
 # tolerance (deeplearning_cfn_tpu/chaos/scenarios.py:2777).
 SCHED_BATCH, SCHED_TIMEOUT = 8, 900
 # ... cut to SCHED_LAYERS of m435's 24 layers (training and the serve pool),
-# to hold the whole script within its time limit beside phase 22.
-SCHED_LAYERS = 12
+# to hold the whole script within its time limit beside phases 22 and 23.
+SCHED_LAYERS = 4
 SCHED_RTOL, SCHED_ATOL = 5e-3, 1e-4
 # Phase 22: the scenarios this slice added, in the JAX catalog's order
 # (slice-loss-live and sched-flash-crowd are phases 18 and 21's).
@@ -692,6 +720,30 @@ CHAOS_TIMEOUT = 900
 CHAOS_ADDED = ("silent-death", "partition", "flaky-rpc", "slow-disk", "data-reshard-live",
                "straggler", "serve-replica-loss", "broker-failover", "split-brain",
                "shard-failover", "degraded-pair-heal", "alert-storm", "gauntlet")
+
+
+# Phase 23 (analysis): the m435 compile audit's depth (full width, seq 2048,
+# bf16), batch and steady calls of multi_step_fn(ANALYSIS_K); the serve
+# audit's depth (m435 widths, bf16) and requests; the lint and audit
+# subprocesses' time limit.
+ANALYSIS_LAYERS, ANALYSIS_BATCH, ANALYSIS_K, ANALYSIS_STEADY = 4, 2, 2, 4
+ANALYSIS_SERVE_LAYERS, ANALYSIS_REQUESTS = 4, 24
+ANALYSIS_SERVE_SLOTS = dict(num_slots=8, block_size=16, blocks_per_slot=16, prefill_len=128)
+ANALYSIS_TIMEOUT = 600
+ANALYSIS_LINT_FLAGS = ["--concurrency", "--protocol", "--sharding", "--comms", "--determinism"]
+# The lint control: a host sync in captured code (DLC003) and a host read of
+# a gathered DTensor (DLC502, the shape train/reshard.py's _move had).
+ANALYSIS_PLANTED = (
+    "import torch\n\n\n"
+    "def step(graph, x, w):\n"
+    "    with torch.cuda.graph(graph):\n"
+    "        y = x @ w\n"
+    "        scale = y.sum().item()\n"
+    "    return y * scale\n\n\n"
+    "def move(src, region):\n"
+    "    src = src.full_tensor()\n"
+    "    return src[region]\n"
+)
 
 
 # Traces _device_ms takes before it gives up on seeing device time.
@@ -702,8 +754,14 @@ PROFILE_TRIES = 3
 _NOTES: dict = {}
 
 
+_T0 = time.perf_counter()
+
+
 def _emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+    # The timeline, on stderr: seconds since the script started, a line.
+    label = obj.get("phase") or next(iter(obj), "")
+    print(f"chip_smoke +{time.perf_counter() - _T0:.1f}s {label}", file=sys.stderr, flush=True)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -2762,7 +2820,7 @@ def _two_ranks_worker(rank: int, port: int, out: str) -> int:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
                             rank=rank)
     mesh = hybrid_mesh_for_slices(int(os.environ["DEEPLEARNING_SLICES_COUNT"]))
-    cfg = llama.LlamaConfig.m435(seq_len=2048)
+    cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=2048), n_layers=TWO_RANK_LAYERS)
     batches = [device_put_batch(b, torch.device("cuda")) for b in SyntheticTokenDataset(
         seq_len=2048, vocab_size=cfg.vocab_size,
         batch_size=2 * TWO_RANK_BATCH).batches(TWO_RANK_STEPS)]
@@ -2826,7 +2884,7 @@ def _two_ranks_phase(torch, smi: str, flash_per_block: float) -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    n_layers = 24
+    n_layers = TWO_RANK_LAYERS
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "two_ranks")
         env = dict(os.environ, DEEPLEARNING_SLICES_COUNT="2")
@@ -3732,7 +3790,7 @@ def _provision_broker_phase(smi: str, flash_per_block: float) -> int:
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
-                    proc.wait()
+                    proc.wait(timeout=30)
             if pid is not None:
                 try:
                     os.kill(pid, signal.SIGKILL)  # only if delete left it
@@ -4282,6 +4340,267 @@ def _chaos_catalog_phase(torch, kernels_mod, smi: str) -> dict:
     _kernel_free(got, "chaos_catalog")
     _kernel_free(in_ranks, "chaos_catalog (rank processes)")
     return got
+
+
+def _analysis_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int:
+    """Phase 23 (see the module docstring): ``cli lint`` with every pass
+    against the port's baseline and on a planted file; the compile audit
+    (the audit MLP, m435 ``multi_step_fn`` at ``ANALYSIS_LAYERS``, the serve
+    engine at m435 widths, a recapture control); the comms audit on 2 gloo
+    ranks on cuda:0 against the committed budget; the replay audit over
+    the catalog's rank-free scenarios and both soaks.  The subprocesses
+    (three lints, the comms ranks, the replay audit) run while this process
+    runs the compile audit.  Returns the flash launches of the phase."""
+    import tempfile
+
+    from deeplearning_cfn_tpu_torch.analysis import compile_audit as ca
+    from deeplearning_cfn_tpu_torch.analysis import comms_audit as cm
+    from deeplearning_cfn_tpu_torch.analysis.collectives import (
+        AUDIT_RULE_IDS as COMMS_AUDIT_RULE_IDS,
+    )
+    from deeplearning_cfn_tpu_torch.analysis.core import Violation
+    from deeplearning_cfn_tpu_torch.analysis import replay_audit as ra
+    from deeplearning_cfn_tpu_torch.analysis import runner
+    from deeplearning_cfn_tpu_torch.chaos.scenarios import SCENARIOS
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.serve.engine import ServeConfig
+    from deeplearning_cfn_tpu_torch.train.data import (
+        SyntheticTokenDataset,
+        device_put_batch,
+        stack_batches,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    tmp = tempfile.TemporaryDirectory()
+    planted = Path(tmp.name) / "train" / "planted.py"
+    planted.parent.mkdir()
+    planted.write_text(ANALYSIS_PLANTED)
+
+    def start(args):
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    cli = "deeplearning_cfn_tpu_torch.cli"
+    procs = {
+        "lint": start([cli, "lint", *ANALYSIS_LINT_FLAGS, "--baseline"]),
+        "lint_json": start([cli, "lint", *ANALYSIS_LINT_FLAGS, "--format", "json"]),
+        "lint_planted": start([cli, "lint", "--sharding", "--comms", "--format", "json",
+                               str(planted)]),
+        # The replay audit in two processes, the scenarios and the soaks.
+        "replay": start(["deeplearning_cfn_tpu_torch.analysis.replay_audit", "--device", "cuda",
+                         "--no-ranks", "--no-soaks"]),
+        "replay_soaks": start(["deeplearning_cfn_tpu_torch.analysis.replay_audit",
+                               "--device", "cuda", "--soaks-only"]),
+    }
+    comms: dict = {}
+
+    def comms_run():
+        t0 = time.perf_counter()
+        comms["report"] = cm.run_comms_audit(device="cuda", journal=False, workdir=tmp.name)
+        comms["wall_s"] = time.perf_counter() - t0
+
+    comms_thread = threading.Thread(target=comms_run, daemon=True)
+    comms_thread.start()
+    try:
+        # --- compile audit: the JAX-shaped audit (the audit MLP) ---------
+        t0 = time.perf_counter()
+        mlp = ca.run_compile_audit(device="cuda", journal=False)
+        mlp_s = time.perf_counter() - t0
+        by_path = {p.name: p for p in mlp.paths}
+        _emit({"phase": "analysis", "part": "compile_audit_mlp", "wall_s": mlp_s,
+               **mlp.to_dict(), "nvidia_smi": smi})
+        _require(mlp.violations == [], f"analysis: the audit MLP's findings {mlp.violations}")
+        _require(by_path["multi_step"].cache_size == 1,
+                 "analysis: the audit MLP's multi_step wrapper holds no graph")
+
+        # --- the control: a second model object recaptures (DLC410) ------
+        from deeplearning_cfn_tpu_torch.train.trainer import Trainer
+
+        trainer = Trainer(ca.audit_mlp(), TrainerConfig(learning_rate=0.05, optimizer="sgd"),
+                          device="cuda")
+        xs = torch.randn(2, 8, 8, 8, 1, device="cuda")
+        ys = torch.randint(0, 4, (2, 8), device="cuda")
+        kfn = trainer.multi_step_fn(2)
+        with ca.CompileWatcher(owners=[kfn]) as watcher:
+            kfn(trainer.init(seed=0), xs, ys)
+            watcher.mark_steady()
+            kfn(trainer.init(seed=1), xs, ys)  # another model: the graph recaptures
+            control = ca.PathAudit(name="multi_step", steady_steps=1,
+                                   new_compiles=watcher.new_compiles_since_mark())
+        control_rules = [v.rule for v in ca.violations_for([control])]
+        _emit({"phase": "analysis", "part": "compile_audit_control",
+               "new_compiles": control.new_compiles, "rules": control_rules})
+        _require(control_rules == ["DLC410"],
+                 f"analysis: a recapture on a second model gave {control_rules}, not DLC410")
+        del trainer, kfn, xs, ys
+
+        # --- m435 multi_step_fn(K) at full width -------------------------
+        cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=2048), n_layers=ANALYSIS_LAYERS)
+        trainer = llama.make_trainer(cfg, TrainerConfig(
+            optimizer="adamw", learning_rate=3e-4, weight_decay=0.1, grad_clip_norm=1.0,
+            log_every=1), device="cuda")
+        data = SyntheticTokenDataset(seq_len=2048, vocab_size=cfg.vocab_size,
+                                     batch_size=ANALYSIS_BATCH)
+        batches = list(data.batches(2 * ANALYSIS_K))
+        stacks = [device_put_batch(b, torch.device("cuda"))
+                  for b in stack_batches(iter(batches), ANALYSIS_K)]
+        state = trainer.init(seed=0, draw_on_device=True)
+        kfn = trainer.multi_step_fn(ANALYSIS_K)
+        t0 = time.perf_counter()
+        with ca.CompileWatcher(owners=[kfn]) as watcher:
+            kernels_mod.reset_launch_counts()
+            state, losses = kfn(state, *stacks[0])  # warm-up + capture
+            losses.tolist()
+            capture_launches = dict(kernels_mod.launch_counts)
+            captures_at_mark = dict(watcher.traces)
+            watcher.mark_steady()
+            kernels_mod.reset_launch_counts()
+            for i in range(ANALYSIS_STEADY):
+                xs, ys = stacks[(i + 1) % len(stacks)]
+                if i == ANALYSIS_STEADY - 1:
+                    (state, losses), donation = ca.measure_donation(kfn, state, xs, ys)
+                else:
+                    state, losses = kfn(state, xs, ys)
+            steady_losses = losses.tolist()
+            replay_launches = {k: n for k, n in kernels_mod.launch_counts.items() if n}
+            m435 = ca.PathAudit(name="multi_step", steady_steps=ANALYSIS_STEADY,
+                                new_compiles=watcher.new_compiles_since_mark(),
+                                new_traces=watcher.new_traces_since_mark(),
+                                cache_size=ca.cache_size(kfn), donation=donation)
+            snapshot = watcher.snapshot()
+        m435_s = time.perf_counter() - t0
+        leaves = len(ca.state_leaves(state))
+        flash = _flash_check(capture_launches, 1 + ANALYSIS_K, flash_per_block * cfg.n_layers,
+                             "analysis: m435 multi_step_fn warm-up + capture")
+        row = {"phase": "analysis", "part": "compile_audit_m435", "model": "m435",
+               "n_layers": cfg.n_layers, "dim": cfg.dim, "heads": cfg.n_heads, "S": 2048,
+               "batch": ANALYSIS_BATCH, "dtype": "bfloat16", "k": ANALYSIS_K,
+               "steady_calls": ANALYSIS_STEADY, "captures": kfn.captures,
+               "captures_before_mark": captures_at_mark, **m435.to_dict(), "watcher": snapshot,
+               "state_leaves": leaves, "steady_losses": steady_losses,
+               "launches_in_warmup_and_capture": capture_launches,
+               "launches_in_steady_calls": replay_launches, **flash, "wall_s": m435_s,
+               "nvidia_smi": smi}
+        _emit(row)
+        _require(kfn.captures == 1 and captures_at_mark == {f"CapturedSteps(k={ANALYSIS_K})": 1},
+                 f"analysis: m435 captured {kfn.captures} times ({captures_at_mark})")
+        _require(m435.new_compiles == {} and ca.violations_for([m435]) == [],
+                 f"analysis: m435 captured or built after the mark: {m435.new_compiles}")
+        _require(donation.retained_leaves == 0 and donation.untouched_leaves == 0
+                 and donation.donated_leaves == leaves,
+                 f"analysis: m435 donation {donation.to_dict()} over {leaves} leaves")
+        _require(all(math.isfinite(v) for v in steady_losses), "analysis: m435 non-finite loss")
+        del trainer, state, kfn, stacks, batches, losses
+        torch.cuda.empty_cache()
+
+        # --- the serve audit at m435 widths ------------------------------
+        scfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=2048),
+                                   n_layers=ANALYSIS_SERVE_LAYERS)
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        serve = ca.run_serve_audit(steady_requests=ANALYSIS_REQUESTS, journal=False,
+                                   device="cuda", cfg=scfg,
+                                   serve_cfg=ServeConfig(**ANALYSIS_SERVE_SLOTS))
+        serve_s = time.perf_counter() - t0
+        serve_launches = {k: n for k, n in kernels_mod.launch_counts.items() if n}
+        sp = serve.paths[0]
+        _emit({"phase": "analysis", "part": "compile_audit_serve", "model": "m435 widths",
+               "n_layers": scfg.n_layers, "dtype": "bfloat16", "requests": ANALYSIS_REQUESTS,
+               **serve.to_dict(), "launches": serve_launches, "wall_s": serve_s,
+               "nvidia_smi": smi})
+        _require(serve.watcher["decode_captures"] == 1 and serve.violations == []
+                 and serve.watcher["pool_storage_unchanged"] and sp.cache_size == 1
+                 and sp.donation.retained_leaves == 0,
+                 f"analysis: the serve audit {serve.to_dict()}")
+        torch.cuda.empty_cache()
+        compile_s = time.perf_counter() - t_phase
+
+        # --- the subprocesses --------------------------------------------
+        outs = {}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=ANALYSIS_TIMEOUT)
+            outs[name] = (p.returncode, out, err)
+        comms_thread.join(timeout=ANALYSIS_TIMEOUT)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        tmp.cleanup()
+
+    # lint against the baseline, by rule, and the planted control.
+    rc, out, err = outs["lint"]
+    _require(rc == 0, f"analysis: cli lint --baseline exited {rc}:\n{out[-3000:]}{err[-2000:]}")
+    found = json.loads(outs["lint_json"][1])["violations"]
+    by_rule: dict = {}
+    for v in found:
+        by_rule[v["rule"]] = by_rule.get(v["rule"], 0) + 1
+    baseline = runner.load_baseline(runner.DEFAULT_BASELINE)
+    # The same findings against the ratchet: nothing fresh, and every static
+    # entry matched (a lint that read no file would leave them all stale).
+    fresh, stale = runner.apply_baseline([Violation(**v) for v in found], baseline)
+    stale = [e for e in stale if e[0] not in runner.DYNAMIC_AUDIT_RULE_IDS]
+    planted_rc, planted_out, planted_err = outs["lint_planted"]
+    planted_rules = sorted({v["rule"] for v in json.loads(planted_out)["violations"]})
+    _emit({"phase": "analysis", "part": "lint", "flags": ANALYSIS_LINT_FLAGS,
+           "rc_with_baseline": rc, "findings_by_rule": by_rule,
+           "baseline_entries": len(baseline), "fresh": len(fresh), "stale_static": stale,
+           "planted_rc": planted_rc, "planted_rules": planted_rules})
+    _require(fresh == [] and stale == [] and found,
+             f"analysis: lint's findings against the ratchet: fresh {fresh}, stale {stale}")
+    _require(planted_rc == 1 and {"DLC003", "DLC502"} <= set(planted_rules),
+             f"analysis: the planted file gave rc {planted_rc}, rules {planted_rules}:\n"
+             f"{planted_err[-2000:]}")
+
+    # comms: the six programs on 2 gloo ranks on cuda:0 against the budget.
+    _require("report" in comms, "analysis: the comms audit did not finish")
+    report, budget = comms["report"], cm.load_budget()
+    programs = {p.name: p for p in report.programs}
+    equal = {name: (programs[name].collective_count == b["collective_count"]
+                    and programs[name].collective_bytes == b["collective_bytes"])
+             for name, b in budget["programs"].items()}
+    _emit({"phase": "analysis", "part": "comms_audit", "ranks": cm.RANKS,
+           "device": "cuda:0 for both", "backend": "gloo over CUDA tensors",
+           "multi_step": "its k steps eagerly on the gloo ranks (the CUDA-graph form needs "
+                         "NCCL: phase 17)",
+           "peak_hbm_bytes": "torch.cuda.max_memory_allocated over the profiled step "
+                             "(the budget's is the CPU profiler's peak)",
+           "programs": {n: p.to_dict() for n, p in programs.items()},
+           "measured": report.measured, "budget_equal": equal,
+           "violations": [v.to_dict() for v in report.violations],
+           "wall_s": comms["wall_s"], "nvidia_smi": smi})
+    _require(all(equal.values()), f"analysis: comms counts or bytes differ from the budget: "
+             f"{equal}")
+    _require(all(m["witness_counts"] == m["rank_counts"] for m in report.measured.values()),
+             f"analysis: the backend's count disagrees with c10d's: {report.measured}")
+    fresh, _ = runner.apply_audit_baseline(report.violations, None, COMMS_AUDIT_RULE_IDS)
+    _require(fresh == [], f"analysis: fresh comms findings {fresh}")
+
+    # replay: every rank-free case twice, byte-equal.
+    replays = []
+    for name in ("replay", "replay_soaks"):
+        rc, out, err = outs[name]
+        _require(rc == 0, f"analysis: the replay audit exited {rc}:\n{out[-2000:]}{err[-2000:]}")
+        replays.append(json.loads(out))
+    not_replayed = sorted(n for n in SCENARIOS if ra.spawns_ranks(n))
+    runs = [r for rep in replays for r in rep["replays"]]
+    divergent = sorted(n for rep in replays for n in rep["divergent"])
+    _emit({"phase": "analysis", "part": "replay_audit",
+           "cases": sum(rep["cases"] for rep in replays), "divergent": divergent,
+           "replays": [{k: r[k] for k in ("name", "identical", "nbytes")} for r in runs],
+           "not_replayed_here": not_replayed,
+           "not_replayed_why": "they start rank processes; phase 22 replays the gauntlet"})
+    _require(all(rep["clean"] for rep in replays) and divergent == []
+             and all(r["identical"] for r in runs) and len(runs) == len(SCENARIOS) - 2,
+             f"analysis: replay divergence {divergent}")
+    wall_s = time.perf_counter() - t_phase
+    _emit({"phase": "analysis", "part": "done", "compile_audit_s": compile_s,
+           "comms_audit_s": comms["wall_s"], "wall_s": wall_s, "nvidia_smi": smi})
+    return flash["flash_launches"]
 
 
 def main() -> int:
@@ -4890,6 +5209,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     new_paths["chaos_catalog"] = _chaos_catalog_phase(torch, _kernels, smi)
     flash_by_path["chaos_catalog"] = new_paths["chaos_catalog"].get("flash_attention_fwd", 0)
+
+    # 23. analysis: cli lint with the port's ratchet, the compile, comms and
+    # replay audits on the card.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flash_by_path["analysis"] = _analysis_phase(torch, _kernels, smi, flash_per_block)
 
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with

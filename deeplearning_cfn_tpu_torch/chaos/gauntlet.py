@@ -679,9 +679,9 @@ def gauntlet_rank(seed: int, root: str, device: str) -> None:
         survivor_ranks,
     )
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     rank = _rank_setup(device)
-    seconds = {"setup": time.time() - t0}
+    seconds = {"setup": time.perf_counter() - t0}
     root_p = Path(root)
     cfg = json.loads((root_p / "gauntlet.json").read_text())
     schedule = FaultSchedule.from_dict(cfg["schedule"])
@@ -699,7 +699,7 @@ def gauntlet_rank(seed: int, root: str, device: str) -> None:
         t = _mlp_trainer(mesh_for(origin), device, weights)
         _, out["straight"] = t.fit(t.init(seed=seed), train_stream(tpaths, seed).batches(),
                                    steps=T, prefetch=0)
-    seconds["straight"] = time.time() - t0 - sum(seconds.values())
+    seconds["straight"] = time.perf_counter() - t0 - sum(seconds.values())
 
     world = None
     if rank == 0:
@@ -729,7 +729,7 @@ def gauntlet_rank(seed: int, root: str, device: str) -> None:
                                  steps=T, prefetch=0, checkpointer=ck, datastream=stream,
                                  reshard=coordinator)
     ck.wait()
-    seconds["incident"] = time.time() - t0 - sum(seconds.values())
+    seconds["incident"] = time.perf_counter() - t0 - sum(seconds.values())
     out.update(losses=losses, left=coordinator.departed,
                pause_s=[r.seconds for r in coordinator.records])
     if world is not None:
@@ -763,7 +763,7 @@ def gauntlet_rank(seed: int, root: str, device: str) -> None:
         finally:
             ckf.close()
     ck.close()
-    seconds["restore"] = time.time() - t0 - sum(seconds.values())
+    seconds["restore"] = time.perf_counter() - t0 - sum(seconds.values())
     out.update(_rank_facts(device), seconds=seconds)
     if world is not None:
         out["obs"] = world.obs

@@ -17,6 +17,8 @@ far, each the counterpart of the ``dlcfn`` command of its name:
                                             the fleet arbiter's ledger
   chaos --scenario NAME | --all | --list     the chaos catalog (JAX's 15 scenarios)
   gauntlet [--seed N] [--sweep N]           composed multi-fault incidents
+  lint [--concurrency --protocol --sharding --comms --determinism]
+       [--baseline [PATH]] [--select RULES]  dlcfn-lint over the port's tree
 
 The local backend executes everything in-process (the fake cloud) and
 ``run`` trains the template's job in this process, on the card unless the
@@ -1318,6 +1320,77 @@ def cmd_chaos(args) -> int:
     return 0 if all(r.passed for r in reports) else 1
 
 
+_BASELINE_DEFAULT_SENTINEL = "<default-baseline>"
+
+
+def cmd_lint(args) -> int:
+    """dlcfn-lint over the port (``analysis/``, README "Static analysis").
+
+    Runs the DLC0xx per-file AST rules over the port's package and
+    ``chip_smoke.py`` and the
+    DLC1xx cross-language broker-contract checker; ``--concurrency`` adds
+    the DLC2xx lockset rules, ``--protocol`` the DLC3xx message-shape
+    checkers, ``--sharding`` the DLC4xx CUDA-graph capture-safety rules,
+    ``--comms`` the DLC5xx DTensor/FSDP2 communication rules, ``--determinism``
+    the DLC6xx nondeterminism rules.
+    Exit 1 on findings not covered by ``--baseline`` (no value: the port's
+    ``analysis/lint_baseline.json``), 2 on an unreadable baseline."""
+    from deeplearning_cfn_tpu_torch.analysis.runner import (
+        DEFAULT_BASELINE,
+        DYNAMIC_AUDIT_RULE_IDS,
+        apply_baseline,
+        load_baseline,
+        render_json,
+        render_text,
+        run_lint,
+        write_baseline,
+    )
+
+    select = None
+    if args.select:
+        select = {r.strip() for s in args.select for r in s.split(",") if r.strip()}
+    violations = run_lint(
+        targets=args.paths or None,
+        select=select,
+        concurrency=args.concurrency,
+        protocol_pass=args.protocol,
+        sharding=args.sharding,
+        comms=args.comms,
+        determinism=args.determinism,
+    )
+
+    baseline_path = args.baseline
+    if baseline_path is _BASELINE_DEFAULT_SENTINEL:
+        baseline_path = DEFAULT_BASELINE
+    if args.write_baseline:
+        path = Path(baseline_path) if baseline_path else DEFAULT_BASELINE
+        write_baseline(violations, path)
+        print(f"dlcfn-lint: wrote {len(violations)} entr(ies) to {path}")
+        return 0
+
+    stale: list = []
+    if baseline_path:
+        try:
+            baseline = load_baseline(baseline_path)
+        except (OSError, ValueError, KeyError, TypeError) as exc:
+            print(f"dlcfn-lint: unreadable baseline {baseline_path}: {exc}")
+            return 2
+        violations, stale = apply_baseline(violations, baseline)
+        # Dynamic-sentinel entries (DLC41x/DLC51x) are ratcheted by
+        # their own stages; the static pass can't see those findings,
+        # so reporting them stale here would be a standing false nag.
+        stale = [e for e in stale if e[0] not in DYNAMIC_AUDIT_RULE_IDS]
+    if args.format == "json":
+        print(render_json(violations))
+    else:
+        print(render_text(violations))
+    for rule, rel, message in stale:
+        # Stale entries don't fail the build, but they do nag: the
+        # baseline is a ratchet and should only ever shrink.
+        print(f"dlcfn-lint: stale baseline entry: {rule} {rel}: {message}")
+    return 1 if violations else 0
+
+
 def cmd_gauntlet(args) -> int:
     """Composed multi-fault incidents over the real end-to-end stack
     (``chaos/gauntlet.py``), the trainer's ranks on ``--device``.
@@ -1564,6 +1637,44 @@ def build_parser() -> argparse.ArgumentParser:
     pg.add_argument("--device", default="cuda",
                     help="where the trainer's ranks run: cuda (default) or cpu")
     pg.set_defaults(fn=cmd_gauntlet)
+    # lint needs no template: it analyzes the repo's own source.
+    pl = sub.add_parser("lint", help="repo-native static analysis (dlcfn-lint)")
+    pl.add_argument("paths", nargs="*",
+                    help="files/dirs to lint (default: the package, "
+                         "scripts/, and bench.py)")
+    pl.add_argument("--format", choices=["text", "json"], default="text")
+    pl.add_argument("--select", action="append", default=[],
+                    metavar="RULES",
+                    help="comma-separated rule ids to run (e.g. "
+                         "DLC001,DLC100); default: all ungated rules. "
+                         "Naming a gated id (DLC2xx/DLC3xx/DLC4xx/DLC5xx/"
+                         "DLC6xx) enables it.")
+    pl.add_argument("--concurrency", action="store_true",
+                    help="also run the DLC2xx lockset/thread-escape rules")
+    pl.add_argument("--protocol", action="store_true",
+                    help="also run the DLC3xx broker message-shape and "
+                         "lifecycle-kind checkers")
+    pl.add_argument("--sharding", action="store_true",
+                    help="also run the DLC4xx CUDA-graph capture-safety rules "
+                         "(frozen values/in-place state/mesh-axis/host-sync)")
+    pl.add_argument("--comms", action="store_true",
+                    help="also run the DLC5xx communication/memory rules "
+                         "(placement consistency/unplaced DTensor chains/"
+                         "host gathers/cross-mesh replays/local reductions)")
+    pl.add_argument("--determinism", action="store_true",
+                    help="also run the DLC6xx determinism rules (unsorted "
+                         "fs enumeration/ambient entropy/set-order folds/"
+                         "hash() escapes/seed-plumbing breaks)")
+    pl.add_argument("--baseline", nargs="?", metavar="PATH", default=None,
+                    const=_BASELINE_DEFAULT_SENTINEL,
+                    help="suppress findings recorded in this baseline file "
+                         "(no value: the port's analysis/lint_baseline.json); new "
+                         "findings still fail, stale entries are reported")
+    pl.add_argument("--write-baseline", action="store_true",
+                    dest="write_baseline",
+                    help="write the current findings to the baseline file "
+                         "instead of failing (the one ratchet-reset tool)")
+    pl.set_defaults(fn=cmd_lint)
     return parser
 
 

@@ -104,6 +104,9 @@ def build(name: str) -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr[-4000:]}")
     os.replace(tmp, out)
+    from deeplearning_cfn_tpu_torch.analysis.compile_audit import note_build
+
+    note_build(name)
     return out
 
 

@@ -304,6 +304,9 @@ class CapturedDecode:
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.logits = paged_decode_logits(*args)
+        from deeplearning_cfn_tpu_torch.analysis.compile_audit import note_capture
+
+        note_capture(self, "CapturedDecode")
 
     @torch.inference_mode()
     def __call__(self, tokens, lengths, tables, active) -> torch.Tensor:

@@ -1403,6 +1403,9 @@ class CapturedSteps:
             self.losses = self._run(state, self.k)
         self._owner = state.model
         self.captures += 1
+        from deeplearning_cfn_tpu_torch.analysis.compile_audit import note_capture
+
+        note_capture(self, f"CapturedSteps(k={self.k})")
 
     def __call__(self, state: TrainState, xs, ys):
         xs, ys = device_put_batch(Batch(x=xs, y=ys), self.trainer.device)
