@@ -229,13 +229,13 @@ Phases, one JSON line each:
            (JAX's fallback; the whole batch is the one microbatch): its
            logits and 4 AdamW steps on one repeated batch bitwise those of
            the unstaged model on the same weights, flash 2 a block and step.
-           GPipe across ranks needs send/recv, which gloo refuses for CUDA
-           tensors (``tools/gloo_cuda_probe.py``): it runs on CPU gloo ranks
-           (``tests/test_torch_pipeline.py``).
+           GPipe across ranks runs in phase 24, its activations staged
+           through the host (``parallel/p2p.py``: gloo refuses send/recv of
+           CUDA tensors, ``tools/gloo_cuda_probe.py``).
 16. two_ranks  two processes of this script on the one card, a gloo group
            over CUDA tensors (host-staged), ``DEEPLEARNING_SLICES_COUNT=2``:
            the mesh is ``hybrid_mesh_for_slices(2)``, dp 2 over the "DCN"
-           axis.  m435 at ``TWO_RANK_LAYERS`` (6) of its 24 layers, seq
+           axis.  m435 at ``TWO_RANK_LAYERS`` (4) of its 24 layers, seq
            2048, batch 8 a rank, 4 AdamW steps on the same
            batches each: hookless DDP; ``comms_overlap`` (f32 buckets),
            bitwise the hookless run (losses and parameters); a planted
@@ -244,7 +244,8 @@ Phases, one JSON line each:
            error feedback), its losses within ``INT8_RTOL``/``INT8_ATOL`` of
            the f32 run's.  Step ms (gloo, host-staged: not NVLink times),
            bytes a rank sends a step, each process's peak memory, flash 2 a
-           block and step in every run.
+           block and step in every run.  Then phase 24's cases, in the same
+           two processes.
 17. mesh_captured  ``multi_step_fn(4)`` of the m435 step with ``strategy
            "fsdp"`` over ``build_mesh(MeshSpec(fsdp=1))`` on a one-rank NCCL
            group (the ``mesh`` phase's mesh; FSDP2's collectives in the
@@ -429,6 +430,35 @@ Phases, one JSON line each:
            that do are named as not replayed here.  The lints, the comms
            ranks and the replay audit are subprocesses that run while this
            process runs the compile audit.
+24. model_parallel_ranks  the rest of slice 5b across two ranks on the card,
+           run in phase 16's two processes after their dp runs (its row and
+           gates come last): JAX's ``LlamaConfig.m435`` at full width cut to
+           ``MP_LAYERS`` (4) of its 24 layers (2 a stage under pp), seq 2048,
+           batch ``MP_BATCH`` (2) on each rank, ``MP_STEPS`` (3) AdamW steps
+           from seed 0 on one repeated batch, each mesh ``build_mesh`` over
+           gloo with ``device_type "cuda"``.  Cases: ``pp2_remat`` (GPipe at
+           pp 2, M 2, ``TrainerConfig.remat``, bf16, flash; activations and
+           their gradients staged through pinned host buffers,
+           ``parallel/p2p.py``), ``sp2_flash`` (sp 2, bf16, k/v gathered
+           over sp; the flash kernel on the block's q rows, twice after sp
+           rank 0: the keys before the rows unmasked, the diagonal block
+           causal, merged by their lse),
+           ``sp2_ring`` (sp 2, ring attention through the staged p2p),
+           ``moe_tp2`` (8 experts, top-2, tp 2, f32, FSDP2 over the tp
+           DTensors), ``moe_sp2`` (the same at sp 2: one routing group over
+           the two sequence blocks).  Each against rank 0's one-rank run of
+           the same weights and batches on the card (``sp2_ring``'s with the
+           materialised attention, whose scores round as the ring's do; the
+           reference's numbers and final parameters broadcast to rank 1), within
+           ``MP_TOL`` (bf16: losses 2e-3, the first step's global gradient
+           norm 1e-2, the worst parameter gap 0.2; f32: 1e-5, 1e-4, 0.05);
+           the MoE cases' first-step experts, slots and kept claims equal
+           the one-rank run's (each rank's rows).  Gates also: both ranks'
+           losses equal, every parameter on ``cuda:0``, the model's tp, sp
+           and pp, flash ``MP_FLASH_PER_BLOCK`` a block, microbatch and step
+           (twice that past sp rank 0; all ``wgmma_tma``; none in the f32 MoE and ring cases), no other
+           kernel, bytes staged in the pp and ring cases.  Reported: the
+           bytes each rank staged, step ms (gloo, host-staged), seconds.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -441,7 +471,7 @@ The flash row of the kernels line counts the launches of every Llama path
 m435 run of ``checkpoint``, the m435 run of ``records``, the 8B run of
 ``llama8b``, ``pp_layout``, both processes' runs of ``two_ranks`` and
 ``mesh_captured``, ``live_reshard``, ``provision_run``, ``provision_broker``,
-``sched_flash_crowd``, ``analysis``; by path in
+``sched_flash_crowd``, ``analysis``, ``model_parallel_ranks``; by path in
 ``launches_by_path``), each counted from zero just
 before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
@@ -611,10 +641,10 @@ NO_UPDATE_MARGIN = 4
 # batches, saved at half of them; every checkpoint is written under a
 # temporary directory, which must have CKPT_DISK_BYTES free (at most three
 # m435 checkpoints of ~2.6 GB at once, one of them in flight).  Its m435 is
-# cut to CKPT_LAYERS deep (6 since phase 23 joined), to hold the whole script
-# within its time limit; phase 18's fallback saves and restores the m435
-# state, held bitwise.
-CKPT_STEPS, CKPT_EXAMPLE_STEPS, CKPT_LAYERS = 8, 2, 6
+# cut to CKPT_LAYERS deep (6 since phase 23 joined, 4 since phase 24), to hold
+# the whole script within its time limit; phase 18's fallback saves and
+# restores the m435 state, held bitwise.
+CKPT_STEPS, CKPT_EXAMPLE_STEPS, CKPT_LAYERS = 8, 2, 4
 CKPT_DISK_BYTES = 10 * 10**9
 # Detection (phase 11): the JAX RetinaNet configuration at full width --
 # ResNet-50, FPN 256, 80 classes, 9 anchors a cell, 16 prototypes, masks,
@@ -685,11 +715,49 @@ REMAT_GRAD_RTOL = 1e-2
 # pp_layout: JAX's stage-stacked m435 at 2 stages and 4 microbatches.
 PP_STAGES, PP_MICROBATCHES, PP_STEPS, PP_BATCH = 2, 4, 4, 8
 # two_ranks: two processes on the one card, a gloo group, per-rank batch 8;
-# m435 cut to TWO_RANK_LAYERS of its 24 layers since phase 23 joined, to hold
-# the whole script within its time limit.
-TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_TIMEOUT, TWO_RANK_LAYERS = 8, 4, 600, 6
+# m435 cut to TWO_RANK_LAYERS of its 24 layers (6 since phase 23 joined, 4
+# since phase 24 runs in the same processes), to hold the whole script within
+# its time limit.
+TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_TIMEOUT, TWO_RANK_LAYERS = 8, 4, 600, 4
 # JAX's test_int8_error_feedback_tracks_the_f32_curve.
 INT8_RTOL, INT8_ATOL = 5e-3, 1e-3
+# Phase 24, model_parallel_ranks (in phase 16's two processes, after its dp
+# runs): JAX's m435 at full width cut to MP_LAYERS of its 24 layers (2 a
+# stage under pp), seq 2048, batch MP_BATCH on every rank (no data axis: each
+# rank holds the whole batch, its block of the sequence or its columns),
+# MP_STEPS AdamW steps from seed 0 on one repeated batch, no clip (so the
+# first step's gradient norm is read off .grad).  Each case against rank 0's
+# one-rank run of the same weights and batches on the card.
+MP_LAYERS, MP_BATCH, MP_STEPS, MP_SEQ = 4, 2, 3, 2048
+MP_MOE = dict(n_experts=8, moe_top_k=2, dtype="float32", use_flash_attention=False)
+MP_CASES = {  # name: (mesh, config overrides, trainer overrides, the reference's overrides)
+    "pp2_remat": (dict(pp=2), dict(pp_stages=2, pp_microbatches=2), dict(remat=True),
+                  dict(pp_stages=1, pp_microbatches=0)),
+    "sp2_flash": (dict(sp=2), {}, {}, {}),
+    # The reference's scores round to bf16 before the softmax, as the ring's do.
+    "sp2_ring": (dict(sp=2), dict(use_ring_attention=True), {}, dict(use_flash_attention=False)),
+    "moe_tp2": (dict(tp=2), MP_MOE, dict(strategy="fsdp"), {}),
+    "moe_sp2": (dict(sp=2), MP_MOE, {}, {}),
+}
+# Flash launches a block and step of a case's run (pp: a block of the rank's
+# stage and microbatch): the forward and its recompute under the preset's
+# "dots" remat; under TrainerConfig.remat the forward, the stage's
+# recompute and the block's own recompute inside it, but for the last block
+# of a stage before the last, which the stage's recompute does not reach
+# (torch.utils.checkpoint stops once the saved inputs of the blocks' own
+# checkpoints are back, and the stage's output is sent, not saved).  The MoE
+# cases run in f32 with the materialised attention (a bf16 token may take
+# another expert: ROADMAP queue 3) and launch no kernel; ring attention none.
+# Under sp a rank past sp rank 0 launches twice a block forward: its rows
+# over the keys before them, unmasked, then over its diagonal block, causal.
+MP_FLASH_PER_BLOCK = {"pp2_remat": 3, "sp2_flash": 2, "sp2_ring": 0, "moe_tp2": 0, "moe_sp2": 0}
+# Tolerances against the one-rank run: the losses (relative), the first
+# step's global gradient norm (relative) and the worst parameter's gap
+# (||run - ref|| / ||ref - p0||, 1 for a run that never moved).  bf16: the
+# ranks' products, sums and microbatch gradients round in another order;
+# f32 (TF32 off): only the summation order differs.
+MP_TOL = {"bfloat16": dict(loss_rtol=2e-3, norm_rtol=1e-2, param_gap=PARAM_GAP_MAX),
+          "float32": dict(loss_rtol=1e-5, norm_rtol=1e-4, param_gap=0.05)}
 # mesh_captured: multi_step_fn(MESH_K) over the mesh phase's one-rank mesh.
 MESH_K, MESH_REPLAYS = 4, 2
 # live_reshard: two ranks on the one card, per-rank batch 8, the loss seen
@@ -871,10 +939,12 @@ def _dense_work(M, K, N, x_bytes, w_bytes, peak_ops, peak_bw) -> dict:
 
 def _profile(torch, step, n: int) -> dict:
     """Run ``step()`` ``n`` times under the profiler: device time per step
-    by kernel name, the wall time per step, and the idle share."""
+    by kernel name, the wall time per step, and the idle share.  Only the
+    device is traced: the host's op events, which nothing here reads, took
+    two thirds of a profile's time (the 8B step's ~90 s) for the same
+    kernels and device time."""
     torch.cuda.synchronize()
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     prof.start()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -2771,8 +2841,8 @@ def _pp_layout_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> in
            "pp_microbatches": PP_MICROBATCHES, "B": PP_BATCH, "S": 2048,
            "jax_layers_wq_shape": stacked_shape, "layout_s": layout_s,
            "runs_at_pp": 1, "microbatches_run": 1,
-           "gpipe_across_ranks": "CPU gloo ranks (tests/test_torch_pipeline.py): gloo's "
-                                 "send/recv refuses CUDA tensors (tools/gloo_cuda_probe.py)",
+           "gpipe_across_ranks": "phase 24 model_parallel_ranks (pp2_remat, through the "
+                                 "host staging of parallel/p2p.py)",
            **{f"{k}_{p}": v for p, r in runs.items() for k, v in r.items()},
            "logits_bitwise_equal": logits_equal,
            "losses_bitwise_equal": runs["stage_stacked"]["losses"] == runs["unstacked"]["losses"],
@@ -2787,6 +2857,180 @@ def _pp_layout_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> in
     del logits, finals, x, y
     torch.cuda.empty_cache()
     return runs["stage_stacked"]["flash_launches"]
+
+
+def _first_routing(torch, moe):
+    """A pre-hook on the MoE block that keeps its next input and router;
+    the returned function removes it and routes them again (``route``: the
+    same group and token order), outside the step: the experts, slots and
+    kept claims."""
+    from deeplearning_cfn_tpu_torch.ops.moe import route
+
+    seen: dict = {}
+
+    def hook(mod, args):
+        if not seen:
+            seen.update(x=args[0].detach().clone(), router=mod.router.detach().clone())
+
+    handle = moe.register_forward_pre_hook(hook)
+
+    def decide() -> dict:
+        handle.remove()
+        B, S, d = seen["x"].shape
+        with torch.no_grad():
+            r = route(moe.cfg, seen["router"], seen["x"].reshape(B * S, d), moe.mp, B)
+        return {"expert": r.expert, "slot": r.slot, "kept": r.kept}
+
+    return decide
+
+
+def _mp_run(torch, cfg, mesh, train_kw: dict, batches, device) -> dict:
+    """One run of a phase 24 case (or, without ``mesh``, its one-rank
+    reference): ``MP_STEPS`` AdamW steps from seed 0, the kernel and staging
+    counters zeroed just before them.  Returns the losses, the first step's
+    global gradient norm, layer 0's routing of the first step (MoE), the
+    launches, the bytes staged through the host, the step times, each
+    parameter's initial and final local part, and the model's layout."""
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.ops import _kernels
+    from deeplearning_cfn_tpu_torch.parallel import p2p
+    from deeplearning_cfn_tpu_torch.train.optimizers import local_part
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig, clip_by_global_norm
+
+    trainer = llama.make_trainer(cfg, TrainerConfig(
+        optimizer="adamw", learning_rate=3e-4, weight_decay=0.1, log_every=1, **train_kw),
+        device=device, mesh=mesh)
+    state = trainer.init(seed=0, draw_on_device=True)
+    p0 = {n: local_part(q).detach().clone() for n, q in state.model.named_parameters()}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    p2p.reset_staged_bytes()
+    losses, step_ms, norm, routing = [], [], None, None
+    moe = getattr(state.model.blocks()[0], "moe", None)
+    decide = _first_routing(torch, moe) if moe is not None else None
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, x, y)
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:  # no clip: .grad holds the step's whole gradient
+            norm = clip_by_global_norm(state.model.parameters(), math.inf,
+                                       trainer._clip_groups()).item()
+            if decide is not None:  # layer 0's routing of the first step
+                routing = decide()
+    model = state.model
+    params = dict(model.named_parameters())
+    out = {"losses": losses, "norm": norm, "routing": routing, "step_ms": step_ms,
+           "launches": dict(_kernels.launch_counts), "staged_bytes": p2p.staged_bytes,
+           "p0": p0, "final": {n: local_part(q).detach().clone() for n, q in params.items()},
+           "layout": {n: (q.device_mesh, q.placements) for n, q in params.items()
+                      if hasattr(q, "placements")},
+           "devices": sorted({str(q.device) for q in params.values()}),
+           "mp": [model.mp.tp, model.mp.sp, getattr(model, "n_stages", 1)]}
+    del trainer, state
+    return out
+
+
+def _global_part(torch, whole, layout):
+    """The part of the global tensor ``whole`` that a DTensor of ``layout``
+    (its mesh and placements) holds on this rank."""
+    if layout is None:
+        return whole
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(whole.shape, *layout)
+    return whole[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def _model_parallel_cases(torch, rank: int, device) -> dict:
+    """Phase 24 on this rank (both ranks run every case; rank 0 also runs
+    each case's one-rank reference and broadcasts its results): per case
+    its losses, the reference's, the norms, the worst parameter gap, the
+    routing's agreement (MoE), flash launches, bytes staged, seconds."""
+    import torch.distributed as dist
+
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning_cfn_tpu_torch.train.data import SyntheticTokenDataset, device_put_batch
+
+    base = dataclasses.replace(llama.LlamaConfig.m435(seq_len=MP_SEQ), n_layers=MP_LAYERS)
+    one = next(SyntheticTokenDataset(seq_len=MP_SEQ, vocab_size=base.vocab_size,
+                                     batch_size=MP_BATCH).batches(1))
+    batches = [device_put_batch(one, device)] * MP_STEPS
+    results = {}
+    for name, (mesh_kw, cfg_kw, train_kw, ref_kw) in MP_CASES.items():
+        t0 = time.perf_counter()
+        kw = dict(cfg_kw)
+        if "dtype" in kw:
+            kw["dtype"] = getattr(torch, kw["dtype"])
+        cfg = dataclasses.replace(base, **kw)
+        mesh = build_mesh(MeshSpec(**mesh_kw), device_type=device.type)
+        run = _mp_run(torch, cfg, mesh, train_kw, batches, device)
+        run_s = time.perf_counter() - t0
+        ref = None
+        if rank == 0:
+            ref = _mp_run(torch, dataclasses.replace(cfg, **ref_kw), None, train_kw, batches,
+                          device)
+        # The reference's numbers and final parameters to every rank.
+        meta = [None if ref is None else {
+            "losses": ref["losses"], "norm": ref["norm"], "launches": ref["launches"],
+            "shapes": {n: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                       for n, t in ref["final"].items()},
+            "routing": None if ref["routing"] is None else {
+                k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for k, t in ref["routing"].items()}}]
+        dist.broadcast_object_list(meta, src=0)
+        meta = meta[0]
+
+        def from_rank0(mine, shape, dtype):
+            t = mine if mine is not None else torch.empty(shape, dtype=getattr(torch, dtype),
+                                                          device=device)
+            dist.broadcast(t, src=0)
+            return t
+
+        gaps, p0_gaps, sp, sp_rank = {}, {}, mesh_kw.get("sp", 1), mesh.get_local_rank("sp")
+        for n, (shape, dtype) in meta["shapes"].items():
+            whole = from_rank0(None if ref is None else ref["final"][n], shape, dtype)
+            if n not in run["final"]:  # another stage's parameter
+                continue
+            want = _global_part(torch, whole, run["layout"].get(n)).float()
+            start = run["p0"][n].float()
+            travelled = (want - start).norm().item()
+            gap = (run["final"][n].float() - want).norm().item()
+            gaps[n] = gap / travelled if travelled else (0.0 if gap == 0 else math.inf)
+            p0_gaps[n] = 1.0 if travelled else 0.0
+        routing_equal = None
+        if meta["routing"] is not None:
+            routing_equal = True
+            for k, (shape, dtype) in meta["routing"].items():
+                whole = from_rank0(None if ref is None else ref["routing"][k], shape, dtype)
+                if sp > 1:  # this rank's [batch, S/sp] block of the group's tokens
+                    whole = whole.reshape(MP_BATCH, sp, -1, whole.shape[-1])[:, sp_rank]
+                routing_equal &= bool(torch.equal(run["routing"][k],
+                                                  whole.reshape(run["routing"][k].shape)))
+        worst = max(gaps, key=gaps.get)
+        results[name] = {
+            "mesh": mesh_kw, "dtype": str(cfg.dtype).removeprefix("torch."),
+            "model_tp_sp_pp": run["mp"], "devices": run["devices"],
+            "losses": run["losses"], "ref_losses": meta["losses"],
+            "norm": run["norm"], "ref_norm": meta["norm"],
+            "param_gap_max": gaps[worst], "param_gap_worst": worst,
+            "param_gap_median": statistics.median(gaps.values()),
+            "no_update_param_gap_max": max(p0_gaps.values()),
+            "params_compared": len(gaps), "routing_equal": routing_equal,
+            "flash_launches": run["launches"].get("flash_attention_fwd", 0),
+            "flash_variants": _variants(run["launches"], "flash_attention_fwd"),
+            "other_launches": {k: v for k, v in run["launches"].items()
+                               if v and not k.startswith("flash_attention_fwd")},
+            "ref_flash_launches": meta["launches"].get("flash_attention_fwd", 0),
+            "staged_bytes": run["staged_bytes"], "step_ms": run["step_ms"],
+            "run_s": run_s, "seconds": time.perf_counter() - t0}
+        del run, ref
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return results
 
 
 def _two_ranks_worker(rank: int, port: int, out: str) -> int:
@@ -2870,6 +3114,12 @@ def _two_ranks_worker(rank: int, port: int, out: str) -> int:
               **{f"{n}_bitwise_hookless": runs[n]["losses"] == runs["hookless"]["losses"]
                  and all(torch.equal(p, q) for p, q in zip(finals[n], base))
                  for n in ("overlap", "control", "int8")}}
+    del finals, base
+    torch.cuda.empty_cache()
+    # Phase 24 in the same two processes (no second start-up).
+    t0 = time.perf_counter()
+    result["model_parallel"] = _model_parallel_cases(torch, rank, torch.device("cuda", 0))
+    result["model_parallel_s"] = time.perf_counter() - t0
     dist.destroy_process_group()
     Path(f"{out}.rank{rank}").write_text(json.dumps(result))
     return 0
@@ -2904,8 +3154,9 @@ def _two_ranks_phase(torch, smi: str, flash_per_block: float) -> int:
                     p.kill()
                     p.wait()
         wall_s = time.perf_counter() - t0
-        for p, err in zip(procs, errs):
-            _require(p.returncode == 0, f"two_ranks: a process failed:\n{err[-3000:]}")
+        failed = [f"rank {r}:\n{err[-3000:]}" for r, (p, err) in enumerate(zip(procs, errs))
+                  if p.returncode != 0]
+        _require(not failed, "two_ranks: a process failed:\n" + "\n".join(failed))
         ranks = [json.loads(Path(f"{out}.rank{r}").read_text()) for r in range(2)]
     runs = {name: {"losses": ranks[0]["runs"][name]["losses"],
                    "losses_rank1": ranks[1]["runs"][name]["losses"],
@@ -2942,7 +3193,99 @@ def _two_ranks_phase(torch, smi: str, flash_per_block: float) -> int:
     _require(not any(row["control_bitwise_hookless"]),
              "two_ranks: the check passed the planted control (a bucket left unsynced)")
     _require(int8_gap <= INT8_ATOL, f"two_ranks: int8 losses {int8} off the f32 curve {f32}")
+    _NOTES["model_parallel"] = {"ranks": [r["model_parallel"] for r in ranks],
+                                "seconds": [r["model_parallel_s"] for r in ranks]}
     return sum(sum(run["flash_launches"]) for run in runs.values())
+
+
+def _model_parallel_phase(smi: str) -> int:
+    """Phase 24 (see the module docstring): the cases ran in phase 16's two
+    processes; here their rows and gates.  Returns the cases' flash
+    launches (both ranks'; the references' are not counted)."""
+    mp = _NOTES["model_parallel"]
+    ranks = mp["ranks"]
+    cases = {}
+    for name, (mesh_kw, cfg_kw, _, _) in MP_CASES.items():
+        r0, r1 = ranks[0][name], ranks[1][name]
+        tol = MP_TOL[r0["dtype"]]
+        pp = mesh_kw.get("pp", 1)
+        per_micro = MP_FLASH_PER_BLOCK[name] * MP_LAYERS // pp
+        n_micro = cfg_kw.get("pp_microbatches", 1) if pp > 1 else 1
+        stages = [r * pp // 2 for r in range(2)]  # each rank's stage
+        passes = [1 + (mesh_kw.get("sp", 1) > 1 and r > 0) for r in range(2)]  # sp rank r
+        expected = [(per_micro - (0 < per_micro and stage < pp - 1)) * n_micro * MP_STEPS * n
+                    for stage, n in zip(stages, passes)]
+        cases[name] = {
+            "mesh": r0["mesh"], "dtype": r0["dtype"], "model_tp_sp_pp": r0["model_tp_sp_pp"],
+            "devices": sorted(set(r0["devices"] + r1["devices"])),
+            "losses": r0["losses"], "losses_rank1": r1["losses"], "ref_losses": r0["ref_losses"],
+            "max_rel_loss_diff": max(abs(a - b) / abs(b)
+                                     for a, b in zip(r0["losses"], r0["ref_losses"])),
+            # A run that never updates: the reference's first loss every step.
+            "no_update_max_rel_loss_diff": max(abs(r0["ref_losses"][0] - b) / abs(b)
+                                               for b in r0["ref_losses"]),
+            "norm": r0["norm"], "ref_norm": r0["ref_norm"],
+            "norm_rel_diff": abs(r0["norm"] - r0["ref_norm"]) / r0["ref_norm"],
+            "param_gap_max": max(r0["param_gap_max"], r1["param_gap_max"]),
+            "param_gap_worst": max((r0, r1), key=lambda r: r["param_gap_max"])["param_gap_worst"],
+            "param_gap_median": [r0["param_gap_median"], r1["param_gap_median"]],
+            "no_update_param_gap_max": min(r0["no_update_param_gap_max"],
+                                           r1["no_update_param_gap_max"]),
+            "params_compared": [r0["params_compared"], r1["params_compared"]],
+            "routing_equal": [r0["routing_equal"], r1["routing_equal"]],
+            "flash_launches": [r0["flash_launches"], r1["flash_launches"]],
+            "flash_expected_per_rank": expected,
+            "flash_variants": [r0["flash_variants"], r1["flash_variants"]],
+            "ref_flash_launches": r0["ref_flash_launches"],
+            "other_launches": [r0["other_launches"], r1["other_launches"]],
+            "staged_bytes": [r0["staged_bytes"], r1["staged_bytes"]],
+            "steady_step_ms": [statistics.median(r["step_ms"][1:]) for r in (r0, r1)],
+            "seconds": [r0["seconds"], r1["seconds"]], **tol}
+    row = {"phase": "model_parallel_ranks", "processes": 2, "device": "cuda:0 for both",
+           "backend": "gloo (collectives on CUDA tensors; point-to-point staged through "
+                      "pinned host buffers, parallel/p2p.py)",
+           "model": "m435", "layers": MP_LAYERS, "S": MP_SEQ, "batch": MP_BATCH,
+           "steps": MP_STEPS, "reference": "rank 0's one-rank run, same weights and batches",
+           "moe_kernels": "the MoE cases run in f32 with the materialised attention: no kernel",
+           "times": "gloo, host-staged: not NVLink times", "seconds": mp["seconds"],
+           "cases": cases, "nvidia_smi": smi}
+    _emit(row)
+    for name, c in cases.items():
+        what = f"model_parallel_ranks ({name})"
+        _require(c["devices"] == ["cuda:0"], f"{what}: parameters on {c['devices']}")
+        _require(all(math.isfinite(v) for v in c["losses"] + c["losses_rank1"]),
+                 f"{what}: non-finite loss")
+        _require(c["losses"] == c["losses_rank1"], f"{what}: the ranks disagree on the loss")
+        _require(c["max_rel_loss_diff"] <= c["loss_rtol"],
+                 f"{what}: losses {c['losses']} against the one-rank {c['ref_losses']}")
+        _require(c["norm_rel_diff"] <= c["norm_rtol"],
+                 f"{what}: gradient norm {c['norm']} against the one-rank {c['ref_norm']}")
+        _require(c["param_gap_max"] <= c["param_gap"],
+                 f"{what}: parameter {c['param_gap_worst']} {c['param_gap_max']} apart")
+        _require(c["no_update_param_gap_max"] > NO_UPDATE_MARGIN * c["param_gap"]
+                 and c["no_update_max_rel_loss_diff"] > NO_UPDATE_MARGIN * c["loss_rtol"],
+                 f"{what}: the limits would pass a run that never updates")
+        mesh_kw = MP_CASES[name][0]
+        want_mp = [mesh_kw.get("tp", 1), mesh_kw.get("sp", 1), mesh_kw.get("pp", 1)]
+        _require(c["model_tp_sp_pp"] == want_mp, f"{what}: the model's tp, sp, pp "
+                 f"{c['model_tp_sp_pp']}")
+        for r, n in enumerate(c["flash_expected_per_rank"]):
+            launches = {"flash_attention_fwd": c["flash_launches"][r],
+                        **{f"flash_attention_fwd/{v}": k
+                           for v, k in c["flash_variants"][r].items()}}
+            if n:
+                _flash_check(launches, MP_STEPS, n / MP_STEPS, f"{what}, rank {r}")
+            else:
+                _require(not c["flash_launches"][r],
+                         f"{what}: rank {r} launched flash {c['flash_variants'][r]}")
+        _require(not any(c["other_launches"]), f"{what}: other kernels {c['other_launches']}")
+        if name.startswith("moe"):
+            _require(c["routing_equal"] == [True, True],
+                     f"{what}: the first step's slots or kept claims are not the one-rank run's")
+        if mesh_kw.get("pp", 1) > 1 or MP_CASES[name][1].get("use_ring_attention"):
+            _require(all(b > 0 for b in c["staged_bytes"]),
+                     f"{what}: nothing went through the host staging")
+    return sum(sum(c["flash_launches"]) for c in cases.values())
 
 
 def _mesh_captured_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int:
@@ -5215,6 +5558,10 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     flash_by_path["analysis"] = _analysis_phase(torch, _kernels, smi, flash_per_block)
+
+    # 24. model_parallel_ranks: the layouts of the rest of slice 5b across
+    # two ranks on the card (run in phase 16's processes; their rows here).
+    flash_by_path["model_parallel_ranks"] = _model_parallel_phase(smi)
 
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with

@@ -8,7 +8,12 @@ env (``examples.common.maybe_init_distributed``) train over a mesh of
 ``--sp``, ``--ep`` and dp (what remains), the experts of ``--experts``
 split over ``ep``; ``--ring_attention`` runs attention as a ring over
 ``sp``; ``--pp`` splits the layers into that many GPipe stages
-(``--pp_microbatches`` a step, default ``--pp``).  ``--device``
+(``--pp_microbatches`` a step, default ``--pp``).  The axes compose as
+JAX's GSPMD lays them out (MoE under ``--tp`` or ``--sp``, a ``--tp`` that
+does not divide the kv heads, ``--sp`` with ``--pp``), with JAX's
+refusals: ring attention with ``--pp``, and a ``--tp`` that does not divide
+the heads.  ``--remat`` (the port's flag; JAX's example has none) sets
+``TrainerConfig.remat``, under ``--pp`` for each stage's forward.  ``--device``
 (default ``cuda``) picks the device, and the run raises when CUDA is missing
 unless ``--device cpu`` was given.  At ``--seq_len`` 2048 and up, the
 flash-attention presets (435m, 1b, 3b) run attention through the CUDA flash
@@ -86,6 +91,8 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--pp_microbatches", type=int, default=0)
     p.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense)")
     p.add_argument("--ep", type=int, default=1, help="expert-parallel axis size")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the loss's activations in the backward (TrainerConfig.remat)")
     p.add_argument("--eval_steps", type=int, default=0,
                    help="held-out batches for corpus perplexity after training (0 = skip; "
                         "reads the val/test split of --data_dir when there is one)")
@@ -141,6 +148,7 @@ def main(argv: list[str] | None = None) -> dict:
             grad_clip_norm=1.0,
             grad_accum_steps=args.grad_accum,
             log_every=args.log_every,
+            remat=args.remat,
         ),
         device=device,
         mesh=mesh,

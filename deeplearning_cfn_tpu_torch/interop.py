@@ -9,7 +9,9 @@ is transposed):
 - ``llama_params_from_jax``: the stacked ``[L, ...]`` leaves split per layer
   (MoE's ``layers/moe`` leaves as ``layers.{i}.moe.*``, and with
   ``ep_size`` > 1 only ``ep_rank``'s experts; with ``tp_size`` > 1 each
-  tensor cut to ``tp_rank``'s contiguous share of its spec's ``tp`` dim; a
+  tensor cut to ``tp_rank``'s contiguous share of its spec's ``tp`` dim,
+  the expert banks' ``m`` dim after their ep cut, and ``wk``/``wv``'s
+  columns also where tp does not divide the kv heads (part of a head); a
   stage-stacked tree's ``[pp, L/pp, ...]`` leaves unstacked, the whole model
   or, with ``pp_size`` > 1, only ``pp_rank``'s stage);
 - ``bert_params_from_jax``: the Flax tree of ``BertEncoder`` or

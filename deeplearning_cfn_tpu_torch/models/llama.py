@@ -33,13 +33,21 @@ tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
   fused ``wqkv``/``w_gate_up`` outputs are gathered and each rank takes its
   q, k, v (gate, up) columns, as GSPMD reshards at the split (whole outputs
   on every rank, their gradients summed whole: a known cost until each
-  rank's columns are laid out together).  Under ``sp`` each rank holds a block of the
-  sequence: RoPE positions start at ``sp_rank × S/sp``; without ring
-  attention k and v are gathered over ``sp`` and attended with the causal
-  offset (what GSPMD gives the JAX "xla" path); the loss leaves out only the
-  global last position and divides by the global token count.  ``tp`` must
-  divide the heads, the kv heads, ``mlp_dim`` and the vocabulary; MoE does
-  not compose with ``tp`` or ``sp`` yet.
+  rank's columns are laid out together).  ``wk``/``wv`` keep JAX's spec
+  when ``tp`` does not divide the kv heads: a rank's columns may hold part
+  of a head, so k and v are gathered over ``tp`` (their gradients summed
+  back) and each rank keeps the kv heads its ``n_heads/tp`` q heads read,
+  expanded as JAX's ``_repeat_kv`` expands them.  Under ``sp`` each rank
+  holds a block of the sequence: RoPE positions start at ``sp_rank × S/sp``;
+  without ring attention k and v are gathered over ``sp`` and attended with
+  the causal offset (what GSPMD gives the JAX "xla" path; the flash kernel,
+  whose causal mask starts at row 0, takes the keys up to the block's end
+  and the block's q rows at their offset, the rows before them zeros whose
+  outputs are dropped); the loss leaves out only the global last position
+  and divides by the global token count.  ``tp`` must divide the heads,
+  ``mlp_dim``, the vocabulary and the kv columns (``n_kv_heads × head_dim``).
+  MoE blocks split their experts' columns over ``tp`` and route the ``sp``
+  ranks' tokens as one group (``ops/moe.py``).
 
 - Pipeline stages (``pp_stages > 1``, ``parallel/pipeline.py``): over a mesh
   whose ``pp`` is ``pp_stages``, each ``pp`` rank holds its stage's blocks
@@ -56,8 +64,9 @@ tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
   plus its aux over M, so that their sum is JAX's objective.  The
   trainer sums the gradients of the replicated parameters over ``pp``
   (the tied embedding's two parts among them).  Without a ``pp`` axis the
-  stage-stacked model runs its layers in sequence, as JAX's does.
-  Sequence parallelism does not compose with pipeline stages yet.
+  stage-stacked model runs its layers in sequence, as JAX's does.  A
+  stage's blocks run their ``tp`` and ``sp`` collectives inside the
+  schedule; ring attention with stages is refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -90,7 +99,6 @@ from deeplearning_cfn_tpu_torch.ops.flash_attention import (
 )
 from deeplearning_cfn_tpu_torch.ops.moe import MoE, MoEConfig, moe_param_specs
 from deeplearning_cfn_tpu_torch.parallel import pipeline
-from deeplearning_cfn_tpu_torch.parallel.mesh import LATER_PARALLELISM
 from deeplearning_cfn_tpu_torch.parallel.ring_attention import ring_attention
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import (
     ModelParallel,
@@ -235,17 +243,12 @@ class LlamaConfig:
 
 
 def _check_parallel(cfg: LlamaConfig, mp: ModelParallel, pp: int) -> None:
-    if cfg.moe is not None and (mp.tp > 1 or mp.sp > 1):
-        raise NotImplementedError(f"MoE with tp > 1 or sp > 1 is ported in {LATER_PARALLELISM}")
-    if pp > 1:
-        if cfg.pp_stages != pp:
-            raise pipeline.PipelineError(
-                f"the layers are stacked into {cfg.pp_stages} stages but mesh axis 'pp' is {pp}")
-        if mp.sp > 1:
-            raise NotImplementedError(
-                f"sequence parallelism with pipeline stages is ported in {LATER_PARALLELISM}")
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("mlp_dim", cfg.mlp_dim), ("vocab_size", cfg.vocab_size)):
+    if pp > 1 and cfg.pp_stages != pp:
+        raise pipeline.PipelineError(
+            f"the layers are stacked into {cfg.pp_stages} stages but mesh axis 'pp' is {pp}")
+    for what, n in (("n_heads", cfg.n_heads), ("mlp_dim", cfg.mlp_dim),
+                    ("vocab_size", cfg.vocab_size),
+                    ("the kv columns (n_kv_heads x head_dim)", cfg.n_kv_heads * cfg.head_dim)):
         if n % mp.tp:
             raise ValueError(f"tp={mp.tp} must divide {what} ({n})")
 
@@ -356,49 +359,70 @@ class LlamaBlock(nn.Module):
             else:
                 setattr(self, name, _dense(shape, cfg.dtype, generator))
         if cfg.moe is not None:
-            self.moe = MoE(cfg.moe, cfg.dim, cfg.mlp_dim, cfg.dtype, generator)
+            self.moe = MoE(cfg.moe, cfg.dim, cfg.mlp_dim, cfg.dtype, generator, self.mp)
 
     def _attend(self, q, k, v) -> torch.Tensor:
         cfg, mp = self.cfg, self.mp
         kind = attention_kind(cfg, q.shape[1] * mp.sp, q.device, mp.sp)
         if kind == "ring":
             return ring_attention(q, k, v, mp.sp_group, causal=True)
-        if kind == "flash":
-            return flash_attention(q, k, v, causal=True, sp=mp.sp)
-        if mp.sp > 1:
-            if kind != "xla":
-                raise ValueError(f"attention kind {kind!r} does not split the sequence over sp")
-            # K and V gathered over sp, attended with this block's causal offset.
+        off = 0
+        if mp.sp > 1:  # K and V gathered over sp, attended with this block's causal offset
             s = q.shape[1]
-            q_pos = torch.arange(s, device=q.device) + mp.sp_rank * s
-            mask = torch.arange(s * mp.sp, device=q.device)[None, :] <= q_pos[:, None]
-            return dot_product_attention(q, mp.gather_sp(k), mp.gather_sp(v), causal=False,
-                                         mask=mask[None, None])
+            off = mp.sp_rank * s
+            k, v = mp.gather_sp(k), mp.gather_sp(v)
+            if kind == "xla":
+                q_pos = torch.arange(s, device=q.device) + off
+                mask = torch.arange(s * mp.sp, device=q.device)[None, :] <= q_pos[:, None]
+                return dot_product_attention(q, k, v, causal=False, mask=mask[None, None])
+            k, v = k[:, :off + s], v[:, :off + s]  # the keys up to the block's end
+        if kind == "flash":
+            return flash_attention(q, k, v, causal=True, q_offset=off)
         if kind == "flash_reference":
-            return flash_attention_reference(q, k, v, causal=True)[0]
+            return flash_attention_reference(q, k, v, causal=True, q_offset=off)[0]
         return dot_product_attention(q, k, v, causal=True)
+
+    def _kv_heads(self, kv: torch.Tensor, gathered: bool) -> torch.Tensor:
+        """Under a ``tp`` that does not divide the kv heads: ``kv`` (this
+        rank's columns, unless ``gathered``) gathered over ``tp`` and cut to
+        the kv heads of this rank's q heads, one a q head (JAX's
+        ``_repeat_kv`` of them)."""
+        cfg, mp = self.cfg, self.mp
+        B, S = kv.shape[:2]
+        if not gathered:
+            kv = mp.gather_tp(kv, sum_grads=True)
+        whole = kv.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        nh = cfg.n_heads // mp.tp
+        heads = torch.arange(mp.tp_rank * nh, (mp.tp_rank + 1) * nh, device=kv.device)
+        return whole.index_select(2, heads // (cfg.n_heads // cfg.n_kv_heads))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """The block's output; with MoE, ``(output, aux_loss)``."""
         cfg, mp = self.cfg, self.mp
         B, S, _ = x.shape
         hd = cfg.head_dim
-        nh, nkv = cfg.n_heads // mp.tp, cfg.n_kv_heads // mp.tp  # this rank's heads
+        nh = cfg.n_heads // mp.tp  # this rank's q heads
+        kv_split = cfg.n_kv_heads % mp.tp == 0  # else each rank reads whole kv heads
         h = mp.copy_to_tp(rms_norm(x, self.attn_norm, cfg.norm_eps))
         if cfg.fused_qkv:
             qkv = h @ local(self.wqkv)
-            if mp.tp > 1:
-                q, k, v = mp.own_columns(mp.gather_tp(qkv, sum_grads=True),
-                                         [cfg.n_heads * hd, cfg.n_kv_heads * hd,
-                                          cfg.n_kv_heads * hd])
-            else:
-                nq, nk = nh * hd, nkv * hd
+            nq, nk = cfg.n_heads * hd, cfg.n_kv_heads * hd
+            if mp.tp == 1:
                 q, k, v = qkv[..., :nq], qkv[..., nq : nq + nk], qkv[..., nq + nk :]
-            q, k, v = q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
+            else:
+                full = mp.gather_tp(qkv, sum_grads=True)
+                if kv_split:
+                    q, k, v = mp.own_columns(full, [nq, nk, nk])
+                else:
+                    (q,) = mp.own_columns(full[..., :nq], [nq])
+                    k, v = full[..., nq : nq + nk], full[..., nq + nk :]
         else:
-            q = (h @ local(self.wq)).reshape(B, S, nh, hd)
-            k = (h @ local(self.wk)).reshape(B, S, nkv, hd)
-            v = (h @ local(self.wv)).reshape(B, S, nkv, hd)
+            q, k, v = h @ local(self.wq), h @ local(self.wk), h @ local(self.wv)
+        q = q.reshape(B, S, nh, hd)
+        if kv_split:
+            k, v = (t.reshape(B, S, cfg.n_kv_heads // mp.tp, hd) for t in (k, v))
+        else:  # the fused path gathered them whole already
+            k, v = (self._kv_heads(t, gathered=cfg.fused_qkv) for t in (k, v))
         q = rotary_embedding(q, positions, cfg.rope_theta)
         k = rotary_embedding(k, positions, cfg.rope_theta)
         attn = self._attend(q, k, v)
@@ -678,11 +702,13 @@ def _pipelined_lm_loss(model: Llama, tokens: torch.Tensor,
     the backward inside the schedule when gradients are enabled.  Microbatch
     m's loss is its nll sum over the local batch's count of scored positions
     plus its aux over M: their sum, and its gradient, are the unpipelined
-    loss's.  The returned loss (the value on every pp rank) carries no
+    loss's.  Under ``sp`` the count is the whole sequence's and each rank's
+    nll is its own part (its gradient too; the reported loss sums the parts
+    over ``sp``).  The returned loss (the value on every pp rank) carries no
     graph."""
     cfg, mp = model.cfg, model.mp
     M = model.n_microbatches
-    count = tokens.shape[0] * (tokens.shape[1] - 1)
+    count = tokens.shape[0] * (tokens.shape[1] * mp.sp - 1)
     moe = cfg.moe is not None
     parts: list[torch.Tensor] = []
 
@@ -690,7 +716,8 @@ def _pipelined_lm_loss(model: Llama, tokens: torch.Tensor,
         logits, aux = out if moe else (out, None)
         nll = mp.nll(logits, target)
         mask = torch.ones_like(nll)
-        mask[:, -1] = 0.0
+        if mp.sp_rank == mp.sp - 1:
+            mask[:, -1] = 0.0
         nll_part = (nll * mask).sum() / count
         aux_part = aux.sum() / M if moe else torch.zeros_like(nll_part)
         parts.append(torch.stack([nll_part.detach(), aux_part.detach()]))
@@ -710,10 +737,10 @@ def _pipelined_lm_loss(model: Llama, tokens: torch.Tensor,
                                              pipeline.microbatch(targets, M))):
                 loss_fn(lg if not moe else (lg, aux[m:m + 1]), tg)
     last = model.stage_index == model.n_stages - 1
-    # The schedule's first step also calls loss_fn once to learn its shapes:
-    # the step's own calls are the last M.
-    (total,) = pipeline.from_last_stage([torch.stack(parts[-M:]).sum(0)] if last else None,
-                                        model.mesh)
+    total = torch.stack(parts).sum(0) if last else None
+    if last and mp.sp > 1:  # the nll's parts over the sequence; the aux is the group's
+        total = torch.stack([mp.sum_over_sp_value(total[0]), total[1]])
+    (total,) = pipeline.from_last_stage([total] if last else None, model.mesh)
     loss, aux = total[0], total[1]
     metrics = {"perplexity": torch.exp(loss)}
     if moe:

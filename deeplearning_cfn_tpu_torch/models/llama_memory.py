@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from deeplearning_cfn_tpu_torch.models import llama
 from deeplearning_cfn_tpu_torch.models.llama import LlamaConfig
+from deeplearning_cfn_tpu_torch.ops.moe import expert_capacity
 
 # Usable HBM per chip (GiB) of the TPU generations the JAX package names,
 # copied as they are (book values); ``MemoryReport.fits()`` without a chip
@@ -184,9 +185,19 @@ def memory_report(
     b_local = max(1, batch_global // grad_accum // batch_shards)
     s_local = max(1, seq_len // mesh_axes.get("sp", 1))
     bf16 = 2
-    act_b = cfg.n_layers * b_local * s_local * cfg.dim * bf16
+    tokens = b_local * s_local
+    act_b = cfg.n_layers * tokens * cfg.dim * bf16
     kv_dim = cfg.n_kv_heads * cfg.head_dim
-    act_b += b_local * s_local * (4 * cfg.dim + 2 * kv_dim + 2 * (cfg.mlp_dim // tp)) * bf16
+    live = 4 * cfg.dim + 2 * kv_dim
+    if cfg.n_kv_heads % tp:
+        live += 2 * (cfg.n_heads // tp) * cfg.head_dim
+    if cfg.moe is None:
+        act_b += tokens * (live + 2 * (cfg.mlp_dim // tp)) * bf16
+    else:
+        capacity = expert_capacity(cfg.moe, tokens * mesh_axes.get("sp", 1))
+        experts = cfg.n_experts // mesh_axes.get("ep", 1)
+        slots = experts * capacity * (2 * cfg.dim + 2 * (cfg.mlp_dim // tp))
+        act_b += (tokens * live + slots) * bf16
     logits_b = 2 * b_local * s_local * (cfg.vocab_size // tp) * bf16
     loss_f32_b = 16 * b_local * s_local * (cfg.vocab_size // tp)
 
@@ -253,6 +264,8 @@ def trace_check(
     ``host_bytes`` counts every tensor made off ``meta`` and
     ``host_largest`` the largest, which are torch AdamW's CPU step counters
     (4 bytes a parameter tensor) and the mesh's rank tables.
+    ``local_params`` and ``local_param_bytes`` are rank 0's parameters after
+    the layout (its experts over ``ep``, its columns over ``tp``).
 
     FSDP2 cannot run on ``meta`` (it refuses parameters it cannot
     materialise), nor under ``FakeTensorMode`` over the fake group (its 2-D
@@ -287,11 +300,13 @@ def trace_check(
                 model = trainer.model_fn(None)
             state = trainer.init_from(model)
             state, metrics = trainer.train_step(state, tok, tok)
-        n_local = sum(p.to_local().numel() if hasattr(p, "to_local") else p.numel()
-                      for p in state.model.parameters())
+        local = [p.to_local() if hasattr(p, "to_local") else p for p in state.model.parameters()]
         return {"traced": True, "seconds": time.perf_counter() - t0,
-                "host_bytes": host.bytes, "host_largest": host.largest, "loss_shape": tuple(metrics["loss"].shape),
-                "local_params": n_local, "step": state.step}
+                "host_bytes": host.bytes, "host_largest": host.largest,
+                "loss_shape": tuple(metrics["loss"].shape),
+                "local_params": sum(p.numel() for p in local),
+                "local_param_bytes": sum(p.numel() * p.element_size() for p in local),
+                "step": state.step}
     finally:
         if owned:
             dist.destroy_process_group()

@@ -89,9 +89,11 @@ def flash_attention_reference(
     causal: bool = True,
     sm_scale: float | None = None,
     block_k: int = DEFAULT_BLOCK_K,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash forward: ``(out [B,Sq,Hq,D] in q's
-    dtype, lse [B,Hq,Sq] f32)``.
+    dtype, lse [B,Hq,Sq] f32)``; ``q_offset`` as :func:`flash_attention`'s
+    (two passes merged, as the kernel route runs them).
 
     The same arithmetic as the Pallas kernel: scores and the running max,
     denominator and accumulator in f32; masked scores at ``NEG_INF``; the
@@ -101,6 +103,9 @@ def flash_attention_reference(
     causal mask the rows above a block (all keys masked, so the block leaves
     their state unchanged) are not touched, and blocks past the last query
     are skipped, as the kernel skips them."""
+    if q_offset:
+        return _after(lambda *a: flash_attention_reference(*a, block_k=block_k), q, k, v,
+                      q_offset, sm_scale if sm_scale is not None else q.shape[-1] ** -0.5)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -201,27 +206,60 @@ def _forward(q, k, v, causal: bool, sm_scale: float):
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
 
 
+def _after(forward, q, k, v, q_offset: int, sm_scale: float):
+    """Causal attention of q's rows, at positions ``q_offset`` on, over the
+    keys ``[0, q_offset + Sq)``, with ``forward(q, k, v, causal, sm_scale)``
+    run twice: the keys before ``q_offset`` unmasked, the diagonal block
+    causal (a kernel's causal mask starts at its row 0), the two merged in
+    f32 by their log-sum-exps.  Returns ``(out, lse)``."""
+    o1, l1 = forward(q, k[:, :q_offset], v[:, :q_offset], False, sm_scale)
+    o2, l2 = forward(q, k[:, q_offset:], v[:, q_offset:], True, sm_scale)
+    lse = torch.logaddexp(l1, l2)
+    w1, w2 = (torch.exp(part - lse).transpose(1, 2).unsqueeze(-1) for part in (l1, l2))
+    return (o1.to(torch.float32) * w1 + o2.to(torch.float32) * w2).to(q.dtype), lse
+
+
 class FlashAttention(torch.autograd.Function):
-    """Kernel (or reference) forward, FA2 blockwise backward."""
+    """Kernel (or reference) forward, FA2 blockwise backward; with a
+    ``q_offset``, two forwards merged (:func:`_after`) and two backwards
+    from the merged lse, one over each part of the keys."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        out, lse = _forward(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, q_offset: int = 0):
+        if q_offset:
+            out, lse = _after(_forward, q, k, v, q_offset, sm_scale)
+        else:
+            out, lse = _forward(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        ctx.sm_scale = sm_scale
+        ctx.causal, ctx.sm_scale, ctx.q_offset = causal, sm_scale, q_offset
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _blockwise_backward(
-            q, k, v, out, lse, g,
-            causal=ctx.causal,
-            sm_scale=ctx.sm_scale,
-            block_k=_clamp_block(DEFAULT_BLOCK_K, k.shape[1]),
-        )
-        return dq, dk, dv, None, None
+        off = ctx.q_offset
+        if not off:
+            dq, dk, dv = _blockwise_backward(
+                q, k, v, out, lse, g,
+                causal=ctx.causal,
+                sm_scale=ctx.sm_scale,
+                block_k=_clamp_block(DEFAULT_BLOCK_K, k.shape[1]),
+            )
+            return dq, dk, dv, None, None, None
+        # p from the merged lse is each key's share of the whole softmax, so
+        # the FA2 backward splits over the two key ranges; dq sums in f32.
+        parts = [
+            _blockwise_backward(
+                q.to(torch.float32), k[:, lo:hi], v[:, lo:hi], out, lse, g,
+                causal=causal, sm_scale=ctx.sm_scale,
+                block_k=_clamp_block(DEFAULT_BLOCK_K, hi - lo),
+            )
+            for lo, hi, causal in ((0, off, False), (off, k.shape[1], True))
+        ]
+        dq = (parts[0][0] + parts[1][0]).to(q.dtype)
+        dk = torch.cat([parts[0][1], parts[1][1]], dim=1)
+        dv = torch.cat([parts[0][2], parts[1][2]], dim=1)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -231,19 +269,26 @@ def flash_attention(
     causal: bool = True,
     sm_scale: float | None = None,
     sp: int = 1,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Flash attention, ``[B, S, H, D]`` in and out; ``Hkv`` must divide ``Hq``.
 
     The JAX package's mesh rules: the sequence must be whole (``sp`` > 1
-    raises: ring attention splits it); under ``tp`` the caller passes one tp
-    rank's heads, which keeps each q head's kv head on its rank only when
-    ``tp`` divides the model's kv heads (``models/llama.py`` checks it)."""
+    raises: ring attention splits it); under ``tp`` the caller passes one
+    tp rank's heads with their kv heads (expanded where ``tp`` does not
+    divide the model's kv heads).  With ``q_offset`` (causal only) q's rows
+    sit at positions ``q_offset`` on and k/v hold the keys ``[0, q_offset +
+    Sq)``: a sequence block's rows under sp, with the keys gathered up to
+    its end (``models/llama.py``)."""
     Hq, Hkv = q.shape[2], k.shape[2]
     if sp > 1:
         raise ValueError("flash_attention does not split the sequence; use ring "
                          "attention for sp > 1")
     if Hkv == 0 or Hq % Hkv != 0:
         raise ValueError(f"q heads ({Hq}) must be a multiple of kv heads ({Hkv})")
+    if q_offset and (not causal or k.shape[1] != q_offset + q.shape[1]):
+        raise ValueError(f"q_offset {q_offset} needs causal attention over the keys up to "
+                         f"the rows' end ({q_offset + q.shape[1]}), got {k.shape[1]} keys")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
+    return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale), int(q_offset))

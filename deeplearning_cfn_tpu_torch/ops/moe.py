@@ -18,6 +18,19 @@ JAX's group, and the mean over groups is the mean over ranks that the data
 parallelism's gradient average (and the trainer's logged metrics) take.  On
 one process there is one group, as JAX without a mesh has.
 
+Under ``sp`` a group is the ``sp`` ranks of one data shard together: each
+holds ``[B_local, S/sp]`` of it, interleaved runs of the group's
+batch-major token order (JAX's ``x.reshape(G, t, d)`` over the whole
+sequence), not a prefix.  So the ranks take the group's decisions together
+(:func:`route` under ``sp``): the chosen experts (``[t, k]`` ids, small) are
+gathered over ``sp`` into the group's order, the capacity is the group's,
+the slots are claimed over the whole group (every first choice before any
+second) and each rank keeps its own rows.  The aux loss's ``f`` and ``p``
+are the group's means: ``f``'s counts summed over ``sp``, ``p``'s sums
+summed over ``sp`` in value while each rank's gradient stays its own part
+(as the sp loss's does; the trainer sums the gradients over ``sp``).
+Each rank runs the experts on its own tokens' slots only.
+
 **Dispatch and combine by index.**  JAX writes them as einsums against a
 dense one-hot ``[G, t, E, C]``; at the m435 training shape (t = 16 384,
 E·C = 40 960) that tensor is 671 M elements a layer and the einsums do more
@@ -38,6 +51,14 @@ the gates only through its own experts, so the input the experts read and
 the gate weights pass through the converse op (the identity forward, a sum
 over ``ep`` backward); the router, which every rank computes alike, then gets
 the whole gradient on every rank.
+
+**Tensor parallelism** keeps JAX's layout too: ``w_gate``/``w_up`` split on
+their ``m`` columns and ``w_down`` on its ``m`` rows over ``tp``, so each tp
+rank computes its ``m/tp`` columns of every local expert's gate and up
+products and a partial ``y``, summed over ``tp`` as the dense MLP's is.  The
+routing and the router stay replicated over ``tp``; the experts' input and
+the gates pass ``tp`` as they pass ``ep`` (the identity forward, a sum
+backward), and ``y`` is summed over ``tp`` then ``ep``.
 """
 
 from __future__ import annotations
@@ -52,6 +73,11 @@ from torch import nn
 
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import CopyToGroup as _CopyToGroup
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import SumOverGroup as _SumOverGroup
+from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import (
+    ModelParallel,
+    local,
+    sum_value_over,
+)
 
 
 @dataclass(frozen=True)
@@ -82,7 +108,8 @@ def moe_param_specs() -> dict[str, tuple]:
 
 @dataclass
 class Routing:
-    """One routing group's decisions over ``t`` tokens."""
+    """One routing group's decisions over this rank's ``t`` tokens (all of
+    the group's but under ``sp``)."""
 
     probs: torch.Tensor  # [t, E] f32
     gate: torch.Tensor  # [t, k] f32, renormalised when k > 1
@@ -90,62 +117,93 @@ class Routing:
     slot: torch.Tensor  # [t, k] int64, the slot claimed (0 where dropped)
     kept: torch.Tensor  # [t, k] f32, 1 where the claim fits the capacity
     capacity: int
+    group_tokens: int  # the routing group's tokens (t times sp)
+    sp_group: object = None  # the sp ranks that share the group
 
 
-def route(cfg: MoEConfig, router: torch.Tensor, xt: torch.Tensor) -> Routing:
-    """Top-k routing with top-1 slot priority over the tokens ``xt [t, d]``."""
+def _claims_in_group_order(expert: torch.Tensor, mp: ModelParallel, batch: int) -> torch.Tensor:
+    """The group's ``[sp·t, k]`` chosen experts, batch-major over the whole
+    sequence, from each sp rank's ``[t, k]`` (its ``[batch, S/sp]`` block)."""
+    parts = [torch.empty_like(expert) for _ in range(mp.sp)]
+    dist.all_gather(parts, expert.contiguous(), group=mp.sp_group)
+    k = expert.shape[1]
+    return (torch.stack(parts).reshape(mp.sp, batch, -1, k).transpose(0, 1).reshape(-1, k))
+
+
+def route(cfg: MoEConfig, router: torch.Tensor, xt: torch.Tensor,
+          mp: ModelParallel | None = None, batch: int = 1) -> Routing:
+    """Top-k routing with top-1 slot priority over the tokens ``xt [t, d]``;
+    with ``mp``'s ``sp`` > 1 (``xt`` this rank's ``[batch, S/sp]`` block),
+    over the routing group the sp ranks hold together, this rank's rows of
+    it returned."""
     t = xt.shape[0]
     E, k = cfg.n_experts, cfg.top_k
-    C = expert_capacity(cfg, t)
+    split = mp is not None and mp.sp > 1
     probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
     gate, expert = torch.topk(probs, k, dim=-1)
     if k > 1:
         gate = gate / gate.sum(dim=-1, keepdim=True)
     with torch.no_grad():
-        sel = F.one_hot(expert, E).to(torch.int32)  # [t, k, E]
-        # [E, k*t]: each expert's claims, every first choice before any
+        claims = _claims_in_group_order(expert, mp, batch) if split else expert
+        T = claims.shape[0]
+        C = expert_capacity(cfg, T)
+        sel = F.one_hot(claims, E).to(torch.int32)  # [T, k, E]
+        # [E, k*T]: each expert's claims, every first choice before any
         # second one; the cumsum runs along the contiguous dim (a scan
-        # across rows of [k*t, E] is the slow, outer-dim one on the card).
-        priority = sel.permute(2, 1, 0).reshape(E, k * t)
-        pos = (torch.cumsum(priority, dim=1) - priority).reshape(E, k, t).permute(2, 1, 0)
-        pos = (pos * sel).sum(dim=-1)  # [t, k]: the slot each claim asks for
+        # across rows of [k*T, E] is the slow, outer-dim one on the card).
+        priority = sel.permute(2, 1, 0).reshape(E, k * T)
+        pos = (torch.cumsum(priority, dim=1) - priority).reshape(E, k, T).permute(2, 1, 0)
+        pos = (pos * sel).sum(dim=-1)  # [T, k]: the slot each claim asks for
+        if split:  # this rank's rows
+            pos = pos.reshape(batch, mp.sp, t // batch, k)[:, mp.sp_rank].reshape(t, k)
         fits = pos < C
         slot = torch.where(fits, pos, 0).to(torch.int64)
         kept = fits.to(torch.float32)
-    return Routing(probs, gate, expert, slot, kept, C)
+    return Routing(probs, gate, expert, slot, kept, C, T, mp.sp_group if split else None)
 
 
 def aux_loss(cfg: MoEConfig, r: Routing) -> torch.Tensor:
     """Switch load balancing: ``E · Σ_e f_e p_e`` times the weight, with f_e
-    the share of tokens whose first choice is e and p_e e's mean
-    probability; 1 at uniform routing."""
+    the share of the group's tokens whose first choice is e and p_e e's mean
+    probability over the group; 1 at uniform routing."""
     E = cfg.n_experts
-    f = F.one_hot(r.expert[:, 0], E).to(torch.float32).mean(dim=0)
-    p = r.probs.mean(dim=0)
+    counts = F.one_hot(r.expert[:, 0], E).to(torch.float32).sum(dim=0)
+    p_sum = r.probs.sum(dim=0)
+    if r.sp_group is not None:
+        dist.all_reduce(counts, group=r.sp_group)
+        p_sum = sum_value_over(p_sum, r.sp_group)
+    f, p = counts / r.group_tokens, p_sum / r.group_tokens
     return cfg.aux_loss_weight * E * torch.sum(f * p)
 
 
 def moe_mlp(cfg: MoEConfig, params, x: torch.Tensor, ep_group=None,
-            expert_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+            expert_offset: int = 0,
+            mp: ModelParallel | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, d]`` -> ``(y [B, S, d], aux_loss)`` over the experts in
-    ``params`` (``router [d, E]``, ``w_gate``/``w_up [E', d, m]``,
-    ``w_down [E', m, d]``): all E on one rank, or with ``ep_group`` the
-    ``E' = E / ep`` experts from ``expert_offset`` that this rank holds."""
+    ``params`` (``router [d, E]``, ``w_gate``/``w_up [E', d, m']``,
+    ``w_down [E', m', d]``): all E on one rank, or with ``ep_group`` the
+    ``E' = E / ep`` experts from ``expert_offset`` that this rank holds;
+    with ``mp``'s ``tp`` > 1 their ``m' = m / tp`` columns of this tp rank
+    (the local parts of ``DTensor`` s are read), with its ``sp`` > 1 ``x``
+    this rank's block of the sequence."""
+    mp = mp or ModelParallel()
     B, S, d = x.shape
     t = B * S
     xt = x.reshape(t, d)
-    r = route(cfg, params["router"], xt)
-    n_local = params["w_gate"].shape[0]
+    r = route(cfg, params["router"], xt, mp, B)
+    w_gate, w_up, w_down = (local(params[n]) for n in ("w_gate", "w_up", "w_down"))
+    n_local = w_gate.shape[0]
     C = r.capacity
     gates = r.gate * r.kept
-    if ep_group is not None:
-        xt = _CopyToGroup.apply(xt, ep_group)
-        gates = _CopyToGroup.apply(gates, ep_group)
+    groups = [g for g in (ep_group, mp.tp_group if mp.tp > 1 else None) if g is not None]
+    for g in groups:
+        xt = _CopyToGroup.apply(xt, g)
+        gates = _CopyToGroup.apply(gates, g)
     with torch.no_grad():
-        local = r.expert - expert_offset
-        mine = (local >= 0) & (local < n_local) & (r.kept > 0)
+        own = r.expert - expert_offset  # the expert's index among this rank's
+        mine = (own >= 0) & (own < n_local) & (r.kept > 0)
         sink = n_local * C
-        flat = torch.where(mine, local * C + r.slot, sink)  # [t, k]
+        flat = torch.where(mine, own * C + r.slot, sink)  # [t, k]
         # Each slot's token (t: the zero row) — claims are unique but for
         # the sink, which nothing reads.
         token = torch.full((sink + 1,), t, dtype=torch.int64, device=x.device)
@@ -156,14 +214,14 @@ def moe_mlp(cfg: MoEConfig, params, x: torch.Tensor, ep_group=None,
     # a sort-based accumulation several times slower on the card.
     pad = torch.cat([xt, xt.new_zeros(1, d)])
     expert_in = pad.index_select(0, token[:sink]).reshape(n_local, C, d)
-    gate = F.silu(torch.bmm(expert_in, params["w_gate"]).to(torch.float32)).to(x.dtype)
-    up = torch.bmm(expert_in, params["w_up"])
-    expert_out = torch.bmm(gate * up, params["w_down"]).reshape(sink, d)
+    gate = F.silu(torch.bmm(expert_in, w_gate).to(torch.float32)).to(x.dtype)
+    up = torch.bmm(expert_in, w_up)
+    expert_out = torch.bmm(gate * up, w_down).reshape(sink, d)
     out = torch.cat([expert_out, expert_out.new_zeros(1, d)])
     out = out.index_select(0, flat.reshape(-1)).reshape(t, cfg.top_k, d)
     y = (out * (gates * mine).to(x.dtype).unsqueeze(-1)).sum(dim=1)
-    if ep_group is not None:
-        y = _SumOverGroup.apply(y, ep_group)
+    for g in reversed(groups):
+        y = _SumOverGroup.apply(y, g)
     return y.reshape(B, S, d), aux_loss(cfg, r)
 
 
@@ -183,12 +241,16 @@ class MoE(nn.Module):
     """The expert bank of one block, leaves named as JAX's ``layers/moe``:
     ``router [d, E]`` (f32), ``w_gate``/``w_up [E, d, m]``, ``w_down
     [E, m, d]``, each expert normal / sqrt(fan_in), the router normal ×
-    0.02.  :meth:`shard_experts` keeps one ``ep`` rank's experts."""
+    0.02.  :meth:`shard_experts` keeps one ``ep`` rank's experts; ``mp``
+    (the block's ``tp`` and ``sp``) splits the experts' columns over ``tp``
+    (once the trainer has made them ``DTensor`` s) and routes the ``sp``
+    ranks' tokens as one group."""
 
     def __init__(self, cfg: MoEConfig, dim: int, mlp_dim: int, dtype,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mp: ModelParallel | None = None):
         super().__init__()
         self.cfg = cfg
+        self.mp = mp or ModelParallel()
         E = cfg.n_experts
         self.router = nn.Parameter(
             torch.randn((dim, E), generator=generator, dtype=torch.float32,
@@ -215,4 +277,4 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         params = {"router": self.router, "w_gate": self.w_gate, "w_up": self.w_up,
                   "w_down": self.w_down}
-        return moe_mlp(self.cfg, params, x, self.ep_group, self.expert_offset)
+        return moe_mlp(self.cfg, params, x, self.ep_group, self.expert_offset, self.mp)

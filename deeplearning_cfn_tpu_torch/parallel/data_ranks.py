@@ -43,6 +43,11 @@ def data_ranks(group, count: int):
         _CURRENT.reset(token)
 
 
+def current_data_ranks() -> tuple | None:
+    """``(group, count)`` of the enclosing :func:`data_ranks`, or None."""
+    return _CURRENT.get()
+
+
 def data_rank_count() -> int:
     current = _CURRENT.get()
     return 1 if current is None else current[1]

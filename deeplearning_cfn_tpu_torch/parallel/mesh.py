@@ -39,8 +39,10 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXIS_ORDER = ("dp", "fsdp", "pp", "sp", "tp", "ep")
 
-# What the parallelism slices have not ported yet (ROADMAP queue 1).
-LATER_PARALLELISM = "a later slice of the PyTorch port (ROADMAP queue 1)"
+# What the parallelism slices have not ported yet (ROADMAP queue 1, items 7.3
+# and 7.5): each tp rank's fused wqkv/w_gate_up columns laid out together, and
+# a captured step over DDP, the bucketed sync or pipeline stages.
+LATER_PARALLELISM = "a later slice of the PyTorch port (ROADMAP queue 1, items 7.3 and 7.5)"
 
 
 class MeshError(ValueError):

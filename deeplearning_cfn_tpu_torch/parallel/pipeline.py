@@ -2,11 +2,10 @@
 
 GPipe over the ``pp`` mesh axis: each ``pp`` rank holds one stage's layers
 and runs them on ``M`` microbatches of its data shard; activations pass from
-stage to stage by send/recv over the ``pp`` group.  The JAX package writes
-the schedule as one ``lax.scan`` of ``M + pp - 1`` ticks inside a
-``shard_map``; here it is ``torch.distributed.pipelining``'s
-``ScheduleGPipe`` over a ``PipelineStage`` for this rank's stage module.
-The semantics are JAX's:
+stage to stage over the ``pp`` group.  The JAX package writes the schedule
+as one ``lax.scan`` of ``M + pp - 1`` ticks inside a ``shard_map``; here it
+is written by hand (:func:`run_schedule`), each stage running its
+microbatches as they arrive, with JAX's semantics:
 
 - M microbatches flow through pp stages in ``M + pp - 1`` ticks; a stage
   that waits for its first or after its last microbatch computes nothing,
@@ -18,11 +17,26 @@ The semantics are JAX's:
 - a stage count that does not match the mesh's ``pp``, and a batch that
   does not split into M, are refused (:class:`PipelineError`).
 
-With ``loss_fn`` the schedule backpropagates each microbatch's loss as soon
-as the last stage has it (GPipe: all forwards, then all backwards), the
-gradients accumulating in the stage's parameters; the caller scales each
-microbatch's loss so that their sum is the batch's objective (the schedule
-scales nothing).
+With ``loss_fn`` the schedule is GPipe's: every microbatch forward, then
+every microbatch backward in the same order, each stage receiving the
+gradient of its outputs from the next stage and sending the gradient of its
+inputs to the previous one; the gradients accumulate in the stage's
+parameters.  The caller scales each microbatch's loss so that their sum is
+the batch's objective (the schedule scales nothing).  Under
+:func:`remat_stages` (``TrainerConfig.remat``: JAX's ``jax.checkpoint`` of
+the whole loss) each stage's forward of each microbatch is checkpointed
+(non-reentrant, with the contexts the trainer passes, nested as
+``train/remat.py`` says) and recomputed in its backward.
+
+Activations and their gradients cross the stages through
+``parallel/p2p.py`` (staged through the host for CUDA tensors on a gloo
+group, which takes no CUDA send; straight through on NCCL).  A stage's
+shapes and dtypes go to the next stage once a schedule, before its first
+microbatch, as an object list on the group's own device: every microbatch
+has the same.  The schedule is the port's own rather than
+``torch.distributed.pipelining``'s: that posts its sends on the stage's
+device, which gloo refuses, and learns its shapes from an extra call of the
+loss.
 
 The layer weights stay per-block modules in the port; :func:`stack_stages`
 and :func:`unstack_stages` reshape JAX-layout trees (``[L, ...]`` <->
@@ -39,7 +53,9 @@ from typing import Any, Callable, Iterator
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from deeplearning_cfn_tpu_torch.parallel import p2p
 from deeplearning_cfn_tpu_torch.parallel.sharding import stage_specs  # noqa: F401 (as JAX's)
 
 
@@ -90,6 +106,8 @@ def microbatch(x: torch.Tensor, n_microbatches: int) -> torch.Tensor:
 
 _IN_STAGE: contextvars.ContextVar[bool] = contextvars.ContextVar("in_pipeline_stage",
                                                                  default=False)
+_REMAT: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
+    "remat_pipeline_stages", default=None)
 
 
 def in_stage() -> bool:
@@ -99,12 +117,25 @@ def in_stage() -> bool:
 
 
 @contextlib.contextmanager
-def _stage_calls() -> Iterator[None]:
-    token = _IN_STAGE.set(True)
+def _flag(var: contextvars.ContextVar) -> Iterator[None]:
+    token = var.set(True)
     try:
         yield
     finally:
-        _IN_STAGE.reset(token)
+        var.reset(token)
+
+
+@contextlib.contextmanager
+def remat_stages(contexts: Callable) -> Iterator[None]:
+    """Inside it, a training :func:`run_schedule` checkpoints each stage's
+    forward of each microbatch, with ``contexts(also)`` as the checkpoint's
+    ``context_fn`` (``train/remat.outer_remat_contexts``): ``also`` makes
+    the in-stage flag, which the recompute must set again."""
+    token = _REMAT.set(contexts)
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
 
 
 def _pp_group(mesh, axis: str, n_stages: int):
@@ -117,43 +148,107 @@ def _pp_group(mesh, axis: str, n_stages: int):
     return mesh.get_group(axis), mesh.get_local_rank(axis), pp
 
 
+def _send_tensors(tensors, dst: int, group, with_layout: bool) -> None:
+    """Each tensor to global rank ``dst``; first, ``with_layout``, their
+    shapes and dtypes, as an object list on the group's own device (the
+    host for gloo, the card for NCCL)."""
+    if with_layout:
+        dist.send_object_list([[(tuple(t.shape), t.dtype) for t in tensors]], dst, group=group)
+    for t in tensors:
+        p2p.send(t, dst, group)
+
+
+def _recv_layout(src: int, group) -> list:
+    """The shapes and dtypes :func:`_send_tensors` sent ``with_layout``."""
+    box = [None]
+    dist.recv_object_list(box, src, group=group)
+    return box[0]
+
+
+def _recv_tensors(src: int, group, device, layout) -> tuple[torch.Tensor, ...]:
+    return tuple(p2p.recv(torch.empty(shape, dtype=dtype, device=device), src, group)
+                 for shape, dtype in layout)
+
+
+def _as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _stage_call(stage: nn.Module, args: tuple, contexts: Callable | None):
+    """The stage on one microbatch; under :func:`remat_stages` checkpointed,
+    its recompute (on the card in autograd's own thread) called as a stage
+    too."""
+    if contexts is None:
+        return stage(*args)
+    return checkpoint(stage, *args, use_reentrant=False,
+                      context_fn=lambda: contexts(lambda: _flag(_IN_STAGE)))
+
+
 def run_schedule(stage: nn.Module, inputs: tuple, mesh, n_microbatches: int, n_stages: int,
                  loss_fn: Callable | None = None, target: torch.Tensor | None = None,
                  axis: str = "pp"):
     """One GPipe step of this rank's ``stage`` over ``axis``.  ``inputs``
     (stage 0's arguments, the batch on dim 0) are split into
-    ``n_microbatches`` along dim 0; every rank of the pp group calls this
-    with the same shapes.  Returns, on the last stage, the merged outputs
-    (without ``loss_fn``) or the microbatch losses ``[M]`` (with it, after
-    the backward); None on the other stages.  The schedule and its stage
-    are built once for each input shape and kept on ``stage``."""
-    from torch.distributed.pipelining import PipelineStage, ScheduleGPipe
-
+    ``n_microbatches`` along dim 0, as ``target`` is on the last stage;
+    every rank of the pp group calls this with the same shapes.  A stage is
+    called with the tensors the previous stage returned (a tensor or a
+    tuple).  Returns, on the last stage, the merged outputs (without
+    ``loss_fn``: each output's microbatches concatenated on dim 0) or the
+    microbatch losses ``[M]`` (with it, after the backward); None on the
+    other stages."""
     group, rank, pp = _pp_group(mesh, axis, n_stages)
-    for t in inputs:
-        microbatch(t, n_microbatches)  # refuses a batch that does not split
+    M = n_microbatches
+    parts = [microbatch(t, M) for t in inputs]  # refuses a batch that does not split
     train = loss_fn is not None
-    key = (n_microbatches, train, tuple((tuple(t.shape), t.dtype) for t in inputs))
-    cache = stage.__dict__.setdefault("_pipeline_schedules", {})
-    if key not in cache:
-        pstage = PipelineStage(stage, rank, pp, inputs[0].device, group=group)
-        call = [None]  # this step's loss_fn: the schedule is kept across steps
-        cache[key] = call, ScheduleGPipe(
-            pstage, n_microbatches, scale_grads=False,
-            loss_fn=(lambda out, tgt: call[0](out, tgt)) if train else None)
-    call, schedule = cache[key]
-    call[0] = loss_fn
-    losses: list[torch.Tensor] = []
-    with _stage_calls():
-        if rank == 0:
-            out = schedule.step(*inputs)
-        elif rank == pp - 1 and train:
-            out = schedule.step(target=target, losses=losses)
-        else:
-            out = schedule.step()
-    if rank != pp - 1:
+    contexts = _REMAT.get() if train else None
+    last = rank == pp - 1
+    prev = dist.get_global_rank(group, rank - 1) if rank > 0 else None
+    nxt = None if last else dist.get_global_rank(group, rank + 1)
+    targets = microbatch(target, M) if train and last else None
+    device = inputs[0].device
+    kept, results, layout = [], [], None
+    with _flag(_IN_STAGE):
+        for m in range(M):  # the forwards, each as its input arrives
+            if rank == 0:
+                args = tuple(t[m] for t in parts)
+            else:
+                if m == 0:
+                    layout = _recv_layout(prev, group)
+                args = _recv_tensors(prev, group, device, layout)
+                if train:
+                    args = tuple(a.requires_grad_() if a.is_floating_point() else a
+                                 for a in args)
+            out = _stage_call(stage, args, contexts)
+            if not last:
+                outs = _as_tuple(out)
+                _send_tensors([o.detach() for o in outs], nxt, group, with_layout=m == 0)
+                if train:
+                    kept.append((args, outs))
+            elif train:
+                loss = loss_fn(out, targets[m])
+                results.append(loss.detach())
+                kept.append((args, (loss,)))
+            else:
+                results.append(tuple(o.detach() for o in _as_tuple(out)))
+        for args, outs in kept:  # the backwards, in the same order
+            if last:
+                torch.autograd.backward(outs[0])
+            else:
+                grads = [p2p.recv(torch.empty_like(o), nxt, group) if o.is_floating_point()
+                         else None for o in outs]
+                pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+                torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+            if rank > 0:
+                for a in args:
+                    if a.is_floating_point():
+                        p2p.send(a.grad if a.grad is not None else torch.zeros_like(a),
+                                 prev, group)
+    if not last:
         return None
-    return torch.stack([l.detach() for l in losses]) if train else out
+    if train:
+        return torch.stack(results)
+    merged = tuple(torch.cat(col) for col in zip(*results))
+    return merged if len(merged) > 1 else merged[0]
 
 
 def from_last_stage(values: list[torch.Tensor] | None, mesh, axis: str = "pp") -> list[torch.Tensor]:

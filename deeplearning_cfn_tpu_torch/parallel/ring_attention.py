@@ -12,13 +12,15 @@ matrix larger than ``[S/sp, S/sp]`` is made.
 As in JAX it is plain tensor code, with no kernel; the arithmetic is JAX's
 ``_block_attend`` (scores in the inputs' dtype, then f32; the max and the
 denominator in f32; the accumulator in v's dtype).  GQA k/v stay compact
-(``Hkv`` heads) through the ring and are expanded a block at a time: the
-port's tensor parallelism splits heads only where ``tp`` divides the kv
-heads, so every q head's kv head is on its rank.
+(``Hkv`` heads) through the ring and are expanded a block at a time.
+Where ``tp`` does not divide the kv heads, the block (``models/llama.py``)
+hands in k/v already expanded to its rank's q heads, as JAX expands them
+before its ring (``_repeat_kv``).
 
-The ring is point-to-point (``torch.distributed.batch_isend_irecv``) inside
-a ``torch.autograd.Function``, since autograd does not differentiate
-through ``isend``/``irecv``.  The backward is the FA2 recompute from the
+The ring is point-to-point (``parallel/p2p.rotate``: ``batch_isend_irecv``,
+through pinned host buffers for CUDA tensors on a gloo group, which takes
+no CUDA send) inside a ``torch.autograd.Function``, since autograd does not
+differentiate through ``isend``/``irecv``.  The backward is the FA2 recompute from the
 saved log-sum-exp, in f32: k/v go round the ring again, each block's dK/dV
 travel with it and take one more hop home at the end.
 """
@@ -28,27 +30,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from deeplearning_cfn_tpu_torch.parallel.p2p import rotate as _rotate
+
 
 def _expand(kv: torch.Tensor, heads: int) -> torch.Tensor:
     group = heads // kv.shape[2]
     return kv if group == 1 else torch.repeat_interleave(kv, group, dim=2)
-
-
-def _rotate(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
-    """Each tensor sent to the next rank of ``group`` and received from the
-    previous one."""
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (rank + 1) % n)
-    prev = dist.get_global_rank(group, (rank - 1) % n)
-    ops, out = [], []
-    for t in tensors:
-        t = t.contiguous()
-        r = torch.empty_like(t)
-        ops += [dist.P2POp(dist.isend, t, nxt, group), dist.P2POp(dist.irecv, r, prev, group)]
-        out.append(r)
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return out
 
 
 def _diagonal_mask(s: int, device) -> torch.Tensor:

@@ -24,6 +24,11 @@ the forward's transpose needs:
 The loss is vocab-parallel (:meth:`ModelParallel.nll`): the logits stay
 split over ``tp``, and only per-position scalars cross the group.
 
+Every collective here (``all_reduce``, the list ``all_gather``) takes CUDA
+tensors on a gloo group as well as on NCCL (``tools/gloo_cuda_probe.py`` on
+an H100: gloo refuses only point-to-point, which ``parallel/p2p.py``
+stages through the host).
+
 :class:`ModelParallel` holds a model's ``tp`` and ``sp`` groups, sizes and
 ranks, read from the mesh; at size 1 every helper is the identity, so a
 model without a mesh runs the ops it ran before.  Parameters whose spec has
@@ -80,6 +85,15 @@ class CopyToGroup(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+def sum_value_over(partial: torch.Tensor, group) -> torch.Tensor:
+    """``partial`` summed over ``group`` in value, with ``partial``'s own
+    gradient: each rank back-propagates its own part (a sum of the
+    parameters' gradients over the group then gives the whole)."""
+    total = partial.detach().clone()
+    dist.all_reduce(total, group=group)
+    return partial + (total - partial.detach())
 
 
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -199,11 +213,7 @@ class ModelParallel:
         """A scalar whose value is ``partial`` summed over sp and whose
         gradient is ``partial``'s: each sp rank back-propagates its own
         part, and the trainer sums the parameters' gradients over sp."""
-        if self.sp == 1:
-            return partial
-        total = partial.detach().clone()
-        dist.all_reduce(total, group=self.sp_group)
-        return partial + (total - partial.detach())
+        return partial if self.sp == 1 else sum_value_over(partial, self.sp_group)
 
 
 def model_parallel(model: nn.Module) -> ModelParallel:
@@ -214,7 +224,9 @@ def model_parallel(model: nn.Module) -> ModelParallel:
 def distribute_tp(model: nn.Module, specs: dict[str, tuple], tp_mesh) -> None:
     """Every parameter whose spec names ``tp`` becomes a ``DTensor`` over
     ``tp_mesh`` (1-D), sharded on that dim: each rank keeps its contiguous
-    chunk of the whole tensor it holds."""
+    chunk of the whole tensor it holds (an ep rank's expert banks after
+    ``MoE.shard_experts``; ``wk``/``wv`` also where tp does not divide the
+    kv heads, a chunk then holding part of a head)."""
     from torch.distributed.tensor import DTensor, Shard
 
     size, rank = tp_mesh.size(), tp_mesh.get_local_rank()

@@ -4,7 +4,8 @@ trainer step over a one-rank NCCL mesh captures as a CUDA graph.
 Two processes on ``cuda:0`` join a gloo group for each collective the port's
 multi-rank paths use (DDP's and the bucketed sync's all-reduce, the int8
 exchange's ``all_to_all_single`` and ``all_gather_into_tensor``, the sharded
-bucket's ``reduce_scatter_tensor``, GPipe's ``send``/``recv``), one pair a
+bucket's ``reduce_scatter_tensor``, the tp and sp gathers' list ``all_gather``,
+GPipe's ``send``/``recv``, ring attention's ``batch_isend_irecv``), one pair a
 collective so that a refusal cannot take the others down; each pair's result
 is one JSON row.  Then, in a process of its own each, a small Llama
 (m435's widths at 2 layers, seq 256) over ``build_mesh(MeshSpec(fsdp=1))``
@@ -24,8 +25,8 @@ import sys
 import traceback
 
 OPS = ("all_reduce", "all_reduce_bf16", "broadcast", "all_gather_into_tensor_int8",
-       "all_gather_into_tensor_f32", "all_to_all_single_int8", "reduce_scatter_tensor",
-       "send_recv")
+       "all_gather_into_tensor_f32", "all_gather", "all_gather_bf16", "all_to_all_single_int8",
+       "all_to_all_single_f32", "reduce_scatter_tensor", "send_recv", "batch_isend_irecv")
 
 
 def _free_port() -> int:
@@ -56,12 +57,23 @@ def _gloo_op(op: str, rank: int, port: int) -> None:
         src = q if op.endswith("int8") else t
         out = src.new_empty(16)
         dist.all_gather_into_tensor(out, src)
-    elif op == "all_to_all_single_int8":
-        out = torch.empty_like(q)
-        dist.all_to_all_single(out, q)
+    elif op.startswith("all_gather"):  # the list form (tensor_parallel._all_gather)
+        src = t.to(torch.bfloat16) if op.endswith("bf16") else t
+        parts = [torch.empty_like(src) for _ in range(2)]
+        dist.all_gather(parts, src)
+        out = torch.cat(parts)
+    elif op.startswith("all_to_all_single"):
+        src = q if op.endswith("int8") else t
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
     elif op == "reduce_scatter_tensor":
         out = t.new_empty(4)
         dist.reduce_scatter_tensor(out, t)
+    elif op == "batch_isend_irecv":  # ring attention's exchange
+        out = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, 1 - rank), dist.P2POp(dist.irecv, out, 1 - rank)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
     else:  # send_recv
         out = t if rank == 0 else torch.empty_like(t)
         dist.send(t, 1) if rank == 0 else dist.recv(out, 0)

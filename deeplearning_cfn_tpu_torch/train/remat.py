@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import contextlib
 from contextvars import ContextVar
-from typing import Iterator
+from typing import Callable, ContextManager, Iterator
+
+from deeplearning_cfn_tpu_torch.parallel.data_ranks import current_data_ranks, data_ranks
 
 _OUTER: ContextVar[bool] = ContextVar("outer_remat", default=False)
 
@@ -38,7 +40,23 @@ def under_outer_remat() -> bool:
     return _OUTER.get()
 
 
-def outer_remat_contexts() -> tuple:
+def outer_remat_contexts(*also: Callable[[], ContextManager]) -> tuple:
     """``context_fn`` for the enclosing ``torch.utils.checkpoint``: its
-    forward and its recomputation both run inside :func:`outer_remat`."""
-    return outer_remat(), outer_remat()
+    forward and its recomputation both run inside :func:`outer_remat`, over
+    the data ranks the forward saw (``parallel/data_ranks.py``), and inside
+    a context of each of ``also``.  The card's backward runs the
+    recomputation in autograd's own thread, where the caller's context
+    variables are unset: it must set them again."""
+    ranks = current_data_ranks()
+
+    @contextlib.contextmanager
+    def run() -> Iterator[None]:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(outer_remat())
+            if ranks is not None:
+                stack.enter_context(data_ranks(*ranks))
+            for make in also:
+                stack.enter_context(make())
+            yield
+
+    return run(), run()

@@ -44,7 +44,8 @@ JAX package's jitted step, in eager PyTorch:
   ``k``.
 - ``remat``: ``jax.checkpoint`` on the whole loss becomes
   ``torch.utils.checkpoint`` (non-reentrant) around it, in the eager and
-  the captured step alike; it nests under the model's own per-block remat
+  the captured step alike (under pipeline stages, around each stage's
+  forward of each microbatch); it nests under the model's own per-block remat
   (``train/remat.py``: inside it a model checkpoints its blocks whole, so
   that no selective cache is held twice and the peak only falls).
   Buffers a forward updates (BatchNorm's statistics) keep the forward's
@@ -118,6 +119,7 @@ from deeplearning_cfn_tpu_torch.parallel import mesh as mesh_lib
 from deeplearning_cfn_tpu_torch.parallel import overlap as overlap_lib
 from deeplearning_cfn_tpu_torch.parallel import sharding
 from deeplearning_cfn_tpu_torch.parallel.data_ranks import data_ranks
+from deeplearning_cfn_tpu_torch.parallel.pipeline import remat_stages
 from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import distribute_tp
 from deeplearning_cfn_tpu_torch.train.optimizers import (
     Adafactor,
@@ -138,9 +140,6 @@ from deeplearning_cfn_tpu_torch.train.data import (
 from deeplearning_cfn_tpu_torch.train.metrics import ThroughputLogger, peak_flops_per_chip
 from deeplearning_cfn_tpu_torch.train.pipeline import PipelineStats, dequantize_normalize
 from deeplearning_cfn_tpu_torch.train.remat import outer_remat_contexts
-
-_LATER = "a later slice of the PyTorch port"
-
 
 @dataclass
 class TrainerConfig:
@@ -645,9 +644,6 @@ class Trainer:
             if not getattr(model, "pipelined", False):
                 raise ValueError("a mesh with pp > 1 needs a model built over it with as many "
                                  "pipeline stages (LlamaConfig.pp_stages)")
-            if self.config.remat:
-                raise NotImplementedError(
-                    f"TrainerConfig.remat over pipeline stages is ported in {_LATER}")
         runner = self._distribute(model) if self.mesh is not None else None
         split = {n: self.mesh["ep"] for n, p in model.named_parameters()
                  if id(p) in self._split_groups}
@@ -745,11 +741,11 @@ class Trainer:
                 if hasattr(module, "shard_experts"):
                     module.shard_experts(ep_rank, sizes.ep, ep_group)
         specs = self._specs(model)
-        for name, p in model.named_parameters():
-            if sharding.axis_dim(specs[name], "ep") is not None and sizes.ep > 1:
-                self._split_groups[id(p)] = (self.mesh.get_group("ep"),)
         if sizes.tp > 1:
             distribute_tp(model, specs, self.mesh["tp"])
+        for name, p in model.named_parameters():  # after distribute_tp made new parameters
+            if sharding.axis_dim(specs[name], "ep") is not None and sizes.ep > 1:
+                self._split_groups[id(p)] = (self.mesh.get_group("ep"),)
         if self.device.type == "meta":
             return None  # a shapes-only trace: FSDP2 and DDP need real tensors
         sharded = any(sharding.fsdp_dim(s) is not None for s in specs.values())
@@ -951,14 +947,20 @@ class Trainer:
         """The loss and its backward; with ``remat`` the loss's activations
         are recomputed in the backward (``jax.checkpoint`` on the loss), and
         the buffers keep what the forward made of them.  A pipelined model's
-        loss runs the backward in its schedule.  ``sync`` (the bucketed
-        sync) issues its buckets from the backward and is drained after it,
-        as DDP drains its own."""
+        loss runs the backward in its schedule, which under ``remat``
+        checkpoints each stage's forward of each microbatch instead
+        (``parallel/pipeline.remat_stages``: the loss's own checkpoint could not
+        wrap a backward that runs inside it).  ``sync`` (the bucketed sync)
+        issues its buckets from the backward and is drained after it, as
+        DDP drains its own."""
         if sync is not None:
             sync.begin()
-        if not self.config.remat:
-            loss, aux = self._loss(model, x, y)
-            if not getattr(model, "runs_own_backward", False):
+        own = getattr(model, "runs_own_backward", False)
+        if not self.config.remat or own:
+            with (remat_stages(outer_remat_contexts) if own and self.config.remat
+                  else contextlib.nullcontext()):
+                loss, aux = self._loss(model, x, y)
+            if not own:
                 loss.backward()
             if sync is not None:
                 sync.finish()
@@ -1368,11 +1370,12 @@ class CapturedSteps:
                                    or t._pp_group is not None):
             # DDP's forward runs an operation a stream capture forbids
             # (cudaErrorStreamCaptureUnsupported, torch 2.11); the bucketed
-            # sync counts its buckets on the host; GPipe's send/recv run on
-            # CPU ranks.  FSDP2 and the collectives of tp/sp/ep capture.
+            # sync counts its buckets on the host; GPipe's sends go through
+            # host buffers on gloo.  FSDP2 and the collectives of tp/sp/ep
+            # capture.
             raise NotImplementedError(
-                "capturing a step over a mesh takes FSDP2 (strategy 'fsdp'), not DDP, "
-                "comms_overlap or pipeline stages")
+                "capturing a step over a mesh takes FSDP2 (strategy 'fsdp'); DDP, "
+                f"comms_overlap and pipeline stages are ported in {mesh_lib.LATER_PARALLELISM}")
         self.xs = tree_map(torch.empty_like, xs)
         self.ys = tree_map(torch.empty_like, ys)
         self.lrs = torch.zeros(self.k, dtype=torch.float32, device=t.device)

@@ -391,6 +391,42 @@ def test_interop_cuts_each_tensor_to_a_tp_ranks_share(tp):
         assert torch.equal(torch.cat([p[name] for p in parts], dim=d), whole[name]), name
 
 
+@pytest.mark.parametrize("layout", ["moe_ep2_tp2", "kv2_tp4"])
+def test_interop_cuts_expert_banks_and_kv_columns_to_a_ranks_share(layout):
+    """The layouts the port added to ``test_interop_cuts_each_tensor_to_a_tp_ranks_share``'s:
+    the expert banks cut over ep (the expert axis) and then over tp (their
+    spec's ``m`` dim), and ``wk``/``wv`` over a tp that does not divide the
+    kv heads (each rank a contiguous quarter of 2 heads' columns, half a
+    head): the ranks' shares tile the whole tensor, as ``distribute_tp``
+    chunks it after ``MoE.shard_experts``."""
+    from deeplearning_cfn_tpu_torch import interop
+
+    cfg_kw, ep, tp = ((dict(vocab_size=64, n_experts=4), 2, 2) if layout == "moe_ep2_tp2"
+                      else (dict(vocab_size=64), 1, 4))
+    jcfg = dataclasses.replace(jax_llama.LlamaConfig.tiny(seq_len=SEQ, dtype=jnp.float32), **cfg_kw)
+    tcfg = dataclasses.replace(llama.LlamaConfig.tiny(dtype=torch.float32), **cfg_kw)
+    init = jax.device_get(jax_llama.init_params(jcfg, jax.random.key(0)))
+    whole = interop.llama_params_from_jax(tcfg, init)
+    parts = {(e, t): interop.llama_params_from_jax(tcfg, init, ep_rank=e, ep_size=ep,
+                                                   tp_rank=t, tp_size=tp)
+             for e in range(ep) for t in range(tp)}
+    for name, spec in llama.param_specs(tcfg).items():
+        d = sharding.tp_dim(spec)
+        split_ep = ep > 1 and sharding.axis_dim(spec, "ep") is not None
+        rows = [torch.cat([parts[e, t][name] for t in range(tp)], dim=d) if d is not None
+                else parts[e, 0][name] for e in range(ep)]
+        got = torch.cat(rows) if split_ep else rows[0]
+        assert torch.equal(got, whole[name]), name
+        for e in range(ep):
+            for t in range(tp):
+                want = whole[name].chunk(ep)[e] if split_ep else whole[name]
+                if d is not None:
+                    want = want.chunk(tp, dim=d)[t]
+                assert torch.equal(parts[e, t][name], want), (name, e, t)
+    if layout == "kv2_tp4":
+        assert parts[0, 0]["layers.0.wk"].shape[1] * 2 == tcfg.head_dim
+
+
 @pytest.mark.parametrize("name", ["tp2", "tp2_fused"])
 def test_tensor_parallel_matches_jax(two_ranks, name):
     ref, ranks = two_ranks[name]

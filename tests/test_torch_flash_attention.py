@@ -262,3 +262,98 @@ def test_wgmma_kernel_matches_reference_on_card(cuda_device, case):
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=2e-2)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+# (B, S, Hq, Hkv, D, rows, q_offset): a sequence block's q rows under sp.
+OFFSET_CASES = {
+    "sp2-rank1-gqa": (2, 64, 4, 2, 16, 32, 32),
+    "sp4-rank2": (1, 96, 4, 4, 16, 24, 48),
+    "sp4-rank3-long-keys": (1, 1280, 2, 1, 16, 320, 960),
+}
+
+
+def _offset_inputs(case, seed=5):
+    B, S, Hq, Hkv, D, rows, off = OFFSET_CASES[case]
+    q, k, v = (torch.from_numpy(a) for a in _qkv(B, S, Hq, Hkv, D, seed=seed))
+    w = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, rows, Hq, D)).astype(np.float32))
+    return q, k, v, w, rows, off
+
+
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_q_offset_equals_the_rows_of_the_whole_causal_attention(case):
+    """A block's rows at ``q_offset`` over the keys up to its end, as two
+    passes merged by their lse, equal those rows of the whole sequence's
+    causal flash, forward and gradients (f32, the tolerances above)."""
+    q, k, v, w, rows, off = _offset_inputs(case)
+    end = off + rows
+    whole = [t[:, :end].clone().requires_grad_() for t in (q, k, v)]
+    out_whole = port.flash_attention(*whole, causal=True)
+    (out_whole[:, off:] * w).sum().backward()
+    blk = [q[:, off:end].clone().requires_grad_(), k[:, :end].clone().requires_grad_(),
+           v[:, :end].clone().requires_grad_()]
+    out = port.flash_attention(*blk, causal=True, q_offset=off)
+    (out * w).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), out_whole[:, off:].detach().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(blk[0].grad.numpy(), whole[0].grad[:, off:].numpy(),
+                               rtol=RTOL, atol=1e-5)
+    assert not whole[0].grad[:, :off].any()  # the rows before the block take no gradient
+    for a, b in zip(blk[1:], whole[1:]):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_reference_q_offset_autograd_equals_the_split_backward(case):
+    """The plain route with ``q_offset`` (two reference passes merged, autograd
+    through the lse) equals FlashAttention's two backwards from the merged
+    lse."""
+    q, k, v, w, rows, off = _offset_inputs(case, seed=9)
+    end = off + rows
+    base = [q[:, off:end], k[:, :end], v[:, :end]]
+    fa = [t.clone().requires_grad_() for t in base]
+    ref = [t.clone().requires_grad_() for t in base]
+    out = port.flash_attention(*fa, causal=True, q_offset=off)
+    (out * w).sum().backward()
+    ref_out, ref_lse = port.flash_attention_reference(*ref, causal=True, q_offset=off)
+    (ref_out * w).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref_out.detach().numpy(), rtol=0, atol=0)
+    for a, b in zip(fa, ref):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=RTOL, atol=1e-5)
+
+
+def test_q_offset_refuses_keys_past_the_rows_and_a_full_mask():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 32, 4, 4, 16))
+    with pytest.raises(ValueError, match="q_offset"):
+        port.flash_attention(q[:, 16:], k, v, causal=True, q_offset=8)
+    with pytest.raises(ValueError, match="q_offset"):
+        port.flash_attention(q[:, 16:], k, v, causal=False, q_offset=16)
+
+
+@pytest.mark.cuda
+def test_cuda_q_offset_launches_twice_and_matches_the_whole_kernel(cuda_device):
+    """sp 2's rank 1 at m435's heads (B 2, 1024 rows after 1024 keys, 8 x 128,
+    bf16): two launches, both ``wgmma_tma``; the merged rows within two bf16
+    ulps of the whole sequence's kernel rows, the gradients within the bf16
+    tolerance of the whole's (the same f32 backward, split at the offset)."""
+    B, S, H, D, off = 2, 2048, 8, 128, 1024
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(B, S, H, H, D, seed=11))
+    w = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (B, S - off, H, D)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    whole = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_whole = port.flash_attention(*whole, causal=True)
+    (out_whole[:, off:].float() * w.float()).sum().backward()
+    blk = [q[:, off:].clone().requires_grad_(), k.clone().requires_grad_(),
+           v.clone().requires_grad_()]
+    before = dict(_kernels.launch_counts)
+    out = port.flash_attention(*blk, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    key = "flash_attention_fwd/wgmma_tma"
+    assert _kernels.launch_counts["flash_attention_fwd"] == before["flash_attention_fwd"] + 2
+    assert _kernels.launch_counts[key] == before.get(key, 0) + 2
+    (out.float() * w.float()).sum().backward()
+    torch.testing.assert_close(out.float(), out_whole[:, off:].float(), rtol=0, atol=2e-2)
+    for a, b in ((blk[0].grad, whole[0].grad[:, off:]), (blk[1].grad, whole[1].grad),
+                 (blk[2].grad, whole[2].grad)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)

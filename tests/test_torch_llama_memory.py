@@ -187,3 +187,40 @@ def test_flash_kernel_at_the_8b_shape_matches_its_plain_version(cuda_device):
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().amax(-1).clamp_min(2.0**-126))) - 7)
     assert (err / ulp).max().item() <= 4
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+# The layouts this slice added, at the tiny widths: (config, mesh, batch, seq).
+NEW_LAYOUTS = {
+    "moe-tp2": (dict(n_experts=4), {"tp": 2}, 4, 32),
+    "moe-ep2-tp2": (dict(n_experts=4), {"ep": 2, "tp": 2}, 4, 32),
+    "moe-sp2": (dict(n_experts=4), {"sp": 2}, 4, 32),
+    "tp4-kv2": ({}, {"tp": 4}, 4, 32),
+}
+
+
+@pytest.mark.parametrize("layout", list(NEW_LAYOUTS))
+def test_memory_report_covers_moe_under_tp_and_tp_beyond_the_kv_heads(layout):
+    """MoE under tp, ep × tp and sp, and a tp over the tiny model's 2 kv
+    heads: ``trace_check`` traces a step of each on ``meta``, and the
+    prediction's parameter term is the bytes the traced rank holds after the
+    layout.  Its activation term counts what those layouts add: the expert
+    buffers of the rank's experts at the group's capacity, the kv heads
+    expanded to the rank's q heads."""
+    cfg_kw, mesh, batch, seq = NEW_LAYOUTS[layout]
+    cfg = llama.LlamaConfig.tiny(seq_len=seq, **cfg_kw)
+    traced = llama_memory.trace_check(cfg, mesh, batch, seq)
+    report = llama_memory.memory_report(cfg, mesh, batch, seq)
+    assert traced["traced"] and traced["loss_shape"] == ()
+    assert traced["local_param_bytes"] == round(report.params_gib * GIB)
+    whole = llama_memory.memory_report(cfg, {"fsdp": 1}, batch, seq)
+    tp = mesh.get("tp", 1)
+    if cfg.moe is not None:  # the experts' buffers, over ep and tp
+        dense = llama_memory.memory_report(llama.LlamaConfig.tiny(seq_len=seq), mesh, batch, seq)
+        assert report.activations_gib > dense.activations_gib
+        assert report.params_gib < whole.params_gib or mesh == {"sp": 2}
+    else:  # 2 kv heads over tp 4: JAX's terms, each rank's expanded k and v on top
+        tokens, bf16 = batch * seq, 2
+        jax_terms = cfg.n_layers * tokens * cfg.dim + tokens * (
+            4 * cfg.dim + 2 * cfg.n_kv_heads * cfg.head_dim + 2 * (cfg.mlp_dim // tp))
+        expanded = tokens * 2 * (cfg.n_heads // tp) * cfg.head_dim
+        assert report.activations_gib * GIB == pytest.approx((jax_terms + expanded) * bf16)

@@ -296,6 +296,39 @@ def test_stage_count_must_match_mesh_pp():
                                 n_stages=1)
 
 
+def test_stage_messages_hand_p2p_only_tensors_on_the_activations_device(monkeypatch):
+    """A stage's message holds no tensor of the schedule's own making: p2p
+    sees only tensors on the activations' device (``meta`` here, the card
+    there), and the shapes and dtypes go once a schedule as an object list,
+    whose device the group's backend picks (the host on gloo; the card on
+    NCCL, which refuses a CPU tensor)."""
+    devices, objects = [], []
+    monkeypatch.setattr(pipeline.p2p, "send", lambda t, dst, group=None: devices.append(t.device))
+    monkeypatch.setattr(pipeline.p2p, "recv",
+                        lambda t, src, group=None: devices.append(t.device) or t)
+
+    def send_objects(objs, dst, group=None, **kw):
+        objects.append((objs[0], kw))
+
+    def recv_objects(box, src, group=None, **kw):
+        box[0] = objects[0][0]
+        objects.append((None, kw))
+
+    monkeypatch.setattr(pipeline.dist, "send_object_list", send_objects)
+    monkeypatch.setattr(pipeline.dist, "recv_object_list", recv_objects)
+    meta = torch.device("meta")
+    acts = [torch.empty(2, 8, 16, dtype=torch.bfloat16, device=meta),
+            torch.empty(2, dtype=torch.float32, device=meta)]
+    for m in range(3):
+        pipeline._send_tensors(acts, 1, None, with_layout=m == 0)
+    layout = pipeline._recv_layout(0, None)
+    got = pipeline._recv_tensors(0, None, meta, layout)
+    assert [(tuple(t.shape), t.dtype) for t in got] == [((2, 8, 16), torch.bfloat16),
+                                                        ((2,), torch.float32)]
+    assert devices == [meta] * 8
+    assert len(objects) == 2 and all(kw == {} for _, kw in objects)  # the backend's device
+
+
 def test_llama_pp_config_validation():
     with pytest.raises(ValueError):
         llama.LlamaConfig.tiny(pp_stages=3)  # 2 layers % 3

@@ -24,7 +24,12 @@ slice's ranks park and rejoin, or (``rejoin`` false) never call ``rejoin``,
 as processes that died, and the grow takes the fallback.  A Llama case may be
 pipelined (``pp`` in its mesh: each rank loads its stage from the JAX
 stage-stacked weights), run with ``comms_overlap`` (the buckets it issued
-reported), or built on a hybrid mesh (``hybrid``: ICI and DCN specs).  It
+reported), or built on a hybrid mesh (``hybrid``: ICI and DCN specs).  A
+Llama case with ``force_staging`` sends its point-to-point through
+``parallel/p2p.py``'s host staging (the path CUDA tensors on gloo take) and
+reports the bytes staged, one with ``attention`` runs under
+``llama.force_attention_kind``; an MoE case reports layer 0's routing of the first
+batch (probabilities, experts, slots, kept claims: this rank's rows).  It
 imports no JAX.
 
     python tests/torch_dist_ranks.py <input.pkl>
@@ -32,6 +37,7 @@ imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -647,6 +653,46 @@ def run_case(case: dict) -> dict:
         return run_model_case(case)
     if "ring" in case:
         return run_ring_case(case)
+    from deeplearning_cfn_tpu_torch.parallel import p2p
+
+    p2p.reset_staged_bytes()
+    with contextlib.ExitStack() as stack:
+        if case.get("force_staging"):
+            stack.enter_context(p2p.force_staging())
+        if case.get("attention"):
+            stack.enter_context(llama.force_attention_kind(case["attention"]))
+        out = run_llama_case(case)
+    return {**out, "staged_bytes": p2p.staged_bytes}
+
+
+def _first_routing(moe):
+    """A pre-hook on the MoE block that keeps its next input and router;
+    the returned function removes it and routes them again (``route``: the
+    same group and token order), outside the step's checkpoints."""
+    from deeplearning_cfn_tpu_torch.ops.moe import route
+
+    seen: dict = {}
+
+    def hook(mod, args):
+        if not seen:
+            seen.update(x=args[0].detach().clone(), router=mod.router.detach().clone())
+
+    handle = moe.register_forward_pre_hook(hook)
+
+    def decide() -> dict:
+        handle.remove()
+        B, S, d = seen["x"].shape
+        with torch.no_grad():
+            r = route(moe.cfg, seen["router"], seen["x"].reshape(B * S, d), moe.mp, B)
+        return {"probs": r.probs, "expert": r.expert, "slot": r.slot, "kept": r.kept}
+
+    return decide
+
+
+def run_llama_case(case: dict) -> dict:
+    """A Llama trainer case: the first batch's gradient norm (and with
+    ``grads`` its gradients, with ``logits`` its logits and eval loss), then
+    the steps; losses, aux, the final parameters, this rank's place."""
     mesh = _mesh(case)
     t, state = _trainer(case, mesh)
     x0, y0 = (torch.from_numpy(a) for a in case["batches"][0])
@@ -658,9 +704,13 @@ def run_case(case: dict) -> dict:
     sync = state.grad_sync
     ef = state.error_feedback  # the norm's backward must leave the residuals as they are
     kept = [r.clone() for r in ef.residual] if ef is not None else []
+    moe = getattr(getattr(state.model, "module", state.model).blocks()[0], "moe", None)
+    decide = _first_routing(moe) if moe is not None else None
     with t._data_ranks():  # as the step takes its gradients
         loss, _ = t._grads(state.runner or state.model, t._local_batch(x0), t._local_batch(y0),
                            sync)
+    if decide is not None:  # the first block's routing of the first batch
+        out["routing"] = {k: v.cpu().numpy().copy() for k, v in decide().items()}
     if sync is None:
         t._sync_replicated_grads()  # as the step does before its clip
     t._sum_grads_over_pp()
@@ -686,7 +736,7 @@ def run_case(case: dict) -> dict:
     out.update({"losses": losses, "aux": aux, "norm": float(norm), "params": params,
                 "ep_rank": axis_rank(mesh, "ep"), "sharded": sharded,
                 "tp_rank": axis_rank(mesh, "tp"), "pp_rank": axis_rank(mesh, "pp"),
-                "data_index": t._data_index,
+                "sp_rank": axis_rank(mesh, "sp"), "data_index": t._data_index,
                 "ddp": state.runner is not None, "mesh_grid": mesh.mesh.tolist()})
     if sync is not None:
         names = {id(p): n for n, p in state.model.named_parameters()}
