@@ -237,7 +237,8 @@ Phases, one JSON line each:
            the mesh is ``hybrid_mesh_for_slices(2)``, dp 2 over the "DCN"
            axis.  m435 at ``TWO_RANK_LAYERS`` (4) of its 24 layers, seq
            2048, batch 8 a rank, 4 AdamW steps on the same
-           batches each: hookless DDP; ``comms_overlap`` (f32 buckets),
+           batches each: the dp step (DDP's sync at its bucket size, named
+           "hookless" in the rows); ``comms_overlap`` (f32 buckets),
            bitwise the hookless run (losses and parameters); a planted
            control (the bucketed run with its first bucket left unsynced),
            which the bitwise check must fail; ``overlap_compress`` (int8 with
@@ -251,7 +252,22 @@ Phases, one JSON line each:
            group (the ``mesh`` phase's mesh; FSDP2's collectives in the
            graph): its losses and parameters bitwise four eager steps over
            that mesh, with the planted no-update control, then replays
-           timed.  (DDP does not capture: ``tools/gloo_cuda_probe.py``.)
+           timed.  Then, on the same group over ``MeshSpec(dp=1)`` at
+           ``MESH_SYNC_LAYERS`` (4) of the 24 layers, seq 2048, batch 8:
+           the dp step (DDP's sync without its wrapper), the
+           bucketed sync in f32 and in int8 (``comms_overlap``, its
+           one-rank gate, JAX's, lifted here: the engine is the same at any
+           rank count), each one capture whose losses and parameters over
+           ``MESH_REPLAYS`` calls are bitwise as many eager steps'; the
+           collectives the capture put in the graph (c10d ops, counted by
+           the profiler) the sync's buckets times the steps; the device
+           activity of one replay, reported (on one rank NCCL launches no
+           kernel: nothing for an all-reduce or broadcast in place, a copy
+           for an all-to-all or all-gather, ``tools/gloo_cuda_probe.py``; the
+           NCCL kernels of a replay are held on two cards by
+           ``tools/nccl_layouts.py``); flash in its wgmma variant.  A
+           planted control, the f32 sync with one bucket left out of the
+           graph, must fail the count.
 18. live_reshard  two processes of this script on ``cuda:0`` over gloo,
            ``DEEPLEARNING_SLICES_COUNT=2``, one slice each, driving the cluster
            plane: the port's ``EventBus`` into ``ElasticityController`` (10 s
@@ -760,6 +776,15 @@ MP_TOL = {"bfloat16": dict(loss_rtol=2e-3, norm_rtol=1e-2, param_gap=PARAM_GAP_M
           "float32": dict(loss_rtol=1e-5, norm_rtol=1e-4, param_gap=0.05)}
 # mesh_captured: multi_step_fn(MESH_K) over the mesh phase's one-rank mesh.
 MESH_K, MESH_REPLAYS = 4, 2
+# ... and over MeshSpec(dp=1): the dp step and the bucketed sync in f32 and int8,
+# m435's widths cut to MESH_SYNC_LAYERS of its 24 layers (to hold the
+# script's time), each held over MESH_REPLAYS calls.
+MESH_SYNC_LAYERS = 4
+MESH_SYNC_CASES = {  # name: trainer overrides
+    "ddp": dict(strategy="dp"),
+    "buckets_f32": dict(strategy="dp", comms_overlap=True),
+    "buckets_int8": dict(strategy="dp", comms_overlap=True, overlap_compress=True),
+}
 # live_reshard: two ranks on the one card, per-rank batch 8, the loss seen
 # while batch RESHARD_DIE_AT is made; the JAX slice-loss-live scenario's
 # continuity tolerance (chaos/scenarios.py).
@@ -3091,17 +3116,11 @@ def _two_ranks_worker(rank: int, port: int, out: str) -> int:
             step_ms.append((time.perf_counter() - t0) * 1e3)
         launches = dict(_kernels.launch_counts)
         sync = state.grad_sync
-        if sync is None:  # DDP's ring all-reduce of every gradient
-            sent = sum(2 * (2 - 1) / 2 * p.numel() * p.element_size()
-                       for p in state.model.parameters())
-        else:
-            sent = sync.wire_bytes
         runs[name] = {"losses": losses, "step_ms": step_ms,
                       "steady_step_ms": statistics.median(step_ms[1:]),
-                      "bytes_sent_per_step": sent,
-                      "buckets": None if sync is None else len(sync.members),
-                      "issued_last_step": None if sync is None else list(sync.issued),
-                      "ddp": state.runner is not None,
+                      "bytes_sent_per_step": sync.wire_bytes,
+                      "buckets": len(sync.members), "issued_last_step": list(sync.issued),
+                      "ddp": isinstance(sync, overlap.DDPGradSync),
                       "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                       "flash_launches": launches.get("flash_attention_fwd", 0),
                       "flash_variants": _variants(launches, "flash_attention_fwd")}
@@ -3189,7 +3208,7 @@ def _two_ranks_phase(torch, smi: str, flash_per_block: float) -> int:
     _require(runs["hookless"]["losses"] == runs["hookless"]["losses_rank1"],
              "two_ranks: the ranks disagree on the hookless losses")
     _require(all(row["overlap_bitwise_hookless"]),
-             "two_ranks: the bucketed f32 sync is not bitwise the hookless DDP step")
+             "two_ranks: the bucketed f32 sync is not bitwise the dp step")
     _require(not any(row["control_bitwise_hookless"]),
              "two_ranks: the check passed the planted control (a bucket left unsynced)")
     _require(int8_gap <= INT8_ATOL, f"two_ranks: int8 losses {int8} off the f32 curve {f32}")
@@ -3364,11 +3383,126 @@ def _mesh_captured_phase(torch, kernels_mod, smi: str, flash_per_block: float) -
                  "mesh_captured: the captured steps are not bitwise the eager ones")
         _flash_check(launches, 1 + MESH_K, flash_per_block * cfg.n_layers,
                      "mesh_captured (warm-up + capture)")
+        n = launches["flash_attention_fwd"]
         del trainer, state, kfn, xs, ys
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, n_layers=MESH_SYNC_LAYERS)
+        xs, ys = device_put_batch(next(stack_batches(iter([one] * MESH_K), MESH_K)),
+                                  torch.device("cuda"))
+        for name, overrides in [*MESH_SYNC_CASES.items(), ("control", None)]:
+            n += _mesh_sync_case(torch, kernels_mod, smi, flash_per_block, cfg, xs, ys, name,
+                                 overrides or MESH_SYNC_CASES["buckets_f32"])
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    return launches.get("flash_attention_fwd", 0)
+    return n
+
+
+def _c10d_counts(torch, call) -> tuple:
+    """Run ``call()`` under the profiler's CPU activity: its result and the
+    c10d collectives it dispatched, by op name (``c10d::allreduce_`` ...)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = call()
+    counts: dict = {}
+    for e in prof.events():
+        if e.name.startswith("c10d::"):
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return out, counts
+
+
+def _device_activity(torch, call) -> dict:
+    """The kernels and copies one ``call()`` ran on the card, by name."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.key[:100]: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def _mesh_sync_case(torch, kernels_mod, smi: str, flash_per_block: float, cfg, xs, ys,
+                    name: str, overrides: dict) -> int:
+    """One of phase 17's dp and bucketed cases (the module docstring),
+    ``name`` "control" the f32 buckets with one bucket left out of the
+    graph.  Returns the flash launches of the warm-up and the capture."""
+    from unittest import mock
+
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel import overlap
+    from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    trainer = llama.make_trainer(cfg, TrainerConfig(
+        optimizer="adamw", learning_rate=3e-4, weight_decay=0.1, grad_clip_norm=1.0,
+        log_every=1, **overrides), device="cuda", mesh=build_mesh(MeshSpec(dp=1)))
+    with mock.patch.object(overlap, "check_sync", lambda *a, **k: None):  # one data rank
+        eager_state = trainer.init(seed=0, draw_on_device=True)
+        state = trainer.init(seed=0, draw_on_device=True)
+    if name == "control":  # the last bucket's parameters left unsynced
+        members = state.grad_sync.members[:-1]
+        state.grad_sync.remove()
+        state.grad_sync = overlap.BucketedGradSync(members, state.grad_sync.group, 1)
+    eager = []
+    t0 = time.perf_counter()
+    for _ in range(MESH_REPLAYS):
+        for i in range(MESH_K):
+            eager_state, m = trainer.train_step(eager_state, xs[i], ys[i])
+            eager.append(m["loss"].item())
+    eager_ms = (time.perf_counter() - t0) * 1e3 / (MESH_REPLAYS * MESH_K)
+    eager_final = _param_copy(eager_state.model)
+    buckets = len(state.grad_sync.members) + (name == "control")
+    del eager_state, m
+    torch.cuda.empty_cache()
+    kfn = trainer.multi_step_fn(MESH_K)
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    (state, losses), c10d = _c10d_counts(torch, lambda: kfn(state, xs, ys))
+    captured = losses.tolist()
+    capture_s = time.perf_counter() - t0
+    launches = dict(kernels_mod.launch_counts)
+    for _ in range(MESH_REPLAYS - 1):
+        state, losses = kfn(state, xs, ys)
+        captured += losses.tolist()
+    final = _param_copy(state.model)
+    params_equal = all(torch.equal(final[n], p) for n, p in eager_final.items())
+    del final, eager_final
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = kfn(state, xs, ys)
+    losses.tolist()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / MESH_K
+    replay = _device_activity(torch, lambda: kfn(state, xs, ys))
+    # The int8 exchange: an all-to-all and three all-gathers a bucket.
+    per_bucket = {"c10d::alltoall_base_": 1, "c10d::_allgather_base_": 3} \
+        if overrides.get("overlap_compress") else {"c10d::allreduce_": 1}
+    # The capture call runs one warm-up step, then captures MESH_K.
+    expected = {op: k * buckets * (1 + MESH_K) for op, k in per_bucket.items()}
+    row = {"phase": "mesh_captured", "case": name,
+           "mesh": "MeshSpec(dp=1), one NCCL rank", "layers": cfg.n_layers, "k": MESH_K,
+           "calls": MESH_REPLAYS, "trainer": overrides, "buckets": buckets,
+           "captures": kfn.captures, "captured_losses": captured, "eager_losses": eager,
+           "losses_bitwise_equal": captured == eager, "params_bitwise_equal": params_equal,
+           "c10d_in_capture_call": c10d, "c10d_expected": expected,
+           "replay_nccl_kernels": {k: v for k, v in replay.items() if k.startswith("nccl")},
+           "replay_copies": {k: v for k, v in replay.items() if k.startswith("Memcpy")},
+           "first_call_s": capture_s, "step_ms": replay_ms, "eager_step_ms": eager_ms,
+           "launches_in_warmup_and_capture": launches, "nvidia_smi": smi}
+    _emit(row)
+    counted = c10d == expected
+    if name == "control":
+        _require(not counted, f"mesh_captured control: a bucket left out of the graph "
+                 f"passed the count ({c10d})")
+    else:
+        _require(kfn.captures == 1, f"mesh_captured {name}: {kfn.captures} captures")
+        _require(counted, f"mesh_captured {name}: the graph holds {c10d}, expected {expected}")
+        _require(row["losses_bitwise_equal"] and params_equal,
+                 f"mesh_captured {name}: the captured steps are not bitwise the eager ones")
+    _flash_check(launches, 1 + MESH_K, flash_per_block * cfg.n_layers,
+                 f"mesh_captured {name} (warm-up + capture)")
+    del trainer, state, kfn
+    return launches["flash_attention_fwd"]
 
 
 def _reshard_worker(rank: int, port: int, out: str) -> int:

@@ -11,7 +11,7 @@ lives there (synthetic data, schedules, metrics), it keeps its own copy.
 
 Ported so far: Llama causal-LM training (``examples/llama_train.py``)
 through the flash-attention forward kernel, on one device or over a mesh of
-ranks (``parallel/``: dp as DDP, fsdp as FSDP2, MoE experts over ep), with
+ranks (``parallel/``: dp as DDP's step, fsdp as FSDP2, MoE experts over ep), with
 AdamW, LAMB or Adafactor; BERT masked-LM pretraining and fine-tuning
 (``examples/bert_pretrain.py``, ``examples/bert_finetune.py``) through the
 fused-dense kernel, beside which sits its int8-weight variant; ResNet

@@ -42,12 +42,15 @@ journaled as ``comms_audit`` events.
 
 The six programs are JAX's, under JAX's names, at its audit shapes
 (``AUDIT_HIDDEN`` 256, batch 16, input 8x8x1, 4 classes): ``train_step``
-and ``multi_step`` (fsdp), ``train_step_dp`` (DDP),
+and ``multi_step`` (fsdp), ``train_step_dp`` (the dp step: DDP's sync),
 ``train_step_dp_overlap`` and ``multi_step_dp_overlap`` (the bucketed
 sync at 32 KiB buckets; grad accumulation 2 on the latter) and
-``serve_decode`` (one device, no collectives).  On the card the ranks
-share cuda:0 over gloo; ``multi_step`` runs its k steps eagerly there
-(its CUDA-graph form needs NCCL, which ``chip_smoke.py`` phase 17 drives).
+``serve_decode`` (one device, no collectives).  The ranks are gloo's, on
+the CPU or sharing cuda:0, and a CUDA graph cannot hold a gloo group's
+collectives (``parallel/mesh.capture_refusal``): ``multi_step`` and
+``multi_step_dp_overlap`` run their k steps eagerly.  (The audit has no
+captured form over NCCL ranks; ``chip_smoke.py`` phase 17 and
+``tools/nccl_layouts.py`` drive captured steps over NCCL.)
 """
 
 from __future__ import annotations
@@ -189,21 +192,20 @@ def trace_collectives(records: list[dict], world: int) -> tuple[list[CollectiveO
     return ops, len(backend)
 
 
-def trace_overlap(records: list[dict]) -> dict:
-    """Mean compute slack per collective on its issuing thread.
+def trace_slack(records: list[dict]) -> list[tuple[str, int]]:
+    """Each collective's compute slack on its issuing thread, as
+    ``(c10d op, slack)`` in issue order, thread by thread.
 
     The issuing thread's sequence is its collectives and its outermost
     ``aten::`` ops, in start order; a collective's slack is the count of
     compute ops strictly between it and the next collective (or the end
-    of the step).  A slack-0 collective is SERIALIZED: nothing runs for it
-    to hide behind.  Returns ``{"overlap_score", "serialized_collectives",
-    "scheduled_collectives"}``; the score is 0.0 without collectives."""
+    of the step)."""
     by_thread: dict[int, list[tuple[str, int, int]]] = {}
     for r in records:
         name = r["name"]
         if name in C10D_OPS or name.startswith("aten::"):
             by_thread.setdefault(r["thread"], []).append((name, r["start"], r["end"]))
-    total = n_issue = n_serialized = 0
+    slack = []
     for events in by_thread.values():
         seq: list[str] = []
         open_end = -1
@@ -217,14 +219,21 @@ def trace_overlap(records: list[dict]) -> dict:
         idxs = [i for i, n in enumerate(seq) if n in C10D_OPS]
         for j, i in enumerate(idxs):
             boundary = idxs[j + 1] if j + 1 < len(idxs) else len(seq)
-            slack = boundary - i - 1
-            total += slack
-            n_issue += 1
-            n_serialized += slack == 0
+            slack.append((seq[i], boundary - i - 1))
+    return slack
+
+
+def trace_overlap(records: list[dict]) -> dict:
+    """Mean compute slack per collective on its issuing thread
+    (:func:`trace_slack`).  A slack-0 collective is SERIALIZED: nothing runs
+    for it to hide behind.  Returns ``{"overlap_score",
+    "serialized_collectives", "scheduled_collectives"}``; the score is 0.0
+    without collectives."""
+    slack = [n for _, n in trace_slack(records)]
     return {
-        "overlap_score": round(total / max(n_issue, 1), 4),
-        "serialized_collectives": n_serialized,
-        "scheduled_collectives": n_issue,
+        "overlap_score": round(sum(slack) / max(len(slack), 1), 4),
+        "serialized_collectives": sum(n == 0 for n in slack),
+        "scheduled_collectives": len(slack),
     }
 
 
@@ -770,7 +779,7 @@ def run_comms_audit(
     on 2 gloo ranks (processes of this host) on ``device``.
 
     The dp pair is the overlap ratchet's proof surface: the SAME model,
-    batch and ranks run monolithically (``train_step_dp``, DDP) and
+    batch and ranks run at DDP's bucket size (``train_step_dp``) and
     through the bucketed sync (``train_step_dp_overlap``, and
     ``multi_step_dp_overlap`` with grad accumulation 2) — DLC512 requires
     the bucketed score to strictly exceed the monolithic one.  Both
@@ -798,6 +807,8 @@ def run_comms_audit(
             "gathers": sorted({tuple(s) for op in programs[0]["ops"]
                                if op.op == "all-gather" for s in op.result_shapes if s}),
             "predicted": traces[0].get("predicted"),
+            # What the overlap score averages: each collective's slack.
+            "slack": trace_slack(traces[0]["records"]),
         }
         predicted = traces[0].get("predicted")
         prediction = (StrategyPrediction(frozenset(tuple(s) for s in predicted))

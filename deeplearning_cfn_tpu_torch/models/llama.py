@@ -41,11 +41,13 @@ tied embeddings and fused q/k/v and gate/up projections.  In PyTorch idiom:
   holds a block of the sequence: RoPE positions start at ``sp_rank × S/sp``;
   without ring attention k and v are gathered over ``sp`` and attended with
   the causal offset (what GSPMD gives the JAX "xla" path; the flash kernel,
-  whose causal mask starts at row 0, takes the keys up to the block's end
-  and the block's q rows at their offset, the rows before them zeros whose
-  outputs are dropped); the loss leaves out only the global last position
-  and divides by the global token count.  ``tp`` must divide the heads,
-  ``mlp_dim``, the vocabulary and the kv columns (``n_kv_heads × head_dim``).
+  whose causal mask starts at row 0, takes the keys up to the block's end:
+  past sp rank 0 it runs twice on the block's q rows, once over the keys
+  before them unmasked and once over the diagonal block causally, the two
+  merged by their lse, ``ops/flash_attention.py``); the loss leaves out
+  only the global last position and divides by the global token count.
+  ``tp`` must divide the heads, ``mlp_dim``, the vocabulary and the kv
+  columns (``n_kv_heads × head_dim``).
   MoE blocks split their experts' columns over ``tp`` and route the ``sp``
   ranks' tokens as one group (``ops/moe.py``).
 
@@ -105,7 +107,7 @@ from deeplearning_cfn_tpu_torch.parallel.tensor_parallel import (
     local,
     model_parallel,
 )
-from deeplearning_cfn_tpu_torch.train.remat import under_outer_remat
+from deeplearning_cfn_tpu_torch.train.remat import carry_into_recompute, under_outer_remat
 
 
 @dataclass(frozen=True)
@@ -298,9 +300,10 @@ def _ones(n: int) -> nn.Parameter:
 
 # --- attention dispatch ---------------------------------------------------
 
-_FORCED_KIND: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+# Set again in a remat recompute, which the card runs in autograd's thread.
+_FORCED_KIND: contextvars.ContextVar[str | None] = carry_into_recompute(contextvars.ContextVar(
     "llama_forced_attention_kind", default=None
-)
+))
 _KINDS = ("flash", "xla", "flash_reference")
 
 
@@ -740,7 +743,9 @@ def _pipelined_lm_loss(model: Llama, tokens: torch.Tensor,
     total = torch.stack(parts).sum(0) if last else None
     if last and mp.sp > 1:  # the nll's parts over the sequence; the aux is the group's
         total = torch.stack([mp.sum_over_sp_value(total[0]), total[1]])
-    (total,) = pipeline.from_last_stage([total] if last else None, model.mesh)
+    # Every rank knows the layout: no object exchange (a captured step holds none).
+    (total,) = pipeline.from_last_stage([total.to(torch.float32)] if last else None, model.mesh,
+                                        layout=[((2,), torch.float32)])
     loss, aux = total[0], total[1]
     metrics = {"perplexity": torch.exp(loss)}
     if moe:

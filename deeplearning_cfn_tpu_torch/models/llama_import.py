@@ -17,7 +17,8 @@ dict as soon as it is converted, so an 8B import on the card holds one model
 and one tensor more at its peak, never two models.  Configurations whose
 logits this model would get wrong (RoPE scaling, biases, another activation,
 another head layout, missing weights) raise :class:`ImportError_`, as the
-JAX importer does; pipeline stages raise ``NotImplementedError``.
+JAX importer does.  A config with pipeline stages takes the same dict (its
+blocks keep their global index).
 """
 
 from __future__ import annotations

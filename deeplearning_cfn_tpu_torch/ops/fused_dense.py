@@ -24,8 +24,13 @@ around the call (``models/fused_layers.FusedDense`` does).
   values are exact in bf16, the per-column scale moves after the sum, and an
   f32 x is split into three bf16 parts whose products sum to the f32 one.
 
-Not ported yet: ``fused_dense_profitable``, which reads XLA's
-``cost_analysis`` to choose between the kernel and the plain path.
+- :func:`fused_dense_profitable`: the dispatch guard, JAX's rule on the
+  port's own count.  JAX compares XLA's ``cost_analysis`` bytes of the plain
+  path with the kernel's analytic traffic; the port counts the bytes every
+  aten op of :func:`fused_dense_reference` reads and writes
+  (:func:`plain_dense_bytes`, on ``meta`` tensors: nothing runs).  Eager
+  PyTorch writes each intermediate XLA would fuse away, so the port's plain
+  count is the larger.  No caller dispatches on it, as in JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import math
 from typing import Callable, Iterator
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,3 +200,53 @@ def fused_dense_bytes(m: int, k: int, n: int, itemsize: int) -> int:
     """Device-memory traffic of the fused kernel: x, w and b read once, the
     output written once."""
     return itemsize * (m * k + k * n + n + m * n)
+
+
+# JAX's margin: the kernel must save at least this share of the plain bytes.
+PROFIT_MARGIN = 0.10
+
+
+class _OpBytes(TorchDispatchMode):
+    """Sums the bytes each aten op reads (its tensor inputs, each once) and
+    writes (its outputs); views move nothing, and 0-d tensors (the Python
+    scalars of an elementwise op) are left out."""
+
+    def __init__(self):
+        super().__init__()
+        self.nbytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            self.nbytes += sum(t.numel() * t.element_size()
+                               for t in tree_leaves((args, kwargs, out))
+                               if isinstance(t, torch.Tensor) and t.dim())
+        return out
+
+
+def plain_dense_bytes(m: int, k: int, n: int, dtype=torch.bfloat16,
+                      activation: str | None = "gelu") -> int:
+    """Device-memory bytes of the plain path, eager PyTorch's unfused ops of
+    :func:`fused_dense_reference` at ``x [m, k]``, ``w [k, n]``, ``b [n]``
+    in ``dtype``: each op's inputs read once and its output written once,
+    the f32 upcasts, the product, the bias and every op of the activation
+    included.  Counted on ``meta`` tensors: nothing executes."""
+    _check_activation(activation)
+    args = [torch.empty(shape, dtype=dtype, device="meta") for shape in ((m, k), (k, n), (n,))]
+    with _OpBytes() as counter:
+        fused_dense_reference(*args, activation=activation)
+    return counter.nbytes
+
+
+def fused_dense_profitable(m: int, k: int, n: int, dtype=torch.bfloat16,
+                           activation: str | None = "gelu") -> bool:
+    """JAX's dispatch check (``pallas_fused.py``), with the port's count of
+    the plain path's traffic (:func:`plain_dense_bytes`) where JAX reads
+    XLA's ``bytes accessed``: True only when the fused kernel's analytic
+    traffic (:func:`fused_dense_bytes`) saves at least
+    :data:`PROFIT_MARGIN` of it.  Nothing executes."""
+    plain = plain_dense_bytes(m, k, n, dtype, activation)
+    if not plain:
+        return False
+    fused = fused_dense_bytes(m, k, n, torch.empty((), dtype=dtype).element_size())
+    return fused < plain * (1.0 - PROFIT_MARGIN)

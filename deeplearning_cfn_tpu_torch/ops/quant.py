@@ -85,3 +85,23 @@ def dequantize_tree(quantized: dict, passthrough: dict) -> dict[str, torch.Tenso
         else dequantize_weight(q["wq"], q["scale"], q["dtype"]).reshape(q["shape"])
         for name, q in quantized.items()
     }
+
+
+def quantized_nbytes(quantized: dict) -> int:
+    """Bytes of the int8 side of :func:`quantize_tree`'s result: every
+    kernel's ``wq`` and ``scale`` (JAX's count; its zero-size ``like`` adds
+    nothing)."""
+    return tree_nbytes({name: (q["wq"], q["scale"]) for name, q in quantized.items()
+                        if q is not None})
+
+
+def tree_nbytes(params) -> int:
+    """Bytes of every tensor in ``params`` (a state dict, or nested dicts,
+    lists and tuples of tensors; other values count nothing)."""
+    if isinstance(params, dict):
+        return sum(tree_nbytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(tree_nbytes(v) for v in params)
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    return 0

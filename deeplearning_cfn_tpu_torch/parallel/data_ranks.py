@@ -5,8 +5,8 @@ batch, so every reduction a model or a loss makes over the batch axis is the
 global batch's: BatchNorm's statistics (``models/vgg.py``: "global batch
 statistics under GSPMD = free SyncBN") and the count a loss divides by
 (BERT's masked positions, RetinaNet's positive anchors).  The port runs the
-model and the loss on each rank's shard and averages the gradients (DDP,
-FSDP2) and the reported metrics.  The trainer names the ranks that split the
+model and the loss on each rank's shard and averages the gradients (the
+dp step's sync, FSDP2) and the reported metrics.  The trainer names the ranks that split the
 batch around each step (:func:`data_ranks`); inside it:
 
 - :func:`global_sum` all-reduces a tensor over them, differentiably (its

@@ -39,11 +39,6 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXIS_ORDER = ("dp", "fsdp", "pp", "sp", "tp", "ep")
 
-# What the parallelism slices have not ported yet (ROADMAP queue 1, items 7.3
-# and 7.5): each tp rank's fused wqkv/w_gate_up columns laid out together, and
-# a captured step over DDP, the bucketed sync or pipeline stages.
-LATER_PARALLELISM = "a later slice of the PyTorch port (ROADMAP queue 1, items 7.3 and 7.5)"
-
 
 class MeshError(ValueError):
     pass
@@ -280,3 +275,19 @@ def slice_specs(n_ranks: int, n_slices: int, ici_spec: MeshSpec | None = None,
     if dcn_axis not in AXIS_ORDER:
         raise MeshError(f"unknown dcn axis {dcn_axis!r}")
     return ici, MeshSpec(**{dcn_axis: n_slices})
+
+
+def capture_refusal(mesh: DeviceMesh | None, device: torch.device | str) -> str | None:
+    """Why a CUDA graph cannot capture a step over ``mesh`` on ``device``, or
+    None when it can.  A captured collective must run on the card: NCCL.  A
+    gloo group takes CUDA tensors only through the host (its ranks that share
+    one card stage every exchange there), which a stream capture cannot
+    hold."""
+    if mesh is None or torch.device(device).type != "cuda":
+        return None
+    backends = {dist.get_backend(mesh.get_group(name)) for name in mesh.mesh_dim_names}
+    if backends <= {"nccl"}:
+        return None
+    return (f"a CUDA graph captures the collectives of a step over a mesh on NCCL only; this "
+            f"mesh's groups are {sorted(backends)}: init_process_group('nccl'), one card a "
+            "rank, or run the steps eagerly (train_step)")

@@ -26,6 +26,11 @@ exists:
 - Sharded (fsdp) leaves stay FSDP2's: its reduce-scatter a unit in the
   backward is the sharded bucket's sync; :func:`_sync_sharded` is that
   operation for one leaf's whole local gradient.
+- :class:`DDPGradSync` is the trainer's ``strategy="dp"`` step: DDP's
+  sync without DDP's wrapper (whose forward a CUDA graph cannot capture in
+  torch 2.11), the same engine over the plan at DDP's default bucket size
+  (``DDP_BUCKET_BYTES``) and DDP's broadcast of the module's buffers from
+  the first data rank before each train forward.
 
 The gates (:func:`_resolve_sync_axes`, the single-rank and stateful-model
 refusals) raise JAX's ``ValueError`` messages.  One difference: the port's
@@ -46,6 +51,8 @@ import torch.distributed as dist
 from deeplearning_cfn_tpu_torch.ops.quant import dequantize_flat, quantize_flat
 
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
+# DistributedDataParallel's default bucket_cap_mb (25).
+DDP_BUCKET_BYTES = 25 * 1024 * 1024
 SYNC_AXES = ("dp", "fsdp")
 
 
@@ -392,3 +399,21 @@ class BucketedGradSync:
                 offset += n
         self._runs = []
         self._left = [len(ps) for ps in self.members]
+
+
+@dataclass
+class DDPGradSync(BucketedGradSync):
+    """DDP's gradient sync and buffer broadcast on the module itself:
+    :class:`BucketedGradSync` (DDP's arithmetic, ×1/n into the bucket) and,
+    as each backward begins, ``buffers`` broadcast from global rank ``src``
+    (DDP broadcasts them before each train forward; :meth:`begin` runs
+    before the forward)."""
+
+    buffers: list = field(default_factory=list)
+    src: int = 0
+
+    def begin(self) -> None:
+        with torch.no_grad():
+            for b in self.buffers:
+                dist.broadcast(b, src=self.src, group=self.group)
+        super().begin()

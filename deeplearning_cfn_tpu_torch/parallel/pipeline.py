@@ -31,9 +31,13 @@ the whole loss) each stage's forward of each microbatch is checkpointed
 Activations and their gradients cross the stages through
 ``parallel/p2p.py`` (staged through the host for CUDA tensors on a gloo
 group, which takes no CUDA send; straight through on NCCL).  A stage's
-shapes and dtypes go to the next stage once a schedule, before its first
-microbatch, as an object list on the group's own device: every microbatch
-has the same.  The schedule is the port's own rather than
+shapes and dtypes go to the next stage before its first microbatch, as an
+object list on the group's own device, the first time a schedule of these
+inputs (and autocast state) runs: every microbatch has the same, and the
+next stage keeps them on the stage module; a later send whose layout
+differs raises :class:`PipelineError`.  So a schedule captured in a CUDA graph
+(``Trainer.multi_step_fn`` over NCCL) exchanges no objects: its warm-up
+step sent them.  The schedule is the port's own rather than
 ``torch.distributed.pipelining``'s: that posts its sends on the stage's
 device, which gloo refuses, and learns its shapes from an extra call of the
 loss.
@@ -165,6 +169,38 @@ def _recv_layout(src: int, group) -> list:
     return box[0]
 
 
+def _layouts(stage: nn.Module) -> dict:
+    """The layouts ``stage`` has sent (``("sent", key)``) and received
+    (``("got", key)``), by :func:`_schedule_key`; a sent one is checked
+    against each later send of its key (:func:`_check_layout`)."""
+    if "_pp_layouts" not in stage.__dict__:
+        stage._pp_layouts = {}
+    return stage._pp_layouts
+
+
+def _schedule_key(inputs: tuple, M: int, train: bool) -> tuple:
+    """What decides the layouts a schedule sends, and is the same on every
+    rank of the pp group: its inputs' shapes and dtypes, the microbatch
+    count, training or not, and the autocast state (autocast turned on
+    changes what every stage returns, so the layouts are exchanged anew)."""
+    device = inputs[0].device.type
+    autocast = (torch.get_autocast_dtype(device) if torch.is_autocast_enabled(device)
+                else None)
+    return (tuple((tuple(t.shape), t.dtype) for t in inputs), M, train, autocast)
+
+
+def _check_layout(sent: list, outs: tuple, key: tuple) -> None:
+    """A stage's outputs must have the layout its next stage keeps for
+    ``key``; else that stage would receive into the wrong shapes or dtypes
+    (a stage's own change, such as its parameters cast with ``.to()``, is
+    not in the key, which every rank must compute alike)."""
+    got = [(tuple(t.shape), t.dtype) for t in outs]
+    if got != sent:
+        raise PipelineError(f"a stage's outputs changed layout under one schedule key "
+                            f"{key}: {sent} were sent before, now {got} (a stage's "
+                            "parameters cast after its first schedule?)")
+
+
 def _recv_tensors(src: int, group, device, layout) -> tuple[torch.Tensor, ...]:
     return tuple(p2p.recv(torch.empty(shape, dtype=dtype, device=device), src, group)
                  for shape, dtype in layout)
@@ -206,22 +242,28 @@ def run_schedule(stage: nn.Module, inputs: tuple, mesh, n_microbatches: int, n_s
     nxt = None if last else dist.get_global_rank(group, rank + 1)
     targets = microbatch(target, M) if train and last else None
     device = inputs[0].device
-    kept, results, layout = [], [], None
+    key = _schedule_key(inputs, M, train)
+    layouts = _layouts(stage)
+    kept, results = [], []
     with _flag(_IN_STAGE):
         for m in range(M):  # the forwards, each as its input arrives
             if rank == 0:
                 args = tuple(t[m] for t in parts)
             else:
-                if m == 0:
-                    layout = _recv_layout(prev, group)
-                args = _recv_tensors(prev, group, device, layout)
+                if ("got", key) not in layouts:
+                    layouts[("got", key)] = _recv_layout(prev, group)
+                args = _recv_tensors(prev, group, device, layouts[("got", key)])
                 if train:
                     args = tuple(a.requires_grad_() if a.is_floating_point() else a
                                  for a in args)
             out = _stage_call(stage, args, contexts)
             if not last:
                 outs = _as_tuple(out)
-                _send_tensors([o.detach() for o in outs], nxt, group, with_layout=m == 0)
+                sent = layouts.get(("sent", key))
+                if sent is not None:
+                    _check_layout(sent, outs, key)
+                _send_tensors([o.detach() for o in outs], nxt, group, with_layout=sent is None)
+                layouts[("sent", key)] = [(tuple(o.shape), o.dtype) for o in outs]
                 if train:
                     kept.append((args, outs))
             elif train:
@@ -251,16 +293,20 @@ def run_schedule(stage: nn.Module, inputs: tuple, mesh, n_microbatches: int, n_s
     return merged if len(merged) > 1 else merged[0]
 
 
-def from_last_stage(values: list[torch.Tensor] | None, mesh, axis: str = "pp") -> list[torch.Tensor]:
-    """The last stage's ``values`` on every rank of the pp group (one
-    broadcast of their shapes, then one a tensor)."""
+def from_last_stage(values: list[torch.Tensor] | None, mesh, axis: str = "pp",
+                    layout: list[tuple] | None = None) -> list[torch.Tensor]:
+    """The last stage's ``values`` on every rank of the pp group: one
+    broadcast of their shapes and dtypes (none where every rank knows them:
+    ``layout``, a ``(shape, dtype)`` a value), then one a tensor."""
     group = mesh.get_group(axis)
     rank, pp = mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(axis))
     src = dist.get_global_rank(group, pp - 1)
-    meta = [[(tuple(v.shape), v.dtype, v.device) for v in values] if rank == pp - 1 else None]
-    dist.broadcast_object_list(meta, src=src, group=group)
+    if layout is None:
+        meta = [[(tuple(v.shape), v.dtype) for v in values] if rank == pp - 1 else None]
+        dist.broadcast_object_list(meta, src=src, group=group)
+        layout = meta[0]
     out = []
-    for i, (shape, dtype, _) in enumerate(meta[0]):
+    for i, (shape, dtype) in enumerate(layout):
         if rank == pp - 1:
             t = values[i].detach().contiguous()
         else:

@@ -1,8 +1,9 @@
-"""Which collectives a gloo group takes on CUDA tensors, and whether a
-trainer step over a one-rank NCCL mesh captures as a CUDA graph.
+"""Which collectives a gloo group takes on CUDA tensors, whether a trainer
+step over a one-rank NCCL mesh captures as a CUDA graph, and what a one-rank
+NCCL collective leaves in a CUDA graph.
 
 Two processes on ``cuda:0`` join a gloo group for each collective the port's
-multi-rank paths use (DDP's and the bucketed sync's all-reduce, the int8
+multi-rank paths use (the dp step's and the bucketed sync's all-reduce, the int8
 exchange's ``all_to_all_single`` and ``all_gather_into_tensor``, the sharded
 bucket's ``reduce_scatter_tensor``, the tp and sp gathers' list ``all_gather``,
 GPipe's ``send``/``recv``, ring attention's ``batch_isend_irecv``), one pair a
@@ -10,8 +11,13 @@ collective so that a refusal cannot take the others down; each pair's result
 is one JSON row.  Then, in a process of its own each, a small Llama
 (m435's widths at 2 layers, seq 256) over ``build_mesh(MeshSpec(fsdp=1))``
 (FSDP2) on a one-rank NCCL group: ``multi_step_fn(4)`` against four eager
-steps; over ``MeshSpec(dp=1)`` (DDP, which the trainer refuses to capture)
-one step captured by hand: the error the capture raised.
+steps, and the same over ``MeshSpec(dp=1)`` with the dp step and with the bucketed
+sync in f32 and int8 (``comms_overlap``, whose one-rank gate, JAX's, is
+lifted for the probe: the engine is the same at any rank count).  Last, the
+collectives of the port's syncs (all-reduce in place, ``all_to_all_single``,
+``all_gather_into_tensor``, broadcast) on a one-rank NCCL group, captured in
+a CUDA graph and replayed under ``torch.profiler``: the device activity each
+left (NCCL returns early on one rank where it has nothing to move).
 
 Run on a host with one card: ``python -m deeplearning_cfn_tpu_torch.tools.gloo_cuda_probe``
 """
@@ -82,13 +88,24 @@ def _gloo_op(op: str, rank: int, port: int) -> None:
     dist.destroy_process_group()
 
 
-def _capture(strategy: str) -> None:
+_BUCKETS = dict(strategy="dp", comms_overlap=True, overlap_bucket_bytes=32 << 20)
+CAPTURES = {  # name: (mesh axis, trainer overrides)
+    "fsdp": ("fsdp", dict(strategy="fsdp")),
+    "dp": ("dp", dict(strategy="dp")),
+    "overlap": ("dp", _BUCKETS),
+    "overlap_int8": ("dp", dict(_BUCKETS, overlap_compress=True)),
+}
+
+
+def _capture(name: str) -> None:
     import dataclasses
+    from unittest import mock
 
     import torch
     import torch.distributed as dist
 
     from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel import overlap
     from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
     from deeplearning_cfn_tpu_torch.train.data import (
         SyntheticTokenDataset,
@@ -101,42 +118,74 @@ def _capture(strategy: str) -> None:
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0)
-    row = {"probe": "capture", "strategy": strategy}
+    axis, overrides = CAPTURES[name]
+    row = {"probe": "capture", "strategy": name}
     try:
         cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=256), n_layers=2)
         trainer = llama.make_trainer(cfg, TrainerConfig(
-            strategy=strategy, optimizer="adamw", learning_rate=3e-4, weight_decay=0.1,
-            grad_clip_norm=1.0), device="cuda", mesh=build_mesh(MeshSpec(**{strategy: 1})))
+            optimizer="adamw", learning_rate=3e-4, weight_decay=0.1, grad_clip_norm=1.0,
+            **overrides), device="cuda",
+            mesh=build_mesh(MeshSpec(**{axis: 1})))
         one = next(SyntheticTokenDataset(seq_len=256, vocab_size=cfg.vocab_size,
                                          batch_size=4).batches(1))
         xs, ys = device_put_batch(next(stack_batches(iter([one] * 4), 4)), torch.device("cuda"))
-        state, eager = trainer.init(seed=0), []
-        for i in range(4):
-            state, m = trainer.train_step(state, xs[i], ys[i])
-            eager.append(m["loss"].item())
-        final = [p.detach().clone() for p in state.model.parameters()]
-        state = trainer.init(seed=0)
-        if strategy == "dp":
-            # The trainer refuses to capture DDP; capture one step by hand,
-            # after an eager one on a side stream, to see what DDP does.
-            lr = torch.full((), 3e-4, device="cuda")
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                trainer._update(state, xs[0], ys[0], lr)
-            torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(torch.cuda.CUDAGraph()):
-                trainer._update(state, xs[0], ys[0], lr)
-            row.update(captured=True)
-        else:
-            state, captured = trainer.multi_step_fn(4)(state, xs, ys)
-            row.update(captured=True, losses_equal=captured.tolist() == eager,
-                       params_equal=all(torch.equal(p, q)
-                                        for p, q in zip(state.model.parameters(), final)))
+        with mock.patch.object(overlap, "check_sync", lambda *a, **k: None):
+            state, eager = trainer.init(seed=0), []
+            for i in range(4):
+                state, m = trainer.train_step(state, xs[i], ys[i])
+                eager.append(m["loss"].item())
+            final = [p.detach().clone() for p in state.model.parameters()]
+            state = trainer.init(seed=0)
+        kfn = trainer.multi_step_fn(4)
+        state, captured = kfn(state, xs, ys)
+        row.update(captured=kfn.captures == 1, losses_equal=captured.tolist() == eager,
+                   params_equal=all(torch.equal(p, q)
+                                    for p, q in zip(state.model.parameters(), final)))
     except Exception as e:  # the probe's answer: what the capture raised
         row.update(captured=False, error=repr(e)[:300], where=traceback.format_exc()[-1200:])
     dist.destroy_process_group()
     print(json.dumps(row))
+
+
+def _nccl_one_rank() -> None:
+    """Each collective of the syncs on a one-rank NCCL group, captured and
+    replayed under the profiler: the device activity (kernels, copies) of
+    one replay, by name."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    x = torch.ones(1 << 20, device="cuda")
+    q = torch.ones(1 << 20, device="cuda", dtype=torch.int8)
+    ops = {
+        "all_reduce_in_place": lambda: dist.all_reduce(x),
+        "all_reduce_async_wait": lambda: dist.all_reduce(x, async_op=True).wait(),
+        "all_to_all_single_int8": lambda: dist.all_to_all_single(torch.empty_like(q), q),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(torch.empty_like(x), x),
+        "broadcast": lambda: dist.broadcast(x, src=0),
+    }
+    for name, op in ops.items():
+        row = {"probe": "nccl_one_rank", "op": name}
+        try:
+            op()  # the communicator, eagerly
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                op()
+            graph.replay()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            row["replay"] = {e.key[:100]: e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA}
+        except Exception as e:
+            row["error"] = repr(e)[:300]
+        print(json.dumps(row), flush=True)
+    dist.destroy_process_group()
 
 
 def main() -> int:
@@ -160,12 +209,15 @@ def main() -> int:
         print(json.dumps({"probe": "gloo_cuda", "op": op,
                           "takes_cuda": all(o["rc"] == 0 for o in outs), "ranks": outs}),
               flush=True)
-    for strategy in ("fsdp", "dp"):
-        res = subprocess.run(me + ["capture", strategy], capture_output=True, text=True,
+    for name in CAPTURES:
+        res = subprocess.run(me + ["capture", name], capture_output=True, text=True,
                              timeout=600)
         print(res.stdout.strip().splitlines()[-1] if res.stdout.strip()
-              else json.dumps({"probe": "capture", "strategy": strategy, "rc": res.returncode,
+              else json.dumps({"probe": "capture", "strategy": name, "rc": res.returncode,
                                "error": res.stderr[-600:]}), flush=True)
+    res = subprocess.run(me + ["nccl_one_rank"], capture_output=True, text=True, timeout=300)
+    print(res.stdout.strip() or json.dumps({"probe": "nccl_one_rank", "rc": res.returncode,
+                                            "error": res.stderr[-600:]}), flush=True)
     return 0
 
 
@@ -174,5 +226,7 @@ if __name__ == "__main__":
         _gloo_op(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     elif len(sys.argv) > 1 and sys.argv[1] == "capture":
         _capture(sys.argv[2])
+    elif len(sys.argv) > 1 and sys.argv[1] == "nccl_one_rank":
+        _nccl_one_rank()
     else:
         sys.exit(main())

@@ -12,6 +12,12 @@ recomputation inside :func:`outer_remat`, and a model that reads
 :func:`under_outer_remat` checkpoints its blocks whole there: nothing is
 cached, each block is rebuilt from its input in the backward, and the
 values are the same.
+
+The card's backward runs a recomputation in autograd's own thread, where the
+caller's context variables are unset, so :func:`outer_remat_contexts` sets
+again what the forward saw: the data ranks, the remat flags, and every
+variable a module above this one registered with :func:`carry_into_recompute`
+(Llama's forced attention kind).
 """
 
 from __future__ import annotations
@@ -23,6 +29,26 @@ from typing import Callable, ContextManager, Iterator
 from deeplearning_cfn_tpu_torch.parallel.data_ranks import current_data_ranks, data_ranks
 
 _OUTER: ContextVar[bool] = ContextVar("outer_remat", default=False)
+# Context variables a recomputation sets again (carry_into_recompute).
+_CARRIED: list[ContextVar] = []
+
+
+def carry_into_recompute(var: ContextVar) -> ContextVar:
+    """Have every recomputation that :func:`outer_remat_contexts` wraps run
+    with ``var`` at the value it had where the checkpoint was taken (``var``
+    needs a default).  For the modules this one cannot import (a model's
+    dispatch override); returns ``var``."""
+    _CARRIED.append(var)
+    return var
+
+
+@contextlib.contextmanager
+def _set(var: ContextVar, value) -> Iterator[None]:
+    token = var.set(value)
+    try:
+        yield
+    finally:
+        var.reset(token)
 
 
 @contextlib.contextmanager
@@ -44,10 +70,12 @@ def outer_remat_contexts(*also: Callable[[], ContextManager]) -> tuple:
     """``context_fn`` for the enclosing ``torch.utils.checkpoint``: its
     forward and its recomputation both run inside :func:`outer_remat`, over
     the data ranks the forward saw (``parallel/data_ranks.py``), and inside
-    a context of each of ``also``.  The card's backward runs the
-    recomputation in autograd's own thread, where the caller's context
-    variables are unset: it must set them again."""
+    a context of each of ``also``, with the variables of
+    :func:`carry_into_recompute` at their values here.  The card's backward
+    runs the recomputation in autograd's own thread, where the caller's
+    context variables are unset: it must set them again."""
     ranks = current_data_ranks()
+    carried = [(var, var.get()) for var in _CARRIED]
 
     @contextlib.contextmanager
     def run() -> Iterator[None]:
@@ -55,6 +83,8 @@ def outer_remat_contexts(*also: Callable[[], ContextManager]) -> tuple:
             stack.enter_context(outer_remat())
             if ranks is not None:
                 stack.enter_context(data_ranks(*ranks))
+            for var, value in carried:
+                stack.enter_context(_set(var, value))
             for make in also:
                 stack.enter_context(make())
             yield

@@ -18,7 +18,9 @@ JAX package's jitted step, in eager PyTorch:
   and cuDNN's TF32 switch, for the trainer's steps only.
 - Over a mesh (``parallel/mesh.build_mesh``), each rank takes its slice of
   the global batch over ``("dp", "fsdp")``; ``strategy="dp"`` replicates the
-  parameters (DDP over the data ranks), ``"fsdp"`` shards them with FSDP2
+  parameters (DDP's step over the data ranks: ``overlap.DDPGradSync``, the
+  bucketed sync's engine at DDP's bucket size, with DDP's broadcasts and
+  arithmetic, and no wrapper), ``"fsdp"`` shards them with FSDP2
   ``fully_shard`` over the fsdp sub-mesh (HSDP over ``("dp", "fsdp")`` when
   dp > 1), one unit per block and one at the root.  A model's explicit
   specs (Llama's ``param_specs``) decide each parameter's fsdp dim, and
@@ -57,7 +59,8 @@ JAX package's jitted step, in eager PyTorch:
 - With no ``loss_fn``, the default classification objective: softmax
   cross-entropy with ``label_smoothing`` and accuracy.
 - ``multi_step_fn(k)``: on the card, ``k`` train steps captured once as one
-  CUDA graph and replayed (every optimizer); on the CPU, ``k`` eager steps.
+  CUDA graph and replayed (every optimizer, over any mesh whose groups are
+  NCCL); on the CPU, the same ``k`` steps eagerly.
 - ``fit`` feeds the steps through ``train.data.DevicePrefetcher``;
   ``fit(profiler=)`` splits each call into the ``obs.profiler`` phases.
 
@@ -71,14 +74,13 @@ JAX package's jitted step, in eager PyTorch:
   model's loss runs GPipe with the backward inside it, and the step then
   sums the gradients of what every stage holds (the embedding, final norm
   and output) over ``pp``.  Over the data ranks of each stage the gradients
-  are averaged by the step (no DDP: the schedule calls the stage, not a
-  wrapper), or FSDP2 shards the stage's blocks as above.  The global norm
-  of the clip and the per-leaf statistics of LAMB and Adafactor span the
-  stages.
+  are averaged by the step after the schedule's backward, or FSDP2 shards
+  the stage's blocks as above.  The global norm of the clip and the
+  per-leaf statistics of LAMB and Adafactor span the stages.
 - ``comms_overlap`` (``parallel/overlap.py``): the data ranks' gradient sync
   runs the buckets of ``plan_buckets`` (``overlap_bucket_bytes``) from
-  hooks, each issued as soon as its last gradient exists, in place of DDP's
-  (bitwise DDP's step on two ranks); the fsdp-sharded leaves stay FSDP2's.
+  hooks, each issued as soon as its last gradient exists (the dp step's
+  engine at another bucket size); the fsdp-sharded leaves stay FSDP2's.
   ``overlap_compress`` sends each bucket as int8 with an error-feedback
   residual a rank (``TrainState.error_feedback``, saved with the optimizer
   state).  JAX's gates refuse a single data rank, a non-data axis larger
@@ -86,9 +88,9 @@ JAX package's jitted step, in eager PyTorch:
 
 Without a mesh the trainer runs on one device and ``strategy`` is the
 identity.  On the ``meta`` device (``models/llama_memory.trace_check``) a
-step traces shapes only, and FSDP2 and DDP, which cannot run on ``meta``,
-are left out (the one guard for it, in ``_distribute``): each rank's
-parameters keep their fsdp-gathered size.
+step traces shapes only, and FSDP2 and the data ranks' sync, which cannot
+run on ``meta``, are left out (the one guard for it, in ``_distribute``):
+each rank's parameters keep their fsdp-gathered size.
 
 - ``fit(reshard=)`` (a ``train.reshard.LiveReshardCoordinator``): at each
   step boundary every rank asks the coordinator whether to pause; on a slice
@@ -171,14 +173,12 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    # What a step calls: the DDP wrapper under strategy "dp" over a mesh,
-    # else the model itself.
-    runner: nn.Module | None = None
     # Parameters split over ranks outside their DTensor layout (experts over
     # ``ep``): name -> the 1-D mesh their dim 0 is split over.
     split: dict[str, Any] = field(default_factory=dict)
-    # comms_overlap: the bucketed sync's hooks on this model's parameters,
-    # and with overlap_compress the error-feedback residuals it updates.
+    # strategy "dp" or comms_overlap: the bucketed sync's hooks on this
+    # model's parameters (DDPGradSync under "dp"), and with overlap_compress
+    # the error-feedback residuals it updates.
     grad_sync: overlap_lib.BucketedGradSync | None = None
     error_feedback: overlap_lib.ErrorFeedbackState | None = None
     # The trainer's mesh (the global views of what is split over it).
@@ -621,8 +621,8 @@ class Trainer:
         (``train/reshard.py``).  This rank's share of the batch, the data
         group its reductions span (the gradient average, the count-normalised
         losses, the metrics) and the other groups come from ``mesh``; the
-        layout's bookkeeping is dropped.  The state's DDP or FSDP2 wrapping
-        belongs to the old groups: the caller lays a state out anew on
+        layout's bookkeeping is dropped.  The state's sync hooks or FSDP2
+        wrapping belong to the old groups: the caller lays a state out anew on
         ``mesh`` (``init_from``), as ``migrate_state`` does, and a
         ``multi_step_fn`` graph recaptures on that state's new model."""
         self._bind_mesh(mesh)
@@ -644,15 +644,38 @@ class Trainer:
             if not getattr(model, "pipelined", False):
                 raise ValueError("a mesh with pp > 1 needs a model built over it with as many "
                                  "pipeline stages (LlamaConfig.pp_stages)")
-        runner = self._distribute(model) if self.mesh is not None else None
+        replicated = self._distribute(model) if self.mesh is not None else False
         split = {n: self.mesh["ep"] for n, p in model.named_parameters()
                  if id(p) in self._split_groups}
         opt = _make_optimizer(model, self.config, self._leaves(model))
-        state = TrainState(step=0, model=model, runner=runner, split=split, optimizer=opt,
-                           mesh=self.mesh)
+        state = TrainState(step=0, model=model, split=split, optimizer=opt, mesh=self.mesh)
         if self.config.comms_overlap:
             self._attach_overlap(state)
+        elif replicated:
+            self._attach_ddp(state)
         return state
+
+    def _broadcast_from_first(self, tensors) -> int:
+        """Set ``tensors`` to the first data rank's values, as DDP does at
+        construction; returns that rank's global rank."""
+        src = dist.get_global_rank(self._data_group, 0)
+        if self._data_count > 1:
+            with torch.no_grad():
+                for t in tensors:
+                    dist.broadcast(t.data, src=src, group=self._data_group)
+        return src
+
+    def _attach_ddp(self, state: TrainState) -> None:
+        """DDP's step on the model itself (``strategy="dp"``, no pipeline
+        stages): the parameters and buffers start as the first data rank's,
+        the gradients go through the bucketed sync over the plan at DDP's
+        bucket size, and the buffers are broadcast before each train
+        forward (``overlap.DDPGradSync``).  Eval steps broadcast nothing."""
+        model = state.model
+        src = self._broadcast_from_first([*model.parameters(), *model.buffers()])
+        self.bucket_plan, members = self._bucket_plan(model, overlap_lib.DDP_BUCKET_BYTES)
+        state.grad_sync = overlap_lib.DDPGradSync(members, self._data_group, self._data_count,
+                                                  buffers=list(model.buffers()), src=src)
 
     def _attach_overlap(self, state: TrainState) -> None:
         """The bucketed sync over the data ranks: the plan over the JAX
@@ -665,12 +688,9 @@ class Trainer:
         plan, members = self._bucket_plan(model)
         overlap_lib.check_sync(plan, self._sync_axes, self._data_count,
                                self.config.grad_accum_steps)
-        # As DDP does at construction: what the buckets sync starts as the
-        # first data rank's, whatever each rank drew.
-        src = dist.get_global_rank(self._data_group, 0)
-        with torch.no_grad():
-            for p in self._replicated:
-                dist.broadcast(p.data, src=src, group=self._data_group)
+        # What the buckets sync starts as the first data rank's, whatever
+        # each rank drew.
+        self._broadcast_from_first(self._replicated)
         if self.config.overlap_compress:
             state.error_feedback = overlap_lib.init_error_feedback(
                 plan, self._data_count, state.optimizer, rows=1,
@@ -679,12 +699,13 @@ class Trainer:
                                                       self._data_count, state.error_feedback)
         self.bucket_plan = plan
 
-    def _bucket_plan(self, model: nn.Module):
+    def _bucket_plan(self, model: nn.Module, bucket_bytes: int | None = None):
         """``(plan, members)``: :func:`overlap.plan_buckets` over the model's
         JAX leaves (``layers.wq`` as the tree's ``['layers']['wq']``), a
         leaf's spec naming ``fsdp`` on its dim that FSDP2 shards here;
         ``members[i]`` the parameters of fused bucket ``i`` in its flat
-        order."""
+        order.  The buckets' target is ``bucket_bytes``, by default
+        ``overlap_bucket_bytes``."""
         replicated = {id(p) for p in self._replicated}
         tree, specs, by_path = {}, {}, {}
         for key, leaf in self._leaf_items(model):
@@ -700,7 +721,8 @@ class Trainer:
             node[last] = torch.empty(leaf.shape, dtype=p.dtype, device="meta")
             snode[last] = tuple(spec)
             by_path["".join(f"[{k!r}]" for k in key.split("."))] = leaf
-        plan = overlap_lib.plan_buckets(tree, specs, self.config.overlap_bucket_bytes)
+        plan = overlap_lib.plan_buckets(tree, specs,
+                                        bucket_bytes or self.config.overlap_bucket_bytes)
         flat = [by_path[path] for path, _ in overlap_lib.flatten_with_path(tree)]
         members = [[p for i in b.indices for p in flat[i].params] for b in plan.fused]
         return plan, members
@@ -721,19 +743,20 @@ class Trainer:
                 specs[name] = (None,) * p.ndim
         return specs
 
-    def _distribute(self, model: nn.Module) -> nn.Module | None:
+    def _distribute(self, model: nn.Module) -> bool:
         """Split the experts over ``ep`` and the tp dims over ``tp``, then
-        shard (FSDP2) or replicate (DDP) over the data ranks.  Returns the DDP
-        wrapper, or None: under pipeline stages or comms_overlap there is no
-        DDP, and the step syncs what FSDP2 does not hold."""
-        runner = self._layout(model)
+        shard (FSDP2) or replicate over the data ranks.  Returns whether the
+        data ranks sync every gradient by DDP's rule (:meth:`_attach_ddp`);
+        under pipeline stages or comms_overlap the step syncs what FSDP2 does
+        not hold."""
+        ddp = self._layout(model)
         if self._pp_group is not None:
             stage = {n for n, _ in model.named_parameters() if not model.replicated_over_pp(n)}
             self._stage_params = {id(p) for n, p in model.named_parameters() if n in stage}
             self._pp_replicated = [p for n, p in model.named_parameters() if n not in stage]
-        return runner
+        return ddp
 
-    def _layout(self, model: nn.Module) -> nn.Module | None:
+    def _layout(self, model: nn.Module) -> bool:
         sizes = self._sizes
         if sizes.ep > 1:
             ep_rank, ep_group = mesh_lib.axis_rank(self.mesh, "ep"), self.mesh.get_group("ep")
@@ -747,7 +770,7 @@ class Trainer:
             if sharding.axis_dim(specs[name], "ep") is not None and sizes.ep > 1:
                 self._split_groups[id(p)] = (self.mesh.get_group("ep"),)
         if self.device.type == "meta":
-            return None  # a shapes-only trace: FSDP2 and DDP need real tensors
+            return False  # a shapes-only trace: FSDP2 and the syncs need real tensors
         sharded = any(sharding.fsdp_dim(s) is not None for s in specs.values())
         if self.config.strategy == "fsdp" or (sharded and sizes.fsdp > 1) or sizes.tp > 1:
             from torch.distributed.fsdp import fully_shard
@@ -770,16 +793,12 @@ class Trainer:
             # FSDP2 made new (DTensor) parameters: key the split groups anew.
             old = {n: self._split_groups.get(i) for n, i in zip(specs, by_id)}
             self._split_groups = {id(p): old[n] for n, p in model.named_parameters() if old[n]}
-            return None
-        if self._pp_group is not None or self.config.comms_overlap:
-            # The schedule calls the stage itself, and the bucketed sync
-            # runs its own hooks: no wrapper; the step syncs every gradient.
-            self._replicated = list(model.parameters())
-            return None
-        from torch.nn.parallel import DistributedDataParallel as DDP
-
-        return DDP(model, process_group=self._data_group,
-                   device_ids=[self.device.index] if self.device.type == "cuda" else None)
+            return False
+        # Every gradient is synced by the step: after the schedule's backward
+        # under pipeline stages, else from the backward's hooks (the bucketed
+        # sync, or DDP's rule under strategy "dp").
+        self._replicated = list(model.parameters())
+        return self._pp_group is None and not self.config.comms_overlap
 
     def _leaves(self, model: nn.Module) -> list[Leaf]:
         return [leaf for _, leaf in self._leaf_items(model)]
@@ -951,8 +970,7 @@ class Trainer:
         checkpoints each stage's forward of each microbatch instead
         (``parallel/pipeline.remat_stages``: the loss's own checkpoint could not
         wrap a backward that runs inside it).  ``sync`` (the bucketed sync)
-        issues its buckets from the backward and is drained after it, as
-        DDP drains its own."""
+        issues its buckets from the backward and is drained after it."""
         if sync is not None:
             sync.begin()
         own = getattr(model, "runs_own_backward", False)
@@ -997,25 +1015,34 @@ class Trainer:
         aux = {k: torch.stack([d[k] for d in auxes]).mean() for k in auxes[0]}
         return torch.stack(losses).mean(), aux
 
-    def _update(self, state: TrainState, x, y, lr, decisions=None):
-        """One optimizer update at learning rate ``lr`` (a float, or a device
-        tensor in a captured step) on this rank's share of the global batch
-        ``x``, ``y``; returns the global batch's loss and aux metrics."""
-        model, opt = state.model, state.optimizer
+    def _update(self, state: TrainState, x, y, lr, decisions=None, step: int | None = None):
+        """One optimizer update at learning rate ``lr`` (a float, on the card
+        made a device tensor, or a captured step's device tensor) on this
+        rank's share of the global batch ``x``, ``y``; returns the global
+        batch's loss and aux metrics.  The augmentation is drawn for ``step``
+        (default ``state.step``) unless ``decisions`` are given."""
+        model, opt, sync = state.model, state.optimizer, state.grad_sync
         model.train()
         opt.zero_grad(set_to_none=True)
         x, y = self._local_batch(x), self._local_batch(y)
-        x = self._prepare(state.step, x, train=True, decisions=decisions)
+        x = self._prepare(state.step if step is None else step, x, train=True,
+                          decisions=decisions)
         with matmul_precision(self.config.matmul_precision):
             with self._data_ranks():
-                loss, aux = self._grads(state.runner or model, x, y, state.grad_sync)
-            if state.grad_sync is None:
+                loss, aux = self._grads(model, x, y, sync)
+            if sync is None:
                 self._sync_replicated_grads()
             self._sum_grads_over_pp()
             self._sum_grads_over_sp(model)
             if self.config.grad_clip_norm:
                 clip_by_global_norm(model.parameters(), self.config.grad_clip_norm,
                                     self._clip_groups())
+            if self.device.type == "cuda" and not isinstance(lr, torch.Tensor):
+                # A captured step reads its learning rate from the device; so
+                # does the eager one, for one arithmetic: AdamW divides by a
+                # tensor where it would take a float as a scalar, and the two
+                # round apart at some step counts (the 7th at lr 3e-4).
+                lr = torch.full((), lr, dtype=torch.float32, device=self.device)
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
@@ -1043,8 +1070,7 @@ class Trainer:
         x, y = self._local_batch(x), self._local_batch(y)
         try:
             with matmul_precision(self.config.matmul_precision), self._data_ranks():
-                loss, aux = self._loss(state.runner or model, self._normalize_input(x), y,
-                                       train=False)
+                loss, aux = self._loss(model, self._normalize_input(x), y, train=False)
         finally:
             model.train()
         loss, aux = self._global_metrics(loss, aux)
@@ -1055,7 +1081,8 @@ class Trainer:
         ``k`` consecutive train steps, the inputs stacked on a leading axis
         (``train.data.stack_batches``).  On the card the ``k`` steps are
         captured once as one CUDA graph (:class:`CapturedSteps`) and replayed
-        at each call; on the CPU they run eagerly."""
+        at each call; on the CPU the same steps (:meth:`_steps`) run
+        eagerly."""
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if self.device.type == "cuda":
@@ -1063,14 +1090,26 @@ class Trainer:
 
         def k_steps(state: TrainState, xs, ys):
             xs, ys = device_put_batch(Batch(x=xs, y=ys), self.device)
-            losses = []
-            for i in range(k):
-                state, metrics = self.train_step(
-                    state, tree_map(lambda t: t[i], xs), tree_map(lambda t: t[i], ys))
-                losses.append(metrics["loss"])
-            return state, torch.stack(losses)
+            losses = self._steps(state, xs, ys, [self._lr(state.step + i) for i in range(k)])
+            state.step += k
+            return state, losses
 
         return k_steps
+
+    def _steps(self, state: TrainState, xs, ys, lrs, decisions=None) -> torch.Tensor:
+        """The body of :meth:`multi_step_fn`: ``len(lrs)`` updates on the
+        stacked batches, the ``i``-th at ``lrs[i]`` (with ``decisions``, the
+        ``i``-th of each augmentation decision); the losses ``[n]``.
+        ``state.step`` stays (the caller advances it).  The CUDA graph
+        captures this body, and the CPU runs it eagerly."""
+        losses = []
+        for i, lr in enumerate(lrs):
+            d = None if decisions is None else tuple(
+                None if t is None else t[i] for t in decisions)
+            loss, _ = self._update(state, tree_map(lambda t: t[i], xs),
+                                   tree_map(lambda t: t[i], ys), lr, d, step=state.step + i)
+            losses.append(loss)
+        return torch.stack(losses)
 
     # --- loops ---------------------------------------------------------------
     def fit(
@@ -1320,8 +1359,12 @@ class CapturedSteps:
     Takes every optimizer of :func:`_make_optimizer`: their learning rate
     and step count are device tensors.  Optimizer state that the warm-up
     creates is zeroed after it, which is where every one of them starts.
-    Over a mesh the graph holds FSDP2's all-gathers and reduce-scatters (and
-    the step's other collectives) on NCCL; a DDP step does not capture."""
+    Over a mesh the graph holds the step's collectives, which must be NCCL's
+    (``mesh.capture_refusal``): FSDP2's all-gathers and reduce-scatters,
+    the dp step's and the bucketed sync's all-reduces or int8 exchanges (issued from the backward's hooks at capture, in the
+    order every replay repeats; the residuals updated in place), GPipe's
+    sends and receives (the stages' layouts were exchanged in the warm-up
+    step and are reused), the sums over pp and sp and the clip's norm."""
 
     def __init__(self, trainer: Trainer, k: int):
         self.trainer, self.k = trainer, k
@@ -1330,20 +1373,15 @@ class CapturedSteps:
         self.captures = 0
 
     def _state_tensors(self, state: TrainState) -> list[torch.Tensor]:
+        """What a step updates in place: parameters, buffers, optimizer
+        state and the int8 sync's residuals."""
+        residuals = list(state.error_feedback.residual) if state.error_feedback else []
         return (list(state.model.parameters()) + list(state.model.buffers())
                 + [v for s in state.optimizer.state.values() for v in s.values()
-                   if isinstance(v, torch.Tensor)])
+                   if isinstance(v, torch.Tensor)] + residuals)
 
     def _run(self, state: TrainState, n: int) -> torch.Tensor:
-        losses = []
-        for i in range(n):
-            decisions = None if self.decisions is None else tuple(
-                None if d is None else d[i] for d in self.decisions)
-            loss, _ = self.trainer._update(state, tree_map(lambda t: t[i], self.xs),
-                                           tree_map(lambda t: t[i], self.ys), self.lrs[i],
-                                           decisions)
-            losses.append(loss)
-        return torch.stack(losses)
+        return self.trainer._steps(state, self.xs, self.ys, self.lrs[:n], self.decisions)
 
     def _fill(self, state: TrainState, xs, ys) -> None:
         """The replay's inputs into the static buffers."""
@@ -1366,16 +1404,9 @@ class CapturedSteps:
         if t.device.type != "cuda":
             raise RuntimeError("a CUDA graph captures steps on the card only; "
                                "multi_step_fn runs them eagerly on the CPU")
-        if t.mesh is not None and (state.runner is not None or state.grad_sync is not None
-                                   or t._pp_group is not None):
-            # DDP's forward runs an operation a stream capture forbids
-            # (cudaErrorStreamCaptureUnsupported, torch 2.11); the bucketed
-            # sync counts its buckets on the host; GPipe's sends go through
-            # host buffers on gloo.  FSDP2 and the collectives of tp/sp/ep
-            # capture.
-            raise NotImplementedError(
-                "capturing a step over a mesh takes FSDP2 (strategy 'fsdp'); DDP, "
-                f"comms_overlap and pipeline stages are ported in {mesh_lib.LATER_PARALLELISM}")
+        refusal = mesh_lib.capture_refusal(t.mesh, t.device)
+        if refusal is not None:
+            raise RuntimeError(refusal)
         self.xs = tree_map(torch.empty_like, xs)
         self.ys = tree_map(torch.empty_like, ys)
         self.lrs = torch.zeros(self.k, dtype=torch.float32, device=t.device)
@@ -1402,7 +1433,9 @@ class CapturedSteps:
         state.optimizer.zero_grad(set_to_none=True)
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: the prefetcher's producers may copy while this captures.
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        # The range marks, in a profile, the capture of what the graph holds.
+        with torch.profiler.record_function("CapturedSteps.capture"), \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.losses = self._run(state, self.k)
         self._owner = state.model
         self.captures += 1

@@ -369,6 +369,73 @@ def test_fused_dense_bytes_matches_jax():
     assert port.fused_dense_bytes(4096, 768, 3072, 2) == jax_fused.fused_dense_bytes(4096, 768, 3072, 2)
 
 
+@needs_jax
+def test_quantized_and_tree_nbytes_match_jax():
+    """``quantized_nbytes`` (int8 ``wq`` and f32 ``scale`` of every kernel)
+    and ``tree_nbytes`` equal JAX's on the same quantized tree, BERT's
+    ``qkv`` (stored in another shape than its JAX leaf) among them."""
+    rng = np.random.default_rng(7)
+    tree = {
+        "dense": {"kernel": rng.standard_normal((32, 16)).astype(np.float32),
+                  "bias": rng.standard_normal(16).astype(np.float32)},
+        "norm": {"scale": rng.standard_normal(16).astype(np.float32)},
+        "qkv": {"kernel": rng.standard_normal((16, 3, 2, 8)).astype(np.float32)},
+    }
+    jtree = jax.tree_util.tree_map(jnp.asarray, tree)
+    jq, _ = jax_quant.quantize_tree(jtree)
+    state = {f"{a}.{b}": torch.from_numpy(v) for a, d in tree.items() for b, v in d.items()}
+    state["qkv.kernel"] = state["qkv.kernel"].reshape(16, 48)
+    q, _ = quant.quantize_tree(state, {"qkv.kernel": (16, 3, 2, 8)})
+    assert quant.quantized_nbytes(q) == jax_quant.quantized_nbytes(jq)
+    assert quant.quantized_nbytes(q) == 32 * 16 + 16 * 4 + 16 * 48 + 8 * 4  # qkv: a scale per hd
+    assert quant.tree_nbytes(state) == jax_quant.tree_nbytes(jtree) == 4 * (32 * 16 + 16 + 16 + 768)
+
+
+def _eager_plain_bytes(m, k, n, itemsize, activation) -> int:
+    """Eager PyTorch's unfused ops of ``fused_dense_reference``, each input
+    read once and each output written once (E = the f32 [m, n] bytes)."""
+    e = 4 * m * n
+    total = 4 * m * k + 4 * k * n + e  # mm of the f32 operands
+    total += 2 * e + 4 * n  # + b (f32)
+    if itemsize == 2:  # x, w and b upcast to f32, the result cast back
+        total += 6 * m * k + 6 * k * n + 6 * n + e + 2 * m * n
+    # gelu_tanh op by op: x*x, *x, c2*, x+, c1*, tanh, 1+, 0.5*, x*.
+    total += {None: 0, "relu": 2 * e, "gelu": 22 * e}[activation]
+    return total
+
+
+# (name, m, k, n, dtype, activation, JAX's verdict on the CPU, the port's).
+PROFIT_CASES = [
+    ("jax_test_shape", 256, 512, 512, "bfloat16", "gelu", True, True),
+    ("bert_mlp_in", 4096, 768, 3072, "bfloat16", "gelu", True, True),
+    ("resnet50_head_b256", 256, 2048, 1000, "float32", None, True, True),
+    ("resnet50_head_b128", 128, 2048, 1000, "float32", None, False, False),
+    # They differ here: XLA fuses the activation into the product's output,
+    # eager PyTorch writes each of gelu's nine intermediates (22 f32 passes
+    # over [m, n]), so fusing saves more than the margin in the port only.
+    ("resnet50_head_b128_gelu", 128, 2048, 1000, "float32", "gelu", False, True),
+]
+
+
+@pytest.mark.parametrize("name,m,k,n,dtype,activation,jax_verdict,port_verdict", PROFIT_CASES,
+                         ids=[c[0] for c in PROFIT_CASES])
+def test_fused_dense_profitable_counts_eager_bytes(name, m, k, n, dtype, activation,
+                                                   jax_verdict, port_verdict):
+    """The port's guard counts the plain path's bytes op by op on ``meta``
+    (nothing runs): equal to the analytic count of eager PyTorch's unfused
+    ops; its verdict, with JAX's margin, beside JAX's on the CPU."""
+    tdtype = getattr(torch, dtype)
+    itemsize = torch.empty((), dtype=tdtype).element_size()
+    assert port.plain_dense_bytes(m, k, n, tdtype, activation) == _eager_plain_bytes(
+        m, k, n, itemsize, activation)
+    assert port.PROFIT_MARGIN == 0.10
+    assert port.fused_dense_profitable(m, k, n, tdtype, activation) is port_verdict
+    if jax is not None:
+        assert jax_fused.PROFIT_MARGIN == port.PROFIT_MARGIN
+        assert jax_fused.fused_dense_profitable(m, k, n, getattr(jnp, dtype),
+                                                activation) is jax_verdict
+
+
 def test_argument_errors():
     x, w, b = (torch.zeros(s) for s in ((4, 8), (8, 3), (3,)))
     with pytest.raises(ValueError, match="unknown activation"):

@@ -131,10 +131,12 @@ def cuda_device():
 def test_captured_steps_over_a_one_rank_mesh_match_eager_on_card(cuda_device):
     """``multi_step_fn(2)`` over ``build_mesh(MeshSpec(fsdp=1))`` on a
     one-rank NCCL group (FSDP2's collectives inside the graph) is bitwise two
-    eager steps over the same mesh; a DDP step over a mesh is refused."""
+    eager steps over the same mesh; so is the dp step's (DDP's sync without
+    its wrapper, ``overlap.DDPGradSync``)."""
     import torch.distributed as dist
 
     from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel import overlap
     from deeplearning_cfn_tpu_torch.train.data import (
         SyntheticTokenDataset,
         device_put_batch,
@@ -167,7 +169,69 @@ def test_captured_steps_over_a_one_rank_mesh_match_eager_on_card(cuda_device):
                                q.to_local() if hasattr(q, "to_local") else q), n
         ddp = llama.make_trainer(cfg, dataclasses.replace(tcfg, strategy="dp"),
                                  device=cuda_device, mesh=mesh.build_mesh(mesh.MeshSpec(dp=1)))
-        with pytest.raises(NotImplementedError, match="FSDP2"):
-            ddp.multi_step_fn(2)(ddp.init(seed=0), xs, ys)
+        eager, losses = ddp.init(seed=0), []
+        assert isinstance(eager.grad_sync, overlap.DDPGradSync)
+        for i in range(2):
+            eager, m = ddp.train_step(eager, xs[i], ys[i])
+            losses.append(m["loss"].item())
+        state = ddp.init(seed=0)
+        kfn = ddp.multi_step_fn(2)
+        state, captured = kfn(state, xs, ys)
+        assert kfn.captures == 1 and captured.tolist() == losses
+        for (n, p), q in zip(state.model.named_parameters(), eager.model.parameters()):
+            assert torch.equal(p, q), n
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True], ids=["f32", "int8"])
+def test_captured_bucketed_sync_on_one_nccl_rank_is_bitwise_eager_on_card(cuda_device, compress):
+    """``multi_step_fn(2)`` with ``comms_overlap`` (f32, and int8 with error
+    feedback) over ``MeshSpec(dp=1)`` on a one-rank NCCL group, twice (a
+    capture, then a replay), is bitwise four eager steps: losses, parameters
+    and the int8 residuals.  JAX's gate refuses one data rank; it is lifted
+    here, since the engine is the same at any rank count."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from deeplearning_cfn_tpu_torch.models import llama
+    from deeplearning_cfn_tpu_torch.parallel import overlap
+    from deeplearning_cfn_tpu_torch.train.data import (
+        SyntheticTokenDataset,
+        device_put_batch,
+        stack_batches,
+    )
+    from deeplearning_cfn_tpu_torch.train.trainer import TrainerConfig
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        cfg = dataclasses.replace(llama.LlamaConfig.m435(seq_len=256), n_layers=2)
+        trainer = llama.make_trainer(cfg, TrainerConfig(
+            strategy="dp", optimizer="adamw", learning_rate=3e-4, weight_decay=0.1,
+            grad_clip_norm=1.0, comms_overlap=True, overlap_compress=compress),
+            device=cuda_device, mesh=mesh.build_mesh(mesh.MeshSpec(dp=1)))
+        one = next(SyntheticTokenDataset(seq_len=256, vocab_size=cfg.vocab_size,
+                                         batch_size=4).batches(1))
+        xs, ys = device_put_batch(next(stack_batches(iter([one] * 2), 2)), cuda_device)
+        with mock.patch.object(overlap, "check_sync", lambda *a, **k: None):
+            eager, state = trainer.init(seed=0), trainer.init(seed=0)
+        losses = []
+        for _ in range(2):
+            for i in range(2):
+                eager, m = trainer.train_step(eager, xs[i], ys[i])
+                losses.append(m["loss"].item())
+        kfn, captured = trainer.multi_step_fn(2), []
+        for _ in range(2):
+            state, got = kfn(state, xs, ys)
+            captured += got.tolist()
+        assert kfn.captures == 1 and captured == losses
+        for (n, p), q in zip(state.model.named_parameters(), eager.model.parameters()):
+            assert torch.equal(p, q), n
+        if compress:
+            for a, b in zip(state.error_feedback.residual, eager.error_feedback.residual):
+                assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()

@@ -43,7 +43,7 @@ def test_the_ports_tree_has_no_fresh_findings_and_no_stale_entries(found):
 
 def test_the_baseline_holds_only_what_the_readme_explains():
     rules = sorted({rule for rule, _, _ in runner.load_baseline(runner.DEFAULT_BASELINE)})
-    assert rules == ["DLC004", "DLC512", "DLC603"]
+    assert rules == ["DLC004", "DLC603"]
 
 
 def test_cli_lint_every_pass_with_the_baseline_exits_zero(tmp_path, capsys):

@@ -11,8 +11,10 @@
   the same bucket and residual rows: ``_sync_fused_int8``'s phase-1 int8
   chunks equal, its outputs and new residuals within 1 ulp;
   ``_sync_sharded`` within 1 ulp of ``psum_scatter``.
-- The trainer on the tiny Llama (f32) at dp=2: the bucketed sync (a 32 KiB
-  target, several fused buckets) is bitwise the hookless DDP step, three
+- The trainer on the tiny Llama (f32) at dp=2: its dp step (the bucketed
+  sync's engine at DDP's bucket size, no wrapper) is bitwise torch's own
+  DDP around the same model, and the bucketed sync (a 32 KiB target,
+  several fused buckets) is bitwise the dp step, three
   steps' losses and final parameters, with and without accumulation, and
   within the dp tolerance of JAX's dp step (losses ``rtol 1e-5``; the
   parameters as ``test_torch_distributed.py`` holds them); the buckets the
@@ -312,6 +314,8 @@ def ranks(tmp_path_factory):
     cases["stateful"] = {"model": "resnet", "mesh": {"dp": 2}, "expect_error": True,
                          "arch": dict(stage_sizes=(1, 1), num_filters=8, num_classes=10),
                          "trainer": dict(strategy="dp", comms_overlap=True, has_train_arg=True)}
+    for name in ("dp", "dp_accum"):  # torch's DDP beside the trainer's dp step
+        cases[name]["torch_ddp"] = True
     path = root / "cases.pkl"
     path.write_bytes(pickle.dumps(cases))
     out = _spawn(2, path)
@@ -358,6 +362,18 @@ def test_bucketed_dp_sync_is_bitwise_the_hookless_ddp_step(ranks, accum):
         assert hooked["losses"] == hookless["losses"]
         assert hooked["norm"] == hookless["norm"]
         _params_equal(hooked["params"], hookless["params"])
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_dp_step_is_bitwise_torchs_ddp(ranks, accum):
+    """The trainer's dp step (``overlap.DDPGradSync``, no wrapper) is torch's
+    own ``DistributedDataParallel`` around the same model and optimizer bit
+    for bit: three steps' losses and the final parameters, on both ranks."""
+    _, got = ranks
+    for r in got["dp" if accum == 1 else "dp_accum"]:
+        assert r["ddp"]
+        assert r["losses"] == r["torch_ddp"]["losses"]
+        _params_equal(r["params"], r["torch_ddp"]["params"])
 
 
 def test_bucketed_dp_sync_matches_jax_dp(ranks):

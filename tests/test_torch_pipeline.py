@@ -495,3 +495,21 @@ def test_llama_pp_trainer_learns(four_ranks):
         assert r["losses"] == losses
     np.testing.assert_allclose(losses, ref["losses"], rtol=1e-4)
     assert any(r["sharded"] for r in ranks)
+
+
+def test_the_layouts_a_stage_keeps_follow_autocast_and_refuse_a_changed_output():
+    """A stage keeps the layouts it exchanged by a key every rank computes
+    alike: the inputs, the microbatch count, training, and the autocast
+    state (turned on, the layouts go again).  A stage whose outputs change
+    under one key (its parameters cast after its first schedule) raises
+    before it sends, where the next stage would receive into stale shapes."""
+    x = torch.zeros(4, 8)
+    plain = pipeline._schedule_key((x,), 2, True)
+    assert plain == pipeline._schedule_key((torch.ones(4, 8),), 2, True)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        assert pipeline._schedule_key((x,), 2, True) != plain
+    assert pipeline._schedule_key((x.double(),), 2, True) != plain
+    sent = [((2, 8), torch.float32)]
+    pipeline._check_layout(sent, (torch.zeros(2, 8),), plain)
+    with pytest.raises(pipeline.PipelineError, match="changed layout"):
+        pipeline._check_layout(sent, (torch.zeros(2, 8, dtype=torch.bfloat16),), plain)

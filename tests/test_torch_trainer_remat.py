@@ -8,7 +8,10 @@ trainer's with ``remat=True`` from the same weights (SGD, so the update is
 the gradient: the parameters to 1e-6).  Over "dots" blocks the step's
 CPU peak is at most the peak without it.  On a BatchNorm ResNet the
 statistics move once a step, as JAX's functional remat moves them, and the
-gradients equal those without remat.
+gradients equal those without remat.  A checkpoint's recomputation run in
+another thread (the card's backward runs it in autograd's own, where context
+variables are unset) sees the forward's forced attention kind, under the
+whole-loss remat and under a pipeline stage's.
 
 donate_buffers: the bytes of a consumed batch freed and counted, idempotent,
 leaves that are not resizable tensors skipped; ``fit`` frees each stacked
@@ -16,6 +19,7 @@ call's batch once the call is dispatched.
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -30,7 +34,8 @@ from deeplearning_cfn_tpu.parallel.mesh import MeshSpec, build_mesh  # noqa: E40
 from deeplearning_cfn_tpu.train.trainer import TrainerConfig as JaxTrainerConfig  # noqa: E402
 from deeplearning_cfn_tpu_torch import interop  # noqa: E402
 from deeplearning_cfn_tpu_torch.models import llama, resnet  # noqa: E402
-from deeplearning_cfn_tpu_torch.train import data, trainer  # noqa: E402
+from deeplearning_cfn_tpu_torch.parallel import pipeline  # noqa: E402
+from deeplearning_cfn_tpu_torch.train import data, remat, trainer  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -183,3 +188,32 @@ def test_fit_donates_each_stacked_batch(monkeypatch):
     state, losses = t.fit(t.init(seed=0), ds.batches(5), steps=5, steps_per_call=2)
     assert len(losses) == 5
     assert seen == [[(2, BATCH, SEQ)] * 2] * 2  # two stacked calls; the remainder step is not
+
+
+@pytest.mark.parametrize("where", ["whole_loss", "pipeline_stage"])
+def test_forced_attention_kind_reaches_a_recompute_in_another_thread(where):
+    """The backward runs in a new thread (an empty context, as autograd's
+    own thread on the card); the recomputation must see what the forward
+    saw: the forced kind, the outer-remat flag and, in a stage, the in-stage
+    flag.  Unforced, the dispatch would pick "xla" on the CPU."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    seen = []
+
+    def fn(x):
+        seen.append((llama.attention_kind(cfg, SEQ, "cpu"), pipeline.in_stage(),
+                     remat.under_outer_remat()))
+        return torch.tanh(3 * x).sum()  # tanh saves its output: the backward recomputes
+
+    x = torch.ones(4, requires_grad=True)
+    with llama.force_attention_kind("flash_reference"):
+        if where == "whole_loss":
+            loss = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False,
+                                                     context_fn=remat.outer_remat_contexts)
+        else:
+            loss = pipeline._stage_call(fn, (x,), remat.outer_remat_contexts)
+    backward = threading.Thread(target=loss.backward)
+    backward.start()
+    backward.join(timeout=60)
+    assert not backward.is_alive()
+    assert x.grad is not None  # the backward (and its recomputation) ran
+    assert seen == [("flash_reference", where == "pipeline_stage", True)] * 2

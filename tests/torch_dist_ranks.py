@@ -25,12 +25,15 @@ as processes that died, and the grow takes the fallback.  A Llama case may be
 pipelined (``pp`` in its mesh: each rank loads its stage from the JAX
 stage-stacked weights), run with ``comms_overlap`` (the buckets it issued
 reported), or built on a hybrid mesh (``hybrid``: ICI and DCN specs).  A
-Llama case with ``force_staging`` sends its point-to-point through
-``parallel/p2p.py``'s host staging (the path CUDA tensors on gloo take) and
-reports the bytes staged, one with ``attention`` runs under
-``llama.force_attention_kind``; an MoE case reports layer 0's routing of the first
-batch (probabilities, experts, slots, kept claims: this rank's rows).  It
-imports no JAX.
+Llama case with ``steps_per_call`` k runs its batches through
+``Trainer.multi_step_fn(k)``, k a call.  A Llama case with ``force_staging``
+sends its point-to-point through ``parallel/p2p.py``'s host staging (the
+path CUDA tensors on gloo take) and reports the bytes staged, one with
+``attention`` runs under ``llama.force_attention_kind``; an MoE case reports
+layer 0's routing of the first batch (probabilities, experts, slots, kept
+claims: this rank's rows).  A Llama case with ``torch_ddp`` also runs its
+batches through torch's own ``DistributedDataParallel`` wrapping the same
+trainer's model (the dp step's oracle).  It imports no JAX.
 
     python tests/torch_dist_ranks.py <input.pkl>
 """
@@ -46,12 +49,14 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from deeplearning_cfn_tpu_torch import interop  # noqa: E402
 from deeplearning_cfn_tpu_torch.examples.common import maybe_init_distributed  # noqa: E402
 from deeplearning_cfn_tpu_torch.models import llama  # noqa: E402
+from deeplearning_cfn_tpu_torch.parallel import overlap  # noqa: E402
 from deeplearning_cfn_tpu_torch.parallel.mesh import (  # noqa: E402
     MeshSpec,
     axis_rank,
@@ -173,7 +178,7 @@ def run_model_case(case: dict) -> dict:
     for x, y in case["batches"]:
         state, m = t.train_step(state, torch.from_numpy(x), tree_map(torch.from_numpy, y))
         metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "ddp": state.runner is not None,
+    return {"metrics": metrics, "ddp": isinstance(state.grad_sync, overlap.DDPGradSync),
             "state": {k: v.detach().numpy().copy() for k, v in state.model.state_dict().items()}}
 
 
@@ -250,7 +255,6 @@ def run_bucket_case(case: dict) -> dict:
     and residual row; also its phase-1 int8 chunk) or ``_sync_sharded``
     (``sharded``: this rank's whole gradient)."""
     from deeplearning_cfn_tpu_torch.ops.quant import quantize_flat
-    from deeplearning_cfn_tpu_torch.parallel import overlap
 
     mesh = build_mesh(MeshSpec(**case["mesh"]))
     rank, group = axis_rank(mesh, "dp"), mesh.get_group("dp")
@@ -704,11 +708,10 @@ def run_llama_case(case: dict) -> dict:
     sync = state.grad_sync
     ef = state.error_feedback  # the norm's backward must leave the residuals as they are
     kept = [r.clone() for r in ef.residual] if ef is not None else []
-    moe = getattr(getattr(state.model, "module", state.model).blocks()[0], "moe", None)
+    moe = getattr(state.model.blocks()[0], "moe", None)
     decide = _first_routing(moe) if moe is not None else None
     with t._data_ranks():  # as the step takes its gradients
-        loss, _ = t._grads(state.runner or state.model, t._local_batch(x0), t._local_batch(y0),
-                           sync)
+        loss, _ = t._grads(state.model, t._local_batch(x0), t._local_batch(y0), sync)
     if decide is not None:  # the first block's routing of the first batch
         out["routing"] = {k: v.cpu().numpy().copy() for k, v in decide().items()}
     if sync is None:
@@ -725,7 +728,16 @@ def run_llama_case(case: dict) -> dict:
         for r, k in zip(ef.residual, kept):
             r.copy_(k)
     losses, aux = [], []
-    for x, y in case["batches"]:
+    k = case.get("steps_per_call")
+    if k:  # the batches in calls of multi_step_fn(k)
+        kfn = t.multi_step_fn(k)
+        batches = case["batches"]
+        for c in range(0, len(batches), k):
+            xs, ys = (torch.from_numpy(np.stack([b[j] for b in batches[c:c + k]]))
+                      for j in (0, 1))
+            state, got = kfn(state, xs, ys)
+            losses += got.tolist()
+    for x, y in case["batches"] if not k else ():
         state, metrics = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
         losses.append(float(metrics["loss"]))
         if "moe_aux_loss" in metrics:
@@ -737,7 +749,7 @@ def run_llama_case(case: dict) -> dict:
                 "ep_rank": axis_rank(mesh, "ep"), "sharded": sharded,
                 "tp_rank": axis_rank(mesh, "tp"), "pp_rank": axis_rank(mesh, "pp"),
                 "sp_rank": axis_rank(mesh, "sp"), "data_index": t._data_index,
-                "ddp": state.runner is not None, "mesh_grid": mesh.mesh.tolist()})
+                "ddp": isinstance(sync, overlap.DDPGradSync), "mesh_grid": mesh.mesh.tolist()})
     if sync is not None:
         names = {id(p): n for n, p in state.model.named_parameters()}
         out["issued"] = list(sync.issued)
@@ -754,7 +766,29 @@ def run_llama_case(case: dict) -> dict:
             whole = state.model(xl)
             out["loss_logits_width"] = part.shape[-1]
             out["nll_gap"] = float((mp.nll(part, yl) - ModelParallel().nll(whole, yl)).abs().max())
+    if case.get("torch_ddp"):
+        out["torch_ddp"] = _torch_ddp_run(case, mesh)
     return out
+
+
+def _torch_ddp_run(case: dict, mesh) -> dict:
+    """The case's steps through torch's own ``DistributedDataParallel``,
+    the oracle of the trainer's dp step: the same trainer with its sync
+    taken out and its model wrapped in DDP, whose reducer then syncs the
+    gradients in the backward."""
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    t, state = _trainer(case, mesh)
+    state.grad_sync.remove()
+    state.grad_sync = None
+    t._replicated = []  # no second average after DDP's
+    state.model = DDP(state.model, process_group=t._data_group)
+    losses = []
+    for x, y in case["batches"]:
+        state, metrics = t.train_step(state, torch.from_numpy(x), torch.from_numpy(y))
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "params": {n: p.detach().numpy().copy()
+                                         for n, p in state.model.module.named_parameters()}}
 
 
 def main() -> None:
