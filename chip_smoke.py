@@ -475,6 +475,27 @@ Phases, one JSON line each:
            (twice that past sp rank 0; all ``wgmma_tma``; none in the f32 MoE and ring cases), no other
            kernel, bytes staged in the pp and ring cases.  Reported: the
            bytes each rank staged, step ms (gloo, host-staged), seconds.
+25. scripts  the port's ``scripts/``: the perf-smoke stages that put work on
+           the device, called one by one on ``cuda:0``, each passing, each
+           with its seconds (the rest run on virtual clocks, in the CPU
+           tests and the gate): ``pipeline``, ``profiler`` (its 2% wall-clock
+           budget) and ``overlap`` first, on a quiet card, before phase 23
+           (``SCRIPTS_QUIET_STAGES``); then the first-network session
+           (``scripts/first-network-session.sh``) starts, on fixture data
+           the phase writes in the download's layouts, at the JAX test's
+           sizes (``scripts/fns_fixtures.SMOKE_ENV``): CIFAR-10 VGG-11 12
+           steps at batch 16 to a 0.05 target, ImageNet ResNet-50 at 32 px
+           (8 px margin) for 2 steps, COCO RetinaNet (tiny backbone) at 64
+           px for 2 steps with masks and mAP, its three examples on the
+           card.  It runs beside phase 23's audits and the structural
+           ``comms`` and ``comms_overlap`` stages (bytes, op counts,
+           captures), and this phase waits for it.  Gates: every summary
+           key of the JAX script, the record counts, a held-out accuracy
+           (CIFAR, ImageNet) and mAP (COCO), each example on ``cuda``; no
+           kernel of the port launched in this process (the scripts' paths
+           run none) nor in the session's three examples (each reports its
+           own ``kernel_launches``).  Reported: each stage's seconds, the
+           session's stage seconds, accuracies and mAP.
 
 The f32 fused-dense rows and the int8-weight rows with an f32 x also hold
 the kernel and f32 ``addmm`` (TF32 off; for the int8 kernel on the
@@ -493,8 +514,8 @@ before its run, with the 8B shape's row beside it (``llama8b_shape``); the bf16
 fused dense's row those of the ``bert`` and ``records`` runs; the f32 fused
 dense's those of the ``resnet`` phase's eager kernel-head run, the resumed
 ResNet-50 run of ``checkpoint`` and the ResNet-50 run of ``records``.  The
-``detection``, ``cifar10`` and ``chaos_catalog`` phases launch no kernel of
-the port (the JAX models they port are plain XLA): each kernel's
+``detection``, ``cifar10``, ``chaos_catalog`` and ``scripts`` phases launch
+no kernel of the port (the JAX models and scripts they port run none): each kernel's
 ``launches_by_path`` reports them as 0, and a launch there fails the run.
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -4819,6 +4840,156 @@ def _chaos_catalog_phase(torch, kernels_mod, smi: str) -> dict:
     return got
 
 
+SCRIPTS_SESSION_TIMEOUT = 600
+SCRIPTS_DATASETS = "cifar mnist coco imagenet"
+# Perf-smoke's device stages run before the session starts: the profiler's
+# wall-clock budget and the light ones.  The comms stages (structural: bytes,
+# op counts, captures) run beside it.
+SCRIPTS_QUIET_STAGES = ("pipeline", "profiler", "overlap")
+
+
+class _FirstNetworkSession:
+    """Phase 25's first-network session: fixture sources written in the
+    downloads' layouts, then ``scripts/first-network-session.sh`` as a
+    subprocess on the card (started before phase 23, it runs beside the
+    analysis phase's audits and perf-smoke's comms stages).  ``marks`` are its stderr lines with the
+    seconds since it started; ``stop()`` ends it and removes its files."""
+
+    def __init__(self):
+        import tempfile
+
+        from deeplearning_cfn_tpu_torch.scripts import fns_fixtures
+
+        root = Path(__file__).resolve().parent
+        self.tmp = tempfile.TemporaryDirectory()
+        self.work = Path(self.tmp.name) / "work"
+        src = fns_fixtures.write_sources(Path(self.tmp.name) / "src", SCRIPTS_DATASETS.split())
+        env = dict(os.environ, DLCFN_FNS_SRC=str(src), DLCFN_FNS_DATASETS=SCRIPTS_DATASETS,
+                   PYTHON=sys.executable, **fns_fixtures.SMOKE_ENV)
+        env.pop("DLCFN_FNS_DEVICE", None)  # the examples' default: the card
+        self.marks: list = []
+        self.out = open(Path(self.tmp.name) / "session.out", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            ["bash", str(root / "deeplearning_cfn_tpu_torch" / "scripts"
+                         / "first-network-session.sh"), str(self.work)],
+            cwd=self.tmp.name, env=env, stdout=self.out, stderr=subprocess.PIPE, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            self.marks.append((time.perf_counter() - self.t0, line.rstrip()))
+
+    def wait(self) -> tuple[dict, float]:
+        """The session's ``summary.json`` and its seconds; raises if it failed."""
+        self.proc.wait(timeout=SCRIPTS_SESSION_TIMEOUT)
+        seconds = time.perf_counter() - self.t0
+        self.reader.join(timeout=30)
+        self.out.seek(0)
+        errors = "\n".join(line for _, line in self.marks)
+        _require(self.proc.returncode == 0, f"scripts: the first-network session exited "
+                 f"{self.proc.returncode}:\n{self.out.read()[-3000:]}\n{errors[-3000:]}")
+        return json.loads((self.work / "summary.json").read_text()), seconds
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.out.close()
+        self.tmp.cleanup()
+
+
+def _perf_smoke_stages(torch, kernels_mod, smi: str, names: tuple, beside: bool) -> tuple:
+    """Phase 25's perf-smoke ``names`` on ``cuda:0``, one by one, each timed
+    and passing; ``beside`` says whether the first-network session ran
+    meanwhile.  Returns each stage's seconds and the kernel launches of the
+    stages in this process."""
+    from deeplearning_cfn_tpu_torch.scripts import perf_smoke as ps
+
+    kernels_mod.reset_launch_counts()
+    stages = {}
+    for name, stage in ps.STAGES:
+        if name not in names:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap, failures = stage("cuda")
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        _emit({"phase": "scripts", "part": "perf_smoke", "stage": name, "device": "cuda:0",
+               "seconds": stages[name], "beside_session": beside, "snapshot": snap,
+               "failures": failures, "nvidia_smi": smi})
+        _require(failures == [], f"scripts: perf-smoke stage {name}: {failures}")
+    return stages, dict(kernels_mod.launch_counts)
+
+
+def _scripts_phase(torch, kernels_mod, smi: str, session: _FirstNetworkSession,
+                   quiet: tuple) -> dict:
+    """Phase 25 (see the module docstring): perf-smoke's structural device
+    stages beside the first-network session, then the session's result;
+    ``quiet`` is what ``_perf_smoke_stages`` returned for the stages run
+    before the session started.  Returns the phase's kernel launches
+    (none)."""
+    from deeplearning_cfn_tpu_torch.scripts import fns_fixtures
+    from deeplearning_cfn_tpu_torch.scripts import perf_smoke as ps
+
+    t_phase = time.perf_counter()
+    beside, launches = _perf_smoke_stages(
+        torch, kernels_mod, smi, tuple(n for n in ps.DEVICE_STAGES if n not in quiet[0]),
+        beside=True)
+    stages = {**quiet[0], **beside}
+    for k, n in quiet[1].items():
+        launches[k] = launches.get(k, 0) + n
+    t_wait = time.perf_counter()
+    summary, session_s = session.wait()
+    # The session's stages by the times its stage lines arrived.
+    starts = [(t, line.split(":")[0][4:]) for t, line in session.marks
+              if line.startswith(">>> stage")]
+    ends = [t for t, _ in starts[1:]] + [session_s]
+    session_stages = {name: end - t for (t, name), end in zip(starts, ends)}
+    runs = {k: summary[k] for k in ("cifar", "imagenet", "coco")}
+    row = {"phase": "scripts", "part": "first_network_session", "datasets": SCRIPTS_DATASETS,
+           "env": fns_fixtures.SMOKE_ENV, "seconds": session_s, "stage_seconds": session_stages,
+           "started": "after perf-smoke's " + ", ".join(quiet[0]) + "; beside phase 23's "
+                      "audits and perf-smoke's " + ", ".join(beside),
+           "waited_in_phase_s": time.perf_counter() - t_wait,
+           "summary_keys": sorted(summary),
+           "records": {k: v["records"] for k, v in summary.items() if k.startswith("convert_")},
+           "cifar_eval": runs["cifar"].get("eval"), "imagenet_eval": runs["imagenet"].get("eval"),
+           "coco_eval": runs["coco"].get("eval"),
+           "devices": {k: v.get("device") for k, v in runs.items()},
+           "steps": {k: v.get("steps") for k, v in runs.items()},
+           "kernel_launches": {k: v.get("kernel_launches") for k, v in runs.items()},
+           "nvidia_smi": smi}
+    _emit(row)
+    keys = ("convert_cifar", "convert_mnist", "convert_imagenet_train", "convert_imagenet_val",
+            "convert_coco_train", "convert_coco_val", "cifar", "imagenet", "coco")
+    _require(sorted(summary) == sorted(keys), f"scripts: the summary's keys {sorted(summary)}")
+    _require(summary["convert_cifar"]["records"]["train"] == 128
+             and summary["convert_mnist"]["records"]["train"] == 32
+             and summary["convert_coco_train"]["records"]["train"] == fns_fixtures.COCO_TRAIN
+             and summary["convert_coco_val"]["records"]["val"]
+             == fns_fixtures.COCO_IMAGES - fns_fixtures.COCO_TRAIN
+             and summary["convert_imagenet_train"]["stored_px"] == 40
+             and summary["convert_imagenet_val"]["stored_px"] == 32,
+             f"scripts: the conversions' counts {row['records']}")
+    _require(all(str(d).startswith("cuda") for d in row["devices"].values()),
+             f"scripts: the examples ran on {row['devices']}")
+    _require("accuracy" in runs["cifar"]["eval"] and "accuracy" in runs["imagenet"]["eval"]
+             and "mAP" in runs["coco"]["eval"] and runs["coco"]["steps"] == 2
+             and runs["imagenet"]["steps"] == 2 and runs["cifar"]["steps"] >= 1,
+             f"scripts: the session's runs {row['steps']}")
+    _kernel_free(launches, "scripts")
+    for k, v in runs.items():  # the session's examples count their own (a process each)
+        _require(v.get("kernel_launches") == {}, f"scripts: the session's {k} run launched "
+                 f"{v.get('kernel_launches')}")
+    _emit({"phase": "scripts", "perf_smoke_seconds": stages, "session_seconds": session_s,
+           "wall_s": time.perf_counter() - t_phase, "kernel_launches": launches,
+           "nvidia_smi": smi})
+    return launches
+
+
 def _analysis_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int:
     """Phase 23 (see the module docstring): ``cli lint`` with every pass
     against the port's baseline and on a planted file; the compile audit
@@ -5041,9 +5212,10 @@ def _analysis_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int
                     and programs[name].collective_bytes == b["collective_bytes"])
              for name, b in budget["programs"].items()}
     _emit({"phase": "analysis", "part": "comms_audit", "ranks": cm.RANKS,
-           "device": "cuda:0 for both", "backend": "gloo over CUDA tensors",
-           "multi_step": "its k steps eagerly on the gloo ranks (the CUDA-graph form needs "
-                         "NCCL: phase 17)",
+           "device": "cuda:0 for both", "backend": report.backend,
+           "multi_step_form": report.multi_step_form,
+           "multi_step": "captured over NCCL ranks (a card each), its k steps eagerly over "
+                         "gloo ranks",
            "peak_hbm_bytes": "torch.cuda.max_memory_allocated over the profiled step "
                              "(the budget's is the CPU profiler's peak)",
            "programs": {n: p.to_dict() for n, p in programs.items()},
@@ -5052,6 +5224,10 @@ def _analysis_phase(torch, kernels_mod, smi: str, flash_per_block: float) -> int
            "wall_s": comms["wall_s"], "nvidia_smi": smi})
     _require(all(equal.values()), f"analysis: comms counts or bytes differ from the budget: "
              f"{equal}")
+    _require(report.multi_step_form == ("captured" if report.backend == "nccl" else "eager")
+             and report.replays_launch_nccl,
+             f"analysis: the audit's {report.backend} ranks ran the {report.multi_step_form} form, "
+             f"replays launching NCCL: {report.replays_launch_nccl}")
     _require(all(m["witness_counts"] == m["rank_counts"] for m in report.measured.values()),
              f"analysis: the backend's count disagrees with c10d's: {report.measured}")
     fresh, _ = runner.apply_audit_baseline(report.violations, None, COMMS_AUDIT_RULE_IDS)
@@ -5687,15 +5863,33 @@ def main() -> int:
     new_paths["chaos_catalog"] = _chaos_catalog_phase(torch, _kernels, smi)
     flash_by_path["chaos_catalog"] = new_paths["chaos_catalog"].get("flash_attention_fwd", 0)
 
-    # 23. analysis: cli lint with the port's ratchet, the compile, comms and
-    # replay audits on the card.
+    # 25 begins here: perf-smoke's stages that read the wall clock (and the
+    # other light ones) on a quiet card; then the first-network session
+    # starts, a subprocess beside phase 23's audits and perf-smoke's comms
+    # stages (its examples on the card); phase 25 reads its result.
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    flash_by_path["analysis"] = _analysis_phase(torch, _kernels, smi, flash_per_block)
+    quiet = _perf_smoke_stages(torch, _kernels, smi, SCRIPTS_QUIET_STAGES, beside=False)
+    session = _FirstNetworkSession()
+    try:
+        # 23. analysis: cli lint with the port's ratchet, the compile, comms and
+        # replay audits on the card.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        flash_by_path["analysis"] = _analysis_phase(torch, _kernels, smi, flash_per_block)
 
-    # 24. model_parallel_ranks: the layouts of the rest of slice 5b across
-    # two ranks on the card (run in phase 16's processes; their rows here).
-    flash_by_path["model_parallel_ranks"] = _model_parallel_phase(smi)
+        # 24. model_parallel_ranks: the layouts of the rest of slice 5b across
+        # two ranks on the card (run in phase 16's processes; their rows here).
+        flash_by_path["model_parallel_ranks"] = _model_parallel_phase(smi)
+
+        # 25. scripts: the port's perf-smoke stages on the card and the
+        # first-network session on fixture data (no kernel of the port).
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        new_paths["scripts"] = _scripts_phase(torch, _kernels, smi, session, quiet)
+    finally:
+        session.stop()
+    flash_by_path["scripts"] = new_paths["scripts"].get("flash_attention_fwd", 0)
 
     def on_new_paths(key: str, variants=None) -> dict:
         """Launches of ``key`` on the phases after ``checkpoint``; with

@@ -45,12 +45,20 @@ The six programs are JAX's, under JAX's names, at its audit shapes
 and ``multi_step`` (fsdp), ``train_step_dp`` (the dp step: DDP's sync),
 ``train_step_dp_overlap`` and ``multi_step_dp_overlap`` (the bucketed
 sync at 32 KiB buckets; grad accumulation 2 on the latter) and
-``serve_decode`` (one device, no collectives).  The ranks are gloo's, on
-the CPU or sharing cuda:0, and a CUDA graph cannot hold a gloo group's
-collectives (``parallel/mesh.capture_refusal``): ``multi_step`` and
-``multi_step_dp_overlap`` run their k steps eagerly.  (The audit has no
-captured form over NCCL ranks; ``chip_smoke.py`` phase 17 and
-``tools/nccl_layouts.py`` drive captured steps over NCCL.)
+``serve_decode`` (one device, no collectives).
+
+The ranks are NCCL's, one card each, when the host has a card for each
+rank, and gloo's otherwise (on the CPU, or sharing cuda:0).  Over NCCL,
+``multi_step`` and ``multi_step_dp_overlap`` go through
+``Trainer.multi_step_fn(k)`` captured as one CUDA graph, as the JAX audit
+compiles them (the **captured** form): their collectives are the c10d ops
+that the capture dispatched (the records inside the
+``CapturedSteps.capture`` range), and one more call, a replay, is
+profiled on the card, where it must launch one NCCL kernel a collective on
+each rank (``replay_nccl_kernels``).  A CUDA graph cannot hold a gloo
+group's collectives (``parallel/mesh.capture_refusal``), so over gloo the
+two programs run their k steps eagerly (the **eager** form).  The report
+names the form (``multi_step_form``) and the backend.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
@@ -577,6 +586,16 @@ class CommsAuditReport:
     device_count: int
     budget_checked: bool
     measured: dict = field(default_factory=dict)
+    backend: str = "gloo"
+    # How multi_step and multi_step_dp_overlap ran: "captured" (one CUDA
+    # graph over NCCL ranks) or "eager" (k steps, gloo ranks).
+    multi_step_form: str = "eager"
+
+    @property
+    def replays_launch_nccl(self) -> bool:
+        """Each captured program's replay launched one NCCL kernel a
+        collective on every rank (True when nothing was captured)."""
+        return all(m["replay_matches"] for m in self.measured.values() if m["form"] == "captured")
 
     def to_dict(self) -> dict:
         return {
@@ -586,6 +605,9 @@ class CommsAuditReport:
             "device_count": self.device_count,
             "budget_checked": self.budget_checked,
             "clean": not self.violations,
+            "backend": self.backend,
+            "multi_step_form": self.multi_step_form,
+            "replays_launch_nccl": self.replays_launch_nccl,
             "measured": self.measured,
         }
 
@@ -598,13 +620,45 @@ AUDIT_CLASSES = 4
 AUDIT_INPUT_SHAPE = (8, 8, 1)
 PROGRAMS = ("train_step", "multi_step", "train_step_dp", "train_step_dp_overlap",
             "multi_step_dp_overlap", "serve_decode")
-# Planted faults the tests use to prove DLC510/DLC511 fire: an extra
-# all-reduce, and an all-gather of the batch, in the train_step program
-# (``plant`` names one, or both joined by "+").
-PLANTS = ("extra_allreduce", "batch_gather")
+# Planted faults the tests use to prove the audit and its gates fire: an
+# extra all-reduce, and an all-gather of the batch, in the train_step
+# program (DLC510, DLC511); and, in train_step_dp_overlap, the last bucket's
+# parameters left out of the bucketed sync (its bytes no longer the
+# gradient tree's).  ``plant`` names one, or several joined by "+".
+PLANTS = ("extra_allreduce", "batch_gather", "unsynced_bucket")
+CAPTURE_RANGE = "CapturedSteps.capture"
+# Set by run_ranks: seconds after which a rank writes its stacks (a stall's
+# witness, ahead of the parent's timeout).
+STACKS_ENV = "DLCFN_RANK_STACKS_S"
+
+
+def default_backend(device: str) -> str:
+    """The ranks' backend: NCCL, one card a rank, when ``device`` is the
+    card and the host has a card for each of the ``RANKS`` ranks; gloo
+    otherwise (the CPU, or every rank on cuda:0)."""
+    import torch
+
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= RANKS:
+        return "nccl"
+    return "gloo"
+
+
+def multi_step_form(trainer) -> str:
+    """How the audit runs ``trainer``'s multi-step program: "captured"
+    (``multi_step_fn(k)`` as one CUDA graph, JAX's compiled program) when
+    the trainer is on the card and its mesh's groups are NCCL's; "eager"
+    (its k steps, one by one) otherwise: the CPU captures nothing, and a
+    gloo group's collectives cannot be captured."""
+    from deeplearning_cfn_tpu_torch.parallel.mesh import capture_refusal
+
+    if trainer.device.type == "cuda" and capture_refusal(trainer.mesh, trainer.device) is None:
+        return "captured"
+    return "eager"
 
 
 def _trainer(name: str, device: str):
+    import torch
+
     from deeplearning_cfn_tpu_torch.analysis.compile_audit import audit_mlp
     from deeplearning_cfn_tpu_torch.parallel.mesh import MeshSpec, build_mesh
     from deeplearning_cfn_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -620,46 +674,60 @@ def _trainer(name: str, device: str):
     if name == "multi_step_dp_overlap":
         kwargs["grad_accum_steps"] = 2
     inputs = AUDIT_INPUT_SHAPE[0] * AUDIT_INPUT_SHAPE[1] * AUDIT_INPUT_SHAPE[2]
-    mesh = build_mesh(spec, device_type=device)
+    mesh = build_mesh(spec, device_type=torch.device(device).type)
     return Trainer(audit_mlp(AUDIT_HIDDEN, AUDIT_CLASSES, inputs),
                    TrainerConfig(**kwargs), device=device, mesh=mesh)
 
 
 def _train_program(name: str, device: str, k: int, plant: str | None):
-    """(state, run) of one train program: ``run()`` makes one call."""
+    """(state, run, form) of one train program: ``run()`` makes one call;
+    ``form`` is :func:`multi_step_form`'s for the multi-step programs and
+    "eager" for the single steps."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from deeplearning_cfn_tpu_torch.parallel import overlap
     from deeplearning_cfn_tpu_torch.train.data import SyntheticDataset, device_put_batch, Batch
 
+    planted = set((plant or "").split("+"))
     trainer = _trainer(name, device)
     state = trainer.init(seed=0)
+    if name == "train_step_dp_overlap" and "unsynced_bucket" in planted:
+        sync = state.grad_sync
+        sync.remove()
+        state.grad_sync = overlap.BucketedGradSync(sync.members[:-1], sync.group, sync.nd)
     ds = SyntheticDataset(shape=AUDIT_INPUT_SHAPE, num_classes=AUDIT_CLASSES,
                           batch_size=AUDIT_BATCH_SIZE, seed=0)
     batches = list(ds.batches(k))
     if name.startswith("multi_step"):
         xs, ys = device_put_batch(Batch(x=np.stack([b.x for b in batches]),
                                         y=np.stack([b.y for b in batches])), trainer.device)
+        form = multi_step_form(trainer)
+        if form == "captured":
+            kfn = trainer.multi_step_fn(k)
 
-        def run():
-            # The eager k steps (multi_step_fn's CPU form) on any device:
-            # gloo ranks cannot carry a CUDA-graph capture.
-            for i in range(k):
-                trainer.train_step(state, xs[i], ys[i])
-    else:
-        x, y = device_put_batch(batches[0], trainer.device)
+            def run():
+                kfn(state, xs, ys)
+        else:
+            def run():
+                # multi_step_fn's CPU form, on any device: its k steps.
+                for i in range(k):
+                    trainer.train_step(state, xs[i], ys[i])
+        return state, run, form
+    x, y = device_put_batch(batches[0], trainer.device)
 
-        def run():
-            trainer.train_step(state, x, y)
-            planted = set((plant or "").split("+"))
-            if "extra_allreduce" in planted:
-                dist.all_reduce(torch.ones(4, device=trainer.device))
-            if "batch_gather" in planted:
-                out = torch.empty((RANKS * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                                  device=x.device)
-                dist.all_gather_into_tensor(out, x.contiguous())
-    return state, run
+    def run():
+        trainer.train_step(state, x, y)
+        if name != "train_step":
+            return
+        if "extra_allreduce" in planted:
+            dist.all_reduce(torch.ones(4, device=trainer.device))
+        if "batch_gather" in planted:
+            out = torch.empty((RANKS * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            dist.all_gather_into_tensor(out, x.contiguous())
+    return state, run, "eager"
 
 
 def _serve_program(device: str):
@@ -679,88 +747,188 @@ def _serve_program(device: str):
     engine = ContinuousBatchingEngine(model, scfg, clock=lambda: 0.0, journal=False)
     engine.submit(ServeRequest("audit-0", np.arange(1, 9, dtype=np.int32), 16))
     engine.step()  # admits and prefills
-    return None, engine.step
+    return None, engine.step, "eager"
 
 
-def _profile_call(run, device: str) -> tuple[list[dict], int]:
+def capture_records(records: list[dict]) -> list[dict]:
+    """The records inside the ``CapturedSteps.capture`` range (on any
+    thread: the backward runs on the autograd engine's): the ops the
+    capture dispatched, which the graph holds."""
+    spans = [r for r in records if r["name"] == CAPTURE_RANGE]
+    if not spans:
+        raise RuntimeError(f"the profiled call shows no {CAPTURE_RANGE} range: nothing captured")
+    start, end = spans[0]["start"], spans[0]["end"]
+    return [r for r in records
+            if r["name"] != CAPTURE_RANGE and r["start"] >= start and r["end"] <= end]
+
+
+def _profile_call(run, device: str, form: str = "eager") -> dict:
+    """One program's trace.  Eager: a warm-up call (lazy init, the first
+    step's one-off collectives), then one profiled call (CPU activity,
+    shapes).  Captured: the first call, the capture, is the profiled one
+    (its records cut to the capture's range), then one replay is profiled
+    on the card for its NCCL kernels.  ``post_warmup_compiles`` counts the
+    captures and builds after the warm-up (the capture)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from deeplearning_cfn_tpu_torch.analysis.compile_audit import CompileWatcher
+
     cuda = torch.device(device).type == "cuda"
-    run()  # warm-up: lazy init, the first step's one-off collectives
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU], record_shapes=True,
-                 profile_memory=not cuda) as prof:
-        run()
+    captured = form == "captured"
+    out: dict[str, Any] = {"form": form}
+    with CompileWatcher() as watcher:
+        if not captured:
+            run()
+            watcher.mark_steady()
         if cuda:
             torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() if cuda else trace_peak_bytes(prof)
-    return trace_records(prof), int(peak)
+            torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True,
+                     profile_memory=not cuda) as prof:
+            run()
+            if cuda:
+                torch.cuda.synchronize()
+        records = trace_records(prof)
+        if captured:
+            watcher.mark_steady()
+            records = capture_records(records)
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as replay:
+                run()
+                torch.cuda.synchronize()
+            out["replay_nccl_kernels"] = {
+                e.key[:100]: e.count for e in replay.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.key.startswith("nccl")}
+        out["post_warmup_compiles"] = watcher.new_compiles_since_mark()
+    out["records"] = records
+    out["peak_hbm_bytes"] = int(torch.cuda.max_memory_allocated() if cuda
+                                else trace_peak_bytes(prof))
+    return out
+
+
+def _grad_sync_report(state) -> dict | None:
+    """The bucketed sync's coverage of the gradient tree: its buckets, the
+    leaves and bytes they hold, beside the model's."""
+    sync = getattr(state, "grad_sync", None)
+    if sync is None:
+        return None
+    params = list(state.model.parameters())
+    return {"buckets": len(sync.members),
+            "bucket_leaves": sum(len(m) for m in sync.members),
+            "bucket_bytes": sum(p.numel() * p.element_size() for m in sync.members for p in m),
+            "tree_leaves": len(params),
+            "tree_bytes": sum(p.numel() * p.element_size() for p in params)}
+
+
+def _trace_program(name: str, device: str, k: int, plant: str | None) -> dict:
+    """One program built and traced on this rank."""
+    if name == "serve_decode":
+        state, run, form = _serve_program(device)
+    else:
+        state, run, form = _train_program(name, device, k, plant)
+    trace = _profile_call(run, device, form)
+    gathers = None
+    if state is not None and name in ("train_step", "multi_step"):
+        gathers = sorted(list(s) for s in fsdp_gather_shapes(state.model))
+    return {**trace, "predicted": gathers,
+            "grad_sync": None if state is None else _grad_sync_report(state)}
 
 
 def _rank_main(rank: int, port: int, out: str, device: str, k: int, plant: str | None,
-               programs: tuple[str, ...] = PROGRAMS) -> None:
-    """One rank of the audit: each of ``programs``, one warm-up and one
-    profiled call each (``serve_decode`` on rank 0 alone).  Writes
-    ``<out>/rank<rank>.json``."""
+               programs: tuple[str, ...] = PROGRAMS, backend: str = "gloo") -> None:
+    """One rank of the audit: each of ``programs``, traced by
+    :func:`_profile_call`.  ``serve_decode`` runs on rank 0 alone, before
+    the rank joins the group (it needs none, and the other rank does not
+    wait for it in a barrier).  Over NCCL, rank r runs on cuda:r.  Each
+    program's trainer, state and captured graph live only inside
+    :func:`_trace_program`: ``destroy_process_group`` blocks for good
+    while a CUDA graph that holds the group's NCCL collectives is alive
+    (both ranks, on four H100s), which is how an audit whose last
+    program's graph outlived its loop never reported.  Writes
+    ``<out>/rank<rank>.json``; a rank still running after
+    ``$DLCFN_RANK_STACKS_S`` seconds writes its threads' stacks to its
+    output."""
+    import faulthandler
+    import gc
+
     import torch
     import torch.distributed as dist
 
+    stacks_after = float(os.environ.get(STACKS_ENV, "0"))
+    if stacks_after > 0:
+        faulthandler.dump_traceback_later(stacks_after)
     torch.set_num_threads(1)
-    if device.startswith("cuda"):
-        torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=RANKS)
+    barrier: dict[str, Any] = {}
+    if torch.device(device).type == "cuda":
+        index = rank if backend == "nccl" else 0
+        torch.cuda.set_device(index)
+        device = f"cuda:{index}"
+        if backend == "nccl":
+            barrier = {"device_ids": [index]}
+
+    def traced(name: str) -> dict:
+        trace = _trace_program(name, device, k, plant)
+        print(f"comms-audit rank {rank}: {name} ({trace['form']}) traced", file=sys.stderr,
+              flush=True)
+        return trace
+
     result: dict[str, Any] = {}
+    if rank == 0 and "serve_decode" in programs:
+        result["serve_decode"] = traced("serve_decode")
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=RANKS)
     try:
         for name in programs:
-            if name != "serve_decode" or rank == 0:
-                if name == "serve_decode":
-                    state, run = _serve_program(device)
-                else:
-                    state, run = _train_program(name, device, k,
-                                                plant if name == "train_step" else None)
-                records, peak = _profile_call(run, device)
-                gathers = None
-                if state is not None and name in ("train_step", "multi_step"):
-                    gathers = sorted(list(s) for s in fsdp_gather_shapes(state.model))
-                result[name] = {"records": records, "peak_hbm_bytes": peak,
-                                "predicted": gathers}
-            dist.barrier()
+            if name != "serve_decode":
+                result[name] = traced(name)
+                dist.barrier(**barrier)
     finally:
+        gc.collect()  # no captured graph may outlive its program (above)
         dist.destroy_process_group()
     Path(out, f"rank{rank}.json").write_text(json.dumps(result))
 
 
 def run_ranks(out: str, device: str = "cuda", k: int = 2, plant: str | None = None,
-              programs: tuple[str, ...] = PROGRAMS) -> list[dict]:
-    """Run the audit's 2 gloo ranks as processes on this host; each rank's
-    per-program traces.  A rank that fails raises."""
+              programs: tuple[str, ...] = PROGRAMS, backend: str = "gloo") -> list[dict]:
+    """Run the audit's ranks as processes on this host, each one's output
+    in ``<out>/rank<r>.log``; each rank's per-program traces.  The first
+    rank that fails ends the run (the other would wait in a collective), as
+    does ``RANK_TIMEOUT_S``; the error carries every rank's last output."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        filter(None, [str(REPO_ROOT), os.environ.get("PYTHONPATH")])))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "deeplearning_cfn_tpu_torch.analysis.comms_audit",
-         "--rank", str(r), str(port), out, device, str(k), plant or "-", ",".join(programs)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(RANKS)]
+        filter(None, [str(REPO_ROOT), os.environ.get("PYTHONPATH")])),
+        **{STACKS_ENV: str(RANK_TIMEOUT_S - 15)})
+    logs = [Path(out, f"rank{r}.log") for r in range(RANKS)]
+    procs = []
     errors = []
+    deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
-        for r, p in enumerate(procs):
-            _, err = p.communicate(timeout=RANK_TIMEOUT_S)
-            if p.returncode:
-                errors.append(f"comms-audit rank {r} exited {p.returncode}:\n{err[-3000:]}")
+        for r in range(RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "deeplearning_cfn_tpu_torch.analysis.comms_audit",
+                     "--rank", str(r), str(port), out, device, str(k), plant or "-",
+                     ",".join(programs), backend],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs) and not errors:
+            errors = [f"comms-audit rank {r} exited {p.returncode}"
+                      for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if not errors and time.monotonic() > deadline:
+                errors = [f"comms-audit ranks still running after {RANK_TIMEOUT_S} s"]
+            time.sleep(0.05)
+        errors = errors or [f"comms-audit rank {r} exited {p.returncode}"
+                            for r, p in enumerate(procs) if p.returncode]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait(timeout=30)
+            p.wait(timeout=30)
     if errors:
-        raise RuntimeError(errors[0])
+        tails = "".join(f"\n--- rank {r}:\n{log.read_text()[-3000:]}" for r, log in enumerate(logs))
+        raise RuntimeError("; ".join(errors) + tails)
     return [json.loads(Path(out, f"rank{r}.json").read_text()) for r in range(RANKS)]
 
 
@@ -776,7 +944,8 @@ def run_comms_audit(
 ) -> CommsAuditReport:
     """Audit the real fsdp train step, the multi-step call, the serve
     decode step and the dp comms-overlap pair for collectives and memory,
-    on 2 gloo ranks (processes of this host) on ``device``.
+    on 2 ranks (processes of this host) on ``device``: NCCL's or gloo's,
+    as :func:`default_backend` picks.
 
     The dp pair is the overlap ratchet's proof surface: the SAME model,
     batch and ranks run at DDP's bucket size (``train_step_dp``) and
@@ -785,30 +954,40 @@ def run_comms_audit(
     the bucketed score to strictly exceed the monolithic one.  Both
     ranks' traces must show the same collectives, and each rank's
     backend must count as many as c10d issued (``measured`` holds the
-    per-rank counts).  ``plant`` (of ``PLANTS``, "+"-joined) adds faults to the
-    train_step program; ``programs`` runs only some (the tests' plants)."""
+    per-rank counts, each program's form, and for a captured program
+    the NCCL kernels its replay launched on each rank).  ``plant`` (of
+    ``PLANTS``, "+"-joined) adds faults; ``programs`` runs only some (the
+    tests' plants)."""
     import tempfile
 
+    backend = default_backend(device)
     with tempfile.TemporaryDirectory(dir=workdir) as out:
-        ranks = run_ranks(out, device, k, plant, programs)
+        ranks = run_ranks(out, device, k, plant, programs, backend)
     watcher = CommsWatcher()
     measured: dict[str, Any] = {}
     for name in programs:
         if name == "serve_decode" and not serve:
             continue
         traces = [r[name] for r in ranks if name in r]
-        programs = [program_comms({"records": t["records"], "world": RANKS,
-                                   "peak_hbm_bytes": t["peak_hbm_bytes"]}) for t in traces]
+        comms = [program_comms({"records": t["records"], "world": RANKS,
+                                "peak_hbm_bytes": t["peak_hbm_bytes"]}) for t in traces]
+        form = traces[0]["form"]
+        nccl = [sum(t.get("replay_nccl_kernels", {}).values()) for t in traces]
         measured[name] = {
-            "rank_counts": [p["collective_count"] for p in programs],
-            "rank_bytes": [p["collective_bytes"] for p in programs],
-            "witness_counts": [p["witness_count"] for p in programs],
-            "rank_peak_bytes": [p["peak_hbm_bytes"] for p in programs],
-            "gathers": sorted({tuple(s) for op in programs[0]["ops"]
+            "form": form,
+            "rank_counts": [p["collective_count"] for p in comms],
+            "rank_bytes": [p["collective_bytes"] for p in comms],
+            "witness_counts": [p["witness_count"] for p in comms],
+            "rank_peak_bytes": [p["peak_hbm_bytes"] for p in comms],
+            "gathers": sorted({tuple(s) for op in comms[0]["ops"]
                                if op.op == "all-gather" for s in op.result_shapes if s}),
             "predicted": traces[0].get("predicted"),
             # What the overlap score averages: each collective's slack.
             "slack": trace_slack(traces[0]["records"]),
+            "post_warmup_compiles": [t["post_warmup_compiles"] for t in traces],
+            "grad_sync": traces[0]["grad_sync"],
+            "replay_nccl_kernels": [t.get("replay_nccl_kernels") for t in traces],
+            "replay_matches": form != "captured" or nccl == [p["collective_count"] for p in comms],
         }
         predicted = traces[0].get("predicted")
         prediction = (StrategyPrediction(frozenset(tuple(s) for s in predicted))
@@ -823,12 +1002,15 @@ def run_comms_audit(
     budget = load_budget(budget_path) if budget_path is not None else None
     budget = held_on(budget, device)
     violations = violations_for(watcher.programs, budget, device_count=RANKS)
+    forms = {m["form"] for n, m in measured.items() if n.startswith("multi_step")}
     report = CommsAuditReport(
         programs=watcher.programs,
         violations=violations,
         device_count=RANKS,
         budget_checked=bool(budget is not None and int(budget.get("device_count", -1)) == RANKS),
         measured=measured,
+        backend=backend,
+        multi_step_form="captured" if forms == {"captured"} else "eager",
     )
     if journal:
         from deeplearning_cfn_tpu_torch.obs.recorder import get_recorder
@@ -844,8 +1026,9 @@ def run_comms_audit(
 
 def main(argv: list[str] | None = None) -> int:
     """``python -m deeplearning_cfn_tpu_torch.analysis.comms_audit [--device
-    cpu] [--write-budget]``: print the report; exit 1 on findings the
-    baseline does not hold (0 after ``--write-budget``)."""
+    cpu] [--write-budget]``: print the report; exit 1
+    on findings the baseline does not hold (0 after ``--write-budget``),
+    or when a captured program's replay did not launch its NCCL kernels."""
     import argparse
 
     import torch
@@ -863,13 +1046,15 @@ def main(argv: list[str] | None = None) -> int:
     fresh, stale = apply_audit_baseline(report.violations, None, AUDIT_RULE_IDS)
     print(json.dumps({**report.to_dict(), "fresh": [v.to_dict() for v in fresh],
                       "stale": [list(e) for e in stale]}, indent=2))
+    if not report.replays_launch_nccl:
+        return 1
     return 1 if fresh and not args.write_budget else 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 9 and sys.argv[1] == "--rank":
+    if len(sys.argv) == 10 and sys.argv[1] == "--rank":
         _rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
                    int(sys.argv[6]), None if sys.argv[7] == "-" else sys.argv[7],
-                   tuple(sys.argv[8].split(",")))
+                   tuple(sys.argv[8].split(",")), sys.argv[9])
     else:
         sys.exit(main())

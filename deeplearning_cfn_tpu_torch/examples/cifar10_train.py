@@ -37,6 +37,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     has_heldout_split,
     image_batches,
     image_pipeline,
+    kernel_launches_since,
     log,
     make_lr_schedule,
     maybe_init_distributed,
@@ -53,6 +54,7 @@ SHAPE = (32, 32, 3)
 
 def main(argv: list[str] | None = None) -> dict:
     t_main = first_step_clock()
+    launches_before = kernel_launches_since()
     p = base_parser(__doc__)
     p.add_argument("--model", choices=sorted(CONFIGS), default="vgg11")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
@@ -164,6 +166,7 @@ def main(argv: list[str] | None = None) -> dict:
             sink.write({"event": "eval", "run": args.model, **result["eval"]})
     if sink is not None:
         sink.close()
+    result["kernel_launches"] = kernel_launches_since(launches_before)
     return result
 
 

@@ -204,6 +204,18 @@ def first_step_clock(trainer=None, t0: float | None = None):
     return trainer.first_step_at - t0
 
 
+def kernel_launches_since(before: dict | None = None) -> dict:
+    """Call with no args at entry for a copy of the port's kernel launch
+    counts (``ops._kernels.launch_counts``, by kernel and by variant); call
+    with that copy for the launches since, the nonzero ones."""
+    from deeplearning_cfn_tpu_torch.ops import _kernels
+
+    if before is None:
+        return dict(_kernels.launch_counts)
+    return {k: n - before.get(k, 0) for k, n in _kernels.launch_counts.items()
+            if n != before.get(k, 0)}
+
+
 def metrics_sink(args, run_name: str):
     """JsonlMetricsSink for --metrics_dir, or None."""
     if not getattr(args, "metrics_dir", None):

@@ -33,6 +33,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     base_parser,
     default_mesh,
     first_step_clock,
+    kernel_launches_since,
     maybe_init_distributed,
     metrics_sink,
 )
@@ -140,6 +141,7 @@ def _backbone_checkpoint(path: str) -> tuple[dict, int]:
 
 def main(argv: list[str] | None = None) -> dict:
     t_main = first_step_clock()
+    launches_before = kernel_launches_since()
     p = base_parser(__doc__)
     p.add_argument("--backbone", choices=sorted(BACKBONES), default="resnet50")
     p.add_argument("--image_size", type=int, default=256)
@@ -239,6 +241,7 @@ def main(argv: list[str] | None = None) -> dict:
     if args.eval_steps:
         result["eval"] = evaluate_map(trainer, state, anchors, args, batch,
                                       steps=args.eval_steps)
+    result["kernel_launches"] = kernel_launches_since(launches_before)
     return result
 
 

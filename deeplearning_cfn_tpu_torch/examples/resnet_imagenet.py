@@ -34,6 +34,7 @@ from deeplearning_cfn_tpu_torch.examples.common import (
     first_step_clock,
     has_heldout_split,
     image_pipeline,
+    kernel_launches_since,
     make_lr_schedule,
     metrics_sink,
     open_checkpointer,
@@ -48,6 +49,7 @@ DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 def main(argv: list[str] | None = None) -> dict:
     t_main = first_step_clock()
+    launches_before = kernel_launches_since()
     p = base_parser(__doc__)
     p.add_argument("--depth", type=int, choices=sorted(DEPTHS), default=50)
     p.add_argument("--image_size", type=int, default=224)
@@ -186,6 +188,7 @@ def main(argv: list[str] | None = None) -> dict:
         "params": sum(p.numel() for p in state.model.parameters()),
         "history": logger.history,
         "first_step_s": first_step_clock(trainer, t_main),
+        "kernel_launches": kernel_launches_since(launches_before),
     })
     return result
 

@@ -24,6 +24,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from deeplearning_cfn_tpu_torch.train.batch import Batch
+
 
 def probe_data_source(candidates: list[str | Path], marker: str = "") -> Path | None:
     """The first candidate directory that exists (and holds ``marker`` if
@@ -33,12 +35,6 @@ def probe_data_source(candidates: list[str | Path], marker: str = "") -> Path | 
         if p.is_dir() and (not marker or (p / marker).exists()):
             return p
     return None
-
-
-@dataclass
-class Batch:
-    x: Any  # numpy arrays on the host, tensors once placed; y may be a dict of them
-    y: Any
 
 
 @dataclass
@@ -409,7 +405,9 @@ class DevicePrefetcher:
 
     def _copy(self, batch: Batch, stream):
         if stream is None:
-            return device_put_batch(batch, self._device), None
+            # Tensors of their own, as a device's are (a numpy array's
+            # tensor shares its storage, which donate_buffers cannot free).
+            return tree_map(torch.clone, device_put_batch(batch, self._device)), None
         with torch.cuda.stream(stream):
             placed = device_put_batch(batch, self._device)
             event = torch.cuda.Event()
@@ -473,6 +471,16 @@ class DevicePrefetcher:
                 yield Batch(x=x, y=y)
         finally:
             self.close()
+
+    def buffered(self) -> list[Batch]:
+        """The batches staged ahead of the consumer, each already on the
+        device (its producer issued the copy before inserting it):
+        introspection for the structural overlap check of
+        ``deeplearning_cfn_tpu_torch/scripts/perf_smoke.py``, not part of
+        the hot loop."""
+        with self._cond:
+            return [Batch(x=item[0][0], y=item[0][1]) for item in self._buf.values()
+                    if isinstance(item, tuple)]
 
     def close(self) -> None:
         self._stop.set()

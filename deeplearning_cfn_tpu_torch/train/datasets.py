@@ -38,7 +38,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from deeplearning_cfn_tpu_torch.train.data import Batch
+from deeplearning_cfn_tpu_torch.train.batch import Batch
 from deeplearning_cfn_tpu_torch.train.records import Field, RecordSpec, write_records
 from deeplearning_cfn_tpu_torch.utils.logging import get_logger
 

@@ -1364,7 +1364,9 @@ class CapturedSteps:
     the dp step's and the bucketed sync's all-reduces or int8 exchanges (issued from the backward's hooks at capture, in the
     order every replay repeats; the residuals updated in place), GPipe's
     sends and receives (the stages' layouts were exchanged in the warm-up
-    step and are reused), the sums over pp and sp and the clip's norm."""
+    step and are reused), the sums over pp and sp and the clip's norm.  Drop
+    the wrapper before destroying such a group: ``destroy_process_group``
+    blocks while a graph that holds its NCCL collectives is alive."""
 
     def __init__(self, trainer: Trainer, k: int):
         self.trainer, self.k = trainer, k

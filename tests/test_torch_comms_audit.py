@@ -175,3 +175,47 @@ def test_phase23_comms_and_replay_gates_on_card(cuda_device):
     cases = [c for c in ra.default_cases(device="cuda") if not ra.spawns_ranks(c.name)]
     replay = ra.run_replay_audit(cases=cases, journal=False)
     assert replay.violations == [] and len(replay.replays) == 13
+
+
+def test_gloo_ranks_report_the_eager_form(report):
+    """The CPU's ranks are gloo's, which a CUDA graph cannot hold: the
+    multi-step programs run their k steps eagerly, and the report says so."""
+    d = report.to_dict()
+    assert (d["backend"], d["multi_step_form"], d["replays_launch_nccl"]) == ("gloo", "eager", True)
+    assert {n: m["form"] for n, m in report.measured.items()} == {n: "eager" for n in cm.PROGRAMS}
+    assert all(m["post_warmup_compiles"] == [{}] * len(m["rank_counts"])
+               for m in report.measured.values())
+
+
+def test_the_audit_picks_the_captured_form_for_nccl_groups(monkeypatch):
+    """NCCL groups on the card take the captured form (multi_step_fn as one
+    CUDA graph, JAX's compiled program); gloo groups, and the CPU, the
+    eager one.  NCCL cannot run here, so the backend query is patched."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "fsdp"), get_group=lambda name: name)
+    trainer = lambda device: types.SimpleNamespace(device=torch.device(device), mesh=mesh)
+    monkeypatch.setattr(dist, "get_backend", lambda group: "nccl")
+    assert cm.multi_step_form(trainer("cuda")) == "captured"
+    assert cm.multi_step_form(trainer("cpu")) == "eager"
+    monkeypatch.setattr(dist, "get_backend", lambda group: "gloo")
+    assert cm.multi_step_form(trainer("cuda")) == "eager"
+    # The ranks' backend: NCCL only with a card for each rank.
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cm.RANKS)
+    assert (cm.default_backend("cuda"), cm.default_backend("cpu")) == ("nccl", "gloo")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert cm.default_backend("cuda") == "gloo"
+
+
+def test_capture_records_keep_what_the_capture_dispatched():
+    rec = lambda name, start, end, thread=1: {"name": name, "thread": thread, "start": start,
+                                              "end": end, "shapes": [], "dtypes": []}
+    records = [rec("c10d::allreduce_", 0, 1), rec(cm.CAPTURE_RANGE, 10, 50),
+               rec("c10d::allreduce_", 12, 13), rec("c10d::_allgather_base_", 20, 22, thread=2),
+               rec("aten::mm", 30, 31), rec("c10d::allreduce_", 60, 61)]
+    assert [r["start"] for r in cm.capture_records(records)] == [12, 20, 30]
+    with pytest.raises(RuntimeError, match="nothing captured"):
+        cm.capture_records(records[:1])
